@@ -27,10 +27,29 @@ class LDAConfig:
     var_max_iters: int = 20
     # Relative to the doc's mean gamma (alpha + N_d/K): see ops/stop.py.
     var_tol: float = 1e-6
-    # Documents per E-step batch (the bucketed layout's batch cap).
+    # Documents per E-step batch (the bucketed layout's batch cap, and
+    # make_batches' batch size for the dense engine).
     batch_size: int = 1024
+    # Floor of make_batches' power-of-two length buckets (dense engine).
+    min_bucket_len: int = 16
     compute_dtype: str = "float32"
     seed: int = 0
+    # EM iterations per dispatch of the chunk driver (models/fused.py):
+    # the stop decision stays on the device and the host reads the
+    # likelihoods once per dispatch.  0 or 1 runs the stepwise driver
+    # (one host sync per EM iteration; sparse engine only).
+    fused_em_chunk: int = 128
+    # At most this many EM iterations between host syncs of the chunk
+    # driver, whatever fused_em_chunk is (0 = fused_em_chunk).
+    host_sync_every: int = 16
+    # E-step engine: "sparse" (csrc/sparse_estep.cu over the bucketed
+    # layout), "dense" (csrc/dense_estep.cu over the densified corpus)
+    # or "auto" (the card's default, sparse).  ONI_ML_TPU_ESTEP
+    # overrides (models/lda.py resolve_estep_engine).
+    estep_engine: str = "auto"
+    # Dense engine: store the corpus W-major ([W, B]) instead of
+    # row-major ([B, W]).  Results are the same up to f32 summation order.
+    dense_wmajor: bool = True
     # Seed each EM iteration's fixed point from the previous gamma.
     warm_start_gamma: bool = True
     # Floor of the bucketed layout's power-of-two token lengths.

@@ -41,62 +41,29 @@
 //  * The TPU's approximate reciprocal + one Newton step becomes
 //    rcp.approx.ftz.f32 + one Newton step.
 //  * phi_c is written in [B, L, K] order (token-major), the layout the
-//    [V, K] index_add_ scatter wants; the wrapper returns the JAX [K, B, L]
-//    view of it.
+//    [V, K] scatter wants; the wrapper returns the JAX [K, B, L] view of it.
+//  * Under the chunk driver (models/fused.py) the launch takes a device
+//    pointer to the driver's stop flag and returns at once once it is
+//    set, so EM can stop on the device without a host read.  A launch that
+//    runs past that check adds one to the wrapper's device counter
+//    `executed`, so the launches after the stop are counted, not derived.
+//
+// The second kernel of this file, sparse_scatter_kernel, sums phi_c into
+// [V, K] in a fixed order (see its note).
 
-#include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
+
+#include "estep_common.cuh"
 
 namespace {
 
-constexpr float kStallGate = 1e-2f;  // ops/stop.py STALL_GATE
-constexpr unsigned kFull = 0xffffffffu;
+using oni::digamma_pos;
+using oni::gammaln_pos;
+using oni::kFull;
+using oni::newton_recip;
+using oni::warp_sum;
+
 constexpr int kMaxBlockDocs = 8;     // 256 threads per CTA
-
-__device__ __forceinline__ float newton_recip(float q) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(q));
-  return r * (2.0f - q * r);
-}
-
-// ops/special.py digamma_pos: recurrence up past 6, then the series.
-__device__ __forceinline__ float digamma_pos(float x) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 7; ++i) {
-    const bool small = x < 6.0f;
-    acc -= small ? 1.0f / x : 0.0f;
-    x += small ? 1.0f : 0.0f;
-  }
-  const float inv = 1.0f / x;
-  const float inv2 = inv * inv;
-  const float series = logf(x) - 0.5f * inv -
-                       inv2 * (1.0f / 12.0f - inv2 * (1.0f / 120.0f - inv2 / 252.0f));
-  return series + acc;
-}
-
-// ops/special.py gammaln_pos: product recurrence, then Stirling.
-__device__ __forceinline__ float gammaln_pos(float x) {
-  float prod = 1.0f;
-#pragma unroll
-  for (int i = 0; i < 7; ++i) {
-    const bool small = x < 6.0f;
-    prod *= small ? x : 1.0f;
-    x += small ? 1.0f : 0.0f;
-  }
-  const float inv = 1.0f / x;
-  const float inv2 = inv * inv;
-  const float series = (x - 0.5f) * logf(x) - x + 0.9189385332046727f +
-                       inv * (1.0f / 12.0f - inv2 * (1.0f / 360.0f - inv2 / 1260.0f));
-  return series - logf(prod);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
 
 __device__ __forceinline__ int warp_max(int v) {
 #pragma unroll
@@ -157,12 +124,16 @@ sparse_estep_kernel(const float* __restrict__ expb_vk,    // [V, K]
                     const float* __restrict__ doc_mask,   // [B]
                     const float* __restrict__ gamma_in,   // [B, K]
                     const float* __restrict__ alpha_ptr,  // [1]
+                    const int* __restrict__ stop_flag,    // [1] or null
+                    int* __restrict__ executed,           // [1] or null
                     int warm, int L, int K, int var_max_iters, float var_tol,
                     float* __restrict__ gamma_out,        // [B, K]
                     float* __restrict__ phic,             // [B, L, K]
                     float* __restrict__ docll,            // [B]
                     float* __restrict__ ass,              // [B]
                     int32_t* __restrict__ iters_out) {    // [B / block_docs]
+  if (oni::stopped(stop_flag)) return;
+  oni::count_executed(executed);
   __shared__ float s_delta[2][kMaxBlockDocs];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -195,8 +166,7 @@ sparse_estep_kernel(const float* __restrict__ expb_vk,    // [V, K]
   float e[KT], b[KT], acc[KT];
   float delta = INFINITY, prev = INFINITY;
   int it = 0;
-  while (it < var_max_iters &&
-         (it == 0 || (delta > var_tol && (delta >= kStallGate || delta < prev)))) {
+  while (oni::fp_continue(it, delta, prev, var_max_iters, var_tol)) {
     e_log_theta<KT>(gam, K, lane, e);
 #pragma unroll
     for (int k = 0; k < KT; ++k) {
@@ -289,15 +259,46 @@ sparse_estep_kernel(const float* __restrict__ expb_vk,    // [V, K]
   if (threadIdx.x == 0) iters_out[blockIdx.x] = it;
 }
 
+// The [V, K] scatter of a batch's live tokens, without atomics: the
+// tokens were sorted by (word, position) once at set-up
+// (ops/sparse_estep.py live_tokens), so one warp per distinct word sums
+// that word's phi_c rows in position order -- the order of a sequential
+// index_add_, so the sums equal the CPU's bit for bit and do not vary
+// from run to run.  Replaces the JAX package's segment-sum
+// (oni_ml_tpu/ops/sparse_estep.py:424), which XLA runs outside the
+// Pallas kernel.
+__global__ void __launch_bounds__(256)
+sparse_scatter_kernel(const float* __restrict__ phic,          // [B * L, K]
+                      const int32_t* __restrict__ sorted_pos,  // [n]
+                      const int32_t* __restrict__ seg_ptr,     // [U + 1]
+                      const int32_t* __restrict__ seg_word,    // [U]
+                      const int* __restrict__ stop_flag,
+                      int* __restrict__ executed, int U, int K,
+                      float* __restrict__ out) {               // [V, K]
+  if (oni::stopped(stop_flag)) return;
+  oni::count_executed(executed);
+  const int u = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (u >= U) return;
+  const int lo = seg_ptr[u], hi = seg_ptr[u + 1];
+  float* __restrict__ row = out + (size_t)seg_word[u] * K;
+  for (int k = threadIdx.x & 31; k < K; k += 32) {
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int i = lo; i < hi; ++i) acc += __ldg(phic + (size_t)sorted_pos[i] * K + k);
+    row[k] = acc;
+  }
+}
+
 template <int KT>
 cudaError_t launch(dim3 grid, dim3 block, cudaStream_t stream, const float* expb_vk,
                    const int32_t* word_idx, const float* counts, const float* doc_mask,
-                   const float* gamma_in, const float* alpha, int warm, int L, int K,
-                   int var_max_iters, float var_tol, float* gamma_out, float* phic,
-                   float* docll, float* ass, int32_t* iters) {
+                   const float* gamma_in, const float* alpha, const int* stop_flag,
+                   int* executed, int warm, int L, int K, int var_max_iters,
+                   float var_tol, float* gamma_out, float* phic, float* docll, float* ass,
+                   int32_t* iters) {
   sparse_estep_kernel<KT><<<grid, block, 0, stream>>>(
-      expb_vk, word_idx, counts, doc_mask, gamma_in, alpha, warm, L, K, var_max_iters,
-      var_tol, gamma_out, phic, docll, ass, iters);
+      expb_vk, word_idx, counts, doc_mask, gamma_in, alpha, stop_flag, executed, warm,
+      L, K, var_max_iters, var_tol, gamma_out, phic, docll, ass, iters);
   return cudaGetLastError();
 }
 
@@ -305,7 +306,8 @@ cudaError_t launch(dim3 grid, dim3 block, cudaStream_t stream, const float* expb
 
 extern "C" int oni_sparse_estep(const float* expb_vk, const int32_t* word_idx,
                                 const float* counts, const float* doc_mask,
-                                const float* gamma_in, const float* alpha, int warm, int B,
+                                const float* gamma_in, const float* alpha,
+                                const int* stop_flag, int* executed, int warm, int B,
                                 int L, int K, int block_docs, int var_max_iters,
                                 float var_tol, float* gamma_out, float* phic, float* docll,
                                 float* ass, int32_t* iters, void* stream) {
@@ -316,8 +318,9 @@ extern "C" int oni_sparse_estep(const float* expb_vk, const int32_t* word_idx,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
 #define ONI_LAUNCH(KT)                                                                   \
   return (int)launch<KT>(grid, block, s, expb_vk, word_idx, counts, doc_mask, gamma_in, \
-                         alpha, warm, L, K, var_max_iters, var_tol, gamma_out, phic,   \
-                         docll, ass, iters)
+                         alpha, stop_flag, executed, warm, L, K, var_max_iters,        \
+                         var_tol,                                                      \
+                         gamma_out, phic, docll, ass, iters)
   if (K <= 4) ONI_LAUNCH(4);
   if (K <= 8) ONI_LAUNCH(8);
   if (K <= 16) ONI_LAUNCH(16);
@@ -328,6 +331,15 @@ extern "C" int oni_sparse_estep(const float* expb_vk, const int32_t* word_idx,
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" const char* oni_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+extern "C" int oni_sparse_scatter(const float* phic, const int32_t* sorted_pos,
+                                  const int32_t* seg_ptr, const int32_t* seg_word,
+                                  const int* stop_flag, int* executed, int U, int K,
+                                  float* out, void* stream) {
+  if (U < 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (U == 0) return 0;
+  constexpr int kWarps = 8;
+  sparse_scatter_kernel<<<(U + kWarps - 1) / kWarps, 32 * kWarps, 0,
+                          reinterpret_cast<cudaStream_t>(stream)>>>(
+      phic, sorted_pos, seg_ptr, seg_word, stop_flag, executed, U, K, out);
+  return (int)cudaGetLastError();
 }

@@ -225,6 +225,63 @@ class Corpus:
             os.path.join(directory, "model.dat"), self.doc_ptr, self.word_idx, self.counts
         )
 
+def _bucket_len(n: int, min_bucket: int) -> int:
+    if min_bucket < 1:
+        raise ValueError(f"min_bucket_len must be >= 1, got {min_bucket}")
+    b = min_bucket
+    while b < n:
+        b *= 2
+    return b
+
+
+def make_batches(
+    corpus: Corpus,
+    batch_size: int,
+    min_bucket_len: int = 16,
+    pad_batch_to_multiple: bool = True,
+    pad_multiple: "int | None" = None,
+) -> "list[Batch]":
+    """Bucket docs by unique-word count, pad to (batch_size, bucket_len)
+    — the dense engine's batches (the JAX package's make_batches, pinned
+    byte-identical by the tests).
+
+    Returns batches ordered by bucket then position; the union of doc_index
+    over all batches (where doc_mask == 1) is exactly range(num_docs).
+    With `pad_multiple` set, an under-full bucket pads its batch axis to
+    the next multiple of it instead of the full `batch_size`."""
+    if pad_multiple is None:
+        pad_multiple = batch_size
+    lengths = corpus.doc_lengths()
+    buckets: dict[int, list[int]] = {}
+    for d in range(corpus.num_docs):
+        # Empty docs ride the smallest bucket; their zero counts make
+        # them inert.
+        L = _bucket_len(max(int(lengths[d]), 1), min_bucket_len)
+        buckets.setdefault(L, []).append(d)
+
+    batches: list[Batch] = []
+    for L in sorted(buckets):
+        docs = buckets[L]
+        bucket_b = min(batch_size,
+                       -(-len(docs) // pad_multiple) * pad_multiple)
+        for start in range(0, len(docs), batch_size):
+            chunk = docs[start:start + batch_size]
+            B = bucket_b if pad_batch_to_multiple else len(chunk)
+            widx = np.zeros((B, L), dtype=np.int32)
+            cnts = np.zeros((B, L), dtype=np.float32)
+            didx = np.zeros((B,), dtype=np.int32)
+            mask = np.zeros((B,), dtype=np.float32)
+            for i, d in enumerate(chunk):
+                lo, hi = int(corpus.doc_ptr[d]), int(corpus.doc_ptr[d + 1])
+                n = hi - lo
+                widx[i, :n] = corpus.word_idx[lo:hi]
+                cnts[i, :n] = corpus.counts[lo:hi]
+                didx[i] = d
+                mask[i] = 1.0
+            batches.append(Batch(widx, cnts, didx, mask))
+    return batches
+
+
 @dataclass
 class Batch:
     """One padded device batch of documents.

@@ -6,6 +6,9 @@ The JAX package hands its model around as numpy arrays (an `LDAResult`'s
 tensors on its device.  The JAX initial beta is drawn with threefry and
 cannot be reproduced from a torch seed, so a test that starts both
 trainers from the same beta draws it in JAX and carries it across here.
+The chunk driver's state between dispatches (log beta, alpha, ll_prev
+and the per-group gammas) crosses the same way (`chunk_state_from_reference`),
+so a test can start both chunk runners from one state.
 """
 
 from __future__ import annotations
@@ -41,3 +44,24 @@ def to_reference(state: ModelState):
     return (a(state.log_beta), float(state.alpha),
             None if state.gamma is None else a(state.gamma))
 
+
+@dataclass
+class ChunkState:
+    """What one chunk dispatch hands the next (models/fused.py)."""
+
+    log_beta: torch.Tensor   # [K, V] float32
+    alpha: torch.Tensor      # scalar float32
+    ll_prev: torch.Tensor    # scalar float32; nan before the first iteration
+    gammas: tuple            # per group: [NB, B, K] float32
+
+
+def chunk_state_from_reference(log_beta, alpha, ll_prev, gammas,
+                               device: "str | torch.device" = "cpu"
+                               ) -> ChunkState:
+    """The JAX chunk runner's state (its arrays, or a ChunkResult's
+    fields) -> the port's float32 tensors on `device`."""
+    def t(x):
+        return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
+
+    return ChunkState(t(log_beta), t(alpha), t(ll_prev),
+                      tuple(t(g) for g in gammas))

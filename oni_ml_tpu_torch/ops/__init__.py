@@ -1,1 +1,2 @@
-"""E-step / M-step ops and the fused sparse E-step kernel wrapper."""
+"""E-step / M-step ops and the wrappers of the hand-written E-step
+kernels (sparse and dense)."""

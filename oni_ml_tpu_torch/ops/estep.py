@@ -26,6 +26,8 @@ from .stop import fp_continue
 
 # Matches lda-c's floor for log beta of zero-mass words.
 LOG_ZERO = -100.0
+# Smallest normal float32.
+FLT_MIN = float(torch.finfo(torch.float32).tiny)
 
 
 class EStepResult(NamedTuple):
@@ -53,7 +55,7 @@ def check_warm_pair(gamma_prev, warm) -> None:
 
 def gather_beta(log_beta: torch.Tensor, word_idx: torch.Tensor) -> torch.Tensor:
     """[K, V] log beta + [B, L] word ids -> [B, L, K] probability slab."""
-    return torch.exp(log_beta).t()[word_idx.long()]
+    return flush_subnormal(torch.exp(log_beta)).t()[word_idx.long()]
 
 
 def fixed_point(
@@ -155,10 +157,25 @@ def e_step(
     return EStepResult(gamma, suff, alpha_ss, likelihood, iters)
 
 
+def alpha_constant(alpha: torch.Tensor, k: int) -> torch.Tensor:
+    """The per-document alpha-prior term of the ELBO,
+    lgamma(K alpha) - K lgamma(alpha).  The EM drivers compute it once
+    per EM iteration and hand it to every batch's E-step."""
+    return torch.lgamma(k * alpha) - k * torch.lgamma(alpha)
+
+
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """float32 subnormals to zero, as XLA treats them on the CPU and the
+    TPU (flush-to-zero, denormals-are-zero).  For non-negative x: the
+    word-topic masses and exp(log beta) tables the E-steps consume."""
+    return torch.where(x < FLT_MIN, torch.zeros_like(x), x)
+
+
 def m_step(suff_stats: torch.Tensor) -> torch.Tensor:
     """MLE beta from word-topic suff stats [V, K] -> [K, V] log-normalized
-    per topic, with lda-c's -100 floor for zero mass."""
-    ss = suff_stats.t()
+    per topic, with lda-c's -100 floor for zero mass.  A subnormal mass
+    counts as zero mass (flush_subnormal), as in the JAX package."""
+    ss = flush_subnormal(suff_stats.t())
     total = ss.sum(-1, keepdim=True)
     return torch.where(
         ss > 0, torch.log(ss) - torch.log(total),

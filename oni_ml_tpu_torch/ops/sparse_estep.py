@@ -5,15 +5,23 @@ oni_ml_tpu/ops/sparse_estep.py).
 Per EM iteration and batch, `e_step` builds nothing but the
 exp(log beta)^T [V, K] table (once per EM iteration, shared by every
 batch), launches the kernel — gamma fixed point, phi_c, per-doc ELBO
-and sum_k E[log theta] — then scatters the live tokens' phi_c into
-[V, K] with `index_add_` and adds the alpha-prior constant, as the JAX
-package leaves its segment-sum to XLA.  K x L work per document, not K x V.
+and sum_k E[log theta] — then sums the live tokens' phi_c into [V, K]
+(`scatter_live`, the JAX package's segment-sum) and adds the
+alpha-prior constant.  K x L work per document, not K x V.
 
-Two implementations of one function, `fixed_point_blocks`:
-- CUDA tensors launch `csrc/sparse_estep.cu` (see its header for the
-  design and what bounds it) and count the launch in `launch_count`;
-- CPU tensors run `fixed_point_full_reference`, the same arithmetic in
-  PyTorch ops with the same per-block stop, vectorised over blocks.
+Two functions, each with two implementations:
+- `fixed_point_blocks`: CUDA tensors launch `csrc/sparse_estep.cu`'s
+  E-step kernel (see its header for the design and what bounds it) and
+  count the launch in `launch_count` (the kernel itself counts the
+  launches that ran past the chunk driver's stop: `executed_counts`);
+  CPU tensors run
+  `fixed_point_full_reference`, the same arithmetic in PyTorch ops with
+  the same per-block stop, vectorised over blocks.
+- `scatter_live`: CUDA tensors launch the same file's scatter kernel,
+  which sums each word's rows in a fixed order (no atomics, so the
+  [V, K] sums and every artifact after them are the same from run to
+  run), counted in `scatter_launch_count`; CPU tensors run
+  `scatter_live_reference` (`index_add_`, which adds in the same order).
 There is no fallback between them: a CUDA tensor launches the kernel or
 raises.
 
@@ -27,6 +35,7 @@ block to the JAX kernel).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -43,26 +52,40 @@ NUM_SMS = 132
 # Topics the kernel holds in registers (the largest compiled bound).
 MAX_TOPICS = 64
 
-launch_count = 0
-_FN = None   # (library, its oni_sparse_estep), typed once at first load
+launch_count = 0           # E-step kernel launches
+scatter_launch_count = 0   # scatter kernel launches
+# Device counters of the launches that ran: E-step (0), scatter (1).
+_EXECUTED = _cuda.ExecutedCounters(2)
+_FN = None   # (library, oni_sparse_estep, oni_sparse_scatter), typed once
 
 
 def _kernel():
     global _FN
     if _FN is None:
         lib = _cuda.load(KERNEL)
-        fn = lib.oni_sparse_estep
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float,
-                       p, p, p, p, p, p]
+        fn = lib.oni_sparse_estep
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                       ctypes.c_float, p, p, p, p, p, p]
         fn.restype = i
-        _FN = (lib, fn)
+        scatter = lib.oni_sparse_scatter
+        scatter.argtypes = [p, p, p, p, p, p, i, i, p, p]
+        scatter.restype = i
+        _FN = (lib, fn, scatter)
     return _FN
 
 
 def reset_launch_count() -> None:
-    global launch_count
-    launch_count = 0
+    """Zero the launch counts and the executed counters."""
+    global launch_count, scatter_launch_count
+    launch_count = scatter_launch_count = 0
+    _EXECUTED.reset()
+
+
+def executed_counts() -> "tuple[int, int]":
+    """(E-step, scatter) launches that ran past the stop check, counted
+    by the kernels on the card since the last reset (a host sync)."""
+    return tuple(_EXECUTED.read())
 
 
 def pick_block(b: int) -> int:
@@ -93,21 +116,39 @@ def pad_multiple_for(precision: str = "f32") -> int:
     return MAX_BLOCK_DOCS
 
 
-def live_tokens(word_idx: torch.Tensor, counts: torch.Tensor):
-    """(flat positions, word ids) of a batch's tokens with a non-zero
-    count: the only rows the [V, K] scatter needs.  Padding carries word
-    id 0 and count 0, so scattering it would pile every padding slot's
-    atomics onto row 0 (about half the slots of a flow day's buckets).
-    Fixed for a batch: the trainer computes it once, not per EM
-    iteration (`nonzero` waits for the device)."""
+class LiveTokens(NamedTuple):
+    """A batch's tokens with a non-zero count — the only rows the [V, K]
+    scatter needs — and the order the scatter kernel sums them in."""
+
+    pos: torch.Tensor          # [n] int64 flat positions, ascending
+    words: torch.Tensor        # [n] int64 their word ids
+    sorted_pos: torch.Tensor   # [n] int32 positions sorted by (word, position)
+    seg_ptr: torch.Tensor      # [U + 1] int32 bounds of each word's run
+    seg_word: torch.Tensor     # [U] int32 the distinct words
+
+
+def live_tokens(word_idx: torch.Tensor, counts: torch.Tensor) -> LiveTokens:
+    """The live-token plan of one batch.  Padding carries word id 0 and
+    count 0, so it is left out (about half the slots of a flow day's
+    buckets).  Fixed for a batch: the trainer computes it once at
+    set-up, not per EM iteration (`nonzero` waits for the device)."""
     pos = torch.nonzero(counts.reshape(-1)).squeeze(1)
-    return pos, word_idx.reshape(-1).long()[pos]
+    words = word_idx.reshape(-1).long()[pos]
+    order = torch.argsort(words, stable=True)
+    seg_word, seg_len = torch.unique_consecutive(words[order],
+                                                 return_counts=True)
+    seg_ptr = torch.zeros(len(seg_len) + 1, dtype=torch.int64,
+                          device=pos.device)
+    torch.cumsum(seg_len, 0, out=seg_ptr[1:])
+    return LiveTokens(pos, words, pos[order].int(), seg_ptr.int(),
+                      seg_word.int())
 
 
 def exp_beta_table(log_beta: torch.Tensor) -> torch.Tensor:
     """exp(log beta)^T as a contiguous [V, K] float32 table — the
-    kernel's beta operand, built once per EM iteration."""
-    return torch.exp(log_beta.float()).t().contiguous()
+    kernel's beta operand, built once per EM iteration.  Subnormal
+    entries are zero, as XLA computes them (estep.flush_subnormal)."""
+    return estep.flush_subnormal(torch.exp(log_beta.float())).t().contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -196,28 +237,22 @@ def fixed_point_full_reference(
 
 
 def _launch_cuda(expb_vk, alpha, word_idx, counts, doc_mask, var_max_iters,
-                 var_tol, block, gamma_in, warm):
+                 var_tol, block, gamma_in, warm, stop):
     global launch_count
     b, l = word_idx.shape
     k = expb_vk.shape[1]
     dev = word_idx.device
-    for name, t, dtype, shape in (
+    operands = [
         ("expb_vk", expb_vk, torch.float32, (expb_vk.shape[0], k)),
         ("word_idx", word_idx, torch.int32, (b, l)),
         ("counts", counts, torch.float32, (b, l)),
         ("doc_mask", doc_mask, torch.float32, (b,)),
         ("gamma_in", gamma_in, torch.float32, (b, k)),
         ("alpha", alpha, torch.float32, ()),
-    ):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, word_idx on {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    ]
+    if stop is not None:
+        operands.append(("stop", stop, torch.int32, ()))
+    _cuda.check_operands(dev, operands)
     if k > MAX_TOPICS:
         raise ValueError(f"K={k} exceeds the kernel's {MAX_TOPICS} topics")
     if block > MAX_BLOCK_DOCS or block & (block - 1):
@@ -228,13 +263,15 @@ def _launch_cuda(expb_vk, alpha, word_idx, counts, doc_mask, var_max_iters,
     docll = torch.empty((b,), dtype=torch.float32, device=dev)
     ass = torch.empty((b,), dtype=torch.float32, device=dev)
     iters = torch.empty((b // block,), dtype=torch.int32, device=dev)
-    lib, fn = _kernel()
+    lib, fn, _ = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             expb_vk.data_ptr(), word_idx.data_ptr(), counts.data_ptr(),
             doc_mask.data_ptr(), gamma_in.data_ptr(), alpha.data_ptr(),
-            int(warm), b, l, k, block, int(var_max_iters), float(var_tol),
+            _cuda.ptr(stop), _EXECUTED.slot(dev, 0), int(warm), b, l, k, block,
+            int(var_max_iters),
+            float(var_tol),
             gamma.data_ptr(), phic.data_ptr(), docll.data_ptr(),
             ass.data_ptr(), iters.data_ptr(), stream,
         )
@@ -254,10 +291,16 @@ def fixed_point_blocks(
     block: "int | None" = None,
     gamma_prev=None,          # [B, K] warm start (None = fresh init)
     warm=None,                # gates gamma_prev: 0 fresh, nonzero warm
+    stop: "torch.Tensor | None" = None,   # int32 scalar stop flag
 ):
     """Fused sparse E-step core -> (gamma [B, K], phi_c [B, L, K],
     docll [B], ass [B], iters per block [B // block] int32).  docll is
-    the per-doc ELBO without the alpha-prior constant."""
+    the per-doc ELBO without the alpha-prior constant.
+
+    `stop` is the chunk driver's device-resident flag (models/fused.py):
+    once it is nonzero the kernel returns at once and the outputs hold
+    no values (the driver discards them).  The plain version computes
+    them all the same; the driver discards them there too."""
     b = word_idx.shape[0]
     k = expb_vk.shape[1]
     bb = block or pick_block(b)
@@ -279,7 +322,7 @@ def fixed_point_blocks(
         gamma_in, warm_i = gamma_prev, 1
     return _launch_cuda(expb_vk, torch.as_tensor(alpha), word_idx, counts,
                         doc_mask, var_max_iters, var_tol, bb, gamma_in,
-                        warm_i)
+                        warm_i, stop)
 
 
 def fixed_point_full(expb_vk, alpha, word_idx, counts, doc_mask,
@@ -295,6 +338,49 @@ def fixed_point_full(expb_vk, alpha, word_idx, counts, doc_mask,
     return gamma, phic.permute(2, 0, 1), docll, ass, iters.max()
 
 
+def scatter_live_reference(phic: torch.Tensor, live: LiveTokens,
+                           num_terms: int) -> torch.Tensor:
+    """The scatter's plain version: [B, L, K] phi_c -> [V, K] sums over
+    the live tokens, with a sequential `index_add_` in position order."""
+    b, l, k = phic.shape
+    suff = torch.zeros((num_terms, k), dtype=phic.dtype, device=phic.device)
+    suff.index_add_(0, live.words, phic.reshape(b * l, k).index_select(0, live.pos))
+    return suff
+
+
+def scatter_live(phic: torch.Tensor, live: LiveTokens, num_terms: int,
+                 stop: "torch.Tensor | None" = None) -> torch.Tensor:
+    """[B, L, K] phi_c -> [V, K] sums over the batch's live tokens, each
+    word's rows added in position order (no atomics: the same bits on
+    every run, and the CPU's bits given the same phi_c)."""
+    global scatter_launch_count
+    b, l, k = phic.shape
+    if phic.device.type == "cpu":
+        return scatter_live_reference(phic, live, num_terms)
+    if phic.device.type != "cuda":
+        raise ValueError(f"unsupported device {phic.device}")
+    n, u = live.sorted_pos.shape[0], live.seg_word.shape[0]
+    operands = [
+        ("phic", phic, torch.float32, (b, l, k)),
+        ("sorted_pos", live.sorted_pos, torch.int32, (n,)),
+        ("seg_ptr", live.seg_ptr, torch.int32, (u + 1,)),
+        ("seg_word", live.seg_word, torch.int32, (u,)),
+    ]
+    if stop is not None:
+        operands.append(("stop", stop, torch.int32, ()))
+    _cuda.check_operands(phic.device, operands)
+    suff = torch.zeros((num_terms, k), dtype=torch.float32, device=phic.device)
+    lib, _, fn = _kernel()
+    with torch.cuda.device(phic.device):
+        stream = torch.cuda.current_stream(phic.device).cuda_stream
+        err = fn(phic.data_ptr(), live.sorted_pos.data_ptr(),
+                 live.seg_ptr.data_ptr(), live.seg_word.data_ptr(), _cuda.ptr(stop),
+                 _EXECUTED.slot(phic.device, 1), u, k, suff.data_ptr(), stream)
+    _cuda.check(lib, err, "sparse_scatter launch")
+    scatter_launch_count += 1
+    return suff
+
+
 def e_step(
     log_beta: torch.Tensor,   # [K, V]
     alpha: torch.Tensor,      # scalar
@@ -307,13 +393,17 @@ def e_step(
     warm=None,
     block: "int | None" = None,
     expb_vk: "torch.Tensor | None" = None,
-    live: "tuple[torch.Tensor, torch.Tensor] | None" = None,
+    live: "LiveTokens | None" = None,
+    stop: "torch.Tensor | None" = None,
+    alpha_const: "torch.Tensor | None" = None,
 ) -> estep.EStepResult:
     """The whole E-step of one batch: kernel (or its plain version on
     the CPU), [V, K] scatter of phi_c over the live tokens, alpha-prior
     constant.  Pass `expb_vk` (exp_beta_table(log_beta)) to share the
-    table across the batches of an EM iteration, and `live`
-    (live_tokens(word_idx, counts)) to reuse the batch's live tokens."""
+    table across the batches of an EM iteration, `live`
+    (live_tokens(word_idx, counts)) to reuse the batch's plan,
+    `alpha_const` (estep.alpha_constant) to share it too, and `stop`
+    under the chunk driver (see fixed_point_blocks)."""
     k, v = log_beta.shape
     dev = word_idx.device
     if expb_vk is None:
@@ -321,13 +411,11 @@ def e_step(
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
     gamma, phic, docll, ass, iters = fixed_point_blocks(
         expb_vk, alpha, word_idx, counts, doc_mask, var_max_iters, var_tol,
-        block=block, gamma_prev=gamma_prev, warm=warm,
+        block=block, gamma_prev=gamma_prev, warm=warm, stop=stop,
     )
-    b, l = word_idx.shape
-    pos, words = live if live is not None else live_tokens(word_idx, counts)
-    suff = torch.zeros((v, k), dtype=torch.float32, device=dev)
-    suff.index_add_(0, words, phic.reshape(b * l, k).index_select(0, pos))
-    alpha_const = torch.lgamma(k * alpha) - k * torch.lgamma(alpha)
+    suff = scatter_live(phic, live if live is not None
+                        else live_tokens(word_idx, counts), v, stop=stop)
+    if alpha_const is None:
+        alpha_const = estep.alpha_constant(alpha, k)
     likelihood = docll.sum() + doc_mask.sum() * alpha_const
     return estep.EStepResult(gamma, suff, ass.sum(), likelihood, iters.max())
-

@@ -13,10 +13,15 @@ Stages, each writing the JAX runner's artifacts into <data-dir>/<fdate>:
     score   float64 host scoring -> flow_results.csv
 
 Pre, corpus and score are host work; LDA is the one stage on the
-device, its E-step the hand-written CUDA kernel (ops/sparse_estep.py).
-Each stage prints one JSON record with its wall time; all records land
-in metrics.json.  The whole day runs in one process: the featurized
-day and the corpus pass between stages in memory.
+device, its E-step a hand-written CUDA kernel: the sparse engine
+(ops/sparse_estep.py) unless ONI_ML_TPU_ESTEP=dense picks the dense one
+(ops/dense_estep.py).  Each stage prints one JSON record with its wall
+time; all records land in metrics.json.  The `lda` record also names
+the engine and the EM driver with their sources, the batches trained,
+the kernel launches enqueued and those that ran (the kernels count
+these on the card; the rest were enqueued after the device stopped EM)
+and the host syncs.  The whole day runs in one process:
+the featurized day and the corpus pass between stages in memory.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import argparse
 import json
 import os
 import time
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -34,7 +40,7 @@ from ..features import featurize_flow, read_flow_feedback_rows
 from ..features.lineio import iter_flow_lines
 from ..io import Corpus, formats
 from ..models import train_corpus
-from ..ops import sparse_estep
+from ..ops import dense_estep, sparse_estep
 from ..scoring import ScoringModel, score_flow_csv
 
 ARTIFACTS = [
@@ -44,6 +50,111 @@ ARTIFACTS = [
 ]
 
 
+# The kernels each engine launches, once per batch per EM iteration.
+ENGINE_KERNELS = {"sparse": ("sparse_estep", "sparse_scatter"),
+                  "dense": ("dense_estep",)}
+
+
+def launch_counts() -> dict:
+    """Launches so far of every kernel of the port (CUDA only)."""
+    return {"sparse_estep": sparse_estep.launch_count,
+            "sparse_scatter": sparse_estep.scatter_launch_count,
+            "dense_estep": dense_estep.launch_count}
+
+
+def executed_counts() -> dict:
+    """Of those, the launches that ran past the chunk driver's stop
+    check, as the kernels counted them on the card (a host sync)."""
+    estep, scatter = sparse_estep.executed_counts()
+    return {"sparse_estep": estep, "sparse_scatter": scatter,
+            "dense_estep": dense_estep.executed_count()}
+
+
+def kernel_counts() -> tuple:
+    """(launch_counts(), executed_counts()): what lda_record takes as
+    the counts before a fit."""
+    return launch_counts(), executed_counts()
+
+
+def lda_record(result, counts0: tuple, dev) -> dict:
+    """The `lda` stage's fields from a train_corpus result and the
+    kernel_counts() before it."""
+    plan, stats = result.plan, result.stats
+    engine = plan["estep_engine"]["value"]
+    launches0, executed0 = counts0
+    launches = {name: n - launches0[name]
+                for name, n in launch_counts().items()}
+    executed = {name: n - executed0[name]
+                for name, n in executed_counts().items()}
+    skipped = stats.get("skipped_iterations", 0)
+    lls = [ll for ll, _ in result.likelihoods]
+    return {
+        "device": str(dev), "engine": engine,
+        "engine_source": plan["estep_engine"]["source"],
+        "driver": stats["driver"],
+        "chunk": plan["fused_em_chunk"]["value"],
+        "chunk_source": plan["fused_em_chunk"]["source"],
+        "sync": plan["host_sync_every"]["value"],
+        "sync_source": plan["host_sync_every"]["source"],
+        "em_iters": result.em_iters,
+        "final_likelihood": lls[-1] if lls else None,
+        "alpha": result.alpha,
+        "batches": stats["batches"], "batch_shapes": stats["batch_shapes"],
+        "kernel_launches": launches,
+        "executed_launches": executed,
+        "skipped_iterations": skipped,
+        "skipped_launches": {name: launches[name] - executed[name]
+                             for name in launches},
+        "host_syncs": stats["host_syncs"],
+    }
+
+
+@dataclass
+class DayRun:
+    """What `run_pipeline` leaves in memory: the stage records, the
+    featurized day, its corpus and the trained model — so a caller can
+    train and score the same corpus again without repeating pre and
+    corpus (chip_smoke.py does, with the other engine)."""
+
+    records: list
+    features: object
+    corpus: Corpus
+    result: object
+
+
+def stage_lda(corpus: Corpus, config: PipelineConfig, day_dir: str, dev,
+              initial_log_beta: "np.ndarray | None" = None):
+    """EM on the device, then final.*, doc_results.csv and
+    word_results.csv -> (the train_corpus result, the record's fields)."""
+    t0 = time.perf_counter()
+    counts0 = kernel_counts()
+    result = train_corpus(corpus, config.lda, out_dir=day_dir,
+                          save_final=False, device=dev,
+                          initial_log_beta=initial_log_beta)
+    em_s = time.perf_counter() - t0
+    result.save(day_dir, num_terms=corpus.num_terms, include_likelihood=False)
+    formats.write_doc_results(os.path.join(day_dir, "doc_results.csv"),
+                              corpus.doc_names, result.gamma)
+    formats.write_word_results(os.path.join(day_dir, "word_results.csv"),
+                               corpus.vocab, result.log_beta)
+    return result, dict(lda_record(result, counts0, dev), em_s=em_s,
+                        em_docs_per_s=corpus.num_docs * result.em_iters / em_s)
+
+
+def stage_score(features, corpus: Corpus, result, config: PipelineConfig,
+                day_dir: str) -> dict:
+    """float64 host scoring -> flow_results.csv; the record's fields."""
+    model = ScoringModel.from_lda(corpus.doc_names, result.gamma,
+                                  corpus.vocab, result.log_beta,
+                                  config.scoring.flow_fallback)
+    blob, scores = score_flow_csv(features, model, config.scoring.threshold)
+    with open(os.path.join(day_dir, "flow_results.csv"), "wb") as f:
+        f.write(blob)
+    return {"scored_events": features.num_raw_events,
+            "flagged": int(len(scores)),
+            "min_score": float(scores[0]) if len(scores) else None}
+
+
 def run_pipeline(
     config: PipelineConfig,
     fdate: str,
@@ -51,9 +162,9 @@ def run_pipeline(
     device=None,
     initial_log_beta: "np.ndarray | None" = None,
     emit=print,
-) -> list:
-    """Run the flow day; returns the per-stage records (also written to
-    metrics.json in the day directory)."""
+) -> DayRun:
+    """Run the flow day; the per-stage records are also written to
+    metrics.json in the day directory."""
     if dsource != "flow":
         raise ValueError(f"the port runs the flow day only, got {dsource!r}")
     dev = resolve_device(device)
@@ -91,42 +202,16 @@ def run_pipeline(
            tokens=corpus.num_tokens)
 
     t0 = time.perf_counter()
-    launches0 = sparse_estep.launch_count
-    result = train_corpus(corpus, config.lda, out_dir=day_dir,
-                          save_final=False, device=dev,
-                          initial_log_beta=initial_log_beta)
-    em_s = time.perf_counter() - t0
-    result.save(day_dir, num_terms=corpus.num_terms, include_likelihood=False)
-    formats.write_doc_results(path("doc_results.csv"), corpus.doc_names,
-                              result.gamma)
-    formats.write_word_results(path("word_results.csv"), corpus.vocab,
-                               result.log_beta)
-    shapes = corpus.bucket_shapes(config.lda.sparse_min_bucket_len,
-                                  config.lda.batch_size,
-                                  sparse_estep.pad_multiple_for("f32"))
-    lls = [ll for ll, _ in result.likelihoods]
-    record("lda", t0, device=str(dev), em_iters=result.em_iters,
-           final_likelihood=lls[-1] if lls else None, alpha=result.alpha,
-           batches=len(shapes),
-           batch_shapes=sorted({(b, l) for b, l, _ in shapes}),
-           kernel_launches=sparse_estep.launch_count - launches0,
-           em_s=em_s,
-           em_docs_per_s=corpus.num_docs * result.em_iters / em_s)
+    result, info = stage_lda(corpus, config, day_dir, dev, initial_log_beta)
+    record("lda", t0, **info)
 
     t0 = time.perf_counter()
-    model = ScoringModel.from_lda(corpus.doc_names, result.gamma,
-                                  corpus.vocab, result.log_beta,
-                                  config.scoring.flow_fallback)
-    blob, scores = score_flow_csv(features, model, config.scoring.threshold)
-    with open(path("flow_results.csv"), "wb") as f:
-        f.write(blob)
-    record("score", t0, scored_events=features.num_raw_events,
-           flagged=int(len(scores)),
-           min_score=float(scores[0]) if len(scores) else None)
+    record("score", t0, **stage_score(features, corpus, result, config,
+                                      day_dir))
 
     with open(path("metrics.json"), "w") as f:
         json.dump(records, f, indent=1)
-    return records
+    return DayRun(records, features, corpus, result)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -184,13 +184,37 @@ def test_sparse_block_rule_vs_xla_batch_rule():
 
 
 def test_m_step_matches_jax():
+    """Zero and subnormal masses both give LOG_ZERO, as XLA (which
+    flushes float32 subnormals to zero) gives them: the same LOG_ZERO
+    set, and the other entries to rtol 1e-6."""
     rng = np.random.default_rng(4)
     ss = rng.gamma(0.3, 2.0, size=(V, K)).astype(np.float32)
     ss[rng.uniform(size=ss.shape) < 0.2] = 0.0
+    tiny = np.finfo(np.float32).tiny
+    sub = rng.uniform(size=ss.shape) < 0.1
+    ss[sub] = (tiny * rng.uniform(1e-3, 0.99, size=int(sub.sum()))).astype(
+        np.float32)
+    ss[0, 0], ss[1, 1] = tiny, np.float32(1e-45)   # smallest normal, subnormal
+    assert (ss[sub] < tiny).all() and (ss[sub] > 0).all()
     want = np.asarray(jestep.m_step(jnp.asarray(ss)))
     got = testep.m_step(torch.from_numpy(ss)).numpy()
-    assert (got == testep.LOG_ZERO).sum() == (want == jestep.LOG_ZERO).sum()
+    np.testing.assert_array_equal(got == testep.LOG_ZERO,
+                                  want == jestep.LOG_ZERO)
+    assert (got[sub.T] == testep.LOG_ZERO).all()
+    assert got[0, 0] != testep.LOG_ZERO
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_exp_beta_tables_hold_subnormals_as_zero():
+    """exp(log beta) below the normal range is zero in both E-steps'
+    beta tables, as XLA computes it; exp(LOG_ZERO) among them."""
+    from oni_ml_tpu_torch.ops import dense_estep as tdense
+
+    lb = torch.tensor([[0.0, -80.0, -88.0, -100.0, -103.0]])
+    want = torch.tensor([[1.0, float(torch.exp(torch.tensor(-80.0))), 0, 0,
+                          0]])
+    assert torch.equal(tsparse.exp_beta_table(lb), want.t())
+    assert torch.equal(tdense.padded_exp_beta(lb, 8)[:, :5], want)
 
 
 @pytest.mark.parametrize("max_iters", [8, 100])

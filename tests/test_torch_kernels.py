@@ -1,4 +1,6 @@
-"""The port's CUDA kernel against its plain PyTorch version.
+"""The port's CUDA kernels against their plain PyTorch versions: the
+sparse E-step and its [V, K] scatter, and the dense E-step in both
+layouts.
 
 This file imports no JAX, so it also runs on a machine with a card and
 no JAX (the variable keeps tests/conftest.py from importing jax):
@@ -12,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from oni_ml_tpu_torch.ops import dense_estep as tdense
 from oni_ml_tpu_torch.ops import sparse_estep as tsparse
 
 K, V = 6, 60
@@ -55,6 +58,16 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert tsparse.launch_count == 0
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_executed_counters_read_zero_before_any_launch():
+    """The kernels' device counters of the launches that ran: nothing
+    launched since the reset reads zero (on a machine without a card
+    too: no counter exists until a kernel launches)."""
+    tsparse.reset_launch_count()
+    tdense.reset_launch_count()
+    assert tsparse.executed_counts() == (0, 0)
+    assert tdense.executed_count() == 0
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -121,3 +134,137 @@ def test_cuda_wrapper_rejects_bad_operands(cuda):
     args[2] = args[2].t().contiguous().t()
     with pytest.raises(ValueError, match="word_idx must be contiguous"):
         tsparse.fixed_point_blocks(*args, block=1)
+
+
+@pytest.mark.cuda
+def test_cuda_scatter_is_bit_identical_to_index_add(cuda):
+    """The scatter kernel sums each word's rows in position order, the
+    order of the CPU's sequential index_add_: given the same phi_c the
+    [V, K] sums are the same bits on every launch and equal the CPU's.
+    The card's own index_add_ (atomics) agrees to rtol 1e-6."""
+    prob = _problem(9, 32, 64, 4)
+    args = _args(prob, cuda)
+    phic = tsparse.fixed_point_blocks(*args, block=8)[1]
+    live = tsparse.live_tokens(args[2], args[3])
+    tsparse.reset_launch_count()
+    got = tsparse.scatter_live(phic, live, V)
+    again = tsparse.scatter_live(phic, live, V)
+    assert tsparse.scatter_launch_count == 2
+    ref = tsparse.scatter_live_reference(phic, live, V)
+    cpu = tsparse.scatter_live(phic.cpu(), tsparse.live_tokens(
+        args[2].cpu(), args[3].cpu()), V)
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), cpu)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-6)
+
+
+def _dense_problem(seed, b, v=600, k=K):
+    """A densified batch (V=600 pads to W=640, a padded tail), a few
+    masked docs, and a warm-start gamma."""
+    rng = np.random.default_rng(seed)
+    noise = rng.uniform(size=(k, v)) + 1.0 / v
+    log_beta = np.log(noise / noise.sum(-1, keepdims=True)).astype(np.float32)
+    l = 24
+    word = rng.integers(0, v, size=(b, l)).astype(np.int32)
+    counts = rng.integers(1, 5, size=(b, l)).astype(np.float32)
+    counts[:, l - 4:] = 0
+    mask = (rng.uniform(size=b) > 0.15).astype(np.float32)
+    mean = 2.5 + counts.sum(1, keepdims=True) / k
+    gamma_prev = (mean * rng.uniform(0.5, 1.5, size=(b, k))).astype(np.float32)
+    dense = tdense.densify(torch.from_numpy(word), torch.from_numpy(counts), v)
+    return log_beta, dense, mask, gamma_prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wmajor", [False, True], ids=["rowmajor", "wmajor"])
+@pytest.mark.parametrize("warm", [False, True], ids=["fresh", "warm"])
+@pytest.mark.parametrize("block", [1, 2, 4])
+def test_cuda_dense_kernel_matches_plain_version(cuda, wmajor, warm, block):
+    """Iterations within one per block; gamma rtol 1e-4 (rcp.approx +
+    one Newton step and another f32 summation order) in the blocks that
+    stop at the same iteration — one that stops an iteration apart
+    differs by one fixed-point step, under 2 var_tol by the stop rule's
+    own measure; the tail (T rtol 1e-4, docll and ass 1e-5) against the
+    plain tail on the kernel's gamma; T bit-identical across two
+    launches (no atomics)."""
+    lb, dense, mask, gp = _dense_problem(11, 64)
+    eb = tdense.padded_exp_beta(torch.from_numpy(lb), dense.shape[1]).to(cuda)
+    c = (dense.t() if wmajor else dense).contiguous().to(cuda)
+    kw = {"block": block, "wmajor": wmajor, "warm": torch.tensor(int(warm)),
+          "gamma_prev": torch.from_numpy(gp).to(cuda) if warm else None}
+    var_tol = 1e-5
+    args = (eb, torch.tensor(2.5, device=cuda), c,
+            torch.from_numpy(mask).to(cuda), 60, var_tol)
+    tdense.reset_launch_count()
+    got = tdense.fixed_point_blocks(*args, **kw)
+    again = tdense.fixed_point_blocks(*args, **kw)
+    torch.cuda.synchronize()
+    assert tdense.launch_count == 2
+    plain = (eb, args[1], dense.to(cuda), args[3])
+    ref = tdense.dense_fixed_point_reference(
+        *plain, 60, var_tol, block, gamma_prev=kw["gamma_prev"],
+        warm=kw["warm"])
+    assert torch.equal(got[1], again[1])
+    moved = got[4] != ref[4]
+    assert int((got[4] - ref[4]).abs().max()) <= 1
+    same = ~moved.repeat_interleave(block)
+    np.testing.assert_allclose(got[0][same].cpu().numpy(),
+                               ref[0][same].cpu().numpy(), rtol=1e-4)
+    if bool(moved.any()):
+        g, r = got[0][~same].double(), ref[0][~same].double()
+        assert float(((g - r).abs().mean(1) / r.mean(1)).max()) <= 2 * var_tol
+    tail = tdense.dense_fixed_point_reference(
+        *plain, 0, var_tol, block, gamma_prev=got[0], warm=torch.tensor(1))
+    rt = tail[1].cpu().numpy()
+    np.testing.assert_allclose(got[1].cpu().numpy(), rt, rtol=1e-4,
+                               atol=1e-4 * np.abs(rt).max())
+    for i in (2, 3):
+        r = tail[i].cpu().numpy()
+        np.testing.assert_allclose(got[i].cpu().numpy(), r, rtol=1e-5,
+                                   atol=1e-5 * np.abs(r).max())
+
+
+@pytest.mark.cuda
+def test_cuda_stop_flag_gates_both_kernels(cuda):
+    """The chunk driver's stop flag: clear, the launches compute what
+    they compute without it (bit for bit); set, they still launch and
+    count, and return at once, so the kernels' own counters of the
+    launches that ran leave them out."""
+    lb, dense, mask, _ = _dense_problem(12, 16)
+    eb = tdense.padded_exp_beta(torch.from_numpy(lb), dense.shape[1]).to(cuda)
+    args = (eb, torch.tensor(2.5, device=cuda), dense.to(cuda),
+            torch.from_numpy(mask).to(cuda), 20, 1e-6)
+    sargs = _args(_problem(5, 32, 16, 4), cuda)
+    clear = torch.zeros((), dtype=torch.int32, device=cuda)
+    tdense.reset_launch_count()
+    tsparse.reset_launch_count()
+    for ref, got in (
+        (tdense.fixed_point_blocks(*args, block=1),
+         tdense.fixed_point_blocks(*args, block=1, stop=clear)),
+        (tsparse.fixed_point_blocks(*sargs, block=8),
+         tsparse.fixed_point_blocks(*sargs, block=8, stop=clear)),
+    ):
+        for r, g in zip(ref, got):
+            assert torch.equal(r, g)
+    tdense.fixed_point_blocks(*args, block=1, stop=clear + 1)
+    tsparse.fixed_point_blocks(*sargs, block=8, stop=clear + 1)
+    torch.cuda.synchronize()
+    assert tdense.launch_count == 3 and tsparse.launch_count == 3
+    assert tdense.executed_count() == 2
+    assert tsparse.executed_counts() == (2, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_wrapper_rejects_bad_operands(cuda):
+    lb, dense, mask, _ = _dense_problem(13, 8)
+    eb = tdense.padded_exp_beta(torch.from_numpy(lb), dense.shape[1]).to(cuda)
+    a = torch.tensor(2.5, device=cuda)
+    m = torch.from_numpy(mask).to(cuda)
+    with pytest.raises(TypeError, match="dense_counts must be"):
+        tdense.fixed_point_blocks(eb, a, dense.double().to(cuda), m, 20, 1e-6)
+    with pytest.raises(ValueError, match="dense_counts must be contiguous"):
+        tdense.fixed_point_blocks(eb, a, dense.to(cuda).t(), m, 20, 1e-6,
+                                  wmajor=True)
+    with pytest.raises(ValueError, match="doc block 8 must be"):
+        tdense.fixed_point_blocks(eb, a, dense.to(cuda), m, 20, 1e-6, block=8)
