@@ -14,19 +14,24 @@ Phases (any failure exits non-zero before the result line):
              above what most blocks need, so the per-block stop decision
              is compared too.
 3. e2e       a small synthetic day through the port on the card and on
-             the CPU (plain versions), with each engine: the EM
-             trajectories must agree; and twice on the card with each
-             engine: final.* must be the same bytes.
+             the CPU (plain versions), with each ONI_ML_TPU_ESTEP value
+             (sparse, dense, pallas, xla, compact): the EM trajectories
+             must agree; and twice on the card with each: final.* must
+             be the same bytes.
 4. pipeline  a 2,000,000-event synthetic flow day through the port's
-             entry point on the card (the sparse engine under the chunk
-             driver); every artifact must exist and parse.  Then the
-             same corpus trained with the dense engine through
-             train_corpus and scored.  Each path's kernels must have
-             launched on it (the counts are zeroed just before each and
-             read just after).
-5. profile   20 EM iterations over that day's corpus three ways (sparse
+             entry point on the card, its engine from the measured
+             dense-vs-sparse crossover (a fresh plan cache, so the run
+             measures; resolved again, the plan serves it: `crossover`
+             line); every artifact must exist and parse.  Then the same
+             corpus trained with the dense engine and with
+             ONI_ML_TPU_ESTEP=pallas (the per-batch dispatch through the
+             fixed-point kernel) through train_corpus, each scored.
+             Each path's kernels must have launched on it (the counts
+             are zeroed just before each and read just after).
+5. profile   20 EM iterations over that day's corpus four ways (sparse
              engine under the chunk driver, sparse under the stepwise
-             driver, dense under the chunk driver): wall without the
+             driver, dense and per-batch pallas under the chunk driver):
+             wall without the
              profiler, device-busy time, the kernels that take it and
              the host ops under torch.profiler — for the whole fit and,
              under the chunk driver, for the EM loop alone.  Then, at
@@ -56,9 +61,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from oni_ml_tpu_torch.io import Corpus, formats, make_batches  # noqa: E402
-from oni_ml_tpu_torch.ops import _cuda, dense_estep, sparse_estep  # noqa: E402
+from oni_ml_tpu_torch.ops import (  # noqa: E402
+    _cuda, dense_estep, pallas_estep, sparse_estep)
 from oni_ml_tpu_torch.runner.ml_ops import (  # noqa: E402
-    ENGINE_KERNELS, executed_counts, kernel_counts, launch_counts)
+    ENGINE_KERNELS, executed_counts, kernel_counts, launch_counts,
+    reset_kernel_counts)
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and
 # float32 (non-tensor-core) FLOP/s — the kernels' arithmetic is f32 FMA.
@@ -87,6 +94,9 @@ MAX_MOVED_SHARE = 0.05
 # (f32 sums in another order, the approximate reciprocal).
 RTOL_E2E = 1e-4
 PIPELINE_EVENTS = 2_000_000
+# float32 operations of one digamma_pos (estep_common.cuh): 7 guarded
+# recurrence steps (compare, divide, two adds) and the series.
+DIGAMMA_FLOPS = 40
 # Host-clock walls vary between calls (the host's cores are shared):
 # each profiled wall is the median of this many runs.
 WALL_REPS = 3
@@ -98,6 +108,7 @@ REPLACES = {
     # layout's times under "by_layout".
     "dense_estep": "oni_ml_tpu/ops/dense_estep.py:419, "
                    "oni_ml_tpu/ops/dense_estep.py:312",
+    "fixed_point_estep": "oni_ml_tpu/ops/pallas_estep.py:123",  # _fixed_point_kernel
 }
 DENSE_LAYOUT_REPLACES = {"wmajor": "oni_ml_tpu/ops/dense_estep.py:419",
                          "rowmajor": "oni_ml_tpu/ops/dense_estep.py:312"}
@@ -105,6 +116,7 @@ SOURCES = {
     "sparse_estep": "oni_ml_tpu_torch/csrc/sparse_estep.cu",
     "sparse_scatter": "oni_ml_tpu_torch/csrc/sparse_estep.cu",
     "dense_estep": "oni_ml_tpu_torch/csrc/dense_estep.cu",
+    "fixed_point_estep": "oni_ml_tpu_torch/csrc/fixed_point_estep.cu",
 }
 
 
@@ -115,11 +127,6 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
-
-
-def reset_launch_counts() -> None:
-    sparse_estep.reset_launch_count()
-    dense_estep.reset_launch_count()
 
 
 def random_bucket(b, l, min_live, seed, warm):
@@ -173,10 +180,11 @@ def close(name, got, ref, rtol, atol_frac, errs):
 
 
 def check_fixed_point(label, got, ref, block, var_max_iters, var_tol, errs):
-    """Iterations per block and gamma (see the tolerances above);
-    returns (max |d iters|, blocks that stopped apart, the largest
-    relative gamma error on the blocks that stopped together)."""
-    gi, ri = got[4].long(), ref[4].long()
+    """Iterations per block and gamma (see the tolerances above), each of
+    `got` and `ref` a (gamma, iterations per block) pair; returns
+    (max |d iters|, blocks that stopped apart, the largest relative gamma
+    error on the blocks that stopped together)."""
+    gi, ri = got[1].long(), ref[1].long()
     it_diff = int((gi - ri).abs().max())
     if it_diff > MAX_ITER_DIFF:
         fail(f"{label}: iterations differ by {it_diff} in a block")
@@ -218,7 +226,8 @@ def sparse_parity(label, b, l, min_live, warm, var_max_iters, var_tol):
     ref = sparse_estep.fixed_point_full_reference(*args, **kw)
     errs: list = []
     it_diff, moved, rel_same = check_fixed_point(
-        label, got, ref, block, var_max_iters, var_tol, errs)
+        label, (got[0], got[4]), (ref[0], ref[4]), block, var_max_iters,
+        var_tol, errs)
     tail = sparse_estep.fixed_point_full_reference(
         *args[:5], 0, var_tol, block=block, gamma_prev=got[0],
         warm=torch.tensor(1))
@@ -274,7 +283,8 @@ def dense_parity(label, b, wmajor, warm, var_max_iters, var_tol):
         gamma_prev=case["gamma_prev"], warm=kw["warm"])
     errs: list = []
     it_diff, moved, rel_same = check_fixed_point(
-        label, got, ref, block, var_max_iters, var_tol, errs)
+        label, (got[0], got[4]), (ref[0], ref[4]), block, var_max_iters,
+        var_tol, errs)
     tail = dense_estep.dense_fixed_point_reference(
         eb, case["alpha"], dense, case["mask"], 0, var_tol, block,
         gamma_prev=got[0], warm=torch.tensor(1))
@@ -331,6 +341,66 @@ def dense_parity(label, b, wmajor, warm, var_max_iters, var_tol):
     return rec
 
 
+def fixed_point_parity(label, b, l, min_live, warm, var_max_iters, var_tol):
+    """The fixed point over a gathered [K, B, L] slab (the per-batch
+    pallas path's kernel) against its plain version, at the sparse
+    cases' buckets and the card's doc block."""
+    case = random_bucket(b, l, min_live, seed=b + l + 3 + int(warm), warm=warm)
+    slab = pallas_estep.gather_slab(
+        sparse_estep.exp_beta_table(case["log_beta"]), case["word"])
+    block = pallas_estep.pick_block(b)
+    kw = dict(block=block, gamma_prev=case["gamma_prev"],
+              warm=torch.tensor(1 if warm else 0))
+    args = (slab, case["alpha"], case["counts"], case["mask"], var_max_iters,
+            var_tol)
+    got = pallas_estep.fixed_point_blocks(*args, **kw)
+    torch.cuda.synchronize()
+    ref = pallas_estep.fixed_point_reference(*args[:6], block,
+                                             gamma_prev=kw["gamma_prev"],
+                                             warm=kw["warm"])
+    errs: list = []
+    it_diff, moved, rel_same = check_fixed_point(
+        label, got, ref, block, var_max_iters, var_tol, errs)
+    ms = time_ms(lambda: pallas_estep.fixed_point_blocks(*args, **kw), 20)
+    plain_ms = time_ms(lambda: pallas_estep.fixed_point_reference(
+        *args[:6], block, gamma_prev=kw["gamma_prev"], warm=kw["warm"]), 3)
+    # Bound, from this run's inputs: the slab read once, counts, mask,
+    # alpha and gamma in (warm) read once, gamma and the iteration counts
+    # written once; operations 4*K per live token (the two contractions)
+    # and K + 1 digammas per document, for each fixed-point iteration its
+    # block ran.
+    iters = got[1].long().cpu().numpy()
+    doc_iters = np.repeat(iters, block)
+    live = (case["counts"] != 0).sum(1).cpu().numpy()
+    flops = float((doc_iters * (4 * K * live + (K + 1) * DIGAMMA_FLOPS)).sum())
+    nbytes = (K * b * l * 4 + b * l * 4 + b * 4 + 4 + (b * K * 4 if warm else 0)
+              + b * K * 4 + (b // block) * 4)
+    bound_ms, bound_by = bound(nbytes, flops)
+    # Library yardstick: the two batched products of one iteration
+    # (torch.bmm over [B, L, K]: phinorm, then the ratio contraction),
+    # times the mean iteration count.
+    slab_blk = slab.permute(1, 2, 0).contiguous()
+    e = torch.rand((b, K, 1), device="cuda")
+    ratio = torch.rand((b, 1, l), device="cuda")
+    one = time_ms(lambda: (torch.bmm(slab_blk, e), torch.bmm(ratio, slab_blk)),
+                  20)
+    rec = {
+        "kernel": "fixed_point_estep", "case": label, "B": b, "L": l, "K": K,
+        "V": V, "block": block, "warm": warm,
+        "var_max_iters": var_max_iters, "var_tol": var_tol,
+        "iters_min": int(iters.min()), "iters_max": int(iters.max()),
+        "iters_mean": float(iters.mean()), "max_abs_err": max(errs),
+        "iter_diff": it_diff, "blocks_stopped_apart": moved,
+        "gamma_rel_err_same_stop": rel_same, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bytes": nbytes, "flops": flops,
+        "library_ms": one * float(doc_iters.mean()),
+        "library_ms_per_iteration": one,
+    }
+    log("fixed_point_parity " + json.dumps(rec))
+    return rec
+
+
 def run_day(raw, data, dev, engine, em_iters):
     """The small day through ml_ops.main with ONI_ML_TPU_ESTEP=engine."""
     from oni_ml_tpu_torch.runner import ml_ops
@@ -345,17 +415,25 @@ def run_day(raw, data, dev, engine, em_iters):
     return os.path.join(data, "20160122")
 
 
+# ONI_ML_TPU_ESTEP values the small day runs, and the family member each
+# must train with under the chunk driver.
+E2E_MEMBERS = {"sparse": "sparse", "dense": "dense",
+               "pallas": "per_batch:pallas", "xla": "per_batch:xla",
+               "compact": "compact"}
+
+
 def e2e_small(tmp):
     """A 20,000-event day through the port on the card and on the CPU
-    (plain versions) from one beta, with each engine: the first EM
-    iterations' likelihoods must agree to RTOL_E2E.  And a second card
-    run per engine: final.* byte for byte (no atomics on the path)."""
+    (plain versions) from one beta, with each ONI_ML_TPU_ESTEP value: the
+    first EM iterations' likelihoods must agree to RTOL_E2E.  And a
+    second card run per value: final.* byte for byte (no atomics on the
+    path)."""
     from oni_ml_tpu_torch.synth import write_flow_day
 
     raw = os.path.join(tmp, "small.csv")
     with open(raw, "w") as f:
         write_flow_day(f, 20_000, n_src=400, n_dst=100, seed=5)
-    for engine in ("sparse", "dense"):
+    for engine, member in E2E_MEMBERS.items():
         days = {run: run_day(raw, os.path.join(tmp, f"small_{engine}_{run}"),
                              run.split("_")[0], engine, 5)
                 for run in ("cuda", "cpu", "cuda_again")}
@@ -364,8 +442,8 @@ def e2e_small(tmp):
             lls[run] = formats.read_likelihood(os.path.join(day, "likelihood.dat"))
             with open(os.path.join(day, "metrics.json")) as f:
                 lda = {r["stage"]: r for r in json.load(f)}["lda"]
-            if lda["engine"] != engine or lda["driver"] != "fused":
-                fail(f"e2e {engine} {run}: trained {lda['engine']} under "
+            if lda["member"] != member or lda["driver"] != "fused":
+                fail(f"e2e {engine} {run}: trained {lda['member']} under "
                      f"the {lda['driver']} driver")
             with open(os.path.join(day, "flow_results.csv"), "rb") as f:
                 rows = f.read().splitlines()
@@ -386,15 +464,20 @@ def e2e_small(tmp):
         if not all(same.values()):
             fail(f"e2e {engine}: two card runs wrote different bytes: {same}")
         log("e2e " + json.dumps({
-            "engine": engine, "em_iters": len(a),
+            "estep_env": engine, "member": member, "em_iters": len(a),
             "cuda_vs_cpu_max_rel": float(np.max(np.abs(a - b) / np.abs(b))),
             "card_runs_byte_identical": same,
         }))
 
 
 def pipeline(tmp):
-    from oni_ml_tpu_torch.config import LDAConfig, PipelineConfig, ScoringConfig
-    from oni_ml_tpu_torch.models import train_corpus
+    """The 2M-event day through run_pipeline, its engine from the
+    measured crossover; then the same corpus through train_corpus on the
+    dense family's full-V path and on the per-batch pallas path (and on
+    the sparse engine, where the crossover did not pick it), each
+    scored.  Returns the corpus and each family member's kernel counts
+    (launched, ran) on its path."""
+    from oni_ml_tpu_torch.config import PipelineConfig, ScoringConfig
     from oni_ml_tpu_torch.runner import ml_ops
     from oni_ml_tpu_torch.synth import write_flow_day
 
@@ -407,10 +490,10 @@ def pipeline(tmp):
     data = os.path.join(tmp, "data")
     config = PipelineConfig(data_dir=data, flow_path=raw,
                             scoring=ScoringConfig(threshold=1e-20))
-    reset_launch_counts()
+    reset_kernel_counts()
     run = ml_ops.run_pipeline(config, "20160122", "flow", device="cuda",
                               emit=lambda *a, **k: None)
-    sparse_counts = (launch_counts(), executed_counts())
+    day_counts = (launch_counts(), executed_counts())
     day = os.path.join(data, "20160122")
     recs = {r["stage"]: r for r in run.records}
     missing = [n for n in ml_ops.ARTIFACTS if not os.path.exists(os.path.join(day, n))]
@@ -418,7 +501,14 @@ def pipeline(tmp):
         fail(f"pipeline artifacts missing: {missing}")
     lda, corpus = recs["lda"], recs["corpus"]
     check_day(day, recs, corpus, lda)
-    check_launches("sparse", lda, sparse_counts)
+    # The crossover's measurement ran E-steps of both engines inside the
+    # pipeline (its warm-up and timed runs): their launches are the
+    # path's too.
+    e_steps = lda["crossover"].get("e_steps", {}) if lda["crossover"] else {}
+    check_launches(lda["member"], lda, day_counts, extra={
+        kname: e_steps.get(engine, 0) for engine in ("sparse", "dense")
+        for kname in ENGINE_KERNELS[engine]})
+    crossover(run.corpus, lda)
     walls = {s: recs[s]["wall_s"] for s in ("pre", "corpus", "lda", "score")}
     log("pipeline " + json.dumps({
         "events": PIPELINE_EVENTS, "docs": corpus["docs"],
@@ -426,34 +516,86 @@ def pipeline(tmp):
         "stage_wall_s": walls, "day_wall_s": sum(walls.values()),
         "flagged": recs["score"]["flagged"], "lda": lda,
     }))
+    path_counts = {lda["member"]: day_counts}
+    paths = [("dense", {"estep_engine": "dense"}, None, "dense"),
+             ("pallas", {}, "pallas", "per_batch:pallas")]
+    if "sparse" not in path_counts:
+        paths.append(("sparse", {"estep_engine": "sparse"}, None, "sparse"))
+    for label, cfg_kw, env, member in paths:
+        path_counts[member] = train_path(label, run, config, cfg_kw, env,
+                                         member, recs, tmp)
+    return run.corpus, path_counts
 
-    # The same corpus, dense engine, through train_corpus; then scored.
-    dense_dir = formats.ensure_dir(os.path.join(tmp, "dense_day"))
-    reset_launch_counts()
+
+def crossover(corpus, lda):
+    """The day's engine came from the crossover, measured in this run
+    (the plan cache is this run's own file); resolved again as a new
+    process would (the per-process memo cleared), the plan serves it."""
+    from oni_ml_tpu_torch.config import LDAConfig
+    from oni_ml_tpu_torch.models.lda import resolve_estep_engine
+
+    cross = lda["crossover"]
+    if lda["engine_source"] != "measured" or not cross or (
+            cross["engine"] != lda["engine"]):
+        fail(f"pipeline engine {lda['engine']} ({lda['engine_source']}) did "
+             f"not come from a measured crossover: {cross}")
+    sparse_estep._CROSSOVER_CACHE.clear()
+    again = resolve_estep_engine(corpus, LDAConfig(), device="cuda")
+    rec = {key: cross[key] for key in ("engine", "sparse_s", "dense_s",
+                                       "source", "shape")}
+    # The work each engine does per E-step at the measured shape (8
+    # fixed-point iterations): the sparse engine's over live tokens, the
+    # dense engine's over every densified cell.
+    k, v, b, l = (int(x[1:]) for x in cross["shape"].split(".")[:4])
+    rec["sparse_flops"] = sparse_estep.effective_flops(b, l, k, 8)
+    rec["dense_flops"] = sparse_estep.dense_equiv_flops(b, v, k, 8)
+    rec["second_resolution"] = {"engine": again[0], "source": again[1]}
+    log("crossover " + json.dumps(rec))
+    if again != (lda["engine"], "plan"):
+        fail(f"second resolution {again}, expected ({lda['engine']!r}, 'plan')")
+
+
+def train_path(label, run, config, cfg_kw, env, member, recs, tmp):
+    """The day's corpus through train_corpus with the given config and
+    ONI_ML_TPU_ESTEP, then scored; its kernels must have launched on it.
+    Returns its kernel counts (launched, ran)."""
+    from oni_ml_tpu_torch.config import LDAConfig
+    from oni_ml_tpu_torch.models import train_corpus
+    from oni_ml_tpu_torch.runner import ml_ops
+
+    out = formats.ensure_dir(os.path.join(tmp, f"{label}_day"))
+    if env:
+        os.environ["ONI_ML_TPU_ESTEP"] = env
+    try:
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        counts0 = kernel_counts()
+        result = train_corpus(run.corpus, LDAConfig(**cfg_kw), out_dir=out,
+                              device="cuda")
+        em_s = time.perf_counter() - t0
+        counts = (launch_counts(), executed_counts())
+    finally:
+        os.environ.pop("ONI_ML_TPU_ESTEP", None)
+    rec = dict(ml_ops.lda_record(result, counts0, "cuda"), em_s=em_s,
+               em_docs_per_s=run.corpus.num_docs * result.em_iters / em_s)
     t0 = time.perf_counter()
-    counts0 = kernel_counts()
-    result = train_corpus(run.corpus, LDAConfig(estep_engine="dense"),
-                          out_dir=dense_dir, device="cuda")
-    em_s = time.perf_counter() - t0
-    dense_counts = (launch_counts(), executed_counts())
-    dlda = dict(ml_ops.lda_record(result, counts0, "cuda"), em_s=em_s,
-                em_docs_per_s=run.corpus.num_docs * result.em_iters / em_s)
-    t0 = time.perf_counter()
-    score = ml_ops.stage_score(run.features, run.corpus, result, config,
-                               dense_dir)
+    score = ml_ops.stage_score(run.features, run.corpus, result, config, out)
     score_s = time.perf_counter() - t0
-    check_launches("dense", dlda, dense_counts)
+    if rec["member"] != member:
+        fail(f"{label} day trained {rec['member']}, expected {member}")
+    check_launches(member, rec, counts)
     lls = np.asarray([ll for ll, _ in result.likelihoods])
     if not (np.isfinite(result.log_beta).all() and np.isfinite(lls).all()
-            and (result.gamma > 0).all()
+            and (result.gamma > 0).all() and result.em_iters < 100
             and score["scored_events"] == recs["score"]["scored_events"]):
-        fail("dense day: a non-finite model, or not every event scored")
-    log("pipeline_dense " + json.dumps({
-        "lda": dlda, "score_s": score_s, "flagged": score["flagged"],
-        "final_likelihood_sparse": lda["final_likelihood"],
+        fail(f"{label} day: a non-finite model, no convergence, or not "
+             "every event scored")
+    log(f"pipeline_{label} " + json.dumps({
+        "lda": rec, "score_s": score_s, "flagged": score["flagged"],
+        "final_likelihood_day": recs["lda"]["final_likelihood"],
         "dense_corpus_bytes": run.corpus.num_docs * W * 4,
     }))
-    return run.corpus, sparse_counts, dense_counts
+    return counts
 
 
 def check_day(day, recs, corpus, lda):
@@ -481,24 +623,27 @@ def check_day(day, recs, corpus, lda):
         "word_results": np.allclose(p.sum(0), 1.0),
         "flow_results": all(len(r) == 37 for r in flagged)
         and len(flagged) == recs["score"]["flagged"],
-        "driver": lda["engine"] == "sparse" and lda["driver"] == "fused",
+        "driver": lda["member"] in ENGINE_KERNELS and lda["driver"] == "fused",
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         fail(f"pipeline checks failed: {bad}")
 
 
-def check_launches(engine, lda, counts):
-    """Each of the engine's kernels launched once per batch per EM
-    iteration enqueued (those after the device stop included) and ran
-    (by the kernels' own count on the card) once per batch per EM
-    iteration executed; no other kernel launched."""
+def check_launches(engine, lda, counts, extra=None):
+    """Each kernel of the family member `engine` launched once per batch
+    per EM iteration enqueued (those after the device stop included) and
+    ran (by the kernels' own count on the card) once per batch per EM
+    iteration executed; no other kernel launched, but for the `extra`
+    launches (name -> count) made outside EM on the path."""
     launched, executed = counts
     enqueued = lda["batches"] * (lda["em_iters"] + lda["skipped_iterations"])
     ran = lda["batches"] * lda["em_iters"]
+    extra = extra or {}
     for name, n in launched.items():
         ours = name in ENGINE_KERNELS[engine]
-        want = (enqueued, ran) if ours else (0, 0)
+        more = extra.get(name, 0)
+        want = (enqueued + more, ran + more) if ours else (more, more)
         got = (n, executed[name])
         if (got != want or lda["kernel_launches"][name] != n
                 or lda["executed_launches"][name] != executed[name]):
@@ -511,7 +656,8 @@ def check_launches(engine, lda, counts):
 
 def profile_em(corpus):
     """Where the EM time goes: 20 warm EM iterations over the day's
-    corpus, three ways; then the scatter's timing record.  Each fit's
+    corpus, four ways (the per-batch pallas path's whole fit only); then
+    the scatter's timing record.  Each fit's
     set-up (stacking, copies, live-token plans, densifying) is in the
     window but small beside the iterations.  Timed without the profiler, then under torch.profiler
     for device-busy time and the kernels that take it.  The idle share
@@ -524,16 +670,23 @@ def profile_em(corpus):
         min_len=128, batch_cap=1024,
         pad_multiple=sparse_estep.pad_multiple_for("f32")).batches)
     dense_batches = make_batches(corpus, 1024, 16, pad_multiple=8)
-    for label, engine, chunk, batches in (
-        ("sparse_chunk", "sparse", 128, sparse_batches),
-        ("sparse_stepwise", "sparse", 1, sparse_batches),
-        ("dense_chunk", "dense", 128, dense_batches),
+    for label, engine, chunk, batches, env in (
+        ("sparse_chunk", "sparse", 128, sparse_batches, None),
+        ("sparse_stepwise", "sparse", 1, sparse_batches, None),
+        ("dense_chunk", "dense", 128, dense_batches, None),
+        ("pallas_chunk", "dense", 128, dense_batches, "pallas"),
     ):
         trainer = LDATrainer(LDAConfig(em_max_iters=iters, em_tol=0.0,
                                        fused_em_chunk=chunk),
                              corpus.num_terms, device="cuda")
-        profile_fit(label, trainer, batches, corpus.num_docs, engine, iters)
-        if chunk > 1:
+        if env:
+            os.environ["ONI_ML_TPU_ESTEP"] = env
+        try:
+            profile_fit(label, trainer, batches, corpus.num_docs, engine,
+                        iters)
+        finally:
+            os.environ.pop("ONI_ML_TPU_ESTEP", None)
+        if chunk > 1 and not env:
             profile_chunk_loop(label, batches, corpus.num_docs,
                                corpus.num_terms, engine, iters)
     for engine, batches in (("sparse", sparse_batches),
@@ -564,7 +717,8 @@ def profile_fit(label, trainer, batches, num_docs, engine, iters):
     # repeats the time of the kernels it launched.
     busy, top_device, top_host = profile_times(prof)
     rec = {
-        "case": label, "engine": engine, "driver": res.stats["driver"],
+        "case": label, "engine": engine, "member": res.stats["member"],
+        "driver": res.stats["driver"],
         "em_iters": res.em_iters, "batches": len(batches),
         "host_syncs": res.stats["host_syncs"], "wall_s": wall,
         "walls_s": walls, "profiled_wall_s": profiled_wall,
@@ -630,6 +784,7 @@ def profile_chunk_loop(label, batches, num_docs, num_terms, engine, iters):
     run = fused.make_chunk_runner(
         num_docs=num_docs, num_topics=K, num_terms=num_terms, chunk=128,
         var_max_iters=20, var_tol=1e-6, em_tol=0.0, estimate_alpha=True,
+        e_step_fn=sparse_estep.e_step if engine == "sparse" else None,
         dense_wmajor=True, warm_start=True, alpha_max_iters=8)
     lb0 = init_log_beta(torch.Generator().manual_seed(0), K, num_terms,
                         device="cuda")
@@ -703,8 +858,10 @@ def stop_tail(engine, batches, num_docs, num_terms):
         num_docs=num_docs, num_topics=cfg.num_topics, num_terms=num_terms,
         chunk=cfg.fused_em_chunk, var_max_iters=cfg.var_max_iters,
         var_tol=cfg.var_tol, em_tol=cfg.em_tol,
-        estimate_alpha=cfg.estimate_alpha, dense_wmajor=cfg.dense_wmajor,
-        warm_start=cfg.warm_start_gamma, alpha_max_iters=cfg.alpha_max_iters)
+        estimate_alpha=cfg.estimate_alpha,
+        e_step_fn=sparse_estep.e_step if engine == "sparse" else None,
+        dense_wmajor=cfg.dense_wmajor, warm_start=cfg.warm_start_gamma,
+        alpha_max_iters=cfg.alpha_max_iters)
     n = min(cfg.fused_em_chunk, cfg.host_sync_every)
     lb0 = init_log_beta(torch.Generator().manual_seed(cfg.seed),
                         cfg.num_topics, num_terms, device="cuda")
@@ -725,7 +882,7 @@ def stop_tail(engine, batches, num_docs, num_terms):
     fns = {"enqueued": dispatch(n), "cut": dispatch(steps)}
     order = ["enqueued", "cut", "cut", "enqueued"] * WALL_REPS
     wall, walls = median_walls(fns, order[:2 * WALL_REPS])
-    reset_launch_counts()
+    reset_kernel_counts()
     fns["enqueued"]()
     launched, ran = launch_counts(), executed_counts()
     for name in ENGINE_KERNELS[engine]:
@@ -884,7 +1041,7 @@ def main() -> int:
     log(f"device: {name} | {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    _cuda.build([sparse_estep.KERNEL, dense_estep.KERNEL])
+    _cuda.build([sparse_estep.KERNEL, dense_estep.KERNEL, pallas_estep.KERNEL])
     log(f"build: {time.perf_counter() - t0:.2f} s (in parallel)")
     for kname, info in _cuda.BUILD_INFO.items():
         log(f"build {kname}: {info['seconds']:.2f} s")
@@ -898,42 +1055,48 @@ def main() -> int:
     # with the summation order alone; at var_tol 1e-4 every block stops
     # on its own delta under a cap of 200.  The long docs (block 1)
     # stop at 1-20 under the day's cap of 20 and var_tol 1e-6.
+    cases = (("main", 1024, 128, 65, False, 200, 1e-4),
+             ("main", 1024, 128, 65, True, 200, 1e-4),
+             ("long", 8, 4096, 2049, False, 20, 1e-6),
+             ("long", 8, 4096, 2049, True, 20, 1e-6))
     sparse_recs = [
         sparse_parity(f"{lab}{'_warm' if w else ''}", b, l, lo, w, cap, tol)
-        for lab, b, l, lo, w, cap, tol in (
-            ("main", 1024, 128, 65, False, 200, 1e-4),
-            ("main", 1024, 128, 65, True, 200, 1e-4),
-            ("long", 8, 4096, 2049, False, 20, 1e-6),
-            ("long", 8, 4096, 2049, True, 20, 1e-6),
-        )
+        for lab, b, l, lo, w, cap, tol in cases
     ]
     dense_recs = [
         dense_parity(f"dense_{'wmajor' if wm else 'rowmajor'}"
                      f"{'_warm' if w else ''}", 1024, wm, w, 200, 1e-4)
         for wm in (True, False) for w in (False, True)
     ]
+    fixed_recs = [
+        fixed_point_parity(f"{lab}{'_warm' if w else ''}", b, l, lo, w, cap,
+                           tol)
+        for lab, b, l, lo, w, cap, tol in cases
+    ]
 
     tmp = tempfile.mkdtemp(prefix="oni_chip_smoke_")
+    # This run's own plan cache: the crossover is measured here, not
+    # read from an earlier run's cache.
+    os.environ["ONI_ML_TPU_PLAN_CACHE"] = os.path.join(tmp, "plans.jsonl")
     try:
         e2e_small(tmp)
-        corpus, sparse_counts, dense_counts = pipeline(tmp)
+        corpus, path_counts = pipeline(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     scatter_rec = profile_em(corpus)
 
-    path_counts = {engine: counts for engine, counts in
-                   (("sparse", sparse_counts), ("dense", dense_counts))}
-    main_sparse, main_dense = sparse_recs[0], dense_recs[0]
     entries = []
-    for kname, engine, rec, errs in (
-        ("sparse_estep", "sparse", main_sparse,
+    for kname, member, rec, errs in (
+        ("sparse_estep", "sparse", sparse_recs[0],
          [r["max_abs_err"] for r in sparse_recs]),
         ("sparse_scatter", "sparse", scatter_rec,
          [scatter_rec["max_abs_err"]]),
-        ("dense_estep", "dense", main_dense,
+        ("dense_estep", "dense", dense_recs[0],
          [r["max_abs_err"] for r in dense_recs]),
+        ("fixed_point_estep", "per_batch:pallas", fixed_recs[0],
+         [r["max_abs_err"] for r in fixed_recs]),
     ):
-        launched, ran = path_counts[engine]
+        launched, ran = path_counts[member]
         entries.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": REPLACES[kname], "launches": launched[kname],
@@ -944,7 +1107,7 @@ def main() -> int:
         })
     # The dense kernel's two layouts (fresh start, the main shape): the
     # dense path runs W-major (dense_wmajor, the JAX default).
-    entries[-1]["by_layout"] = {
+    entries[2]["by_layout"] = {
         r["layout"]: {"replaces": DENSE_LAYOUT_REPLACES[r["layout"]],
                       "ms": r["ms"], "plain_ms": r["plain_ms"],
                       "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}

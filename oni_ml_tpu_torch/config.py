@@ -37,16 +37,31 @@ class LDAConfig:
     # EM iterations per dispatch of the chunk driver (models/fused.py):
     # the stop decision stays on the device and the host reads the
     # likelihoods once per dispatch.  0 or 1 runs the stepwise driver
-    # (one host sync per EM iteration; sparse engine only).
+    # (one host sync per EM iteration; the dense family then runs the
+    # per-batch dispatch, as in the JAX package).
     fused_em_chunk: int = 128
     # At most this many EM iterations between host syncs of the chunk
     # driver, whatever fused_em_chunk is (0 = fused_em_chunk).
     host_sync_every: int = 16
-    # E-step engine: "sparse" (csrc/sparse_estep.cu over the bucketed
-    # layout), "dense" (csrc/dense_estep.cu over the densified corpus)
-    # or "auto" (the card's default, sparse).  ONI_ML_TPU_ESTEP
-    # overrides (models/lda.py resolve_estep_engine).
+    # E-step engine family: "sparse" (csrc/sparse_estep.cu over the
+    # bucketed layout), "dense" (the dense family: full-V dense
+    # csrc/dense_estep.cu, the compact-vocab variant, or the per-batch
+    # dispatch ops/estep.e_step — gated by dense_em below) or "auto":
+    # on the card the MEASURED dense-vs-sparse crossover, persisted in
+    # the plan cache (sparse_estep.engine_crossover: measured once per
+    # card and shape, source "plan" after), on the CPU the dense family.
+    # ONI_ML_TPU_ESTEP overrides (models/lda.py resolve_estep_engine);
+    # ONI_ML_TPU_ESTEP_ENGINE pins the crossover's answer.
     estep_engine: str = "auto"
+    # Dense family, full-V dense E-step: "auto" densifies the corpus once
+    # and runs the dense kernel when the run is on the card, the kernel
+    # takes K, and the densified corpus (plus the sparse stacks it is
+    # made from) fits dense_hbm_budget; then the compact-vocab variant
+    # under the same budget; else the per-batch dispatch.  "on"/"off"
+    # force it.  ONI_ML_TPU_ESTEP=dense/compact/xla/pallas overrides.
+    dense_em: str = "auto"
+    # Device-byte ceiling of the densified corpus under dense_em="auto".
+    dense_hbm_budget: int = 2 * 1024**3
     # Dense engine: store the corpus W-major ([W, B]) instead of
     # row-major ([B, W]).  Results are the same up to f32 summation order.
     dense_wmajor: bool = True

@@ -59,6 +59,12 @@ __device__ __forceinline__ bool fp_continue(int it, float delta, float prev,
          (it == 0 || (delta > var_tol && (delta >= kStallGate || delta < prev)));
 }
 
+// ops/estep.py flush_subnormal: a non-negative float32 below the normal
+// range is zero, as XLA computes it on the CPU and the TPU (flush-to-zero).
+__device__ __forceinline__ float flush_subnormal(float v) {
+  return v < 1.17549435e-38f ? 0.0f : v;  // FLT_MIN
+}
+
 // xor butterfly: every lane ends with the same sum, in a fixed order.
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

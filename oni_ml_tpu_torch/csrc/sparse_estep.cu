@@ -42,6 +42,9 @@
 //    rcp.approx.ftz.f32 + one Newton step.
 //  * phi_c is written in [B, L, K] order (token-major), the layout the
 //    [V, K] scatter wants; the wrapper returns the JAX [K, B, L] view of it.
+//    An entry below the normal range is written as zero: XLA flushes each
+//    per-token contribution before its segment-sum, so a word-topic mass
+//    made only of subnormal terms is zero (LOG_ZERO) in both packages.
 //  * Under the chunk driver (models/fused.py) the launch takes a device
 //    pointer to the driver's stop flag and returns at once once it is
 //    set, so EM can stop on the device without a host read.  A launch that
@@ -219,7 +222,7 @@ sparse_estep_kernel(const float* __restrict__ expb_vk,    // [V, K]
     float* __restrict__ o = out + (size_t)l * K;
 #pragma unroll
     for (int k = 0; k < KT; ++k)
-      if (k < K) o[k] = b[k] * (r * e[k]);
+      if (k < K) o[k] = oni::flush_subnormal(b[k] * (r * e[k]));
   }
   for (size_t i = (size_t)n_live * K + lane; i < (size_t)L * K; i += 32) out[i] = 0.0f;
   tok = warp_sum(tok);

@@ -25,12 +25,21 @@ the dispatch returns.  The JAX package runs this loop as a
   same, and the same `torch.where` discards them.
 
 Batches are grouped by (B, L) shape and stacked [NB, B, L]; the JAX
-`lax.scan` over a group becomes a Python loop over its batches.  A
-group is either sparse, (word_idx, counts, doc_mask, live-token plans),
-for csrc/sparse_estep.cu, or dense, (C [NB, B, W] or [NB, W, B], doc_mask),
-for csrc/dense_estep.cu.  One dense group of one batch takes the fast
-path (`run_chunk_impl_fast`), which carries beta in the kernel's
-exp-space [K, W] layout across iterations.
+`lax.scan` over a group becomes a Python loop over its batches.  Three
+kinds of group:
+- token groups (word_idx, counts, doc_mask, live-token plans per batch):
+  each batch runs through `e_step_fn` — the sparse engine
+  (sparse_estep.e_step, csrc/sparse_estep.cu) or the per-batch dispatch
+  (estep.e_step, the default, as in the JAX package);
+- full-V dense groups (C [NB, B, W] or [NB, W, B], doc_mask), for
+  csrc/dense_estep.cu;
+- compact-vocab dense groups (C [NB, B, Wc] or [NB, Wc, B], doc_mask,
+  vocab_map [NB, Wc]): the dense kernel over each batch's own
+  vocabulary, a beta column gather before it and a suff-stats row
+  scatter after (`plan_compact`).
+One dense group of one batch takes the fast path
+(`run_chunk_impl_fast`), which carries beta in the kernel's exp-space
+[K, W] layout across iterations.
 """
 
 from __future__ import annotations
@@ -103,8 +112,97 @@ def densify_groups(groups: StackedGroups, num_terms: int,
     return StackedGroups(tuple(arrays), groups.batch_slots)
 
 
+def dense_groups_bytes(batches: Sequence[Batch], num_terms: int,
+                       itemsize: int = 4) -> int:
+    """Device bytes the densified corpus would occupy."""
+    width = dense_estep.padded_width(num_terms)
+    return sum(b.word_idx.shape[0] for b in batches) * width * itemsize
+
+
+class CompactPlan(NamedTuple):
+    """Host-side plan of the compact-vocab dense E-step: each batch
+    remapped onto its own vocabulary (the words its documents hold), so
+    the dense kernel runs at a width Wc << V, at the cost of one [K, Wc]
+    beta column gather and one [Wc, K] suff-stats row scatter per batch
+    and EM iteration.
+
+    uniques[g][j]: sorted distinct word ids of group g's j-th batch;
+    widths[g]: the group's compact width (the largest unique count,
+    padded to 128 like padded_width)."""
+
+    uniques: tuple
+    widths: tuple
+    wmajor: bool
+    corpus_bytes: int       # device bytes of the compacted corpus
+
+
+def _shape_groups(batches: Sequence[Batch]) -> "dict[tuple, list[int]]":
+    groups: dict[tuple, list[int]] = {}
+    for i, b in enumerate(batches):
+        groups.setdefault(b.word_idx.shape, []).append(i)
+    return groups
+
+
+def plan_compact(batches: Sequence[Batch], num_topics: int,
+                 precision: str = "f32", wmajor: bool = True,
+                 itemsize: int = 4) -> "CompactPlan | None":
+    """A CompactPlan, or None where the card cannot run the dense kernel
+    (K above its compiled bound).  The JAX package also refuses widths
+    whose doc block overflows the TPU's VMEM; the card's kernel keeps
+    nothing sized by the width, so every width runs.  Pure host work:
+    np.unique over each batch's token ids."""
+    if precision != "f32" or not 0 < num_topics <= dense_estep.MAX_TOPICS:
+        return None
+    uniques, widths, total = [], [], 0
+    for shape, idxs in sorted(_shape_groups(batches).items()):
+        us = tuple(np.unique(batches[i].word_idx) for i in idxs)
+        wc = -(-max(len(u) for u in us) // 128) * 128
+        uniques.append(us)
+        widths.append(wc)
+        total += len(idxs) * shape[0] * wc * itemsize
+    return CompactPlan(tuple(uniques), tuple(widths), wmajor, total)
+
+
+def compact_stack_batches(batches: Sequence[Batch],
+                          device: "str | torch.device",
+                          plan: CompactPlan) -> StackedGroups:
+    """Stack batches into compact dense groups: arrays[g] =
+    (C_local [NB, B, Wc] (or [NB, Wc, B] W-major), doc_mask [NB, B],
+    vocab_map [NB, Wc] int64).  vocab_map[j, u] is the global word id of
+    local column u; the columns past the batch's unique count repeat
+    word 0, inert because their counts are zero.  Token ids map to local
+    columns by searchsorted into the batch's sorted uniques (exact:
+    every token id is one of them)."""
+    arrays, slots = [], []
+    for g, (shape, idxs) in enumerate(sorted(_shape_groups(batches).items())):
+        wc = plan.widths[g]
+        local, vmaps = [], []
+        for j, i in enumerate(idxs):
+            u = plan.uniques[g][j]
+            local.append(np.searchsorted(u, batches[i].word_idx))
+            vm = np.zeros(wc, np.int64)
+            vm[:len(u)] = u
+            vmaps.append(vm)
+        w = torch.as_tensor(np.stack(local), dtype=torch.int32).to(device)
+        c = torch.as_tensor(np.stack([batches[i].counts for i in idxs]),
+                            dtype=torch.float32).to(device)
+        nb, b, _ = w.shape
+        dense = torch.empty((nb, wc, b) if plan.wmajor else (nb, b, wc),
+                            dtype=torch.float32, device=w.device)
+        for j in range(nb):
+            d = dense_estep.densify(w[j], c[j], wc, width=wc)
+            dense[j] = d.t() if plan.wmajor else d
+        m = torch.as_tensor(np.stack([batches[i].doc_mask for i in idxs]),
+                            dtype=torch.float32).to(device)
+        arrays.append((dense, m,
+                       torch.as_tensor(np.stack(vmaps)).to(device)))
+        slots.append(tuple(idxs))
+    return StackedGroups(tuple(arrays), tuple(slots))
+
+
 def _is_dense(group) -> bool:
-    return len(group) == 2
+    """A full-V or compact dense group (its corpus leads, in floats)."""
+    return group[0].is_floating_point()
 
 
 def initial_gammas(groups_arrays, k: int, dense_wmajor: bool = False):
@@ -127,14 +225,29 @@ def make_em_accumulator(
     num_terms: int,
     var_max_iters: int,
     var_tol: float,
+    e_step_fn: "Callable | None" = None,
     dense_wmajor: bool = False,
 ):
     """Build `accumulate(log_beta, alpha, groups, gammas_prev, warm,
     stop=None) -> (suff_stats [V, K], likelihood, alpha_ss, gammas,
     vi_max)`: one EM iteration's E-step over stacked groups, without the
-    M-step.  The exp(log beta) tables are built once per call and
-    shared by the batches; suff-stats add in batch order."""
+    M-step.  Token groups run through `e_step_fn` (default
+    estep.e_step, the per-batch dispatch), warm-started only when it is
+    marked `_oni_warm_capable`; the port's own E-steps also take the
+    iteration's shared exp(log beta)^T table, the batch's live-token
+    plan, the stop flag and the alpha-prior constant.  The tables are
+    built once per call; suff-stats add in batch order."""
+    e_fn = e_step_fn or estep.e_step
+    e_warm = getattr(e_fn, "_oni_warm_capable", False)
+    own = e_fn in (estep.e_step, sparse_estep.e_step)
     k, v = num_topics, num_terms
+
+    def dense_batch(log_beta, alpha, dense, mask, g, warm, stop, alpha_const,
+                    exp_beta=None):
+        return dense_estep.e_step_dense(
+            log_beta, alpha, dense, mask, var_max_iters, var_tol,
+            wmajor=dense_wmajor, gamma_prev=g, warm=warm, exp_beta=exp_beta,
+            stop=stop, alpha_const=alpha_const)
 
     def accumulate(log_beta, alpha, groups, gammas_prev, warm, stop=None):
         dev = log_beta.device
@@ -151,29 +264,45 @@ def make_em_accumulator(
         for group, g_prev in zip(groups, gammas_prev):
             outs = []
             g_views = g_prev.unbind(0)
-            if _is_dense(group):
+            if _is_dense(group) and len(group) == 2:     # full-V dense
                 dense_views, mask_views = (t.unbind(0) for t in group)
                 for dense, mask, g in zip(dense_views, mask_views, g_views):
                     if exp_beta is None:
                         w = dense.shape[0] if dense_wmajor else dense.shape[1]
                         exp_beta = dense_estep.padded_exp_beta(log_beta, w)
-                    res = dense_estep.e_step_dense(
-                        log_beta, alpha, dense, mask, var_max_iters, var_tol,
-                        wmajor=dense_wmajor, gamma_prev=g, warm=warm,
-                        exp_beta=exp_beta, stop=stop, alpha_const=alpha_const)
+                    res = dense_batch(log_beta, alpha, dense, mask, g, warm,
+                                      stop, alpha_const, exp_beta)
                     total_ss, total_ll, total_ass = _add(
                         res, total_ss, total_ll, total_ass, vis, outs)
-            else:
-                if expb_vk is None:
-                    expb_vk = sparse_estep.exp_beta_table(log_beta)
+            elif _is_dense(group):                       # compact dense
+                for dense, mask, vmap, g in zip(*(t.unbind(0) for t in group),
+                                                g_views):
+                    res = dense_batch(log_beta.index_select(1, vmap), alpha,
+                                      dense, mask, g, warm, stop, alpha_const)
+                    # Unique rows, and the sentinel columns (word 0
+                    # repeated) add exact zeros: index_add_ into the sum
+                    # is the same bits in any order, on the card too.
+                    total_ss.index_add_(0, vmap, res.suff_stats)
+                    vis.append(res.vi_iters)
+                    outs.append(res.gamma)
+                    total_ll = total_ll + res.likelihood
+                    total_ass = total_ass + res.alpha_ss
+            else:                                        # token group
+                kw = {}
+                if own:
+                    if expb_vk is None:
+                        expb_vk = sparse_estep.exp_beta_table(log_beta)
+                    kw = dict(expb_vk=expb_vk, stop=stop,
+                              alpha_const=alpha_const)
                 w_views, c_views, m_views = (t.unbind(0) for t in group[:3])
                 for word_idx, counts, mask, live, g in zip(
                         w_views, c_views, m_views, group[3], g_views):
-                    res = sparse_estep.e_step(
-                        log_beta, alpha, word_idx, counts, mask,
-                        var_max_iters, var_tol, gamma_prev=g, warm=warm,
-                        expb_vk=expb_vk, live=live, stop=stop,
-                        alpha_const=alpha_const)
+                    if own:
+                        kw["live"] = live
+                    if e_warm:
+                        kw.update(gamma_prev=g, warm=warm)
+                    res = e_fn(log_beta, alpha, word_idx, counts, mask,
+                               var_max_iters, var_tol, **kw)
                     total_ss, total_ll, total_ass = _add(
                         res, total_ss, total_ll, total_ass, vis, outs)
             gammas.append(torch.stack(outs))
@@ -213,6 +342,7 @@ def make_chunk_runner(
     var_tol: float,
     em_tol: float,
     estimate_alpha: bool,
+    e_step_fn: "Callable | None" = None,
     m_step_fn: "Callable | None" = None,
     dense_wmajor: bool = False,
     warm_start: bool = False,
@@ -225,14 +355,15 @@ def make_chunk_runner(
     `have_prev` says whether `gammas_in` holds a previous dispatch's
     posteriors (warm start across dispatches); pass a Python bool — a
     device tensor costs a host read.  A custom `m_step_fn` keeps every
-    dispatch on the generic impl, as in the JAX package."""
+    dispatch on the generic impl, as in the JAX package.  `e_step_fn`
+    runs the token groups (make_em_accumulator)."""
     from .lda import update_alpha  # lda.py imports this module
 
     m_fn = m_step_fn or estep.m_step
     k, v = num_topics, num_terms
     accumulate = make_em_accumulator(
         num_topics=num_topics, num_terms=num_terms,
-        var_max_iters=var_max_iters, var_tol=var_tol,
+        var_max_iters=var_max_iters, var_tol=var_tol, e_step_fn=e_step_fn,
         dense_wmajor=dense_wmajor,
     )
 
@@ -322,7 +453,8 @@ def make_chunk_runner(
 
     def _is_single_dense(groups) -> bool:
         return (dense_fast_ok and len(groups) == 1
-                and _is_dense(groups[0]) and groups[0][0].shape[0] == 1)
+                and len(groups[0]) == 2 and _is_dense(groups[0])
+                and groups[0][0].shape[0] == 1)
 
     def run_chunk_impl_fast(log_beta, alpha, ll_prev, groups, n_steps,
                             gammas_in=None, have_prev=None) -> ChunkResult:

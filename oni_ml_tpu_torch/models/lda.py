@@ -1,7 +1,7 @@
 """Variational-EM LDA trainer (port of oni_ml_tpu/models/lda.py: the
-alpha Newton, the random init, LDAResult, engine choice and the two EM
-drivers) — the in-tree replacement for the reference's MPI `oni-lda-c`
-engine (SURVEY.md §2.8, ml_ops.sh:80).
+alpha Newton, the random init, LDAResult, the engine choice, its gates
+and the two EM drivers) — the in-tree replacement for the reference's
+MPI `oni-lda-c` engine (SURVEY.md §2.8, ml_ops.sh:80).
 
 Outputs follow the reference contract: `final.beta` (K x V log
 p(w|z)), `final.gamma` (D x K), `final.other`, and `likelihood.dat`
@@ -9,14 +9,23 @@ p(w|z)), `final.gamma` (D x K), `final.other`, and `likelihood.dat`
 iteration: the E-step over every batch, the M-step, the Newton alpha
 update, then the float64 host convergence check |dll/ll| < em_tol.
 
-Two E-step engines (`resolve_estep_engine`): "sparse", the fused
-kernel csrc/sparse_estep.cu over the bucketed layout, and "dense",
-csrc/dense_estep.cu over the corpus densified from `make_batches`.  Two
-drivers: the chunk driver (models/fused.py; fused_em_chunk > 1, the
+Two E-step engine families (`resolve_estep_engine`: ONI_ML_TPU_ESTEP >
+LDAConfig.estep_engine > on the card the measured crossover
+(sparse_estep.engine_crossover), on the CPU the dense family):
+- "sparse", the fused kernel csrc/sparse_estep.cu over the bucketed
+  layout;
+- "dense", the family whose gates pick its member: full-V dense
+  (csrc/dense_estep.cu over the densified corpus, `_use_dense`), compact
+  dense (the same kernel over each batch's own vocabulary,
+  `_plan_compact`), else the per-batch dispatch (ops/estep.e_step:
+  sparse, pallas — csrc/fixed_point_estep.cu — or xla).  The gates read
+  the device the trainer was given; on the CPU they resolve as the JAX
+  package's do off the TPU (per batch through xla).
+Two drivers: the chunk driver (models/fused.py; fused_em_chunk > 1, the
 default), which reads the host once per dispatch of up to
 min(fused_em_chunk, host_sync_every) iterations, and the stepwise
-driver (fused_em_chunk <= 1, sparse only), which reads it once per EM
-iteration.
+driver (fused_em_chunk <= 1), which reads it once per EM iteration and
+runs the dense family per batch.
 """
 
 from __future__ import annotations
@@ -32,13 +41,8 @@ import torch
 from ..config import LDAConfig
 from ..device import resolve_device
 from ..io import Batch, Corpus, formats, make_batches
-from ..ops import estep, sparse_estep
+from ..ops import dense_estep, estep, sparse_estep
 from . import convert, fused
-
-# The card's engine when neither ONI_ML_TPU_ESTEP nor the config names
-# one (the JAX package measures a dense-vs-sparse crossover there; that
-# is not ported yet).
-DEFAULT_ENGINE = "sparse"
 
 
 # ---------------------------------------------------------------------------
@@ -101,10 +105,14 @@ class LDAResult:
     likelihoods: list = field(default_factory=list)  # [(ll, conv)] per EM iter
     em_iters: int = 0
     # Resolved knobs with their sources ({"value", "source"}), as the
-    # JAX LDAResult.plan: fused_em_chunk, host_sync_every, estep_engine.
+    # JAX LDAResult.plan: fused_em_chunk, host_sync_every, estep_engine
+    # (and sparse_estep_l for the sparse engine), plus estep_crossover,
+    # the crossover's record, where the crossover decided the engine.
     plan: dict = field(default_factory=dict)
-    # What the driver did: its name, dispatches, host syncs, EM
-    # iterations enqueued after a device stop, the batches trained.
+    # What the driver did: its name, the engine family's member that ran
+    # ("sparse", "dense", "compact" or "per_batch:<backend>"),
+    # dispatches, host syncs, EM iterations enqueued after a device
+    # stop, the batches trained.
     stats: dict = field(default_factory=dict)
 
     def save(self, directory: str, num_terms: "int | None" = None,
@@ -132,25 +140,56 @@ def init_log_beta(generator: torch.Generator, k: int, v: int,
     return torch.log(noise / noise.sum(-1, keepdim=True)).to(device)
 
 
-def resolve_estep_engine(config: LDAConfig) -> "tuple[str, str]":
-    """The E-step engine of a training run and where the choice came
-    from: ONI_ML_TPU_ESTEP ("env") beats LDAConfig.estep_engine
-    ("config"), which beats the card's default, DEFAULT_ENGINE
-    ("default") — the JAX package's precedence, without its measured
-    crossover."""
+def _resolve_engine(corpus: Corpus, config: LDAConfig,
+                    device) -> "tuple[str, str, dict | None]":
+    """resolve_estep_engine's (engine, source) and the crossover's
+    record where the crossover decided."""
+    env = os.environ.get("ONI_ML_TPU_ESTEP", "")
     choice = config.estep_engine
     if choice not in ("auto", "dense", "sparse"):
         raise ValueError(f"LDAConfig.estep_engine={choice!r}: expected "
                          "'auto', 'dense' or 'sparse'")
-    env = os.environ.get("ONI_ML_TPU_ESTEP", "")
+    forced_sparse = env == "sparse" or (not env and choice == "sparse")
+    if forced_sparse and config.dense_em == "on":
+        raise ValueError("estep_engine='sparse' conflicts with "
+                         "dense_em='on': pin one engine family, not both")
     if env:
-        if env not in ("dense", "sparse"):
-            raise ValueError(f"ONI_ML_TPU_ESTEP={env!r}: the port runs "
-                             "the 'dense' or 'sparse' engine")
-        return env, "env"
+        return ("sparse", "env", None) if env == "sparse" else (
+            "dense", "env", None)
     if choice != "auto":
-        return choice, "config"
-    return DEFAULT_ENGINE, "default"
+        return choice, "config", None
+    dev = torch.device(device)
+    if dev.type != "cuda" or config.dense_em == "on":
+        # CPU runs keep the dense family (its gates resolve per batch
+        # through xla there); dense_em="on" pins the family.
+        return "dense", "default", None
+    shapes = corpus.bucket_shapes(
+        min_len=config.sparse_min_bucket_len, batch_cap=config.batch_size,
+        pad_multiple=sparse_estep.pad_multiple_for())
+    if not shapes or config.num_topics > sparse_estep.MAX_TOPICS:
+        return "dense", "default", None
+    b_dom, l_dom, _ = max(shapes, key=lambda s: s[2])
+    cross = sparse_estep.engine_crossover(
+        config.num_topics, corpus.num_terms, b_dom, l_dom, device=dev)
+    return cross["engine"], cross["source"], cross
+
+
+def resolve_estep_engine(corpus: Corpus, config: LDAConfig,
+                         device="cuda") -> "tuple[str, str]":
+    """The E-step engine family of a training run on `device` and where
+    the choice came from: ("sparse" | "dense", source).  ONI_ML_TPU_ESTEP
+    ("env": "sparse" picks the sparse engine, any other value the dense
+    family, whose gates read it) beats an explicit LDAConfig.estep_engine
+    ("config"), which beats, on the card, the measured dense-vs-sparse
+    crossover at the corpus' dominant bucket shape (source "measured",
+    or "plan" when the plan cache holds it, "env" when
+    ONI_ML_TPU_ESTEP_ENGINE pins it), and on the CPU the dense family
+    ("default"), as in the JAX package off the TPU.  The sparse kernel
+    takes any bucket shape at K <= 64; above that the dense family is
+    the default, and on the card its fit raises unless ONI_ML_TPU_ESTEP
+    names "xla" (no kernel takes K; estep.resolve_backend)."""
+    engine, source, _ = _resolve_engine(corpus, config, device)
+    return engine, source
 
 
 def _resolve_em_plan(config: LDAConfig) -> "tuple[int, int, dict]":
@@ -190,7 +229,10 @@ class LDATrainer:
         engine: str = "sparse",
     ) -> LDAResult:
         """Run EM to convergence over `batches` (the bucketed layout's
-        for the sparse engine, make_batches' for the dense one)."""
+        for the sparse engine, make_batches' for the dense family), with
+        the engine family `engine`; the dense family's gates
+        (_use_dense, _plan_compact) pick its member under the chunk
+        driver, and the stepwise driver runs it per batch."""
         cfg = self.config
         k, v, dev = cfg.num_topics, self.num_terms, self.device
         if cfg.compute_dtype != "float32":
@@ -198,9 +240,16 @@ class LDATrainer:
         if engine not in ("sparse", "dense"):
             raise ValueError(f"unknown E-step engine {engine!r}")
         chunk, sync, plan = _resolve_em_plan(cfg)
-        if engine == "dense" and chunk <= 1:
-            raise ValueError("the dense engine runs under the chunk driver; "
-                             "set fused_em_chunk > 1")
+        e_fn = sparse_estep.e_step if engine == "sparse" else estep.e_step
+        member, compact = "sparse", None
+        if engine == "dense":
+            if chunk > 1 and self._use_dense(batches):
+                member = "dense"
+            else:
+                compact = self._plan_compact(batches) if chunk > 1 else None
+                member = "compact" if compact is not None else (
+                    "per_batch:" + estep.resolve_backend(
+                        "auto", *batches[0].word_idx.shape, k, dev))
         if initial_log_beta is not None:
             log_beta = convert.from_reference(initial_log_beta, 0.0,
                                               device=dev).log_beta
@@ -220,22 +269,92 @@ class LDATrainer:
         try:
             if chunk > 1:
                 log_beta, alpha, it, stats = self._fused_loop(
-                    batches, engine, chunk, sync, log_beta, alpha, num_docs,
-                    likelihoods, ll_file, progress, gamma_out)
+                    batches, member, e_fn, compact, chunk, sync, log_beta,
+                    alpha, num_docs, likelihoods, ll_file, progress,
+                    gamma_out)
             else:
                 log_beta, alpha, it, stats = self._stepwise_loop(
-                    batches, log_beta, alpha, num_docs, likelihoods, ll_file,
-                    progress, gamma_out)
+                    batches, e_fn, log_beta, alpha, num_docs, likelihoods,
+                    ll_file, progress, gamma_out)
         finally:
             if ll_file:
                 ll_file.close()
-        stats.update(batches=len(batches), batch_shapes=sorted(
+        stats.update(member=member, batches=len(batches), batch_shapes=sorted(
             {tuple(int(n) for n in b.word_idx.shape) for b in batches}))
         log_beta_np, alpha_f, _ = convert.to_reference(
             convert.ModelState(log_beta, alpha))
         return LDAResult(log_beta=log_beta_np, gamma=gamma_out, alpha=alpha_f,
                          likelihoods=likelihoods, em_iters=it, plan=plan,
                          stats=stats)
+
+    # -- the dense family's gates ------------------------------------------
+
+    def _use_dense(self, batches) -> bool:
+        """Whether the chunk driver runs the full-V dense E-step
+        (ops/dense_estep.py over the corpus densified once).  Auto mode
+        requires the run on the card, the dense kernel able to take K,
+        and the densified corpus plus the sparse stacks it is made from
+        under dense_hbm_budget.  ONI_ML_TPU_ESTEP=dense forces it on;
+        compact, xla, pallas and sparse force it off."""
+        cfg = self.config
+        env = os.environ.get("ONI_ML_TPU_ESTEP", "")
+        mode = {"dense": "on", "compact": "off", "xla": "off",
+                "pallas": "off", "sparse": "off"}.get(env, cfg.dense_em)
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(f"LDAConfig.dense_em={mode!r}: expected "
+                             "'auto', 'on', or 'off'")
+        if mode == "off":
+            return False
+        # The card's kernel keeps nothing sized by V or the block, so
+        # only K bounds it (the JAX package's VMEM model does not apply).
+        # Where it cannot run the full-V corpus it cannot run a compact
+        # one either, so a forced dense has no compact rescue here.
+        feasible = 0 < cfg.num_topics <= dense_estep.MAX_TOPICS
+        if mode == "on":
+            if not feasible:
+                raise ValueError(
+                    f"dense E-step forced but K={cfg.num_topics} exceeds the "
+                    f"dense kernel's {dense_estep.MAX_TOPICS} topics")
+            return True
+        sparse_bytes = sum(b.word_idx.size * 8 for b in batches)
+        return (feasible and self.device.type == "cuda"
+                and fused.dense_groups_bytes(batches, self.num_terms)
+                + sparse_bytes <= cfg.dense_hbm_budget)
+
+    def _plan_compact(self, batches) -> "fused.CompactPlan | None":
+        """The compact-vocab dense plan (fused.plan_compact) when the
+        full-V dense E-step does not run: each batch remapped onto its
+        own vocabulary, the dense kernel at that width.  Auto needs the
+        run on the card and the compacted corpus plus the largest group's
+        sparse stacks under dense_hbm_budget; ONI_ML_TPU_ESTEP=compact
+        forces it, any other env value stands it down."""
+        cfg = self.config
+        env = os.environ.get("ONI_ML_TPU_ESTEP", "")
+        if env and env != "compact":
+            return None
+        mode = "on" if env == "compact" else cfg.dense_em
+        if mode == "off" or (mode != "on" and self.device.type != "cuda"):
+            return None
+        plan = fused.plan_compact(batches, cfg.num_topics,
+                                  wmajor=cfg.dense_wmajor)
+        if plan is None:
+            if mode == "on":
+                raise ValueError(
+                    "compact dense E-step forced but K="
+                    f"{cfg.num_topics} exceeds the dense kernel's "
+                    f"{dense_estep.MAX_TOPICS} topics")
+            return None
+        if mode == "on":
+            return plan
+        groups: dict = {}
+        for b in batches:
+            groups[b.word_idx.shape] = (groups.get(b.word_idx.shape, 0)
+                                        + b.word_idx.size * 8)
+        if plan.corpus_bytes + max(groups.values()) > cfg.dense_hbm_budget:
+            return None
+        return plan
+
+    # -- EM drivers ---------------------------------------------------------
 
     @staticmethod
     def _log_iteration(it, ll, ll_prev, likelihoods, ll_file,
@@ -259,11 +378,12 @@ class LDATrainer:
             sel = b.doc_mask == 1
             gamma_out[b.doc_index[sel]] = g[sel]
 
-    def _stepwise_loop(self, batches, log_beta, alpha, num_docs, likelihoods,
-                       ll_file, progress, gamma_out):
-        """One kernel launch per batch per EM iteration; the likelihood
-        reaches the host once per EM iteration for the float64
-        convergence check.  Sparse engine only."""
+    def _stepwise_loop(self, batches, e_fn, log_beta, alpha, num_docs,
+                       likelihoods, ll_file, progress, gamma_out):
+        """One E-step call per batch per EM iteration through `e_fn`
+        (the sparse engine, or the dense family's per-batch dispatch);
+        the likelihood reaches the host once per EM iteration for the
+        float64 convergence check."""
         cfg = self.config
         k, v, dev = cfg.num_topics, self.num_terms, self.device
         dev_batches = []
@@ -273,6 +393,8 @@ class LDATrainer:
             mask = torch.as_tensor(b.doc_mask, dtype=torch.float32).to(dev)
             dev_batches.append((widx, cnts, mask,
                                 sparse_estep.live_tokens(widx, cnts)))
+        use_warm = cfg.warm_start_gamma and getattr(
+            e_fn, "_oni_warm_capable", False)
         ll_prev = None
         gammas: list = []
         it = 0
@@ -283,17 +405,15 @@ class LDATrainer:
             total_ss = torch.zeros((v, k), dtype=torch.float32, device=dev)
             total_ll = torch.zeros((), dtype=torch.float32, device=dev)
             total_ass = torch.zeros((), dtype=torch.float32, device=dev)
-            prev_gammas = gammas if cfg.warm_start_gamma else []
+            prev_gammas = gammas if use_warm else []
             gammas = []
             for bi, (widx, cnts, mask, live) in enumerate(dev_batches):
                 warm = {}
                 if prev_gammas:
                     warm = {"gamma_prev": prev_gammas[bi], "warm": warm_one}
-                res = sparse_estep.e_step(
-                    log_beta, alpha, widx, cnts, mask,
-                    cfg.var_max_iters, cfg.var_tol, expb_vk=expb,
-                    live=live, alpha_const=alpha_const, **warm,
-                )
+                res = e_fn(log_beta, alpha, widx, cnts, mask,
+                           cfg.var_max_iters, cfg.var_tol, expb_vk=expb,
+                           live=live, alpha_const=alpha_const, **warm)
                 total_ss = total_ss + res.suff_stats
                 total_ll = total_ll + res.likelihood
                 total_ass = total_ass + res.alpha_ss
@@ -313,8 +433,9 @@ class LDATrainer:
             for bi, g in enumerate(gammas)))
         return log_beta, alpha, it, {"driver": "stepwise", "host_syncs": it}
 
-    def _fused_loop(self, batches, engine, chunk, sync, log_beta, alpha,
-                    num_docs, likelihoods, ll_file, progress, gamma_out):
+    def _fused_loop(self, batches, member, e_fn, compact, chunk, sync,
+                    log_beta, alpha, num_docs, likelihoods, ll_file, progress,
+                    gamma_out):
         """Device-resident EM (models/fused.py): up to
         min(chunk, host_sync_every) iterations per dispatch.  The device
         tests convergence in float32 to stop inside a dispatch; at each
@@ -325,22 +446,27 @@ class LDATrainer:
         stepwise driver's float64 semantics."""
         cfg = self.config
         k = cfg.num_topics
-        groups = fused.stack_batches(batches, self.device)
-        if engine == "dense":
-            groups = fused.densify_groups(groups, self.num_terms,
-                                          wmajor=cfg.dense_wmajor)
+        wmajor = cfg.dense_wmajor
+        if member == "compact":
+            wmajor = compact.wmajor
+            groups = fused.compact_stack_batches(batches, self.device, compact)
+        else:
+            groups = fused.stack_batches(batches, self.device)
+            if member == "dense":
+                groups = fused.densify_groups(groups, self.num_terms,
+                                              wmajor=wmajor)
         run_chunk = fused.make_chunk_runner(
             num_docs=num_docs, num_topics=k, num_terms=self.num_terms,
             chunk=chunk, var_max_iters=cfg.var_max_iters,
             var_tol=cfg.var_tol, em_tol=cfg.em_tol,
-            estimate_alpha=cfg.estimate_alpha, dense_wmajor=cfg.dense_wmajor,
-            warm_start=cfg.warm_start_gamma,
+            estimate_alpha=cfg.estimate_alpha, e_step_fn=e_fn,
+            dense_wmajor=wmajor, warm_start=cfg.warm_start_gamma,
             alpha_max_iters=cfg.alpha_max_iters,
         )
         ll_prev = None
         ll_prev_dev = torch.tensor(math.nan, device=self.device)
         gammas_prev = fused.initial_gammas(groups.arrays, k,
-                                           dense_wmajor=cfg.dense_wmajor)
+                                           dense_wmajor=wmajor)
         have_prev = False
         # host_sync_every bounds the iterations per dispatch whatever the
         # chunk, so likelihood.dat streams at least that often.
@@ -395,18 +521,25 @@ def train_corpus(
     files in `out_dir` (likelihood.dat streams during the fit).
 
     The sparse engine trains on `Corpus.bucketed_layout` (floored at
-    `sparse_min_bucket_len`, at most `batch_size` docs per batch), the
-    dense engine on `make_batches` (buckets from `min_bucket_len`, the
-    batch axis padded to a multiple of 8), as the JAX package does
-    without a mesh.  Each batch's gammas scatter back to document order
-    through `Batch.doc_index`.  `LDAResult.plan` records the engine and
-    the driver's knobs with their sources."""
+    `sparse_min_bucket_len`, at most `batch_size` docs per
+    batch), the dense family on `make_batches` (buckets from
+    `min_bucket_len`, the batch axis padded to a multiple of 8), as the
+    JAX package does without a mesh.  Each batch's gammas scatter back
+    to document order through `Batch.doc_index`.  `LDAResult.plan`
+    records the engine and the driver's knobs with their sources (and
+    the crossover's record where it decided); `stats["member"]` the
+    family member that ran."""
     dev = resolve_device(device)
-    engine, engine_src = resolve_estep_engine(config)
+    engine, engine_src, crossover = _resolve_engine(corpus, config, dev)
     if engine == "sparse":
+        if dev.type == "cuda" and config.num_topics > sparse_estep.MAX_TOPICS:
+            raise ValueError(
+                f"sparse E-step engine selected but K={config.num_topics} "
+                f"exceeds the kernel's {sparse_estep.MAX_TOPICS} topics; "
+                "use the dense family for this corpus")
         batches = list(corpus.bucketed_layout(
             min_len=config.sparse_min_bucket_len, batch_cap=config.batch_size,
-            pad_multiple=sparse_estep.pad_multiple_for("f32"),
+            pad_multiple=sparse_estep.pad_multiple_for(),
         ).batches)
     else:
         batches = make_batches(corpus, batch_size=config.batch_size,
@@ -422,6 +555,8 @@ def train_corpus(
         engine=engine,
     )
     result.plan["estep_engine"] = {"value": engine, "source": engine_src}
+    if crossover is not None:
+        result.plan["estep_crossover"] = crossover
     if out_dir and save_final:
         result.save(out_dir, num_terms=corpus.num_terms, include_likelihood=False)
     return result

@@ -35,8 +35,12 @@ block to the JAX kernel).
 from __future__ import annotations
 
 import ctypes
+import math
+import os
+import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _cuda, estep
@@ -114,6 +118,14 @@ def pad_multiple_for(precision: str = "f32") -> int:
             "the port; expected 'f32'"
         )
     return MAX_BLOCK_DOCS
+
+
+def available(b: int, l: int, k: int, device, precision: str = "f32") -> bool:
+    """True where the per-batch dispatch may take this kernel: a CUDA
+    device, K within the compiled bound, float32 beta.  B and L do not
+    enter: pick_block always finds a block and nothing is sized by L."""
+    return (torch.device(device).type == "cuda" and 0 < k <= MAX_TOPICS
+            and precision == "f32")
 
 
 class LiveTokens(NamedTuple):
@@ -227,7 +239,9 @@ def fixed_point_full_reference(
     )
     docll = (core + tok) * mask
     ass = e_lt.sum(1) * mask
-    phic = slab * (ratio[:, :, None] * exp_et[:, None, :])
+    # Each contribution below the normal range is zero before the [V, K]
+    # sum, as XLA flushes it (estep.flush_subnormal).
+    phic = estep.flush_subnormal(slab * (ratio[:, :, None] * exp_et[:, None, :]))
     return gamma, phic, docll, ass, it
 
 
@@ -419,3 +433,174 @@ def e_step(
         alpha_const = estep.alpha_constant(alpha, k)
     likelihood = docll.sum() + doc_mask.sum() * alpha_const
     return estep.EStepResult(gamma, suff, ass.sum(), likelihood, iters.max())
+
+
+# Takes gamma_prev/warm; the drivers hand it their shared tables and
+# plans (models/fused.py, models/lda.py).
+e_step._oni_warm_capable = True
+e_step._oni_sparse_engine = True
+
+
+# ---------------------------------------------------------------------------
+# FLOP accounting: effective (sparse) against dense-equivalent
+# ---------------------------------------------------------------------------
+
+
+def effective_flops(b: int, l: int, k: int, vi_iters: float) -> float:
+    """FLOPs the E-step needs per EM iteration at this shape: two
+    K-contractions over the [B, L] slab per fixed-point iteration plus
+    the converged tail, 4*B*K*L*(vi+1)."""
+    return 4.0 * b * k * l * (float(vi_iters) + 1.0)
+
+
+def dense_equiv_flops(b: int, v: int, k: int, vi_iters: float) -> float:
+    """FLOPs the dense engine does for the same batch: effective_flops
+    with L replaced by padded_width(V)."""
+    from . import dense_estep
+
+    return 4.0 * b * k * dense_estep.padded_width(v) * (float(vi_iters) + 1.0)
+
+
+# ---------------------------------------------------------------------------
+# Measured dense-vs-sparse crossover, persisted in the plan cache
+# ---------------------------------------------------------------------------
+
+# Per-process memo of resolved crossovers, keyed by device fingerprint
+# and exact shape.
+_CROSSOVER_CACHE: "dict[str, dict]" = {}
+
+
+def density_pct(l: int, v: int) -> float:
+    """Row density of the densified batch: L live-token columns out of
+    V, the x-axis of the crossover."""
+    return 100.0 * l / max(v, 1)
+
+
+def _density_band(pct: float) -> int:
+    """Log2 density band (clamped): a crossover measured at one shape
+    serves neighbouring densities."""
+    return max(-3, min(7, int(round(math.log2(max(pct, 1e-3))))))
+
+
+def crossover_shapes(k: int, v: int, b: int, l: int,
+                     precision: str) -> "tuple[str, str]":
+    """(exact shape sig, density-band sig) the crossover records under;
+    exact beats band at lookup."""
+    exact = f"k{k}.v{v}.b{b}.l{l}.{precision}"
+    band = f"dlog{_density_band(density_pct(l, v))}.k{k}.{precision}"
+    return exact, band
+
+
+def measure_crossover(k: int, v: int, b: int, l: int, *,
+                      precision: str = "f32", reps: int = 2,
+                      wmajor: bool = True, device="cuda") -> dict:
+    """Time one E-step through each engine at this shape on the card and
+    return the winner: {"engine", "dense_s", "sparse_s", "source",
+    "shape", "e_steps"} (e_steps: the E-steps run per engine, warm-up
+    included).  Both kernels are built and run once before any timing;
+    the clock is read after torch.cuda.synchronize().  The fixed point
+    runs var_max_iters 8 at var_tol 0, so both engines do the same
+    iterations (the crossover compares cost per iteration, not
+    convergence).  The live-token plan and the densified batch are made
+    outside the timing (the drivers make them once per run), so the
+    comparison is the per-EM-iteration cost the engine choice trades.
+    An engine the card cannot run at this K times as None and loses;
+    both infeasible gives "dense" (the dense family's own paths take
+    over)."""
+    from . import _cuda, dense_estep
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("the engine crossover is measured on the card; "
+                         f"got device {dev}")
+    pad_multiple_for(precision)
+    exact, _ = crossover_shapes(k, v, b, l, precision)
+    rng = np.random.default_rng(0)
+    noise = rng.uniform(size=(k, v)) + 1.0 / v
+    log_beta = torch.as_tensor(np.log(noise / noise.sum(-1, keepdims=True)),
+                               dtype=torch.float32).to(dev)
+    word = torch.as_tensor(rng.integers(0, v, size=(b, l)),
+                           dtype=torch.int32).to(dev)
+    counts = torch.as_tensor(rng.integers(1, 5, size=(b, l)),
+                             dtype=torch.float32).to(dev)
+    mask = torch.ones((b,), dtype=torch.float32, device=dev)
+    alpha = torch.tensor(2.5, dtype=torch.float32, device=dev)
+    vi = 8
+    sparse_ok = k <= MAX_TOPICS
+    dense_ok = k <= dense_estep.MAX_TOPICS
+    _cuda.build([name for name, ok in ((KERNEL, sparse_ok),
+                                       (dense_estep.KERNEL, dense_ok)) if ok])
+    runs = {}
+    if sparse_ok:
+        live = live_tokens(word, counts)
+        runs["sparse"] = lambda: e_step(log_beta, alpha, word, counts, mask,
+                                        vi, 0.0, live=live)
+    if dense_ok:
+        dense = dense_estep.densify(word, counts, v)
+        if wmajor:
+            dense = dense.t().contiguous()
+        runs["dense"] = lambda: dense_estep.e_step_dense(
+            log_beta, alpha, dense, mask, vi, 0.0, wmajor=wmajor)
+    for run in runs.values():              # build, load and warm both
+        run()
+    torch.cuda.synchronize(dev)
+    secs = {"sparse": None, "dense": None}
+    for name, run in runs.items():
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize(dev)
+            best = min(best, time.perf_counter() - t0)
+        secs[name] = best
+    sparse_s, dense_s = secs["sparse"], secs["dense"]
+    engine = ("sparse" if sparse_s is not None
+              and (dense_s is None or sparse_s <= dense_s) else "dense")
+    return {"engine": engine, "dense_s": dense_s, "sparse_s": sparse_s,
+            "source": "measured", "shape": exact,
+            "e_steps": {name: reps + 1 for name in runs}}
+
+
+def engine_crossover(k: int, v: int, b: int, l: int, *,
+                     precision: str = "f32", force: bool = False,
+                     device="cuda") -> dict:
+    """The measured dense-vs-sparse engine decision for this shape on
+    `device`.  ONI_ML_TPU_ESTEP_ENGINE=sparse|dense pins it (source
+    "env"); else this process's memo; else a plan-cache entry for the
+    device's fingerprint, exact shape before density band (source
+    "plan", so a second run measures nothing); else a fresh
+    measurement (source "measured"), persisted under both keys with its
+    timings."""
+    from ..plans import device_fingerprint, lookup_value, record_value
+
+    pad_multiple_for(precision)
+    exact, band = crossover_shapes(k, v, b, l, precision)
+    env = os.environ.get("ONI_ML_TPU_ESTEP_ENGINE", "")
+    if env:
+        if env not in ("sparse", "dense"):
+            raise ValueError(f"ONI_ML_TPU_ESTEP_ENGINE={env!r}: expected "
+                             "sparse or dense")
+        return {"engine": env, "dense_s": None, "sparse_s": None,
+                "source": "env", "shape": exact}
+    memo_key = f"{device_fingerprint(device)}|{exact}"
+    if not force and memo_key in _CROSSOVER_CACHE:
+        return _CROSSOVER_CACHE[memo_key]
+    if not force:
+        for shape in (exact, band):
+            planned = lookup_value("estep_engine", shape=shape, device=device)
+            if isinstance(planned, dict):
+                rec = {"engine": planned["engine"],
+                       "dense_s": planned.get("dense_s"),
+                       "sparse_s": planned.get("sparse_s"),
+                       "source": "plan", "shape": shape}
+                _CROSSOVER_CACHE[memo_key] = rec
+                return rec
+    rec = measure_crossover(k, v, b, l, precision=precision, device=device)
+    _CROSSOVER_CACHE[memo_key] = rec
+    value = {key: rec[key] for key in ("engine", "dense_s", "sparse_s")}
+    measurements = {"dense_s": rec["dense_s"], "sparse_s": rec["sparse_s"]}
+    for shape in (exact, band):
+        record_value("estep_engine", value, shape=shape, source="autotune",
+                     measurements=measurements, device=device)
+    return rec

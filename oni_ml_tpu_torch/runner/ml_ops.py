@@ -13,14 +13,16 @@ Stages, each writing the JAX runner's artifacts into <data-dir>/<fdate>:
     score   float64 host scoring -> flow_results.csv
 
 Pre, corpus and score are host work; LDA is the one stage on the
-device, its E-step a hand-written CUDA kernel: the sparse engine
-(ops/sparse_estep.py) unless ONI_ML_TPU_ESTEP=dense picks the dense one
-(ops/dense_estep.py).  Each stage prints one JSON record with its wall
+device, its E-step a hand-written CUDA kernel: the engine family comes
+from ONI_ML_TPU_ESTEP, else LDAConfig.estep_engine, else (on the card)
+the measured dense-vs-sparse crossover (models/lda.py
+resolve_estep_engine).  Each stage prints one JSON record with its wall
 time; all records land in metrics.json.  The `lda` record also names
-the engine and the EM driver with their sources, the batches trained,
-the kernel launches enqueued and those that ran (the kernels count
-these on the card; the rest were enqueued after the device stopped EM)
-and the host syncs.  The whole day runs in one process:
+the engine with its source, the family member that ran, the crossover's
+record where it decided, the EM driver with its knobs and their
+sources, the batches trained, the kernel launches enqueued and those
+that ran (the kernels count these on the card; the rest were enqueued
+after the device stopped EM) and the host syncs.  The whole day runs in one process:
 the featurized day and the corpus pass between stages in memory.
 """
 
@@ -40,7 +42,7 @@ from ..features import featurize_flow, read_flow_feedback_rows
 from ..features.lineio import iter_flow_lines
 from ..io import Corpus, formats
 from ..models import train_corpus
-from ..ops import dense_estep, sparse_estep
+from ..ops import dense_estep, pallas_estep, sparse_estep
 from ..scoring import ScoringModel, score_flow_csv
 
 ARTIFACTS = [
@@ -50,16 +52,26 @@ ARTIFACTS = [
 ]
 
 
-# The kernels each engine launches, once per batch per EM iteration.
-ENGINE_KERNELS = {"sparse": ("sparse_estep", "sparse_scatter"),
-                  "dense": ("dense_estep",)}
+# The kernels each family member launches, once per batch per EM
+# iteration on the card ("per_batch:xla" is plain ops but for its
+# [V, K] scatter).
+ENGINE_KERNELS = {
+    "sparse": ("sparse_estep", "sparse_scatter"),
+    "dense": ("dense_estep",),
+    "compact": ("dense_estep",),
+    "per_batch:sparse": ("sparse_estep", "sparse_scatter"),
+    "per_batch:pallas": ("fixed_point_estep", "sparse_scatter"),
+    "per_batch:xla": ("sparse_scatter",),
+    "per_batch:dense": ("dense_estep",),
+}
 
 
 def launch_counts() -> dict:
     """Launches so far of every kernel of the port (CUDA only)."""
     return {"sparse_estep": sparse_estep.launch_count,
             "sparse_scatter": sparse_estep.scatter_launch_count,
-            "dense_estep": dense_estep.launch_count}
+            "dense_estep": dense_estep.launch_count,
+            "fixed_point_estep": pallas_estep.launch_count}
 
 
 def executed_counts() -> dict:
@@ -67,7 +79,15 @@ def executed_counts() -> dict:
     check, as the kernels counted them on the card (a host sync)."""
     estep, scatter = sparse_estep.executed_counts()
     return {"sparse_estep": estep, "sparse_scatter": scatter,
-            "dense_estep": dense_estep.executed_count()}
+            "dense_estep": dense_estep.executed_count(),
+            "fixed_point_estep": pallas_estep.executed_count()}
+
+
+def reset_kernel_counts() -> None:
+    """Zero every kernel's launch count and executed counter."""
+    sparse_estep.reset_launch_count()
+    dense_estep.reset_launch_count()
+    pallas_estep.reset_launch_count()
 
 
 def kernel_counts() -> tuple:
@@ -91,6 +111,8 @@ def lda_record(result, counts0: tuple, dev) -> dict:
     return {
         "device": str(dev), "engine": engine,
         "engine_source": plan["estep_engine"]["source"],
+        "member": stats["member"],
+        "crossover": plan.get("estep_crossover"),
         "driver": stats["driver"],
         "chunk": plan["fused_em_chunk"]["value"],
         "chunk_source": plan["fused_em_chunk"]["source"],

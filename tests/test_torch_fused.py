@@ -80,8 +80,9 @@ def _runners(kind, wmajor, num_docs, em_tol):
               estimate_alpha=True, dense_wmajor=wmajor, warm_start=True,
               alpha_max_iters=8)
     e_fn = jsparse.make_e_step_fn(interpret=True) if kind == "sparse" else None
+    t_fn = tsparse.e_step if kind == "sparse" else None
     return (jfused.make_chunk_runner(e_step_fn=e_fn, **kw),
-            fused.make_chunk_runner(**kw))
+            fused.make_chunk_runner(e_step_fn=t_fn, **kw))
 
 
 def _log_beta0():
@@ -185,6 +186,7 @@ def test_split_dispatches_change_nothing(corpus, kind):
     run = fused.make_chunk_runner(
         num_docs=tc.num_docs, num_topics=K, num_terms=V, chunk=8,
         var_max_iters=20, var_tol=1e-6, em_tol=0.0, estimate_alpha=True,
+        e_step_fn=tsparse.e_step if kind == "sparse" else None,
         dense_wmajor=True, warm_start=True, alpha_max_iters=8)
     lb0, nan = torch.from_numpy(_log_beta0()), float("nan")
     one = run(lb0, 2.5, nan, tg.arrays, 5)
@@ -261,13 +263,14 @@ def test_chunk_driver_matches_stepwise_driver(corpus):
     iterations (measured: likelihood 9e-8, beta 5e-5, gamma 1.5e-4)."""
     tc, _ = corpus
     common = dict(num_topics=K, em_max_iters=40, em_tol=1e-3, batch_size=32,
-                  sparse_min_bucket_len=16, seed=0)
+                  sparse_min_bucket_len=16, seed=0, estep_engine="sparse")
     step = train_corpus(tc, LDAConfig(fused_em_chunk=1, **common),
                         device="cpu")
     chunk = train_corpus(tc, LDAConfig(fused_em_chunk=4, host_sync_every=3,
                                        **common), device="cpu")
     assert step.stats["driver"] == "stepwise"
     assert chunk.stats["driver"] == "fused"
+    assert step.stats["member"] == chunk.stats["member"] == "sparse"
     assert 2 < chunk.em_iters == step.em_iters < 40
     assert chunk.stats["host_syncs"] == math.ceil(chunk.em_iters / 3)
     np.testing.assert_allclose(np.asarray(chunk.likelihoods)[:, 0],

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions: the
-sparse E-step and its [V, K] scatter, and the dense E-step in both
-layouts.
+sparse E-step and its [V, K] scatter, the dense E-step in both layouts,
+and the fixed point over a gathered slab.
 
 This file imports no JAX, so it also runs on a machine with a card and
 no JAX (the variable keeps tests/conftest.py from importing jax):
@@ -15,6 +15,8 @@ import pytest
 import torch
 
 from oni_ml_tpu_torch.ops import dense_estep as tdense
+from oni_ml_tpu_torch.ops import estep as testep
+from oni_ml_tpu_torch.ops import pallas_estep as tpallas
 from oni_ml_tpu_torch.ops import sparse_estep as tsparse
 
 K, V = 6, 60
@@ -268,3 +270,70 @@ def test_cuda_dense_wrapper_rejects_bad_operands(cuda):
                                   wmajor=True)
     with pytest.raises(ValueError, match="doc block 8 must be"):
         tdense.fixed_point_blocks(eb, a, dense.to(cuda), m, 20, 1e-6, block=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [False, True], ids=["fresh", "warm"])
+@pytest.mark.parametrize("block", [1, 4, 8])
+def test_cuda_fixed_point_kernel_matches_plain_version(cuda, warm, block):
+    """csrc/fixed_point_estep.cu against fixed_point_reference on the
+    same slab: iterations within one per block; gamma rtol 1e-4
+    (rcp.approx + one Newton step and another f32 summation order) in
+    the blocks that stop together, the others within 2 var_tol by the
+    stop rule's own measure.  With the stop flag clear the launch
+    computes the same bits; set, it returns at once and its device
+    counter leaves it out."""
+    lb, a, w, c, m, gp = _problem(21, 64, 48, 4)
+    dev = cuda
+    slab = tpallas.gather_slab(
+        tsparse.exp_beta_table(torch.from_numpy(lb).to(dev)),
+        torch.from_numpy(w).to(dev))
+    args = (slab, torch.tensor(a, device=dev), torch.from_numpy(c).to(dev),
+            torch.from_numpy(m).to(dev), 80, 1e-5)
+    kw = {"block": block, "warm": torch.tensor(int(warm)),
+          "gamma_prev": torch.from_numpy(gp).to(dev) if warm else None}
+    tpallas.reset_launch_count()
+    got = tpallas.fixed_point_blocks(*args, **kw)
+    clear = torch.zeros((), dtype=torch.int32, device=dev)
+    again = tpallas.fixed_point_blocks(*args, stop=clear, **kw)
+    tpallas.fixed_point_blocks(*args, stop=clear + 1, **kw)
+    torch.cuda.synchronize()
+    assert tpallas.launch_count == 3 and tpallas.executed_count() == 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    ref = tpallas.fixed_point_reference(*args, block, gamma_prev=kw["gamma_prev"],
+                                        warm=kw["warm"])
+    assert int((got[1] - ref[1]).abs().max()) <= 1
+    moved = got[1] != ref[1]
+    same = ~moved.repeat_interleave(block)
+    np.testing.assert_allclose(got[0][same].cpu().numpy(),
+                               ref[0][same].cpu().numpy(), rtol=1e-4)
+    if bool(moved.any()):
+        g, r = got[0][~same].double(), ref[0][~same].double()
+        assert float(((g - r).abs().mean(1) / r.mean(1)).max()) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_cuda_per_batch_e_step_matches_cpu_and_repeats(cuda, backend):
+    """The per-batch dispatch's pallas and xla paths on the card against
+    the CPU (likelihood, alpha_ss rtol 1e-5, suff-stats rtol 1e-4), and
+    twice on the card the same bits: the [V, K] sums go through the
+    position-ordered scatter kernel, not index_add_'s atomics."""
+    lb, a, w, c, m, _ = _problem(22, 32, 64, 4)
+    res = {}
+    for dev in ("cpu", cuda, cuda):
+        t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+        live = tsparse.live_tokens(t(w), t(c))
+        res.setdefault(str(dev), []).append(testep.e_step(
+            t(lb), torch.tensor(a), t(w), t(c), t(m), 40, 1e-5,
+            backend=backend, live=live))
+    (want,), (got, again) = res["cpu"], res["cuda"]
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    ws = want.suff_stats.numpy()
+    np.testing.assert_allclose(got.suff_stats.cpu().numpy(), ws, rtol=1e-4,
+                               atol=1e-6 * np.abs(ws).max())
+    np.testing.assert_allclose(float(got.likelihood), float(want.likelihood),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(got.alpha_ss), float(want.alpha_ss),
+                               rtol=1e-5)

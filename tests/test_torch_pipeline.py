@@ -41,8 +41,9 @@ TOL = 1.1
 @pytest.fixture(scope="module")
 def days(tmp_path_factory):
     """Run both pipelines once: JAX with the sparse engine, stepwise
-    driver and the port's doc block; the port from the JAX initial
-    beta."""
+    driver and the port's doc block; the port with the sparse engine
+    (on the CPU its default is the dense family, as in the JAX
+    package), from the JAX initial beta."""
     root = tmp_path_factory.mktemp("pipeline")
     mp = pytest.MonkeyPatch()
     mp.setenv("ONI_ML_TPU_PLAN_CACHE", str(root / "plans.jsonl"))
@@ -64,7 +65,8 @@ def days(tmp_path_factory):
     v = len(formats.read_words_dat(str(jday / "words.dat")))
     init = np.asarray(jlda.init_log_beta(jax.random.PRNGKey(0), K, v))
     cfg = PipelineConfig(data_dir=str(root / "port"), flow_path=GOLDEN,
-                         lda=LDAConfig(num_topics=K, em_max_iters=EM_ITERS),
+                         lda=LDAConfig(num_topics=K, em_max_iters=EM_ITERS,
+                                       estep_engine="sparse"),
                          scoring=ScoringConfig(threshold=TOL))
     ml_ops.run_pipeline(cfg, FDATE, "flow", device="cpu",
                         initial_log_beta=init, emit=lambda *a, **k: None)
@@ -208,17 +210,20 @@ def test_dense_day_scored_rows_same_order(dense_days):
 @pytest.mark.parametrize("engine", ["sparse", "dense"])
 def test_lda_record_names_engine_driver_and_launches(days, dense_days,
                                                      engine):
-    """metrics.json's lda record: the engine and its source, the driver
-    with chunk and sync and their sources, the batches trained, launches
-    per kernel enqueued, run and skipped (none on the CPU: the plain
-    versions run) and host syncs (one per dispatch of at most 16 EM
-    iterations)."""
+    """metrics.json's lda record: the engine and its source, the family
+    member that ran (the golden day is one batch of 16 docs, so the
+    forced dense family runs full-V dense), no crossover (the engine was
+    named), the driver with chunk and sync and their sources, the
+    batches trained, launches per kernel enqueued, run and skipped (none
+    on the CPU: the plain versions run) and host syncs (one per dispatch
+    of at most 16 EM iterations)."""
     port = (days if engine == "sparse" else dense_days)[0]
     with open(port / "metrics.json") as f:
         lda = {r["stage"]: r for r in json.load(f)}["lda"]
     assert lda["engine"] == engine
-    assert lda["engine_source"] == ("default" if engine == "sparse"
+    assert lda["engine_source"] == ("config" if engine == "sparse"
                                     else "env")
+    assert lda["member"] == engine and lda["crossover"] is None
     assert (lda["driver"], lda["chunk"], lda["chunk_source"]) == (
         "fused", 128, "default")
     assert (lda["sync"], lda["sync_source"]) == (16, "default")
@@ -229,6 +234,7 @@ def test_lda_record_names_engine_driver_and_launches(days, dense_days,
     b, l = lda["batch_shapes"][0]
     assert b == 16 and l == (128 if engine == "sparse" else 16)
     assert lda["kernel_launches"] == {"sparse_estep": 0, "sparse_scatter": 0,
-                                      "dense_estep": 0}
+                                      "dense_estep": 0,
+                                      "fixed_point_estep": 0}
     assert lda["executed_launches"] == lda["kernel_launches"]
     assert lda["skipped_launches"] == lda["kernel_launches"]
