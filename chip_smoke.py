@@ -8,11 +8,17 @@ Phases (any failure exits non-zero before the result line):
              in parallel.
 2. parity    each kernel against its plain PyTorch version on the card,
              at the flow day's shapes, fresh and warm starts (the dense
-             E-step in both layouts), with the tolerances below; time
-             both (CUDA events) and compute the card's bound for the
-             same work.  Each case's cap on fixed-point iterations lies
-             above what most blocks need, so the per-block stop decision
-             is compared too.
+             E-step in both layouts, at the main shape and on long
+             documents, where a block's cell lists overflow to the
+             device-memory scratch; the fixed point at the main shape,
+             on long documents and at B=2, L=16,384, where a cluster of
+             8 CTAs takes each document), with the tolerances below;
+             two launches of the dense and fixed-point kernels must give
+             the same bits; each record carries the launch geometry;
+             time both (CUDA events) and compute the card's bound for
+             the same work.  Each case's cap on fixed-point iterations
+             lies above what most blocks need, so the per-block stop
+             decision is compared too.
 3. e2e       a small synthetic day through the port on the card and on
              the CPU (plain versions), with each ONI_ML_TPU_ESTEP value
              (sparse, dense, pallas, xla, compact): the EM trajectories
@@ -131,8 +137,9 @@ def fail(msg: str) -> None:
 
 def random_bucket(b, l, min_live, seed, warm):
     """A bucket of b docs of min_live..l live tokens (words drawn from V,
-    counts 1..4), zero padding after, the last 3 docs masked; beta from
-    uniform noise, as the JAX init draws it."""
+    counts 1..4), zero padding after, the last 3 docs masked (the last
+    b // 2 where b < 6, so some docs iterate); beta from uniform noise,
+    as the JAX init draws it."""
     rng = np.random.default_rng(seed)
     noise = rng.uniform(size=(K, V)) + 1.0 / V
     log_beta = np.log(noise / noise.sum(-1, keepdims=True)).astype(np.float32)
@@ -141,7 +148,7 @@ def random_bucket(b, l, min_live, seed, warm):
     word = np.where(live, rng.integers(0, V, size=(b, l)), 0).astype(np.int32)
     counts = np.where(live, rng.integers(1, 5, size=(b, l)), 0).astype(np.float32)
     mask = np.ones(b, np.float32)
-    mask[-3:] = 0.0
+    mask[-min(3, b // 2):] = 0.0
     gamma_prev = None
     if warm:
         mean = 2.5 + counts.sum(1, keepdims=True) / K
@@ -191,6 +198,8 @@ def check_fixed_point(label, got, ref, block, var_max_iters, var_tol, errs):
     if float(gi.float().mean()) >= var_max_iters:
         fail(f"{label}: every block ran to the cap of {var_max_iters} "
              "iterations, so no stop decision was compared")
+    if int(gi.max()) <= 1:
+        fail(f"{label}: no block iterated past its first step")
     moved = gi != ri
     if int(moved.sum()) > MAX_MOVED_SHARE * len(gi):
         fail(f"{label}: {int(moved.sum())} of {len(gi)} blocks stop apart")
@@ -261,23 +270,37 @@ def sparse_parity(label, b, l, min_live, warm, var_max_iters, var_tol):
     return rec
 
 
-def dense_parity(label, b, wmajor, warm, var_max_iters, var_tol):
-    """The dense E-step at the flow day's batch: b docs of 65..128
-    tokens densified to [b, W] (duplicate words summed, about 1.6% of
-    the cells non-zero), in the given layout."""
-    case = random_bucket(b, 128, 65, seed=b + 7 + int(warm), warm=warm)
+def dense_parity(label, b, l, min_live, wmajor, warm, var_max_iters, var_tol):
+    """The dense E-step over b docs of min_live..l tokens densified to
+    [b, W] (duplicate words summed), in the given layout, with `cells` = l
+    as the dense path passes it: at the flow day's batch (l 128, about
+    1.6% of the cells non-zero) and on long documents (l 4,096: a block's
+    lists overflow to the scratch)."""
+    case = random_bucket(b, l, min_live, seed=b + 7 + int(warm)
+                         + (0 if l == 128 else l), warm=warm)
     dense = dense_estep.densify(case["word"], case["counts"], V)
     c = dense.t().contiguous() if wmajor else dense
     eb = dense_estep.padded_exp_beta(case["log_beta"], W)
     block = dense_estep.pick_block(b, V, K)
     kw = dict(block=block, wmajor=wmajor, gamma_prev=case["gamma_prev"],
-              warm=torch.tensor(1 if warm else 0))
+              warm=torch.tensor(1 if warm else 0), cells=l)
     args = (eb, case["alpha"], c, case["mask"], var_max_iters, var_tol)
     got = dense_estep.fixed_point_blocks(*args, **kw)
     again = dense_estep.fixed_point_blocks(*args, **kw)
     torch.cuda.synchronize()
-    if not torch.equal(got[1], again[1]):
-        fail(f"{label}: T differs between two launches")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"{label}: gamma, T or the tail differ between two launches")
+    # Which path each block took follows from its cells: a block whose
+    # non-zero cells outnumber the shared memory's keeps its lists in the
+    # scratch.
+    geom = dense_estep.launch_geometry(b, W, K, block, cells=l)
+    nnz_doc = (dense != 0).sum(1).cpu().numpy()
+    nnz_block = nnz_doc.reshape(-1, block).sum(1)
+    n_scratch = int((nnz_block > geom["smem_cells"]).sum())
+    geom.update(blocks_in_shared_memory=len(nnz_block) - n_scratch,
+                blocks_in_scratch=n_scratch,
+                path=("shared memory" if n_scratch == 0 else "L2 scratch"
+                      if n_scratch == len(nnz_block) else "mixed"))
     ref = dense_estep.dense_fixed_point_reference(
         eb, case["alpha"], dense, case["mask"], var_max_iters, var_tol, block,
         gamma_prev=case["gamma_prev"], warm=kw["warm"])
@@ -304,8 +327,6 @@ def dense_parity(label, b, wmajor, warm, var_max_iters, var_tol):
     # iters.  The kernel does the dense formulation's work, 4*K*W flops
     # per doc and iteration over every cell: printed beside the bound.
     iters = got[4].long().cpu().numpy()
-    nnz_doc = (dense != 0).sum(1).cpu().numpy()
-    nnz_block = nnz_doc.reshape(-1, block).sum(1)
     flops = float(4 * K * ((nnz_block * iters).sum() + nnz_doc.sum()))
     dense_flops = float(4 * K * W * block * iters.sum() + 4 * K * W * b)
     nbytes = (b * W * 4 + 2 * K * W * 4 + b * 4 + (b * K * 4 if warm else 0)
@@ -323,22 +344,29 @@ def dense_parity(label, b, wmajor, warm, var_max_iters, var_tol):
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "bytes": nbytes, "flops": flops, "dense_cell_flops": dense_flops,
         "dense_cell_flops_ms": dense_flops / PEAK_F32_FLOPS * 1e3,
+        "geometry": geom, "bit_identical_relaunch": True,
     }
     log("parity " + json.dumps(rec))
-    if wmajor and not warm:
+    if wmajor and not warm and l == 128:
         # Context for a tensor-core kernel later: cuBLAS (TF32 off) on one
         # iteration's two products, times the mean iteration count.
         e = torch.rand((b, K), device="cuda")
         ratio = torch.rand((b, W), device="cuda")
         one = time_ms(lambda: (torch.matmul(e, eb), torch.matmul(ratio, eb.t())),
                       20)
+        rec["cublas_ms"] = one * float(iters.mean())
         log("cublas " + json.dumps({
             "shapes": [[b, K, W], [b, W, K]], "ms_per_iteration": one,
             "iters_mean": float(iters.mean()),
-            "ms": one * float(iters.mean()),
+            "ms": rec["cublas_ms"], "kernel_ms": ms,
+            "kernel_beats_cublas": ms < rec["cublas_ms"],
             "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         }))
     return rec
+
+
+def rec_layout(wmajor):
+    return "wmajor" if wmajor else "rowmajor"
 
 
 def fixed_point_parity(label, b, l, min_live, warm, var_max_iters, var_tol):
@@ -354,7 +382,12 @@ def fixed_point_parity(label, b, l, min_live, warm, var_max_iters, var_tol):
     args = (slab, case["alpha"], case["counts"], case["mask"], var_max_iters,
             var_tol)
     got = pallas_estep.fixed_point_blocks(*args, **kw)
+    again = pallas_estep.fixed_point_blocks(*args, **kw)
     torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"{label}: gamma or iterations differ between two launches")
+    geom = pallas_estep.launch_geometry(b, l, K, block)
+    geom["path"] = "shared memory" if geom["staged"] else "device memory"
     ref = pallas_estep.fixed_point_reference(*args[:6], block,
                                              gamma_prev=kw["gamma_prev"],
                                              warm=kw["warm"])
@@ -396,7 +429,9 @@ def fixed_point_parity(label, b, l, min_live, warm, var_max_iters, var_tol):
         "bytes": nbytes, "flops": flops,
         "library_ms": one * float(doc_iters.mean()),
         "library_ms_per_iteration": one,
+        "geometry": geom, "bit_identical_relaunch": True,
     }
+    rec["kernel_beats_library"] = ms < rec["library_ms"]
     log("fixed_point_parity " + json.dumps(rec))
     return rec
 
@@ -1064,15 +1099,29 @@ def main() -> int:
         for lab, b, l, lo, w, cap, tol in cases
     ]
     dense_recs = [
-        dense_parity(f"dense_{'wmajor' if wm else 'rowmajor'}"
-                     f"{'_warm' if w else ''}", 1024, wm, w, 200, 1e-4)
+        dense_parity(f"dense_{rec_layout(wm)}{'_warm' if w else ''}", 1024,
+                     128, 65, wm, w, 200, 1e-4)
         for wm in (True, False) for w in (False, True)
     ]
+    # Long documents densified to the full width: a block of one document
+    # with thousands of non-zero cells takes the L2-scratch path.
+    dense_recs += [
+        dense_parity(f"dense_long_{rec_layout(wm)}{'_warm' if w else ''}", 8,
+                     4096, 2049, wm, w, 20, 1e-6)
+        for wm in (True, False) for w in (False, True)
+    ]
+    # B=2 docs of up to 16,384 tokens: a cluster of 8 CTAs per document.
+    fixed_cases = cases + (("cluster", 2, 16384, 8193, False, 20, 1e-6),
+                           ("cluster", 2, 16384, 8193, True, 20, 1e-6))
     fixed_recs = [
         fixed_point_parity(f"{lab}{'_warm' if w else ''}", b, l, lo, w, cap,
                            tol)
-        for lab, b, l, lo, w, cap, tol in cases
+        for lab, b, l, lo, w, cap, tol in fixed_cases
     ]
+    if any(r["geometry"]["path"] == "shared memory" for r in dense_recs[4:]):
+        fail("dense long documents: no block took the L2-scratch path")
+    if fixed_recs[4]["geometry"]["cluster"] <= 2:
+        fail("fixed point cluster case: no cluster of more than 2 CTAs")
 
     tmp = tempfile.mkdtemp(prefix="oni_chip_smoke_")
     # This run's own plan cache: the crossover is measured here, not
@@ -1111,7 +1160,23 @@ def main() -> int:
         r["layout"]: {"replaces": DENSE_LAYOUT_REPLACES[r["layout"]],
                       "ms": r["ms"], "plain_ms": r["plain_ms"],
                       "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
-        for r in dense_recs if not r["warm"]}
+        for r in dense_recs[:4] if not r["warm"]}
+    # The redesigned kernels: this run's time per case, and whether each
+    # beat its library yardstick (cuBLAS's two f32 products per iteration
+    # for dense W-major; two torch.bmm per iteration for the fixed point
+    # on long documents).
+    dense_main = dense_recs[0]
+    entries[2].update(
+        cublas_yardstick_ms=dense_main["cublas_ms"],
+        beats_cublas_yardstick=dense_main["ms"] < dense_main["cublas_ms"],
+        by_case={r["case"]: {"ms": r["ms"], "path": r["geometry"]["path"]}
+                 for r in dense_recs})
+    entries[3].update(
+        long_beats_bmm_yardstick=fixed_recs[2]["kernel_beats_library"],
+        by_case={r["case"]: {"ms": r["ms"], "library_ms": r["library_ms"],
+                             "cluster": r["geometry"]["cluster"],
+                             "path": r["geometry"]["path"]}
+                 for r in fixed_recs})
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -64,15 +64,10 @@ using oni::digamma_pos;
 using oni::gammaln_pos;
 using oni::kFull;
 using oni::newton_recip;
+using oni::warp_max;
 using oni::warp_sum;
 
 constexpr int kMaxBlockDocs = 8;     // 256 threads per CTA
-
-__device__ __forceinline__ int warp_max(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
 
 // el[k] = digamma(gam[k]) - digamma(sum gam), lane-parallel over topics.
 template <int KT>

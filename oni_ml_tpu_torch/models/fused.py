@@ -63,7 +63,9 @@ class StackedGroups(NamedTuple):
 
     arrays[g] is (word_idx [NB,B,L], counts [NB,B,L], doc_mask [NB,B],
     live-token plans per batch) for a sparse group, or (C [NB,B,W] or
-    [NB,W,B], doc_mask [NB,B]) for a dense one; batch_slots[g] lists the
+    [NB,W,B], doc_mask [NB,B], L) for a full-V dense one (L, the token
+    lists' length, bounds a document's non-zero cells: the dense
+    kernel's `cells`); batch_slots[g] lists the
     original batch indices, so slot j of group g holds
     batches[batch_slots[g][j]]."""
 
@@ -97,18 +99,18 @@ def stack_batches(batches: Sequence[Batch],
 def densify_groups(groups: StackedGroups, num_terms: int,
                    wmajor: bool = False) -> StackedGroups:
     """Stacked sparse groups -> full-V dense groups (C [NB, B, W], or
-    [NB, W, B] with `wmajor`, and the mask), densified once for the run
+    [NB, W, B] with `wmajor`, the mask and L), densified once for the run
     (dense_estep.densify)."""
     width = dense_estep.padded_width(num_terms)
     arrays = []
     for w, c, m, _ in groups.arrays:
-        nb, b, _ = w.shape
+        nb, b, l = w.shape
         shape = (nb, width, b) if wmajor else (nb, b, width)
         dense = torch.empty(shape, dtype=torch.float32, device=w.device)
         for j in range(nb):
             d = dense_estep.densify(w[j], c[j], num_terms, width=width)
             dense[j] = d.t() if wmajor else d
-        arrays.append((dense, m))
+        arrays.append((dense, m, l))
     return StackedGroups(tuple(arrays), groups.batch_slots)
 
 
@@ -117,6 +119,16 @@ def dense_groups_bytes(batches: Sequence[Batch], num_terms: int,
     """Device bytes the densified corpus would occupy."""
     width = dense_estep.padded_width(num_terms)
     return sum(b.word_idx.shape[0] for b in batches) * width * itemsize
+
+
+def dense_scratch_bytes(shape_widths, num_topics: int) -> int:
+    """The largest per-launch scratch the dense kernel takes over
+    `shape_widths`, ((B, L), W) pairs: a batch of B documents from [B, L]
+    token lists at dense width W (dense_estep.launch_geometry; 0 where
+    every doc block's cells fit in shared memory).  Launches run in
+    order, so one scratch is live at a time."""
+    return max((dense_estep.launch_geometry(b, w, num_topics, cells=l)
+                ["scratch_bytes"] for (b, l), w in shape_widths), default=0)
 
 
 class CompactPlan(NamedTuple):
@@ -168,7 +180,8 @@ def compact_stack_batches(batches: Sequence[Batch],
                           plan: CompactPlan) -> StackedGroups:
     """Stack batches into compact dense groups: arrays[g] =
     (C_local [NB, B, Wc] (or [NB, Wc, B] W-major), doc_mask [NB, B],
-    vocab_map [NB, Wc] int64).  vocab_map[j, u] is the global word id of
+    vocab_map [NB, Wc] int64, L) with L the token lists' length (the
+    dense kernel's `cells`, as in densify_groups).  vocab_map[j, u] is the global word id of
     local column u; the columns past the batch's unique count repeat
     word 0, inert because their counts are zero.  Token ids map to local
     columns by searchsorted into the batch's sorted uniques (exact:
@@ -195,7 +208,8 @@ def compact_stack_batches(batches: Sequence[Batch],
         m = torch.as_tensor(np.stack([batches[i].doc_mask for i in idxs]),
                             dtype=torch.float32).to(device)
         arrays.append((dense, m,
-                       torch.as_tensor(np.stack(vmaps)).to(device)))
+                       torch.as_tensor(np.stack(vmaps)).to(device),
+                       shape[1]))
         slots.append(tuple(idxs))
     return StackedGroups(tuple(arrays), tuple(slots))
 
@@ -243,11 +257,11 @@ def make_em_accumulator(
     k, v = num_topics, num_terms
 
     def dense_batch(log_beta, alpha, dense, mask, g, warm, stop, alpha_const,
-                    exp_beta=None):
+                    cells, exp_beta=None):
         return dense_estep.e_step_dense(
             log_beta, alpha, dense, mask, var_max_iters, var_tol,
             wmajor=dense_wmajor, gamma_prev=g, warm=warm, exp_beta=exp_beta,
-            stop=stop, alpha_const=alpha_const)
+            stop=stop, alpha_const=alpha_const, cells=cells)
 
     def accumulate(log_beta, alpha, groups, gammas_prev, warm, stop=None):
         dev = log_beta.device
@@ -264,21 +278,22 @@ def make_em_accumulator(
         for group, g_prev in zip(groups, gammas_prev):
             outs = []
             g_views = g_prev.unbind(0)
-            if _is_dense(group) and len(group) == 2:     # full-V dense
-                dense_views, mask_views = (t.unbind(0) for t in group)
+            if _is_dense(group) and len(group) == 3:     # full-V dense
+                dense_views, mask_views = (t.unbind(0) for t in group[:2])
                 for dense, mask, g in zip(dense_views, mask_views, g_views):
                     if exp_beta is None:
                         w = dense.shape[0] if dense_wmajor else dense.shape[1]
                         exp_beta = dense_estep.padded_exp_beta(log_beta, w)
                     res = dense_batch(log_beta, alpha, dense, mask, g, warm,
-                                      stop, alpha_const, exp_beta)
+                                      stop, alpha_const, group[2], exp_beta)
                     total_ss, total_ll, total_ass = _add(
                         res, total_ss, total_ll, total_ass, vis, outs)
             elif _is_dense(group):                       # compact dense
-                for dense, mask, vmap, g in zip(*(t.unbind(0) for t in group),
-                                                g_views):
+                for dense, mask, vmap, g in zip(
+                        *(t.unbind(0) for t in group[:3]), g_views):
                     res = dense_batch(log_beta.index_select(1, vmap), alpha,
-                                      dense, mask, g, warm, stop, alpha_const)
+                                      dense, mask, g, warm, stop, alpha_const,
+                                      group[3])
                     # Unique rows, and the sentinel columns (word 0
                     # repeated) add exact zeros: index_add_ into the sum
                     # is the same bits in any order, on the card too.
@@ -453,13 +468,14 @@ def make_chunk_runner(
 
     def _is_single_dense(groups) -> bool:
         return (dense_fast_ok and len(groups) == 1
-                and len(groups[0]) == 2 and _is_dense(groups[0])
+                and len(groups[0]) == 3 and _is_dense(groups[0])
                 and groups[0][0].shape[0] == 1)
 
     def run_chunk_impl_fast(log_beta, alpha, ll_prev, groups, n_steps,
                             gammas_in=None, have_prev=None) -> ChunkResult:
         alpha, ll_prev = _inputs(log_beta, alpha, ll_prev)
-        dense, mask = (a[0] for a in groups[0])
+        dense, mask = (a[0] for a in groups[0][:2])
+        cells = groups[0][2]
         w = dense.shape[0] if dense_wmajor else dense.shape[1]
         fp = (dense_estep.dense_fixed_point_w if dense_wmajor
               else dense_estep.dense_fixed_point)
@@ -470,7 +486,7 @@ def make_chunk_runner(
         def iterate(exp_beta, alpha, gammas, warm, stop):
             gamma, t, docll, ass, iters = fp(
                 exp_beta, alpha, dense, mask, var_max_iters, var_tol,
-                gamma_prev=gammas[0][0], warm=warm, stop=stop)
+                gamma_prev=gammas[0][0], warm=warm, stop=stop, cells=cells)
             ll = docll.sum() + mask.sum() * estep.alpha_constant(alpha, k)
             suff = exp_beta * t                        # [K, W]
             total = suff.sum(-1, keepdim=True)         # pad columns are 0

@@ -293,8 +293,9 @@ class LDATrainer:
         """Whether the chunk driver runs the full-V dense E-step
         (ops/dense_estep.py over the corpus densified once).  Auto mode
         requires the run on the card, the dense kernel able to take K,
-        and the densified corpus plus the sparse stacks it is made from
-        under dense_hbm_budget.  ONI_ML_TPU_ESTEP=dense forces it on;
+        and the densified corpus, the sparse stacks it is made from and
+        the largest launch's scratch (fused.dense_scratch_bytes) under
+        dense_hbm_budget.  ONI_ML_TPU_ESTEP=dense forces it on;
         compact, xla, pallas and sparse force it off."""
         cfg = self.config
         env = os.environ.get("ONI_ML_TPU_ESTEP", "")
@@ -305,8 +306,9 @@ class LDATrainer:
                              "'auto', 'on', or 'off'")
         if mode == "off":
             return False
-        # The card's kernel keeps nothing sized by V or the block, so
-        # only K bounds it (the JAX package's VMEM model does not apply).
+        # The card's kernel takes any V and block, so only K bounds it
+        # (the JAX package's VMEM model does not apply); its scratch
+        # counts against the budget below.
         # Where it cannot run the full-V corpus it cannot run a compact
         # one either, so a forced dense has no compact rescue here.
         feasible = 0 < cfg.num_topics <= dense_estep.MAX_TOPICS
@@ -316,17 +318,22 @@ class LDATrainer:
                     f"dense E-step forced but K={cfg.num_topics} exceeds the "
                     f"dense kernel's {dense_estep.MAX_TOPICS} topics")
             return True
+        if not (feasible and self.device.type == "cuda"):
+            return False
         sparse_bytes = sum(b.word_idx.size * 8 for b in batches)
-        return (feasible and self.device.type == "cuda"
-                and fused.dense_groups_bytes(batches, self.num_terms)
-                + sparse_bytes <= cfg.dense_hbm_budget)
+        width = dense_estep.padded_width(self.num_terms)
+        scratch = fused.dense_scratch_bytes(
+            {(b.word_idx.shape, width) for b in batches}, cfg.num_topics)
+        return (fused.dense_groups_bytes(batches, self.num_terms)
+                + sparse_bytes + scratch <= cfg.dense_hbm_budget)
 
     def _plan_compact(self, batches) -> "fused.CompactPlan | None":
         """The compact-vocab dense plan (fused.plan_compact) when the
         full-V dense E-step does not run: each batch remapped onto its
         own vocabulary, the dense kernel at that width.  Auto needs the
-        run on the card and the compacted corpus plus the largest group's
-        sparse stacks under dense_hbm_budget; ONI_ML_TPU_ESTEP=compact
+        run on the card and the compacted corpus, the largest group's
+        sparse stacks and the largest launch's scratch under
+        dense_hbm_budget; ONI_ML_TPU_ESTEP=compact
         forces it, any other env value stands it down."""
         cfg = self.config
         env = os.environ.get("ONI_ML_TPU_ESTEP", "")
@@ -350,7 +357,10 @@ class LDATrainer:
         for b in batches:
             groups[b.word_idx.shape] = (groups.get(b.word_idx.shape, 0)
                                         + b.word_idx.size * 8)
-        if plan.corpus_bytes + max(groups.values()) > cfg.dense_hbm_budget:
+        scratch = fused.dense_scratch_bytes(zip(sorted(groups), plan.widths),
+                                            cfg.num_topics)
+        if (plan.corpus_bytes + max(groups.values()) + scratch
+                > cfg.dense_hbm_budget):
             return None
         return plan
 

@@ -48,15 +48,22 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> str:
-    """Where csrc/<name>.cu's library lands: named by a hash of the
-    source, every shared header (csrc/*.cuh) and the flags."""
+def source_digest(name: str) -> str:
+    """The build hash of csrc/<name>.cu: the source, every shared header
+    (csrc/*.cuh) and the flags.  Names the library, and keys what was
+    measured with it (the engine crossover's plan entries)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for part in [f"{name}.cu", *headers]:
         with open(os.path.join(CSRC, part), "rb") as f:
             digest.update(part.encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    return digest.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> str:
+    """Where csrc/<name>.cu's library lands, named by its build hash, so
+    an edited source or header never loads a stale build."""
+    return os.path.join(BUILD_DIR, f"lib{name}-{source_digest(name)}.so")
 
 
 def build(names) -> None:

@@ -26,7 +26,12 @@ raises.  The layout changes nothing but the f32 summation order.
 
 The TPU's block rules (W-major doc blocks in multiples of the 128-lane
 tile, the VMEM model) do not carry over: `pick_block` sizes the doc
-block for the card's 132 SMs and the kernel's registers.
+block for the card's 132 SMs and the kernel's registers, and
+`launch_geometry` the shared memory that holds each block's lists of
+non-zero cells (and the scratch that takes a block whose lists do not
+fit).  A document has at most min(W, L) non-zero cells when its batch
+was densified from [B, L] token lists: callers that know L pass it as
+`cells`, which bounds both.
 """
 
 from __future__ import annotations
@@ -40,8 +45,8 @@ from .special import digamma_pos, gammaln_pos
 from .stop import fp_continue
 
 KERNEL = "dense_estep"
-# Largest doc block: a CTA keeps BB x K per-topic sums per thread in
-# registers (csrc/dense_estep.cu).
+# Largest doc block the kernel is compiled for (csrc/dense_estep.cu
+# launch_bb).
 MAX_BLOCK_DOCS = 4
 # H100 SXM streaming multiprocessors: the block pick aims for at least
 # one CTA per SM.
@@ -50,6 +55,20 @@ NUM_SMS = 132
 MAX_TOPICS = 32
 # Blocks wider than 2 docs are compiled only up to this many topics.
 WIDE_BLOCK_TOPICS = 20
+# Warps a CTA has (8 at most: csrc/dense_estep.cu kMaxThreads) where the
+# batch has no more blocks than the card has SMs, shared evenly by the
+# block's documents; a batch that fills the card runs one warp per
+# document.  torch_kernel_sweep.py on an H100 at 700 W: at the flow day's
+# B 1024 (256 blocks of 4) one warp per document ran 0.34-0.35 ms against
+# 0.43 ms with two; at B 8 (blocks of 1) eight warps 0.21 ms against
+# 0.28 ms with four.
+CTA_WARPS = 8
+# Dynamic shared memory for a block's cell lists: at most what one CTA may
+# take (227 KB, less the kernel's static arrays), or, when the batch has
+# more blocks than the card has SMs, what lets two CTAs share an SM.
+SMEM_PER_CTA = 232_448
+SMEM_STATIC = 4_096
+SMEM_TWO_PER_SM = 102_400
 
 launch_count = 0
 # Device counter of the launches that ran past the stop check.
@@ -63,8 +82,9 @@ def _kernel():
         lib = _cuda.load(KERNEL)
         fn = lib.oni_dense_estep
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, ll, ll, p, p, p, p, p, i, i, i, i, i, i,
-                       ctypes.c_float, p, p, p, p, p, p, p]
+        fn.argtypes = [p, p, ll, ll, i, p, p, p, p, p, i, i, i, i, i, i, i,
+                       ctypes.c_float, i, i, p, p, p, p, p, p, p, p, p, p,
+                       p]
         fn.restype = i
         _FN = (lib, fn)
     return _FN
@@ -110,6 +130,39 @@ def pick_block(b: int, v: int, k: int, precision: str = "f32") -> int:
     while bb > 1 and (b % bb or b // bb < NUM_SMS):
         bb //= 2
     return bb
+
+
+def launch_geometry(b: int, w: int, k: int, block: "int | None" = None,
+                    cells: "int | None" = None) -> dict:
+    """How csrc/dense_estep.cu runs a [B, W] batch whose documents have
+    at most `cells` non-zero cells each (W unless given; L for a batch
+    densified from [B, L] token lists): `block` documents per CTA
+    (pick_block unless given), one warp each where the batch has more
+    blocks than the card has SMs, else CTA_WARPS / block each; the
+    dynamic shared memory (`smem_bytes`) that holds a block's non-zero
+    cells, (K + 1) * 4 bytes each (`smem_cells`); `block_cells`, the most
+    non-zero cells a block can have (block * min(W, cells)); and
+    `scratch_bytes`, the per-launch scratch in device memory for the
+    blocks whose cells do not fit, a slice of block_cells cells per
+    block, or 0 where no block can overflow.  A block takes the scratch
+    exactly when its non-zero cells outnumber smem_cells."""
+    block = block or pick_block(b, w, k)
+    if b % block:
+        raise ValueError(f"doc block {block} does not divide batch size {b}")
+    if cells is not None and cells <= 0:
+        raise ValueError(f"cells per document must be positive, got {cells}")
+    nb = b // block
+    cell = 4 * (k + 1)
+    block_cells = block * min(w, cells or w)
+    cap = SMEM_TWO_PER_SM if nb > NUM_SMS else SMEM_PER_CTA - SMEM_STATIC
+    smem = min(cap, block_cells * cell)
+    wpd = 1 if nb > NUM_SMS else max(1, CTA_WARPS // block)
+    return {"block": block, "docs_per_cta": block,
+            "warps_per_doc": wpd, "threads": 32 * block * wpd,
+            "ctas": nb, "cluster": 1, "smem_bytes": smem,
+            "smem_cells": smem // cell, "block_cells": block_cells,
+            "scratch_bytes": (0 if block_cells * cell <= smem
+                              else nb * block_cells * cell)}
 
 
 def pick_block_w(b: int, v: int, k: int, precision: str = "f32") -> int:
@@ -234,7 +287,7 @@ def dense_fixed_point_reference(
 
 
 def _launch_cuda(exp_beta, alpha, counts, wmajor, doc_mask, var_max_iters,
-                 var_tol, block, gamma_in, warm, stop):
+                 var_tol, block, cells, gamma_in, warm, stop):
     global launch_count
     k, w = exp_beta.shape
     b = counts.shape[1] if wmajor else counts.shape[0]
@@ -256,24 +309,38 @@ def _launch_cuda(exp_beta, alpha, counts, wmajor, doc_mask, var_max_iters,
                          f"<= {_max_block(k)} at K={k}")
     # Element (d, w) of C sits at d * stride_d + w * stride_w.
     stride_d, stride_w = (1, b) if wmajor else (w, 1)
-    gamma = torch.empty((b, k), dtype=torch.float32, device=dev)
-    em = torch.empty((b, k), dtype=torch.float32, device=dev)
-    t = torch.empty((k, w), dtype=torch.float32, device=dev)
-    docll = torch.empty((b,), dtype=torch.float32, device=dev)
-    ass = torch.empty((b,), dtype=torch.float32, device=dev)
-    iters = torch.empty((b // block,), dtype=torch.int32, device=dev)
+    geom = launch_geometry(b, w, k, block, cells)
+    f32, i32 = torch.float32, torch.int32
+    gamma = torch.empty((b, k), dtype=f32, device=dev)
+    em = torch.empty((b, k), dtype=f32, device=dev)
+    t = torch.empty((k, w), dtype=f32, device=dev)
+    docll = torch.empty((b,), dtype=f32, device=dev)
+    ass = torch.empty((b,), dtype=f32, device=dev)
+    iters = torch.empty((b // block,), dtype=i32, device=dev)
+    # The fixed point's hand-off to T: per 32-column group and document
+    # the non-zero columns' mask and the list offset, and each cell's
+    # c / q in list order (row d holds the first n_d entries).
+    groups = -(-w // 32)
+    masks = torch.empty((groups, b), dtype=i32, device=dev)
+    pref = torch.empty((groups, b), dtype=i32, device=dev)
+    ratio = torch.empty((b, w), dtype=f32, device=dev)
+    scratch = (torch.empty((geom["scratch_bytes"] // 4,), dtype=f32,
+                           device=dev) if geom["scratch_bytes"] else None)
     lib, fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             exp_beta.data_ptr(), counts.data_ptr(), stride_d, stride_w,
-            doc_mask.data_ptr(), gamma_in.data_ptr(), alpha.data_ptr(),
-            _cuda.ptr(stop), _EXECUTED.slot(dev, 0), int(warm), b, w, k,
-            block, int(var_max_iters), float(var_tol), gamma.data_ptr(),
-            em.data_ptr(), docll.data_ptr(), ass.data_ptr(),
-            iters.data_ptr(), t.data_ptr(), stream,
+            int(wmajor), doc_mask.data_ptr(), gamma_in.data_ptr(),
+            alpha.data_ptr(), _cuda.ptr(stop), _EXECUTED.slot(dev, 0),
+            int(warm), b, w, k, block, geom["warps_per_doc"],
+            int(var_max_iters), float(var_tol),
+            geom["smem_bytes"], geom["block_cells"], _cuda.ptr(scratch),
+            masks.data_ptr(), pref.data_ptr(), ratio.data_ptr(),
+            gamma.data_ptr(), em.data_ptr(), docll.data_ptr(),
+            ass.data_ptr(), iters.data_ptr(), t.data_ptr(), stream,
         )
-    _cuda.check(lib, err, "dense_estep launch")
+    _cuda.check(lib, err, f"dense_estep launch, geometry {geom}")
     launch_count += 1
     return gamma, t, docll, ass, iters
 
@@ -290,9 +357,15 @@ def fixed_point_blocks(
     gamma_prev=None,              # [B, K] warm start (None = fresh init)
     warm=None,                    # gates gamma_prev: 0 fresh, nonzero warm
     stop: "torch.Tensor | None" = None,   # int32 scalar stop flag
+    cells: "int | None" = None,   # non-zero cells a doc may have (L)
 ):
     """Dense E-step core -> (gamma [B, K], T [K, W], docll [B], ass [B],
     iters per block [B // block] int32), either layout.
+
+    `cells` bounds each document's non-zero cells (the L of the [B, L]
+    token lists the batch was densified from; W when None) and so the
+    card's per-launch scratch; a document with more non-zero cells than
+    `cells` is the caller's error, which the kernel stops on.
 
     `stop` is the chunk driver's device-resident flag (models/fused.py):
     once it is nonzero the kernels return at once and the outputs hold
@@ -322,30 +395,31 @@ def fixed_point_blocks(
         gamma_in, warm_i = gamma_prev, 1
     return _launch_cuda(exp_beta, torch.as_tensor(alpha), dense_counts,
                         wmajor, doc_mask, var_max_iters, var_tol, bb,
-                        gamma_in, warm_i, stop)
+                        cells, gamma_in, warm_i, stop)
 
 
 def dense_fixed_point(exp_beta, alpha, dense_counts, doc_mask, var_max_iters,
                       var_tol, block=None, gamma_prev=None, warm=None,
-                      stop=None):
+                      stop=None, cells=None):
     """Row-major C [B, W]: the JAX contract (gamma [B, K], T [K, W],
     docll [B], alpha_ss_part [B], iters = max over blocks).  docll is the
     per-doc ELBO without the alpha-prior constant."""
     gamma, t, docll, ass, iters = fixed_point_blocks(
         exp_beta, alpha, dense_counts, doc_mask, var_max_iters, var_tol,
-        block=block, gamma_prev=gamma_prev, warm=warm, stop=stop)
+        block=block, gamma_prev=gamma_prev, warm=warm, stop=stop,
+        cells=cells)
     return gamma, t, docll, ass, iters.max()
 
 
 def dense_fixed_point_w(exp_beta, alpha, dense_counts_t, doc_mask,
                         var_max_iters, var_tol, block=None, gamma_prev=None,
-                        warm=None, stop=None):
+                        warm=None, stop=None, cells=None):
     """W-major twin of dense_fixed_point over C^T [W, B]; same returns
     (gamma [B, K], as in the JAX package)."""
     gamma, t, docll, ass, iters = fixed_point_blocks(
         exp_beta, alpha, dense_counts_t, doc_mask, var_max_iters, var_tol,
         block=block, wmajor=True, gamma_prev=gamma_prev, warm=warm,
-        stop=stop)
+        stop=stop, cells=cells)
     return gamma, t, docll, ass, iters.max()
 
 
@@ -363,11 +437,13 @@ def e_step_dense(
     exp_beta: "torch.Tensor | None" = None,
     stop: "torch.Tensor | None" = None,
     alpha_const: "torch.Tensor | None" = None,
+    cells: "int | None" = None,
 ) -> estep.EStepResult:
     """estep.e_step semantics over a densified batch.  Pass `exp_beta`
     (padded_exp_beta(log_beta, W)) and `alpha_const`
     (estep.alpha_constant) to share them across the batches of an EM
-    iteration."""
+    iteration, and `cells` (the L the batch was densified from) to bound
+    the card's scratch (fixed_point_blocks)."""
     k, v = log_beta.shape
     w = dense_counts.shape[0] if wmajor else dense_counts.shape[1]
     if exp_beta is None:
@@ -377,7 +453,8 @@ def e_step_dense(
     fp = dense_fixed_point_w if wmajor else dense_fixed_point
     gamma, t, docll, ass, iters = fp(
         exp_beta, alpha, dense_counts, doc_mask, var_max_iters, var_tol,
-        block=block, gamma_prev=gamma_prev, warm=warm, stop=stop)
+        block=block, gamma_prev=gamma_prev, warm=warm, stop=stop,
+        cells=cells)
     suff = (exp_beta * t)[:, :v].t()            # [V, K]
     if alpha_const is None:
         alpha_const = estep.alpha_constant(alpha, k)

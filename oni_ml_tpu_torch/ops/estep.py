@@ -257,7 +257,7 @@ def e_step(
         return dense_estep.e_step_dense(
             log_beta, alpha, dense, doc_mask, var_max_iters, var_tol,
             block=block, gamma_prev=gamma_prev, warm=warm, stop=stop,
-            alpha_const=alpha_const)
+            alpha_const=alpha_const, cells=l)
     if path == "sparse":
         from . import sparse_estep
 

@@ -26,9 +26,12 @@ kernel's per-grid-step rule, so the two agree in their stop decisions at
 equal blocks (the tests pass the port's block to the JAX kernel).  The
 TPU's block rule (`pick_block` there: up to 128 documents, sized by a
 12 MiB VMEM model, none past L of about 9.7k at K=20) does not apply on
-the card: nothing of the kernel is sized by L, and `pick_block` here
-spreads a batch over the card's SMs.  The kernel runs any L; it refuses
-only K above MAX_TOPICS.
+the card: `pick_block` here spreads a batch over the card's SMs, and
+`launch_geometry` picks how the kernel runs each block: docs per CTA,
+warps per document, a thread-block cluster per document for long
+documents, and the shared-memory tile that stages the slab (or none,
+where a tile cannot fit: the kernel then reads the slab from device
+memory).  The kernel runs any L; it refuses only K above MAX_TOPICS.
 """
 
 from __future__ import annotations
@@ -42,13 +45,30 @@ from .special import digamma_pos
 from .stop import fp_continue
 
 KERNEL = "fixed_point_estep"
-# Largest doc block: one warp per doc, 8 warps = 256 threads per CTA.
+# Largest doc block (the stop group): one CTA takes the whole block.
 MAX_BLOCK_DOCS = 8
 # H100 SXM streaming multiprocessors: the block pick aims for at least
 # one CTA per SM.
 NUM_SMS = 132
 # Topics the kernel holds in registers (the largest compiled bound).
 MAX_TOPICS = 64
+# Shared memory one CTA may take on the H100 (227 KB, opt-in above 48 KB),
+# less the kernel's static arrays (4,736 bytes at MAX_THREADS and K <= 64,
+# rounded up): the most a staged slab tile may hold.
+SMEM_PER_CTA = 232_448
+SMEM_STATIC = 5_120
+# Thread-block clusters: the portable size limit.
+MAX_CLUSTER = 8
+# Threads a CTA may have: csrc/fixed_point_estep.cu kMaxThreads, the same
+# number.
+MAX_THREADS = 256
+# Live tokens per warp the geometry aims for (4 per lane), and the least
+# a CTA of a cluster should hold.  torch_kernel_sweep.py on an H100 at
+# 700 W: at the flow day's B 1024, L 128 one warp per document (128) ran
+# 0.246 ms, two (64) 0.30 ms; at B 8, L 4,096 four warps a CTA of a
+# cluster of 8 (128) 0.090 ms, eight (64) 0.093 ms, two (256) 0.101 ms.
+TOKENS_PER_WARP = 128
+MIN_TOKENS_PER_CTA = 128
 
 launch_count = 0
 # Device counter of the launches that ran past the stop check.
@@ -62,7 +82,7 @@ def _kernel():
         lib = _cuda.load(KERNEL)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = lib.oni_fixed_point_estep
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
                        ctypes.c_float, p, p, p]
         fn.restype = i
         _FN = (lib, fn)
@@ -87,13 +107,63 @@ def pick_block(b: int) -> int:
     kernel's rule: the largest power of two <= MAX_BLOCK_DOCS dividing
     `b` that still gives at least NUM_SMS blocks, else 1.  The JAX rule
     (up to 128 docs under a VMEM model of 12 MiB) does not apply: the
-    card's kernel keeps nothing sized by L or by the block on chip."""
+    block only groups the stop decisions, and launch_geometry sizes what
+    the kernel keeps in shared memory."""
     if b <= 0:
         raise ValueError(f"batch size must be positive, got {b}")
     bb = MAX_BLOCK_DOCS
     while bb > 1 and (b % bb or b // bb < NUM_SMS):
         bb //= 2
     return bb
+
+
+def _tile_len(l: int, cluster: int) -> int:
+    """Tokens of a document one CTA of a `cluster` stages: its share of
+    L, rounded up to 4 (16-byte rows)."""
+    return (-(-l // cluster) + 3) // 4 * 4
+
+
+def launch_geometry(b: int, l: int, k: int, block: "int | None" = None) -> dict:
+    """How the kernel runs a [K, B, L] slab on the card, a pure function
+    of (B, L, K) and the card's 132 SMs:
+
+    - `block`: documents per stop group, pick_block(B) unless given; one
+      CTA (or one cluster) takes one block, so `docs_per_cta` = block;
+    - `cluster`: CTAs per document, only for a block of one document:
+      doubled (up to 8) while the batch leaves SMs idle and each CTA
+      keeps at least MIN_TOKENS_PER_CTA tokens, then while a CTA's share
+      of the slab does not fit in its shared memory;
+    - `tile_len`, `smem_bytes`, `staged`: each CTA stages tile_len tokens
+      (K slab rows and the counts) per document in shared memory where
+      block * (K + 1) * 4 * tile_len bytes fit, else `staged` is False
+      and the slab is read from device memory;
+    - `warps_per_doc`: doubled while a warp would hold more than
+      TOKENS_PER_WARP of the tile and the CTA stays within MAX_THREADS."""
+    if b <= 0 or l <= 0 or not 0 < k <= MAX_TOPICS:
+        raise ValueError(f"no launch geometry for B={b}, L={l}, K={k}")
+    block = block or pick_block(b)
+    if b % block:
+        raise ValueError(f"doc block {block} does not divide batch size {b}")
+    nb = b // block
+    row = 4 * (k + 1)
+    cap = SMEM_PER_CTA - SMEM_STATIC
+    cluster = 1
+    if block == 1:
+        while (cluster < MAX_CLUSTER and nb * cluster * 2 <= NUM_SMS
+               and -(-l // (cluster * 2)) >= MIN_TOKENS_PER_CTA):
+            cluster *= 2
+        while cluster < MAX_CLUSTER and row * _tile_len(l, cluster) > cap:
+            cluster *= 2
+    tile = _tile_len(l, cluster)
+    smem = block * row * tile
+    staged = smem <= cap
+    wpd, limit = 1, MAX_THREADS // (32 * block)
+    while wpd * 2 <= limit and wpd * TOKENS_PER_WARP < tile:
+        wpd *= 2
+    return {"block": block, "docs_per_cta": block, "warps_per_doc": wpd,
+            "cluster": cluster, "ctas": nb * cluster,
+            "threads": 32 * block * wpd, "tile_len": tile,
+            "smem_bytes": smem if staged else 0, "staged": staged}
 
 
 def available(b: int, l: int, k: int, device, precision: str = "f32") -> bool:
@@ -194,6 +264,7 @@ def _launch_cuda(slab_kbl, alpha, counts, doc_mask, var_max_iters, var_tol,
     if block > MAX_BLOCK_DOCS or block & (block - 1):
         raise ValueError(f"doc block {block} must be a power of two "
                          f"<= {MAX_BLOCK_DOCS}")
+    geom = launch_geometry(b, l, k, block)
     gamma = torch.empty((b, k), dtype=torch.float32, device=dev)
     iters = torch.empty((b // block,), dtype=torch.int32, device=dev)
     lib, fn = _kernel()
@@ -202,9 +273,12 @@ def _launch_cuda(slab_kbl, alpha, counts, doc_mask, var_max_iters, var_tol,
         err = fn(slab_kbl.data_ptr(), counts.data_ptr(), doc_mask.data_ptr(),
                  gamma_in.data_ptr(), alpha.data_ptr(), _cuda.ptr(stop),
                  _EXECUTED.slot(dev, 0), int(warm), b, l, k, block,
-                 int(var_max_iters), float(var_tol), gamma.data_ptr(),
-                 iters.data_ptr(), stream)
-    _cuda.check(lib, err, "fixed_point_estep launch")
+                 geom["warps_per_doc"], geom["cluster"], geom["tile_len"],
+                 int(geom["staged"]), int(var_max_iters), float(var_tol),
+                 gamma.data_ptr(), iters.data_ptr(), stream)
+    # A refused launch (a cluster the card cannot place, too much shared
+    # memory) raises with its geometry; nothing retries on plain ops.
+    _cuda.check(lib, err, f"fixed_point_estep launch, geometry {geom}")
     launch_count += 1
     return gamma, iters
 

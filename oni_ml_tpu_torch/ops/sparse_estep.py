@@ -540,7 +540,8 @@ def measure_crossover(k: int, v: int, b: int, l: int, *,
         if wmajor:
             dense = dense.t().contiguous()
         runs["dense"] = lambda: dense_estep.e_step_dense(
-            log_beta, alpha, dense, mask, vi, 0.0, wmajor=wmajor)
+            log_beta, alpha, dense, mask, vi, 0.0, wmajor=wmajor,
+            cells=word.shape[1])
     for run in runs.values():              # build, load and warm both
         run()
     torch.cuda.synchronize(dev)
@@ -562,6 +563,16 @@ def measure_crossover(k: int, v: int, b: int, l: int, *,
             "e_steps": {name: reps + 1 for name in runs}}
 
 
+def crossover_kernels() -> str:
+    """The build hashes of the kernels the crossover times (this module's
+    and the dense E-step's), which key its plan entries: a redesigned
+    kernel re-measures the engine choice."""
+    from . import _cuda, dense_estep
+
+    return "+".join(_cuda.source_digest(name)
+                    for name in (KERNEL, dense_estep.KERNEL))
+
+
 def engine_crossover(k: int, v: int, b: int, l: int, *,
                      precision: str = "f32", force: bool = False,
                      device="cuda") -> dict:
@@ -571,11 +582,14 @@ def engine_crossover(k: int, v: int, b: int, l: int, *,
     device's fingerprint, exact shape before density band (source
     "plan", so a second run measures nothing); else a fresh
     measurement (source "measured"), persisted under both keys with its
-    timings."""
-    from ..plans import device_fingerprint, lookup_value, record_value
+    timings.  Memo and plan entries are keyed by the device and by the
+    build hashes of both engines' kernels (crossover_kernels), so a
+    crossover measured with other kernel sources is measured again."""
+    from ..plans import lookup_value, plan_backend, record_value
 
     pad_multiple_for(precision)
     exact, band = crossover_shapes(k, v, b, l, precision)
+    kernels = crossover_kernels()
     env = os.environ.get("ONI_ML_TPU_ESTEP_ENGINE", "")
     if env:
         if env not in ("sparse", "dense"):
@@ -583,12 +597,13 @@ def engine_crossover(k: int, v: int, b: int, l: int, *,
                              "sparse or dense")
         return {"engine": env, "dense_s": None, "sparse_s": None,
                 "source": "env", "shape": exact}
-    memo_key = f"{device_fingerprint(device)}|{exact}"
+    memo_key = f"{plan_backend(device, kernels)}|{exact}"
     if not force and memo_key in _CROSSOVER_CACHE:
         return _CROSSOVER_CACHE[memo_key]
     if not force:
         for shape in (exact, band):
-            planned = lookup_value("estep_engine", shape=shape, device=device)
+            planned = lookup_value("estep_engine", shape=shape, device=device,
+                                   kernels=kernels)
             if isinstance(planned, dict):
                 rec = {"engine": planned["engine"],
                        "dense_s": planned.get("dense_s"),
@@ -602,5 +617,6 @@ def engine_crossover(k: int, v: int, b: int, l: int, *,
     measurements = {"dense_s": rec["dense_s"], "sparse_s": rec["sparse_s"]}
     for shape in (exact, band):
         record_value("estep_engine", value, shape=shape, source="autotune",
-                     measurements=measurements, device=device)
+                     measurements=measurements, device=device,
+                     kernels=kernels)
     return rec

@@ -11,6 +11,9 @@ warm-up are not ported).
   TPU.
 - `lookup_value` / `record_value` — read and append one knob's entry
   (knobs.KNOBS: only `estep_engine`).
+- A value measured through the port's CUDA kernels (the engine
+  crossover) is keyed by their build hashes too (`plan_backend`), so a
+  plan written with other kernel sources misses and is measured again.
 - The device fingerprint is the RUN's device:
   `cuda:<torch.cuda.get_device_name, normalized>:<device count>` for a
   run on the card, `cpu:<machine>:<cores>` for a run on the CPU, so a
@@ -33,7 +36,8 @@ from .store import SCHEMA_VERSION, NullStore, PlanEntry, PlanStore, default_path
 __all__ = [
     "KNOBS", "Knob", "NullStore", "PlanEntry", "PlanStore", "SCHEMA_VERSION",
     "current_store", "default_path", "default_store", "device_fingerprint",
-    "lookup_value", "plans_enabled", "record_value", "use_store",
+    "lookup_value", "plan_backend", "plans_enabled", "record_value",
+    "use_store",
 ]
 
 
@@ -121,15 +125,25 @@ def use_store(store: "PlanStore | NullStore | None"):
 # ---------------------------------------------------------------------------
 
 
-def lookup_value(knob: str, shape: str = "*", device=None):
+def plan_backend(device=None, kernels: "str | None" = None) -> str:
+    """The backend key of a plan entry: the device fingerprint and, for a
+    value measured through the port's CUDA kernels, their build hashes
+    (`kernels`), so a plan measured with other kernel sources misses."""
+    fp = device_fingerprint(device)
+    return f"{fp}|src:{kernels}" if kernels else fp
+
+
+def lookup_value(knob: str, shape: str = "*", device=None,
+                 kernels: "str | None" = None):
     """The plan entry's value for `knob` at `shape` for a run on
-    `device`, or None; never raises (the caller may still reject it)."""
+    `device` with the kernels of build hash `kernels`, or None; never
+    raises (the caller may still reject it)."""
     try:
         st = current_store()
         if st is None:
             return None
         spec = KNOBS[knob]
-        entry = st.lookup(knob, device_fingerprint(device), shape)
+        entry = st.lookup(knob, plan_backend(device, kernels), shape)
         if entry is not None and spec.valid(entry.value):
             return entry.value
     except Exception:
@@ -139,15 +153,16 @@ def lookup_value(knob: str, shape: str = "*", device=None):
 
 def record_value(knob: str, value, *, shape: str = "*",
                  source: str = "autotune", measurements=None, device=None,
-                 **info) -> bool:
-    """Append one plan entry for a knob of KNOBS to the active store;
-    never raises (a read-only cache must not fail the measurement).
-    Returns whether the entry was written."""
+                 kernels: "str | None" = None, **info) -> bool:
+    """Append one plan entry for a knob of KNOBS to the active store,
+    keyed by plan_backend(device, kernels); never raises (a read-only
+    cache must not fail the measurement).  Returns whether the entry
+    was written."""
     try:
         st = current_store()
         if st is None or knob not in KNOBS:
             return False
-        st.record(knob, device_fingerprint(device), shape, value,
+        st.record(knob, plan_backend(device, kernels), shape, value,
                   source=source, measurements=measurements, **info)
         return True
     except Exception:

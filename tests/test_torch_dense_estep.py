@@ -181,3 +181,77 @@ def test_pick_block_for_the_card():
         tdense.pick_block(64, V, K, precision="bf16")
     with pytest.raises(ValueError, match="outside"):
         tdense.pick_block(64, V, 33)
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["fresh", "warm"])
+@pytest.mark.parametrize("block", [1, 4])
+def test_dense_plain_version_equals_the_slab_fixed_point(block, warm):
+    """The identity the dense kernel rests on: only the non-zero cells
+    count.  dense_fixed_point_reference over a densified batch against
+    pallas_estep.fixed_point_reference over the gathered slab of the same
+    documents (distinct words, as the bucketed corpus holds them; zero
+    padding), at the same block: iteration counts at most one apart per
+    block, gamma within rel 1e-5 in the blocks that stop together (the
+    two sum the same products over W and over L in another f32 order)."""
+    from oni_ml_tpu_torch.ops import pallas_estep as tpallas
+
+    rng = np.random.default_rng(41 + block)
+    noise = rng.uniform(size=(K, V)) + 1.0 / V
+    lb = torch.from_numpy(np.log(noise / noise.sum(-1, keepdims=True))
+                          .astype(np.float32))
+    word = np.zeros((B, L), np.int64)
+    counts = np.zeros((B, L), np.float32)
+    for d, n in enumerate(rng.integers(4, L + 1, size=B)):
+        word[d, :n] = rng.choice(V, size=n, replace=False)
+        counts[d, :n] = rng.integers(1, 5, size=n)
+    mask = torch.from_numpy((rng.uniform(size=B) > 0.15).astype(np.float32))
+    mean = 2.5 + counts.sum(1, keepdims=True) / K
+    kw = {"warm": torch.tensor(int(warm)), "gamma_prev": torch.from_numpy(
+        (mean * rng.uniform(0.5, 1.5, size=(B, K))).astype(np.float32))
+        if warm else None}
+    word, counts = torch.from_numpy(word), torch.from_numpy(counts)
+    eb = tdense.padded_exp_beta(lb, tdense.padded_width(V))
+    dense = tdense.densify(word, counts, V)
+    gd, *_, itd = tdense.dense_fixed_point_reference(
+        eb, torch.tensor(2.5), dense, mask, 200, 1e-5, block, **kw)
+    gs, its = tpallas.fixed_point_reference(
+        eb[:, word], torch.tensor(2.5), counts, mask, 200, 1e-5, block, **kw)
+    assert 1 < int(its.max()) < 200
+    assert int((itd - its).abs().max()) <= 1
+    same = (itd == its).repeat_interleave(block)
+    assert bool(same.any())
+    np.testing.assert_allclose(gd[same].numpy(), gs[same].numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("cells", [None, 128, 4096])
+@pytest.mark.parametrize("w", [640, 5632])
+@pytest.mark.parametrize("b", [8, 24, 1024])
+def test_dense_launch_geometry_within_card_limits(b, w, cells):
+    """The block is pick_block's; one warp a document where the batch
+    has more blocks than the card has SMs, else CTA_WARPS warps a CTA
+    shared evenly by the block's documents;
+    the lists' shared memory stays within what a CTA may take (two CTAs
+    an SM where the batch has more blocks than the card has SMs); the
+    scratch exists exactly where a block's worst case (each document
+    with min(W, cells) non-zero cells) would not fit, sized for every
+    block's worst case."""
+    for k in (6, 20, 32):
+        geom = tdense.launch_geometry(b, w, k, cells=cells)
+        block = geom["block"]
+        assert block == tdense.pick_block(b, w, k) == geom["docs_per_cta"]
+        wpd = 1 if b // block > tdense.NUM_SMS else tdense.CTA_WARPS // block
+        assert geom["warps_per_doc"] == wpd
+        assert geom["threads"] == 32 * block * wpd <= 256
+        assert geom["ctas"] == b // block and geom["cluster"] == 1
+        cap = (tdense.SMEM_TWO_PER_SM if geom["ctas"] > tdense.NUM_SMS
+               else tdense.SMEM_PER_CTA - tdense.SMEM_STATIC)
+        assert 0 < geom["smem_bytes"] <= cap <= 232_448
+        assert geom["smem_cells"] == geom["smem_bytes"] // (4 * (k + 1))
+        per_doc = min(w, cells or w)
+        assert geom["block_cells"] == block * per_doc
+        worst = block * per_doc * 4 * (k + 1)
+        assert geom["smem_bytes"] == min(cap, worst)
+        assert geom["scratch_bytes"] == (0 if worst <= geom["smem_bytes"]
+                                         else b * per_doc * 4 * (k + 1))
+    with pytest.raises(ValueError, match="positive"):
+        tdense.launch_geometry(b, w, 20, cells=0)

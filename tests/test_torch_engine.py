@@ -132,6 +132,43 @@ def test_compact_plan_and_stacks_match_jax(corpora, monkeypatch):
     assert fused.plan_compact(batches, tdense.MAX_TOPICS + 1) is None
 
 
+def test_dense_gates_count_the_kernel_scratch(hermetic):
+    """On the card, the full-V and compact gates add the dense kernel's
+    largest per-launch scratch (fused.dense_scratch_bytes) to the corpus
+    and sparse-stack bytes: a batch of 8 documents of 4,096 tokens at
+    K=20 over a 5,632-wide vocabulary has blocks of one document with up
+    to 4,096 non-zero cells, more than shared memory holds, so each
+    launch takes 8 slices of 4,096 cells of 21 floats; the flow day's
+    main bucket (L=128) takes none.  A budget that fits all three admits
+    the path; one byte less refuses it."""
+    import types
+
+    rng = np.random.default_rng(5)
+    num_terms, k = 5520, 20
+    batches = [types.SimpleNamespace(word_idx=rng.integers(
+        0, num_terms, size=(8, 4096)).astype(np.int32))]
+    width = tdense.padded_width(num_terms)
+    scratch = fused.dense_scratch_bytes([((8, 4096), width)], k)
+    assert scratch == 8 * 4096 * 4 * (k + 1)
+    assert fused.dense_scratch_bytes([((1024, 128), width)], k) == 0
+    sparse_bytes = 8 * 4096 * 8
+    full = 8 * width * 4 + sparse_bytes + scratch
+
+    def trainer(budget):
+        tr = LDATrainer(LDAConfig(num_topics=k, dense_hbm_budget=budget),
+                        num_terms, device="cpu")
+        tr.device = torch.device("cuda")   # the gates' card check only
+        return tr
+
+    assert trainer(full)._use_dense(batches)
+    assert not trainer(full - 1)._use_dense(batches)
+    plan = fused.plan_compact(batches, k)
+    assert plan.widths[0] > 4096     # so the same scratch as full-V
+    compact = plan.corpus_bytes + sparse_bytes + scratch
+    assert trainer(compact - 1)._plan_compact(batches) is None
+    assert trainer(compact)._plan_compact(batches) is not None
+
+
 def test_plan_store_round_trips_under_the_card_fingerprint(
         hermetic, fake_card, tmp_path, monkeypatch):
     """A record written for a run on the card reads back from the file
@@ -213,6 +250,47 @@ def test_engine_crossover_precedence(corpora, hermetic, fake_card,
     assert resolve_estep_engine(corpus, LDAConfig(num_topics=K,
                                                   dense_em="on"),
                                 device="cuda") == ("dense", "default")
+
+
+def test_crossover_plan_misses_after_a_kernel_source_change(
+        hermetic, fake_card, monkeypatch, tmp_path):
+    """A crossover recorded under one build of the kernels (their source
+    hashes, which name the built libraries) is a plan hit while the
+    sources stay, and a miss, memo included, once they change: a
+    redesigned kernel re-measures the engine choice.  The hash moves
+    with an edit to a kernel's source."""
+    calls = []
+
+    def fake_measure(k, v, b, l, *, precision="f32", device="cuda"):
+        calls.append((k, v, b, l))
+        return {"engine": "sparse", "dense_s": 2.0, "sparse_s": 1.0,
+                "source": "measured",
+                "shape": tsparse.crossover_shapes(k, v, b, l, precision)[0]}
+
+    monkeypatch.setattr(tsparse, "measure_crossover", fake_measure)
+    monkeypatch.setattr(tsparse, "crossover_kernels", lambda: "olda+oldb")
+    assert tsparse.engine_crossover(20, 5000, 1024, 128)["source"] == "measured"
+    tsparse._CROSSOVER_CACHE.clear()
+    assert tsparse.engine_crossover(20, 5000, 1024, 128)["source"] == "plan"
+    monkeypatch.setattr(tsparse, "crossover_kernels", lambda: "newa+newb")
+    again = tsparse.engine_crossover(20, 5000, 1024, 128)
+    assert again["source"] == "measured" and len(calls) == 2
+    assert plans.lookup_value("estep_engine", again["shape"], device="cuda",
+                              kernels="olda+oldb")["engine"] == "sparse"
+    assert plans.lookup_value("estep_engine", again["shape"],
+                              device="cuda") is None
+    import shutil
+
+    from oni_ml_tpu_torch.ops import _cuda
+
+    before = _cuda.source_digest("dense_estep")
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC, csrc)
+    monkeypatch.setattr(_cuda, "CSRC", str(csrc))
+    assert _cuda.source_digest("dense_estep") == before
+    with open(csrc / "dense_estep.cu", "a") as f:
+        f.write("// edited\n")
+    assert _cuda.source_digest("dense_estep") != before
 
 
 @pytest.mark.parametrize("k,v,b,l", [(20, 5568, 1024, 128),

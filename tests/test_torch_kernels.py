@@ -337,3 +337,105 @@ def test_cuda_per_batch_e_step_matches_cpu_and_repeats(cuda, backend):
                                rtol=1e-5)
     np.testing.assert_allclose(float(got.alpha_ss), float(want.alpha_ss),
                                rtol=1e-5)
+
+
+def _long_case(seed, b, l, min_live, k=20, v=5520):
+    """A long-document bucket at the flow day's widths (K=20, V=5,520):
+    docs of min_live..l tokens, of distinct words (as the bucketed corpus
+    holds them) up to V of them, counts 1..4, the last doc masked, a
+    warm-start gamma."""
+    rng = np.random.default_rng(seed)
+    noise = rng.uniform(size=(k, v)) + 1.0 / v
+    log_beta = np.log(noise / noise.sum(-1, keepdims=True)).astype(np.float32)
+    lens = rng.integers(min_live, l + 1, size=b)
+    word = np.zeros((b, l), np.int32)
+    counts = np.zeros((b, l), np.float32)
+    for d, n in enumerate(lens):
+        word[d, :n] = rng.choice(v, size=n, replace=bool(n > v))
+        counts[d, :n] = rng.integers(1, 5, size=n)
+    mask = np.ones(b, np.float32)
+    mask[-1] = 0.0
+    mean = 2.5 + counts.sum(1, keepdims=True) / k
+    gamma_prev = (mean * rng.uniform(0.5, 1.5, size=(b, k))).astype(np.float32)
+    return log_beta, word, counts, mask, gamma_prev
+
+
+def _check_block_parity(got, ref, block, var_tol):
+    """(gamma, iters) against the plain version's: iterations within one
+    per block; gamma rtol 1e-4 in the blocks that stop together, the
+    others within 2 var_tol by the stop rule's own measure."""
+    assert int((got[1] - ref[1]).abs().max()) <= 1
+    moved = got[1] != ref[1]
+    same = ~moved.repeat_interleave(block)
+    np.testing.assert_allclose(got[0][same].cpu().numpy(),
+                               ref[0][same].cpu().numpy(), rtol=1e-4)
+    if bool(moved.any()):
+        g, r = got[0][~same].double(), ref[0][~same].double()
+        assert float(((g - r).abs().mean(1) / r.mean(1)).max()) <= 2 * var_tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wmajor", [False, True], ids=["rowmajor", "wmajor"])
+def test_cuda_dense_overflow_path_matches_plain_version(cuda, wmajor):
+    """Long documents densified to the flow day's W=5,632 at K=20: a doc
+    block of one document with up to 4,096 non-zero cells does not fit in
+    shared memory, so its lists go to the device-memory scratch (a slice
+    of min(W, L) cells per block).  Gamma and iterations as in the
+    main-shape test, the tail (T rtol 1e-4, docll 1e-5) against the plain
+    tail on the kernel's gamma, and two launches give the same bits."""
+    lb, w, c, m, _ = _long_case(31, 8, 4096, 2049)
+    eb = tdense.padded_exp_beta(torch.from_numpy(lb).to(cuda), 5632)
+    dense = tdense.densify(torch.from_numpy(w).to(cuda),
+                           torch.from_numpy(c).to(cuda), 5520)
+    cm = (dense.t() if wmajor else dense).contiguous()
+    args = (eb, torch.tensor(2.5, device=cuda), cm,
+            torch.from_numpy(m).to(cuda), 20, 1e-6)
+    got = tdense.fixed_point_blocks(*args, wmajor=wmajor, cells=4096)
+    again = tdense.fixed_point_blocks(*args, wmajor=wmajor, cells=4096)
+    torch.cuda.synchronize()
+    geom = tdense.launch_geometry(8, 5632, 20, cells=4096)
+    block = geom["block"]
+    assert block == 1 and geom["scratch_bytes"] == 8 * 4096 * 4 * 21
+    # A block takes the scratch where its non-zero cells outnumber the
+    # shared memory's.
+    nnz_block = (dense != 0).sum(1).view(-1, block).sum(1)
+    assert int((nnz_block > geom["smem_cells"]).sum()) >= 1
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    plain = (eb, args[1], dense, args[3])
+    ref = tdense.dense_fixed_point_reference(*plain, 20, 1e-6, block)
+    _check_block_parity((got[0], got[4]), (ref[0], ref[4]), block, 1e-6)
+    tail = tdense.dense_fixed_point_reference(
+        *plain, 0, 1e-6, block, gamma_prev=got[0], warm=torch.tensor(1))
+    rt = tail[1].cpu().numpy()
+    np.testing.assert_allclose(got[1].cpu().numpy(), rt, rtol=1e-4,
+                               atol=1e-4 * np.abs(rt).max())
+    np.testing.assert_allclose(got[2].cpu().numpy(), tail[2].cpu().numpy(),
+                               rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,min_live", [(8, 4096, 2049), (2, 16384, 8193)],
+                         ids=["cluster8_b8", "cluster8_b2"])
+def test_cuda_fixed_point_cluster_path_matches_plain_version(cuda, b, l,
+                                                             min_live):
+    """Long documents through a thread-block cluster of CTAs per document
+    (the partial sums added through distributed shared memory in rank
+    order): gamma and iterations against fixed_point_reference as in the
+    main-shape test, and two launches give the same bits."""
+    lb, w, c, m, gp = _long_case(32 + b, b, l, min_live)
+    geom = tpallas.launch_geometry(b, l, 20)
+    assert geom["cluster"] > 2 and geom["staged"]
+    slab = tpallas.gather_slab(
+        tsparse.exp_beta_table(torch.from_numpy(lb).to(cuda)),
+        torch.from_numpy(w).to(cuda))
+    args = (slab, torch.tensor(2.5, device=cuda), torch.from_numpy(c).to(cuda),
+            torch.from_numpy(m).to(cuda), 20, 1e-6)
+    for warm in (False, True):
+        kw = {"warm": torch.tensor(int(warm)),
+              "gamma_prev": torch.from_numpy(gp).to(cuda) if warm else None}
+        got = tpallas.fixed_point_blocks(*args, **kw)
+        again = tpallas.fixed_point_blocks(*args, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        ref = tpallas.fixed_point_reference(*args, geom["block"], **kw)
+        _check_block_parity(got, ref, geom["block"], 1e-6)

@@ -225,3 +225,75 @@ def test_pick_block_and_routing():
     assert tpallas.available(B, 4096, 20, "cuda")
     assert not tpallas.available(B, L, 20, "cpu")
     assert not tpallas.available(B, L, 65, "cuda")
+
+
+def _pick_block_before_geometry(b):
+    """The card's doc block as pick_block chose it before the launch
+    geometry existed: the largest
+    power of two <= 8 dividing b that still gives >= 132 blocks."""
+    bb = 8
+    while bb > 1 and (b % bb or b // bb < 132):
+        bb //= 2
+    return bb
+
+
+@pytest.mark.parametrize("l", [128, 4096, 16384])
+@pytest.mark.parametrize("b", [1, 2, 8, 1024])
+def test_launch_geometry_keeps_the_block_within_card_limits(b, l):
+    """The fixed-point kernel's launch geometry: the doc block (the stop
+    groups) is the one pick_block returned before the redesign, one CTA
+    or one cluster per block; a cluster of 1-8 CTAs, and more than one
+    only for a block of one document; at most MAX_THREADS threads in
+    whole warps; a staged tile covers the document's share of L in
+    16-byte rows and fits in a CTA's shared memory; long documents run
+    over more than one warp, and over a cluster where the batch leaves
+    SMs idle."""
+    for k in (5, 20, 64):
+        geom = tpallas.launch_geometry(b, l, k)
+        block, cluster = geom["block"], geom["cluster"]
+        assert block == _pick_block_before_geometry(b) == tpallas.pick_block(b)
+        assert geom["docs_per_cta"] == block
+        assert cluster in (1, 2, 4, 8) and (cluster == 1 or block == 1)
+        assert geom["ctas"] == b // block * cluster < 2 ** 31
+        assert geom["threads"] == 32 * block * geom["warps_per_doc"]
+        assert geom["threads"] <= tpallas.MAX_THREADS == 256
+        if geom["staged"]:
+            assert geom["tile_len"] % 4 == 0
+            assert geom["tile_len"] * cluster >= l
+            assert geom["smem_bytes"] == block * 4 * (k + 1) * geom["tile_len"]
+            assert geom["smem_bytes"] <= 232_448 - tpallas.SMEM_STATIC
+        else:
+            assert geom["smem_bytes"] == 0
+        if l >= 4096:
+            assert geom["warps_per_doc"] > 1
+            if b <= 8:
+                assert cluster == 8
+                assert geom["staged"] or k > 20   # 16k tokens of 65 rows
+    assert tpallas.launch_geometry(1024, 128, 20)["staged"]
+    with pytest.raises(ValueError, match="does not divide"):
+        tpallas.launch_geometry(6, 128, 20, block=4)
+
+
+def test_wrapper_thread_limits_are_the_kernel_sources():
+    """The wrappers' CTA limits are the numbers the CUDA sources size
+    their static arrays by: the fixed point's MAX_THREADS is its
+    kMaxThreads, and SMEM_STATIC covers those arrays at that CTA and
+    K <= 64 (two halves of per-warp and per-CTA topic sums, the deltas,
+    N_d and the live bounds); the dense kernel's CTA of CTA_WARPS warps
+    is its kMaxThreads."""
+    import pathlib
+    import re
+
+    csrc = pathlib.Path(tpallas.__file__).parents[1] / "csrc"
+
+    def max_threads(name):
+        src = (csrc / name).read_text()
+        return int(re.search(r"constexpr int kMaxThreads = (\d+);",
+                             src).group(1))
+
+    threads = max_threads("fixed_point_estep.cu")
+    assert threads == tpallas.MAX_THREADS
+    warps, ns = threads // 32, 2
+    static = 4 * (2 * warps * ns * 32 + 2 * ns * 32 + 2 * warps + 2 * warps)
+    assert static <= tpallas.SMEM_STATIC < static + 1024
+    assert max_threads("dense_estep.cu") == 32 * tdense.CTA_WARPS
