@@ -10,13 +10,15 @@ Phases (any failure exits non-zero before the result line):
              at the flow day's shapes, fresh and warm starts (the dense
              E-step in both layouts, at the main shape and on long
              documents, where a block's cell lists overflow to the
-             device-memory scratch; the fixed point at the main shape,
-             on long documents and at B=2, L=16,384, where a cluster of
-             8 CTAs takes each document), with the tolerances below;
-             two launches of the dense and fixed-point kernels must give
-             the same bits; each record carries the launch geometry;
-             time both (CUDA events) and compute the card's bound for
-             the same work.  Each case's cap on fixed-point iterations
+             device-memory scratch; the sparse E-step and the fixed
+             point at the main shape, on long documents and at B=2,
+             L=16,384, where a cluster of 8 CTAs takes each document),
+             with the tolerances below; two launches of each E-step
+             kernel must give the same bits; each record carries the
+             launch geometry; time both (CUDA events), compute the
+             card's bound for the same work and, for the sparse E-step
+             and the fixed point, time two torch.bmm per iteration as a
+             library yardstick.  Each case's cap on fixed-point iterations
              lies above what most blocks need, so the per-block stop
              decision is compared too.
 3. e2e       a small synthetic day through the port on the card and on
@@ -222,6 +224,17 @@ def bound(nbytes, flops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def bmm_yardstick_ms(slab_kbl, b, l):
+    """Library yardstick of one fixed-point iteration: its two batched
+    products (torch.bmm over the gathered [B, L, K] slab: phinorm, then
+    the ratio contraction)."""
+    slab_blk = slab_kbl.permute(1, 2, 0).contiguous()
+    e = torch.rand((b, K, 1), device="cuda")
+    ratio = torch.rand((b, 1, l), device="cuda")
+    return time_ms(lambda: (torch.bmm(slab_blk, e), torch.bmm(ratio, slab_blk)),
+                   20)
+
+
 def sparse_parity(label, b, l, min_live, warm, var_max_iters, var_tol):
     case = random_bucket(b, l, min_live, seed=b + l + int(warm), warm=warm)
     expb = sparse_estep.exp_beta_table(case["log_beta"])
@@ -231,7 +244,13 @@ def sparse_parity(label, b, l, min_live, warm, var_max_iters, var_tol):
     args = (expb, case["alpha"], case["word"], case["counts"], case["mask"],
             var_max_iters, var_tol)
     got = sparse_estep.fixed_point_blocks(*args, **kw)
+    again = sparse_estep.fixed_point_blocks(*args, **kw)
     torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"{label}: gamma, phi_c, docll, ass or iterations differ "
+             "between two launches")
+    geom = sparse_estep.launch_geometry(b, l, K, block)
+    geom["path"] = "shared memory" if geom["staged"] else "device memory"
     ref = sparse_estep.fixed_point_full_reference(*args, **kw)
     errs: list = []
     it_diff, moved, rel_same = check_fixed_point(
@@ -250,11 +269,16 @@ def sparse_parity(label, b, l, min_live, warm, var_max_iters, var_tol):
     # 4*K per live token per iteration (+1 for the tail), with this
     # run's per-block iteration counts.
     iters = got[4].long().cpu().numpy()
+    doc_iters = np.repeat(iters, block)
     live = (case["counts"] != 0).sum(1).cpu().numpy()
-    flops = float(4 * K * (live * (np.repeat(iters, block) + 1)).sum())
+    flops = float(4 * K * (live * (doc_iters + 1)).sum())
     nbytes = (V * K * 4 + b * l * 8 + b * 4 + 4 + (b * K * 4 if warm else 0)
               + b * K * 4 + b * l * K * 4 + b * 8 + (b // block) * 4)
     bound_ms, bound_by = bound(nbytes, flops)
+    # Library yardstick, as for the fixed point: the two batched products
+    # of one iteration over the gathered slab, times the mean iteration
+    # count.
+    one = bmm_yardstick_ms(pallas_estep.gather_slab(expb, case["word"]), b, l)
     rec = {
         "kernel": "sparse_estep", "case": label, "B": b, "L": l, "K": K,
         "V": V, "block": block, "warm": warm,
@@ -265,7 +289,11 @@ def sparse_parity(label, b, l, min_live, warm, var_max_iters, var_tol):
         "gamma_rel_err_same_stop": rel_same, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "bytes": nbytes, "flops": flops,
+        "library_ms": one * float(doc_iters.mean()),
+        "library_ms_per_iteration": one,
+        "geometry": geom, "bit_identical_relaunch": True,
     }
+    rec["kernel_beats_library"] = ms < rec["library_ms"]
     log("parity " + json.dumps(rec))
     return rec
 
@@ -412,11 +440,7 @@ def fixed_point_parity(label, b, l, min_live, warm, var_max_iters, var_tol):
     # Library yardstick: the two batched products of one iteration
     # (torch.bmm over [B, L, K]: phinorm, then the ratio contraction),
     # times the mean iteration count.
-    slab_blk = slab.permute(1, 2, 0).contiguous()
-    e = torch.rand((b, K, 1), device="cuda")
-    ratio = torch.rand((b, 1, l), device="cuda")
-    one = time_ms(lambda: (torch.bmm(slab_blk, e), torch.bmm(ratio, slab_blk)),
-                  20)
+    one = bmm_yardstick_ms(slab, b, l)
     rec = {
         "kernel": "fixed_point_estep", "case": label, "B": b, "L": l, "K": K,
         "V": V, "block": block, "warm": warm,
@@ -1090,14 +1114,19 @@ def main() -> int:
     # with the summation order alone; at var_tol 1e-4 every block stops
     # on its own delta under a cap of 200.  The long docs (block 1)
     # stop at 1-20 under the day's cap of 20 and var_tol 1e-6.
+    # B=2 docs of up to 16,384 tokens: a cluster of 8 CTAs per document.
     cases = (("main", 1024, 128, 65, False, 200, 1e-4),
              ("main", 1024, 128, 65, True, 200, 1e-4),
              ("long", 8, 4096, 2049, False, 20, 1e-6),
-             ("long", 8, 4096, 2049, True, 20, 1e-6))
+             ("long", 8, 4096, 2049, True, 20, 1e-6),
+             ("cluster", 2, 16384, 8193, False, 20, 1e-6),
+             ("cluster", 2, 16384, 8193, True, 20, 1e-6))
     sparse_recs = [
         sparse_parity(f"{lab}{'_warm' if w else ''}", b, l, lo, w, cap, tol)
         for lab, b, l, lo, w, cap, tol in cases
     ]
+    if any(r["geometry"]["cluster"] <= 2 for r in sparse_recs[2:]):
+        fail("sparse long or cluster case: no cluster of more than 2 CTAs")
     dense_recs = [
         dense_parity(f"dense_{rec_layout(wm)}{'_warm' if w else ''}", 1024,
                      128, 65, wm, w, 200, 1e-4)
@@ -1110,13 +1139,10 @@ def main() -> int:
                      4096, 2049, wm, w, 20, 1e-6)
         for wm in (True, False) for w in (False, True)
     ]
-    # B=2 docs of up to 16,384 tokens: a cluster of 8 CTAs per document.
-    fixed_cases = cases + (("cluster", 2, 16384, 8193, False, 20, 1e-6),
-                           ("cluster", 2, 16384, 8193, True, 20, 1e-6))
     fixed_recs = [
         fixed_point_parity(f"{lab}{'_warm' if w else ''}", b, l, lo, w, cap,
                            tol)
-        for lab, b, l, lo, w, cap, tol in fixed_cases
+        for lab, b, l, lo, w, cap, tol in cases
     ]
     if any(r["geometry"]["path"] == "shared memory" for r in dense_recs[4:]):
         fail("dense long documents: no block took the L2-scratch path")
@@ -1163,8 +1189,14 @@ def main() -> int:
         for r in dense_recs[:4] if not r["warm"]}
     # The redesigned kernels: this run's time per case, and whether each
     # beat its library yardstick (cuBLAS's two f32 products per iteration
-    # for dense W-major; two torch.bmm per iteration for the fixed point
-    # on long documents).
+    # for dense W-major; two torch.bmm per iteration for the sparse E-step
+    # and the fixed point on long documents).
+    entries[0].update(
+        long_beats_bmm_yardstick=sparse_recs[2]["kernel_beats_library"],
+        by_case={r["case"]: {"ms": r["ms"], "library_ms": r["library_ms"],
+                             "cluster": r["geometry"]["cluster"],
+                             "path": r["geometry"]["path"]}
+                 for r in sparse_recs})
     dense_main = dense_recs[0]
     entries[2].update(
         cublas_yardstick_ms=dense_main["cublas_ms"],

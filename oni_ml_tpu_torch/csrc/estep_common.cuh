@@ -1,19 +1,23 @@
 // Device helpers shared by the port's E-step kernels: the stop rule, the
 // special functions and the reciprocal of oni_ml_tpu/ops/pallas_estep.py:
 // 67-120 and ops/stop.py (every kernel), and the per-document core of the
-// gamma fixed point over a staged list of cells (dense_estep.cu and
-// fixed_point_estep.cu, so the two cannot drift): q, the s contraction,
-// the gamma update, the reductions over the warps of a document, the
-// token term of the tail, and the cp.async staging copies.  ops/_cuda.py
+// gamma fixed point over a staged list of cells (dense_estep.cu,
+// fixed_point_estep.cu and sparse_estep.cu, so they cannot drift): q, the
+// s contraction, the gamma update, the reductions over the warps of a
+// document and over the CTAs of a cluster, the token term of the tail,
+// the cp.async staging copies and the cluster launch.  ops/_cuda.py
 // hashes this header into every kernel's build key.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace oni {
+
+namespace cg = cooperative_groups;
 
 constexpr float kStallGate = 1e-2f;  // ops/stop.py STALL_GATE
 constexpr unsigned kFull = 0xffffffffu;
@@ -94,9 +98,11 @@ __device__ __forceinline__ void count_executed(int* executed) {
 //
 // A document's cells are n values c[i] and, for each, K values of
 // exp(log beta) at b[k * ks + i] (a [K, n]-strided tile in shared memory,
-// or the same tile in device memory where it did not fit; the pointers
-// are not __restrict__, so a tile that the same launch wrote is never
-// read through the non-coherent read-only path).  A cell with c = 0 adds
+// or the same tile in device memory where it did not fit) or, with the
+// template flag ROWS, at b[i * ks + k] (rows of a [n, K] tile, ks floats
+// apart; read 16 bytes at a time where K and ks are multiples of 4).  The
+// pointers are not __restrict__, so a tile that the same launch wrote is
+// never read through the non-coherent read-only path.  A cell with c = 0 adds
 // exactly zero to every sum below, so the caller lists only the non-zero
 // ones (the dense kernel) or the live prefix (the slab).
 //
@@ -141,30 +147,55 @@ __device__ __forceinline__ void e_log_theta(const float (&g)[NS<KT>], int K, int
   for (int k = 0; k < KT; ++k) e[k] = __shfl_sync(kFull, e_mine[k / 32], k & 31);
 }
 
-// One cell: its K values into bk and c * recip(sum_k b e + 1e-30).
-template <int KT>
+// One cell: its K values into bk and c * recip(sum_k b e + 1e-30).  `b`
+// points at the cell's first value; its k-th value is b[k * ks] ([K, n]
+// tile) or, with ROWS, b[k] (ks is then the distance between rows, only
+// its alignment is read here).
+template <int KT, bool ROWS = false>
 __device__ __forceinline__ float cell_ratio(const float* b, size_t ks, float c,
                                             const float (&e)[KT], int K,
                                             float (&bk)[KT], float& q) {
+  if constexpr (ROWS && KT % 4 == 0) {
+    if (((K | (int)ks) & 3) == 0) {
+      const float4* b4 = reinterpret_cast<const float4*>(b);
+#pragma unroll
+      for (int h = 0; h < KT / 4; ++h) {
+        const float4 v = (4 * h < K) ? b4[h] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        bk[4 * h] = v.x;
+        bk[4 * h + 1] = v.y;
+        bk[4 * h + 2] = v.z;
+        bk[4 * h + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < KT; ++k) bk[k] = (k < K) ? b[k] : 0.0f;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < KT; ++k) bk[k] = (k < K) ? b[k * (ROWS ? 1 : ks)] : 0.0f;
+  }
   float ph = 0.0f;
 #pragma unroll
-  for (int k = 0; k < KT; ++k) {
-    bk[k] = (k < K) ? b[k * ks] : 0.0f;
-    ph = fmaf(bk[k], e[k], ph);
-  }
+  for (int k = 0; k < KT; ++k) ph = fmaf(bk[k], e[k], ph);
   q = ph + 1e-30f;
   return c * newton_recip(q);
 }
 
+// Cell i's first value in either layout.
+template <bool ROWS>
+__device__ __forceinline__ const float* cell_at(const float* b, size_t ks, int i) {
+  return ROWS ? b + (size_t)i * ks : b + i;
+}
+
 // acc[k] += sum over this lane's cells of ratio * b[k]  (the s contraction).
-template <int KT>
+template <int KT, bool ROWS = false>
 __device__ __forceinline__ void accumulate_cells(const float* b, size_t ks, const float* c,
                                                  int lo, int hi, int step,
                                                  const float (&e)[KT], int K,
                                                  float (&acc)[KT]) {
   for (int i = lo; i < hi; i += step) {
     float bk[KT], q;
-    const float r = cell_ratio<KT>(b + i, ks, c[i], e, K, bk, q);
+    const float r = cell_ratio<KT, ROWS>(cell_at<ROWS>(b, ks, i), ks, c[i], e, K, bk, q);
 #pragma unroll
     for (int k = 0; k < KT; ++k) acc[k] = fmaf(r, bk[k], acc[k]);
   }
@@ -172,16 +203,19 @@ __device__ __forceinline__ void accumulate_cells(const float* b, size_t ks, cons
 
 // The tail's token term over this lane's cells, sum c log q; where
 // `ratio` is given, ratio[i] = c * recip(q) (the suff-stats factor).
-template <int KT>
+// `ratio` may be `c` itself: cell i's count is read before its ratio is
+// written, by the same lane.
+template <int KT, bool ROWS = false>
 __device__ __forceinline__ float token_term(const float* b, size_t ks, const float* c,
                                             int lo, int hi, int step,
                                             const float (&e)[KT], int K,
-                                            float* __restrict__ ratio) {
+                                            float* ratio) {
   float tok = 0.0f;
   for (int i = lo; i < hi; i += step) {
     float bk[KT], q;
-    const float r = cell_ratio<KT>(b + i, ks, c[i], e, K, bk, q);
-    tok = fmaf(c[i], logf(q), tok);
+    const float ci = c[i];
+    const float r = cell_ratio<KT, ROWS>(cell_at<ROWS>(b, ks, i), ks, ci, e, K, bk, q);
+    tok = fmaf(ci, logf(q), tok);
     if (ratio != nullptr) ratio[i] = r;
   }
   return tok;
@@ -260,6 +294,94 @@ __device__ __forceinline__ float gamma_update(float (&g)[NS<KT>], const float (&
     }
   }
   return warp_sum(d);
+}
+
+// ---------------------------------------------------------------------------
+// One document over a thread-block cluster of `csize` CTAs (ranks along
+// x): each CTA holds the sums over its share of the cells; they are added
+// through distributed shared memory in rank order after one cluster
+// barrier, so every CTA ends with the same totals (and the same gamma and
+// stop decision).  `slot` is this CTA's NS * 32 floats of shared memory
+// that no CTA reads again until every CTA has passed the next cluster
+// barrier: double-buffer it across iterations.  Every thread of every CTA
+// of the cluster must call these.
+// ---------------------------------------------------------------------------
+
+template <int KT>
+__device__ __forceinline__ void cluster_sums(float (&s)[NS<KT>], float* slot, int csize,
+                                             int warp, int lane) {
+  cg::cluster_group cluster = cg::this_cluster();
+  if (warp == 0) {
+#pragma unroll
+    for (int h = 0; h < NS<KT>; ++h) slot[h * 32 + lane] = s[h];
+  }
+  cluster.sync();
+#pragma unroll
+  for (int h = 0; h < NS<KT>; ++h) {
+    float t = 0.0f;
+    for (int r = 0; r < csize; ++r) t += cluster.map_shared_rank(slot, r)[h * 32 + lane];
+    s[h] = t;
+  }
+}
+
+// The same for one scalar that every thread of the CTA holds.
+__device__ __forceinline__ float cluster_sum1(float v, float* slot, int csize) {
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x == 0) slot[0] = v;
+  cluster.sync();
+  float t = 0.0f;
+  for (int r = 0; r < csize; ++r) t += cluster.map_shared_rank(slot, r)[0];
+  return t;
+}
+
+// No CTA of a cluster leaves while another may still read its shared memory.
+__device__ __forceinline__ void cluster_exit(int csize) {
+  if (csize > 1) cg::this_cluster().sync();
+}
+
+// Preferred share of the SM's 228 KB for shared memory, the rest staying
+// L1 (a hint: the driver rounds it up to a split the card supports, and
+// takes a larger one where a CTA needs it).  With no preference the flow
+// day's main shape of the fixed point (43 KB tiles, up to 5 CTAs an SM)
+// ran 0.31-0.33 ms, at 86% the same, at 58% 0.245-0.251 ms, in turns on
+// one H100 at 700 W (torch_kernel_sweep.py); the long and cluster cases
+// did not move.  The likely reason: the driver otherwise takes the largest
+// split, and the kernel's 128-byte stack frame per thread no longer fits
+// in L1.  The sparse E-step ran alike at 58% and at the driver's choice
+// (PERF.md), so both kernels launch with this one value.
+constexpr int kSharedCarveoutPercent = 58;
+
+// Launches `kernel` on `nb` clusters of `csize` CTAs along x (no cluster
+// attribute for csize 1), `threads` threads and `smem` bytes of dynamic
+// shared memory each, with the preferred carveout above.
+template <typename... Params, typename... Args>
+cudaError_t launch_clustered(void (*kernel)(Params...), int nb, int csize, int threads,
+                             size_t smem, cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, kSharedCarveoutPercent);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)nb * csize);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  if (csize > 1) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = csize;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

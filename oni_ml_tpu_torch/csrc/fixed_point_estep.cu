@@ -55,7 +55,8 @@
 //    shared memory) comes from ops/pallas_estep.py launch_geometry; the doc
 //    block, which defines the stop groups, is the wrapper's pick_block.
 //  * The per-document loop (q, the s contraction, the gamma update, the
-//    reductions) is estep_common.cuh's, shared with dense_estep.cu.
+//    reductions over warps and cluster ranks) and the cluster launch are
+//    estep_common.cuh's, shared with dense_estep.cu and sparse_estep.cu.
 //  * gamma is lane-parallel in registers (lane k owns topic k; K <= 64,
 //    compile-time bound KT); a warp's per-topic sums are transposed onto
 //    the lanes by halving exchanges, and only exp E[log theta] is
@@ -68,12 +69,9 @@
 //    then hold no values; the driver discards them); a launch that runs
 //    past the check adds one to the wrapper's device counter `executed`.
 
-#include <cooperative_groups.h>
 #include <stdint.h>
 
 #include "estep_common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -86,15 +84,6 @@ using oni::kFull;
 constexpr int kMaxThreads = 256;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxCluster = 8;
-// Preferred share of the SM's 228 KB for shared memory, the rest staying
-// L1 (a hint: the driver rounds it up to a split the card supports, and
-// takes a larger one where a CTA needs it).  With no preference the flow
-// day's main shape (43 KB tiles, up to 5 CTAs an SM) ran 0.31-0.33 ms,
-// at 86% the same, at 58% 0.245-0.251 ms, in turns on one H100 at 700 W
-// (torch_kernel_sweep.py); the long and cluster cases did not move.  The
-// likely reason: the driver otherwise takes the largest split, and the
-// kernel's 128-byte stack frame per thread no longer fits in L1.
-constexpr int kSharedCarveoutPercent = 58;
 
 // The compiler's register cap, apart from the CTA size: __launch_bounds__
 // as if for 512 threads where K <= 20 (the kernel never runs more than
@@ -207,22 +196,8 @@ fixed_point_kernel(const float* __restrict__ slab,      // [K, B, L]
     oni::accumulate_cells<KT>(b, ks, c, p * 32 + lane, n, 32 * wpd, e, K, acc);
     oni::warp_topic_sums<KT>(acc, lane, s);
     oni::doc_sums<KT>(s, s_red[buf], warp, j, wpd, lane);
-    if (csize > 1) {
-      // One document per cluster: add the CTAs' sums in rank order.
-      cg::cluster_group cluster = cg::this_cluster();
-      if (warp == 0) {
-#pragma unroll
-        for (int h = 0; h < NS; ++h) s_cta[buf][h * 32 + lane] = s[h];
-      }
-      cluster.sync();
-#pragma unroll
-      for (int h = 0; h < NS; ++h) {
-        float t = 0.0f;
-        for (int r = 0; r < csize; ++r)
-          t += cluster.map_shared_rank(s_cta[buf], r)[h * 32 + lane];
-        s[h] = t;
-      }
-    }
+    // One document per cluster: add the CTAs' sums in rank order.
+    if (csize > 1) oni::cluster_sums<KT>(s, s_cta[buf], csize, warp, lane);
     const float dsum = oni::gamma_update<KT>(gam, e_mine, s, alpha, K, lane);
     const float d_doc = (dsum / kf) * inv_scale * m;
     float bmax = d_doc;
@@ -236,8 +211,7 @@ fixed_point_kernel(const float* __restrict__ slab,      // [K, B, L]
     delta = bmax;
     ++it;
   }
-  // No CTA leaves while another may still read its shared memory.
-  if (csize > 1) cg::this_cluster().sync();
+  oni::cluster_exit(csize);
 
   if (rank == 0 && p == 0) {
 #pragma unroll
@@ -254,34 +228,10 @@ cudaError_t launch(int nb, int docs, int wpd, int csize, int tile_len, size_t sm
                    const int* stop_flag, int* executed, int warm, int B, int L, int K,
                    int var_max_iters, float var_tol, float* gamma_out,
                    int32_t* iters) {
-  auto kernel = fixed_point_kernel<KT, STAGED>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, kSharedCarveoutPercent);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)nb * csize);
-  cfg.blockDim = dim3(32 * docs * wpd);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  if (csize > 1) {
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = csize;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  }
-  err = cudaLaunchKernelEx(&cfg, kernel, slab, counts, doc_mask, gamma_in, alpha,
-                           stop_flag, executed, warm, B, L, K, wpd, csize, tile_len,
-                           var_max_iters, var_tol, gamma_out, iters);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return oni::launch_clustered(fixed_point_kernel<KT, STAGED>, nb, csize, 32 * docs * wpd,
+                               smem, stream, slab, counts, doc_mask, gamma_in, alpha,
+                               stop_flag, executed, warm, B, L, K, wpd, csize, tile_len,
+                               var_max_iters, var_tol, gamma_out, iters);
 }
 
 }  // namespace

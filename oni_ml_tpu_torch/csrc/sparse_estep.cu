@@ -7,49 +7,61 @@
 // phi_c, the per-doc ELBO (token term + Dirichlet terms) and
 // sum_k E[log theta].
 //
-// What bounds it on this card.  Per EM iteration the kernel must read the
+// What bounds it on this card.  Per launch the function must read the
 // corpus tile (word ids + counts, 8*B*L bytes), the beta table (V*K*4) and
 // gamma_in, and write phi_c (4*B*L*K -- the dominant term), gamma, docll and
-// ass.  It does 4*B*K*L*(vi+1) float32 operations (two K-contractions per
-// variational iteration plus the tail, sparse_estep.py:472-480).  At the
-// flow day's shape (B=1024, L=128, K=20, vi ~ 10) that is ~11 MB against
-// ~0.1 GFLOP: bytes bound it (3.35 TB/s vs 67 TFLOP/s f32), at a few
-// microseconds.  In practice the fixed point is a chain of dependent
-// iterations per document, each ending in a block-wide stop decision, so
-// the kernel is latency-bound well above that floor.
+// ass: ~11 MB at the flow day's B = 1024, L = 128, K = 20, ~3 us at
+// 3.35 TB/s.  It needs 4*K flops per live token and fixed-point iteration
+// (the two K-contractions) plus the tail: at ~50 iterations of ~95 live
+// tokens per document ~0.43 GFLOP, 6.4 us at the 67 TFLOP/s f32 peak, so
+// operations bound it (0.0064 ms, chip_smoke.py).  Each iteration is a
+// chain of dependent steps that ends in a block-wide stop decision, so the
+// kernel is latency-bound above that floor: what it can do is keep every
+// step's loads in shared memory and spread a document over enough lanes.
 //
-// Design, against the TPU kernel:
-//  * The TPU kernel gathers a [K, BB, L] slab of exp(log beta) into VMEM.
-//    Here no slab is materialised: every token's K beta values are read
-//    from an exp(log beta)^T [V, K] table (440 KB at V=5,520, K=20), which
-//    stays resident in L2/L1, so device-memory traffic is the corpus tile
-//    and phi_c only.  Nothing is sized by L, so any bucket length works
-//    (a scanner IP's document can be tens of thousands of tokens).
-//  * One warp per document, `block_docs` documents per CTA.  The lanes
-//    stride over the document's live tokens (the packed layout puts them
-//    first; padding past the last non-zero count is skipped, which is
-//    exact because its count is 0).  Each lane keeps one token's K beta
-//    values in registers for both contractions of an iteration.
-//  * gamma, E[log theta] and the per-topic sums live in registers
-//    (K <= 64, a compile-time bound KT).  Per-topic sums are warp
-//    all-reduced with xor shuffles; digamma runs lane-parallel (lane k
-//    owns topic k) and is broadcast back with shuffles.
-//  * The stop rule is the TPU kernel's: every document of a CTA iterates
-//    until the CTA's max relative delta says stop (a block reduction
-//    through shared memory and one __syncthreads per iteration), so
-//    converged documents keep iterating with their block, as in Pallas.
+// Design, against the TPU kernel and this kernel's first port:
+//  * Staging.  The TPU kernel gathers a [K, BB, L] slab of exp(log beta)
+//    into VMEM and keeps it for the whole loop.  The first port read each
+//    live token's K values from the exp(log beta)^T [V, K] table (440 KB
+//    at V = 5,520, K = 20: L2, not L1) on every iteration.  Here each CTA
+//    gathers its documents' live tokens' rows of the table into a
+//    shared-memory tile with cp.async, once per launch, beside their
+//    counts; every fixed-point iteration and the tail then read shared
+//    memory only.  The tile is [tile, K] rows (b[i * K + k]): where K is
+//    a multiple of 4, 16-byte copies and 16-byte reads in the loop, which
+//    are free of bank conflicts at K = 20; else 4-byte ones.  The fixed
+//    point's [K, tile] layout (a transposing gather, a 4-byte copy per
+//    value) ran the flow day's main shape slower, in turns on an H100 at
+//    700 W: 0.281-0.289 ms against 0.263-0.269 for rows (PERF.md).
+//    Where a tile cannot fit even over 8 CTAs (`staged` = 0) the rows are
+//    read from the table in device memory, as the first port did, so any
+//    L runs.
+//  * Long documents.  As in fixed_point_estep.cu: a document's live tokens
+//    over `wpd` warps of its CTA, and where one SM cannot hold its tile or
+//    the batch leaves SMs idle, over a thread-block cluster of 2-8 CTAs,
+//    rank r staging its share; sums over warps and ranks in a fixed order
+//    (estep_common.cuh doc_sums, cluster_sums), so every CTA of a cluster
+//    holds the same gamma and makes the same stop decision.  The launch
+//    geometry is ops/pallas_estep.py's rule (ops/sparse_estep.py
+//    launch_geometry): a token stages 4 * (K + 1) bytes in both kernels.
+//  * The per-document loop is estep_common.cuh's core (e_log_theta,
+//    accumulate_cells, warp_topic_sums, doc_sums, cluster_sums,
+//    gamma_update): gamma lane-parallel in registers (K <= 64, compile-time
+//    bound KT), the Pallas per-block stop (the block's max delta).
+//  * The tail reads the tile too: token_term leaves each token's
+//    c / q in the tile's count row; the cluster adds its token terms in
+//    rank order; then phi_c, in [B, L, K] order (token-major, the layout
+//    the [V, K] scatter wants; the wrapper returns the JAX [K, B, L] view),
+//    is written coalesced, the lanes over the flattened (token, topic)
+//    range of each CTA's tokens, and each CTA zeroes its share of the
+//    padding.  An entry below the normal range is written as zero: XLA
+//    flushes each per-token contribution before its segment-sum.
 //  * The TPU's approximate reciprocal + one Newton step becomes
-//    rcp.approx.ftz.f32 + one Newton step.
-//  * phi_c is written in [B, L, K] order (token-major), the layout the
-//    [V, K] scatter wants; the wrapper returns the JAX [K, B, L] view of it.
-//    An entry below the normal range is written as zero: XLA flushes each
-//    per-token contribution before its segment-sum, so a word-topic mass
-//    made only of subnormal terms is zero (LOG_ZERO) in both packages.
-//  * Under the chunk driver (models/fused.py) the launch takes a device
-//    pointer to the driver's stop flag and returns at once once it is
-//    set, so EM can stop on the device without a host read.  A launch that
-//    runs past that check adds one to the wrapper's device counter
-//    `executed`, so the launches after the stop are counted, not derived.
+//    rcp.approx.ftz.f32 + one Newton step (estep_common.cuh).
+//  * Under the chunk driver (models/fused.py) the launch reads the
+//    driver's device stop flag and returns at once once it is set; a
+//    launch that runs past that check adds one to the wrapper's device
+//    counter `executed`.
 //
 // The second kernel of this file, sparse_scatter_kernel, sums phi_c into
 // [V, K] in a fixed order (see its note).
@@ -60,62 +72,41 @@
 
 namespace {
 
-using oni::digamma_pos;
-using oni::gammaln_pos;
 using oni::kFull;
-using oni::newton_recip;
-using oni::warp_max;
-using oni::warp_sum;
 
-constexpr int kMaxBlockDocs = 8;     // 256 threads per CTA
+// The most threads a CTA has and the largest cluster: ops/sparse_estep.py
+// MAX_THREADS and MAX_CLUSTER (tests/test_torch_kernels.py reads them here).
+// kMaxThreads sizes the static per-warp arrays, which
+// ops/pallas_estep.py SMEM_STATIC reserves out of the tile's shared memory.
+constexpr int kMaxThreads = 256;
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kMaxCluster = 8;
 
-// el[k] = digamma(gam[k]) - digamma(sum gam), lane-parallel over topics.
+// acc[k] += sum over this lane's tokens of ratio * b[k], each token's row
+// read from the table (rows `align` floats apart for the alignment test of
+// the 16-byte reads: K where the table is 16-byte aligned, else 1).
 template <int KT>
-__device__ __forceinline__ void e_log_theta(const float (&gam)[KT], int K, int lane,
-                                            float (&el)[KT]) {
-  float gsum = 0.0f;
+__device__ __forceinline__ void accumulate_table(const float* __restrict__ expb_vk,
+                                                 size_t align, const int32_t* w,
+                                                 const float* c, int lo, int hi, int step,
+                                                 const float (&e)[KT], int K,
+                                                 float (&acc)[KT]) {
+  for (int i = lo; i < hi; i += step) {
+    float bk[KT], q;
+    const float r = oni::cell_ratio<KT, true>(expb_vk + (size_t)w[i] * K, align, c[i], e,
+                                              K, bk, q);
 #pragma unroll
-  for (int k = 0; k < KT; ++k)
-    if (k < K) gsum += gam[k];
-  const float dg_sum = digamma_pos(gsum);
-#pragma unroll
-  for (int base = 0; base < KT; base += 32) {
-    float mine = 1.0f;
-#pragma unroll
-    for (int k = base; k < KT && k < base + 32; ++k)
-      if (k < K && lane == k - base) mine = gam[k];
-    const float v = digamma_pos(mine) - dg_sum;
-#pragma unroll
-    for (int k = base; k < KT && k < base + 32; ++k)
-      el[k] = (k < K) ? __shfl_sync(kFull, v, k - base) : 0.0f;
+    for (int k = 0; k < KT; ++k) acc[k] = fmaf(r, bk[k], acc[k]);
   }
 }
 
-// One token's K beta values from the [V, K] table; 16-byte loads when the
-// row is exactly KT wide and KT is a multiple of 4.
-template <int KT>
-__device__ __forceinline__ void load_row(const float* __restrict__ row, int K,
-                                         float (&b)[KT]) {
-  if constexpr (KT % 4 == 0) {
-    if (K == KT) {
-      const float4* r4 = reinterpret_cast<const float4*>(row);
-#pragma unroll
-      for (int q = 0; q < KT / 4; ++q) {
-        const float4 v = __ldg(r4 + q);
-        b[4 * q] = v.x;
-        b[4 * q + 1] = v.y;
-        b[4 * q + 2] = v.z;
-        b[4 * q + 3] = v.w;
-      }
-      return;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < KT; ++k) b[k] = (k < K) ? __ldg(row + k) : 0.0f;
-}
-
-template <int KT>
-__global__ void __launch_bounds__(32 * kMaxBlockDocs)
+// The compiler's register cap as for the fixed point (fixed_point_estep.cu):
+// __launch_bounds__ as if for 512 threads where K <= 20.  In
+// torch_kernel_sweep.py, in turns on an H100 at 700 W, (256, 2) ran the
+// same and (256) up to 25% slower on long documents.  STAGED: the tokens'
+// rows in a shared-memory tile, else read from the table on every pass.
+template <int KT, bool STAGED>
+__global__ void __launch_bounds__(KT <= 20 ? 512 : 256)
 sparse_estep_kernel(const float* __restrict__ expb_vk,    // [V, K]
                     const int32_t* __restrict__ word_idx, // [B, L]
                     const float* __restrict__ counts,     // [B, L]
@@ -124,7 +115,8 @@ sparse_estep_kernel(const float* __restrict__ expb_vk,    // [V, K]
                     const float* __restrict__ alpha_ptr,  // [1]
                     const int* __restrict__ stop_flag,    // [1] or null
                     int* __restrict__ executed,           // [1] or null
-                    int warm, int L, int K, int var_max_iters, float var_tol,
+                    int warm, int L, int K, int wpd, int csize, int tile_len,
+                    int var_max_iters, float var_tol,
                     float* __restrict__ gamma_out,        // [B, K]
                     float* __restrict__ phic,             // [B, L, K]
                     float* __restrict__ docll,            // [B]
@@ -132,129 +124,200 @@ sparse_estep_kernel(const float* __restrict__ expb_vk,    // [V, K]
                     int32_t* __restrict__ iters_out) {    // [B / block_docs]
   if (oni::stopped(stop_flag)) return;
   oni::count_executed(executed);
-  __shared__ float s_delta[2][kMaxBlockDocs];
+  constexpr int NS = oni::NS<KT>;
+  extern __shared__ __align__(16) float s_tile[];      // [docs][tile_len * (K + 1)]
+  __shared__ float s_red[2][kMaxWarps * NS * 32];      // warps' per-topic sums
+  __shared__ float s_cta[2][NS * 32];                  // the CTA's sums (cluster)
+  __shared__ float s_delta[2][kMaxWarps];
+  __shared__ float s_nd[kMaxWarps];
+  __shared__ int s_last[kMaxWarps];
+
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const long long doc = (long long)blockIdx.x * nwarps + warp;
-  const int32_t* __restrict__ w = word_idx + doc * L;
-  const float* __restrict__ c = counts + doc * L;
+  const int docs = (blockDim.x >> 5) / wpd;
+  const int j = warp / wpd, p = warp % wpd;
+  const int rank = blockIdx.x % csize;            // clusters run along x
+  const int blk = blockIdx.x / csize;
+  const long long doc = (long long)blk * docs + j;
+  const int32_t* __restrict__ w_row = word_idx + doc * L;
+  const float* __restrict__ c_row = counts + doc * L;
   const float alpha = __ldg(alpha_ptr);
   const float m = doc_mask[doc];
   const float kf = (float)K;
+  const int first = p * 32 + lane, step = 32 * wpd;  // this lane's tokens
 
-  // N_d and the live-token bound (1 + last non-zero count).
-  float nd = 0.0f;
-  int last = -1;
-  for (int l = lane; l < L; l += 32) {
-    const float cv = c[l];
-    nd += cv;
-    if (cv != 0.0f) last = l;
+  // N_d and the live-token bound (1 + last non-zero count), over the
+  // document's warps; integer counts sum exactly in any order.  The
+  // packed layout puts the live tokens first: padding past the last
+  // non-zero count adds nothing (its count is 0).
+  {
+    float nd = 0.0f;
+    int last = -1;
+    for (int l = first; l < L; l += step) {
+      const float cv = c_row[l];
+      nd += cv;
+      if (cv != 0.0f) last = l;
+    }
+    nd = oni::warp_sum(nd);
+    last = oni::warp_max(last);
+    if (lane == 0) {
+      s_nd[warp] = nd;
+      s_last[warp] = last;
+    }
   }
-  nd = warp_sum(nd);
-  const int n_live = warp_max(last) + 1;
-  const float mean0 = alpha + nd / kf;  // the fresh init and the delta scale
+  __syncthreads();
+  float nd = 0.0f;
+  int n_live = 0;
+  for (int q = 0; q < wpd; ++q) {
+    nd += s_nd[j * wpd + q];
+    n_live = max(n_live, s_last[j * wpd + q] + 1);
+  }
+  const float mean0 = alpha + nd / kf;  // the fresh start and the delta scale
   const float inv_scale = 1.0f / mean0;
 
-  float gam[KT];
-#pragma unroll
-  for (int k = 0; k < KT; ++k)
-    gam[k] = (k < K) ? (warm ? gamma_in[doc * K + k] : mean0) : 0.0f;
+  // This CTA's share of the live tokens: [lo, lo + n) (a multiple of 4
+  // per rank, so rows stay 16-byte aligned where L allows).
+  const int per = (((n_live + csize - 1) / csize) + 3) & ~3;
+  const int lo = min(n_live, rank * per);
+  const int n = min(n_live, lo + per) - lo;
 
-  float e[KT], b[KT], acc[KT];
+  // The table's rows are K floats apart; 16-byte reads need it aligned.
+  const size_t align = (reinterpret_cast<uintptr_t>(expb_vk) & 15) ? 1 : (size_t)K;
+  float* b = nullptr;   // the tile's rows of beta values, K floats apart
+  float* c = nullptr;   // its counts, then the tail's ratios
+  if constexpr (STAGED) {
+    b = s_tile + (size_t)j * (K + 1) * tile_len;
+    c = b + (size_t)K * tile_len;
+    if (p == 0) oni::stage_row(c, c_row + lo, n, lane);
+    if (align != 1 && (K & 3) == 0) {
+      const int nq = K >> 2;
+      for (int f = first; f < n * nq; f += step) {
+        const int i = f / nq, h = f - i * nq;
+        oni::cp_async16(b + (size_t)i * K + 4 * h,
+                        expb_vk + (size_t)w_row[lo + i] * K + 4 * h);
+      }
+    } else {
+      for (int f = first; f < n * K; f += step) {
+        const int i = f / K, k = f - i * K;
+        oni::cp_async4(b + f, expb_vk + (size_t)w_row[lo + i] * K + k);
+      }
+    }
+    oni::cp_async_wait_all();
+    __syncthreads();
+  }
+
+  float gam[NS];  // lane-parallel: topic lane + 32 h
+#pragma unroll
+  for (int h = 0; h < NS; ++h) {
+    const int k = lane + 32 * h;
+    gam[h] = (k < K) ? (warm ? gamma_in[doc * K + k] : mean0) : 0.0f;
+  }
+
+  float e[KT], acc[KT], s[NS], el_mine[NS], e_mine[NS];
   float delta = INFINITY, prev = INFINITY;
   int it = 0;
   while (oni::fp_continue(it, delta, prev, var_max_iters, var_tol)) {
-    e_log_theta<KT>(gam, K, lane, e);
+    const int buf = it & 1;
+    oni::e_log_theta<KT>(gam, K, lane, el_mine, e_mine, e);
 #pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      e[k] = (k < K) ? expf(e[k]) : 0.0f;
-      acc[k] = 0.0f;
+    for (int k = 0; k < KT; ++k) acc[k] = 0.0f;
+    if constexpr (STAGED)
+      oni::accumulate_cells<KT, true>(b, K, c, first, n, step, e, K, acc);
+    else
+      accumulate_table<KT>(expb_vk, align, w_row + lo, c_row + lo, first, n, step, e, K, acc);
+    oni::warp_topic_sums<KT>(acc, lane, s);
+    oni::doc_sums<KT>(s, s_red[buf], warp, j, wpd, lane);
+    // One document per cluster: add the CTAs' sums in rank order.
+    if (csize > 1) oni::cluster_sums<KT>(s, s_cta[buf], csize, warp, lane);
+    const float dsum = oni::gamma_update<KT>(gam, e_mine, s, alpha, K, lane);
+    const float d_doc = (dsum / kf) * inv_scale * m;
+    float bmax = d_doc;
+    if (docs > 1) {
+      if (p == 0 && lane == 0) s_delta[buf][j] = d_doc;
+      __syncthreads();
+      bmax = s_delta[buf][0];
+      for (int q = 1; q < docs; ++q) bmax = fmaxf(bmax, s_delta[buf][q]);
     }
-    for (int l = lane; l < n_live; l += 32) {
-      load_row<KT>(expb_vk + (size_t)w[l] * K, K, b);
-      float ph = 0.0f;
-#pragma unroll
-      for (int k = 0; k < KT; ++k) ph = fmaf(b[k], e[k], ph);
-      const float r = c[l] * newton_recip(ph + 1e-30f);
-#pragma unroll
-      for (int k = 0; k < KT; ++k) acc[k] = fmaf(r, b[k], acc[k]);
-    }
-    float dsum = 0.0f;
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      if (k < K) {
-        const float gn = alpha + e[k] * warp_sum(acc[k]);
-        dsum += fabsf(gn - gam[k]);
-        gam[k] = gn;
-      }
-    }
-    if (lane == 0) s_delta[it & 1][warp] = (dsum / kf) * inv_scale * m;
-    __syncthreads();
-    float bmax = s_delta[it & 1][0];
-    for (int j = 1; j < nwarps; ++j) bmax = fmaxf(bmax, s_delta[it & 1][j]);
     prev = delta;
     delta = bmax;
     ++it;
   }
 
-  // Converged tail: phi_c, the ELBO terms and sum_k E[log theta].
-  float el[KT];
-  e_log_theta<KT>(gam, K, lane, el);
-#pragma unroll
-  for (int k = 0; k < KT; ++k) e[k] = (k < K) ? expf(el[k]) : 0.0f;
+  // Converged tail: E[log theta], the token term sum c log q, phi_c, the
+  // ELBO's Dirichlet terms and sum_k E[log theta].
+  oni::e_log_theta<KT>(gam, K, lane, el_mine, e_mine, e);
   float* __restrict__ out = phic + (size_t)doc * L * K;
-  float tok = 0.0f;
-  for (int l = lane; l < n_live; l += 32) {
-    const float cv = c[l];
-    load_row<KT>(expb_vk + (size_t)w[l] * K, K, b);
-    float ph = 0.0f;
+  float tok;
+  if constexpr (!STAGED) {
+    // Rows from the table: each lane writes its tokens' phi_c rows.
+    tok = 0.0f;
+    for (int i = first; i < n; i += step) {
+      float bk[KT], q;
+      const float cv = c_row[lo + i];
+      const float r = oni::cell_ratio<KT, true>(expb_vk + (size_t)w_row[lo + i] * K, align,
+                                                cv, e, K, bk, q);
+      tok = fmaf(cv, logf(q), tok);
+      const float rm = r * m;
+      float* __restrict__ o = out + (size_t)(lo + i) * K;
 #pragma unroll
-    for (int k = 0; k < KT; ++k) ph = fmaf(b[k], e[k], ph);
-    ph += 1e-30f;
-    const float r = cv * newton_recip(ph) * m;
-    tok += cv * logf(ph);
-    float* __restrict__ o = out + (size_t)l * K;
-#pragma unroll
-    for (int k = 0; k < KT; ++k)
-      if (k < K) o[k] = oni::flush_subnormal(b[k] * (r * e[k]));
+      for (int k = 0; k < KT; ++k)
+        if (k < K) o[k] = oni::flush_subnormal(bk[k] * (rm * e[k]));
+    }
+  } else {
+    // The ratios c / q replace the counts in the tile.
+    tok = oni::token_term<KT, true>(b, K, c, first, n, step, e, K, c);
   }
-  for (size_t i = (size_t)n_live * K + lane; i < (size_t)L * K; i += 32) out[i] = 0.0f;
-  tok = warp_sum(tok);
-
-  float gsum = 0.0f, as = 0.0f;
+  tok = oni::doc_sum1(oni::warp_sum(tok), s_red[it & 1], warp, j, wpd, lane);
+  if (csize > 1) tok = oni::cluster_sum1(tok, s_cta[it & 1], csize);
+  if constexpr (STAGED) {
+    __syncthreads();  // every ratio of the tile written
+    // phi_c of this CTA's tokens, coalesced: lane f of the flattened
+    // (token, topic) range writes element f; topic k's exp E[log theta]
+    // comes from lane k % 32, slot k / 32.
+    const int nf = n * K;
+    float* __restrict__ o = out + (size_t)lo * K;
+    for (int f0 = p * 32; f0 < nf; f0 += step) {
+      const int f = f0 + lane;
+      const int i = f / K, k = f - i * K;
+      float ek = 0.0f;
 #pragma unroll
-  for (int k = 0; k < KT; ++k) {
-    if (k < K) {
-      gsum += gam[k];
-      as += el[k];
+      for (int h = 0; h < NS; ++h) {
+        const float v = __shfl_sync(kFull, e_mine[h], k & 31);
+        if ((k >> 5) == h) ek = v;
+      }
+      if (f < nf) o[f] = oni::flush_subnormal(b[f] * ((c[i] * m) * ek));
     }
   }
-  float core = 0.0f;
+  {
+    // This rank's share of the padding [n_live, L).
+    const size_t pad0 = (size_t)n_live * K, pad = (size_t)L * K - pad0;
+    const size_t share = (pad + csize - 1) / csize;
+    const size_t a0 = (size_t)rank * share, a1 = a0 + share;
+    const size_t z0 = pad0 + (a0 < pad ? a0 : pad), z1 = pad0 + (a1 < pad ? a1 : pad);
+    for (size_t f = z0 + first; f < z1; f += step) out[f] = 0.0f;
+  }
+  if (p == 0) {
+    float gsum = 0.0f, core = 0.0f, as = 0.0f;
 #pragma unroll
-  for (int base = 0; base < KT; base += 32) {
-    float gk = 1.0f, ek = 0.0f;
-    bool own = false;
-#pragma unroll
-    for (int k = base; k < KT && k < base + 32; ++k) {
-      if (k < K && lane == k - base) {
-        gk = gam[k];
-        ek = el[k];
-        own = true;
+    for (int h = 0; h < NS; ++h) {
+      const int k = lane + 32 * h;
+      if (k < K) {
+        gsum += gam[h];
+        core += (alpha - gam[h]) * el_mine[h] + oni::gammaln_pos(gam[h]);
+        as += el_mine[h];
+        if (rank == 0) gamma_out[doc * K + k] = gam[h];
       }
     }
-    const float term = (alpha - gk) * ek + gammaln_pos(gk);
-    core += warp_sum(own ? term : 0.0f);
+    gsum = oni::warp_sum(gsum);
+    core = oni::warp_sum(core) - oni::gammaln_pos(gsum);
+    as = oni::warp_sum(as);
+    if (rank == 0 && lane == 0) {
+      docll[doc] = (core + tok) * m;
+      ass[doc] = as * m;
+    }
   }
-  core -= gammaln_pos(gsum);
-  if (lane == 0) {
-    docll[doc] = (core + tok) * m;
-    ass[doc] = as * m;
-  }
-#pragma unroll
-  for (int k = 0; k < KT; ++k)
-    if (k < K && lane == (k & 31)) gamma_out[doc * K + k] = gam[k];
-  if (threadIdx.x == 0) iters_out[blockIdx.x] = it;
+  if (rank == 0 && threadIdx.x == 0) iters_out[blk] = it;
+  oni::cluster_exit(csize);
 }
 
 // The [V, K] scatter of a batch's live tokens, without atomics: the
@@ -265,6 +328,20 @@ sparse_estep_kernel(const float* __restrict__ expb_vk,    // [V, K]
 // from run to run.  Replaces the JAX package's segment-sum
 // (oni_ml_tpu/ops/sparse_estep.py:424), which XLA runs outside the
 // Pallas kernel.
+//
+// Bytes bound it (the live rows of phi_c, their positions, the [V, K]
+// output), and the longest word's chain of dependent adds.  This design
+// (the first port's) was measured against six others on an H100 at
+// 700 W (torch_kernel_sweep.py, each batch's scatter right after its
+// E-step, as in EM, in turns): a thread per (word, topic), so no lane
+// idles at K = 20, loading 4-32 tokens ahead (double-buffered, chunked,
+// and with the CTA's word ids in shared memory); the same with the CTA's
+// rows staged in shared memory by cp.async; and one warp per word with
+// the zero fill folded into the kernel, with and without loads ahead.
+// Each ran the flow day's batches slower (9.0-11.8 us a launch against
+// 7.7 for this kernel and the wrapper's fill), though the flattened ones
+// ran chains of 1,024 adds up to 1.4x faster.  A warp's load here is one
+// phi_c row; a flattened warp's straddles two words.
 __global__ void __launch_bounds__(256)
 sparse_scatter_kernel(const float* __restrict__ phic,          // [B * L, K]
                       const int32_t* __restrict__ sorted_pos,  // [n]
@@ -287,46 +364,63 @@ sparse_scatter_kernel(const float* __restrict__ phic,          // [B * L, K]
   }
 }
 
-template <int KT>
-cudaError_t launch(dim3 grid, dim3 block, cudaStream_t stream, const float* expb_vk,
+template <int KT, bool STAGED>
+cudaError_t launch(int nb, int docs, int wpd, int csize, int tile_len, size_t smem,
+                   cudaStream_t stream, const float* expb_vk,
                    const int32_t* word_idx, const float* counts, const float* doc_mask,
                    const float* gamma_in, const float* alpha, const int* stop_flag,
                    int* executed, int warm, int L, int K, int var_max_iters,
                    float var_tol, float* gamma_out, float* phic, float* docll, float* ass,
                    int32_t* iters) {
-  sparse_estep_kernel<KT><<<grid, block, 0, stream>>>(
-      expb_vk, word_idx, counts, doc_mask, gamma_in, alpha, stop_flag, executed, warm,
-      L, K, var_max_iters, var_tol, gamma_out, phic, docll, ass, iters);
-  return cudaGetLastError();
+  return oni::launch_clustered(sparse_estep_kernel<KT, STAGED>, nb, csize, 32 * docs * wpd,
+                               smem, stream, expb_vk, word_idx, counts, doc_mask, gamma_in,
+                               alpha, stop_flag, executed, warm, L, K, wpd, csize, tile_len,
+                               var_max_iters, var_tol, gamma_out, phic, docll, ass, iters);
 }
 
 }  // namespace
 
+// The launch geometry is the caller's (ops/sparse_estep.py
+// launch_geometry): `block_docs` documents per CTA (the stop block),
+// `warps_per_doc` warps each, `cluster` CTAs per document (then
+// block_docs must be 1), and with `staged` a shared-memory tile of
+// tile_len tokens per document and CTA.
 extern "C" int oni_sparse_estep(const float* expb_vk, const int32_t* word_idx,
                                 const float* counts, const float* doc_mask,
                                 const float* gamma_in, const float* alpha,
                                 const int* stop_flag, int* executed, int warm, int B,
-                                int L, int K, int block_docs, int var_max_iters,
-                                float var_tol, float* gamma_out, float* phic, float* docll,
-                                float* ass, int32_t* iters, void* stream) {
-  if (B <= 0 || L <= 0 || K <= 0 || block_docs <= 0 || block_docs > kMaxBlockDocs ||
-      B % block_docs != 0)
+                                int L, int K, int block_docs, int warps_per_doc,
+                                int cluster, int tile_len, int staged,
+                                int var_max_iters, float var_tol,
+                                float* gamma_out, float* phic, float* docll, float* ass,
+                                int32_t* iters, void* stream) {
+  const int threads = 32 * block_docs * warps_per_doc;
+  if (B <= 0 || L <= 0 || K <= 0 || K > 64 || block_docs <= 0 || warps_per_doc <= 0 ||
+      B % block_docs != 0 || cluster < 1 || cluster > kMaxCluster ||
+      (cluster & (cluster - 1)) || (cluster > 1 && block_docs != 1) ||
+      threads > kMaxThreads)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(B / block_docs), block(32 * block_docs);
+  const size_t smem =
+      staged ? (size_t)block_docs * (K + 1) * (size_t)tile_len * sizeof(float) : 0;
+  if (staged && (tile_len % 4 != 0 ||
+                 (size_t)tile_len < (size_t)((((L + cluster - 1) / cluster) + 3) & ~3)))
+    return (int)cudaErrorInvalidValue;
+  const int nb = B / block_docs;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define ONI_LAUNCH(KT)                                                                   \
-  return (int)launch<KT>(grid, block, s, expb_vk, word_idx, counts, doc_mask, gamma_in, \
-                         alpha, stop_flag, executed, warm, L, K, var_max_iters,        \
-                         var_tol,                                                      \
-                         gamma_out, phic, docll, ass, iters)
+#define ONI_LAUNCH_MODE(KT, STAGED)                                                          \
+  launch<KT, STAGED>(nb, block_docs, warps_per_doc, cluster, tile_len, smem, s, expb_vk,      \
+                     word_idx, counts, doc_mask, gamma_in, alpha, stop_flag, executed, warm, \
+                     L, K, var_max_iters, var_tol, gamma_out, phic, docll, ass, iters)
+#define ONI_LAUNCH(KT) \
+  return (int)(staged ? ONI_LAUNCH_MODE(KT, true) : ONI_LAUNCH_MODE(KT, false))
   if (K <= 4) ONI_LAUNCH(4);
   if (K <= 8) ONI_LAUNCH(8);
   if (K <= 16) ONI_LAUNCH(16);
   if (K <= 20) ONI_LAUNCH(20);
   if (K <= 32) ONI_LAUNCH(32);
-  if (K <= 64) ONI_LAUNCH(64);
+  ONI_LAUNCH(64);
 #undef ONI_LAUNCH
-  return (int)cudaErrorInvalidValue;
+#undef ONI_LAUNCH_MODE
 }
 
 extern "C" int oni_sparse_scatter(const float* phic, const int32_t* sorted_pos,

@@ -54,7 +54,8 @@ NUM_SMS = 132
 MAX_TOPICS = 64
 # Shared memory one CTA may take on the H100 (227 KB, opt-in above 48 KB),
 # less the kernel's static arrays (4,736 bytes at MAX_THREADS and K <= 64,
-# rounded up): the most a staged slab tile may hold.
+# rounded up; csrc/sparse_estep.cu has the same arrays): the most a staged
+# slab tile may hold.
 SMEM_PER_CTA = 232_448
 SMEM_STATIC = 5_120
 # Thread-block clusters: the portable size limit.
@@ -125,7 +126,9 @@ def _tile_len(l: int, cluster: int) -> int:
 
 def launch_geometry(b: int, l: int, k: int, block: "int | None" = None) -> dict:
     """How the kernel runs a [K, B, L] slab on the card, a pure function
-    of (B, L, K) and the card's 132 SMs:
+    of (B, L, K) and the card's 132 SMs (the sparse E-step kernel, whose
+    tokens stage the same 4 * (K + 1) bytes, runs by the same rule:
+    sparse_estep.launch_geometry):
 
     - `block`: documents per stop group, pick_block(B) unless given; one
       CTA (or one cluster) takes one block, so `docs_per_cta` = block;

@@ -11,10 +11,12 @@ alpha-prior constant.  K x L work per document, not K x V.
 
 Two functions, each with two implementations:
 - `fixed_point_blocks`: CUDA tensors launch `csrc/sparse_estep.cu`'s
-  E-step kernel (see its header for the design and what bounds it) and
-  count the launch in `launch_count` (the kernel itself counts the
-  launches that ran past the chunk driver's stop: `executed_counts`);
-  CPU tensors run
+  E-step kernel (see its header for the design and what bounds it) under
+  `launch_geometry` (docs per CTA, warps per document, a thread-block
+  cluster per long document, the shared-memory tile that stages the live
+  tokens' beta rows, or none where a tile cannot fit) and count the
+  launch in `launch_count` (the kernel itself counts the launches that
+  ran past the chunk driver's stop: `executed_counts`); CPU tensors run
   `fixed_point_full_reference`, the same arithmetic in PyTorch ops with
   the same per-block stop, vectorised over blocks.
 - `scatter_live`: CUDA tensors launch the same file's scatter kernel,
@@ -43,18 +45,23 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import _cuda, estep
+from . import _cuda, estep, pallas_estep
 from .special import digamma_pos, gammaln_pos
 from .stop import fp_continue
 
 KERNEL = "sparse_estep"
-# Largest doc block: one warp per doc, 8 warps = 256 threads per CTA.
+# Largest doc block (the stop group): one CTA takes the whole block.
 MAX_BLOCK_DOCS = 8
 # H100 SXM streaming multiprocessors: the block pick aims for at least
 # one CTA per SM.
 NUM_SMS = 132
 # Topics the kernel holds in registers (the largest compiled bound).
 MAX_TOPICS = 64
+# Threads a CTA may have and CTAs a cluster may have, as for the fixed
+# point (the geometry is its rule): csrc/sparse_estep.cu kMaxThreads and
+# kMaxCluster, the same numbers.
+MAX_THREADS = pallas_estep.MAX_THREADS
+MAX_CLUSTER = pallas_estep.MAX_CLUSTER
 
 launch_count = 0           # E-step kernel launches
 scatter_launch_count = 0   # scatter kernel launches
@@ -69,7 +76,7 @@ def _kernel():
         lib = _cuda.load(KERNEL)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = lib.oni_sparse_estep
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
                        ctypes.c_float, p, p, p, p, p, p]
         fn.restype = i
         scatter = lib.oni_sparse_scatter
@@ -97,9 +104,10 @@ def pick_block(b: int) -> int:
     of two <= MAX_BLOCK_DOCS dividing `b` that still gives at least
     NUM_SMS blocks, else 1 (a small batch spreads over as many SMs as it
     can).  Smaller blocks also stop each document closer to its own
-    convergence.  L and K do not enter, unlike the TPU rule: the
-    kernel's footprint does not grow with L, and K is bounded by
-    MAX_TOPICS."""
+    convergence.  L and K do not enter, unlike the TPU rule: the block
+    only groups the stop decisions, and launch_geometry sizes the shared
+    memory a block stages (a tile too large for 8 CTAs' shared memory is
+    read from the table instead, so every L runs)."""
     if b <= 0:
         raise ValueError(f"batch size must be positive, got {b}")
     bb = MAX_BLOCK_DOCS
@@ -120,10 +128,19 @@ def pad_multiple_for(precision: str = "f32") -> int:
     return MAX_BLOCK_DOCS
 
 
+def launch_geometry(b: int, l: int, k: int, block: "int | None" = None) -> dict:
+    """How the kernel runs a [B, L] bucket on the card: the fixed
+    point's rule, pallas_estep.launch_geometry (a token stages K beta
+    values and its count, 4 * (K + 1) bytes, in both kernels)."""
+    return pallas_estep.launch_geometry(b, l, k, block or pick_block(b))
+
+
 def available(b: int, l: int, k: int, device, precision: str = "f32") -> bool:
     """True where the per-batch dispatch may take this kernel: a CUDA
     device, K within the compiled bound, float32 beta.  B and L do not
-    enter: pick_block always finds a block and nothing is sized by L."""
+    enter: pick_block always finds a block, and where a document's tile
+    does not fit in 8 CTAs' shared memory the kernel reads the beta
+    table from device memory instead."""
     return (torch.device(device).type == "cuda" and 0 < k <= MAX_TOPICS
             and precision == "f32")
 
@@ -272,6 +289,7 @@ def _launch_cuda(expb_vk, alpha, word_idx, counts, doc_mask, var_max_iters,
     if block > MAX_BLOCK_DOCS or block & (block - 1):
         raise ValueError(f"doc block {block} must be a power of two "
                          f"<= {MAX_BLOCK_DOCS}")
+    geom = launch_geometry(b, l, k, block)
     gamma = torch.empty((b, k), dtype=torch.float32, device=dev)
     phic = torch.empty((b, l, k), dtype=torch.float32, device=dev)
     docll = torch.empty((b,), dtype=torch.float32, device=dev)
@@ -284,12 +302,14 @@ def _launch_cuda(expb_vk, alpha, word_idx, counts, doc_mask, var_max_iters,
             expb_vk.data_ptr(), word_idx.data_ptr(), counts.data_ptr(),
             doc_mask.data_ptr(), gamma_in.data_ptr(), alpha.data_ptr(),
             _cuda.ptr(stop), _EXECUTED.slot(dev, 0), int(warm), b, l, k, block,
-            int(var_max_iters),
-            float(var_tol),
+            geom["warps_per_doc"], geom["cluster"], geom["tile_len"],
+            int(geom["staged"]), int(var_max_iters), float(var_tol),
             gamma.data_ptr(), phic.data_ptr(), docll.data_ptr(),
             ass.data_ptr(), iters.data_ptr(), stream,
         )
-    _cuda.check(lib, err, "sparse_estep launch")
+    # A refused launch (a cluster the card cannot place, too much shared
+    # memory) raises with its geometry; nothing retries on plain ops.
+    _cuda.check(lib, err, f"sparse_estep launch, geometry {geom}")
     launch_count += 1
     return gamma, phic, docll, ass, iters
 

@@ -439,3 +439,165 @@ def test_cuda_fixed_point_cluster_path_matches_plain_version(cuda, b, l,
         assert all(torch.equal(x, y) for x, y in zip(got, again))
         ref = tpallas.fixed_point_reference(*args, geom["block"], **kw)
         _check_block_parity(got, ref, geom["block"], 1e-6)
+
+
+@pytest.mark.parametrize("l", [128, 4096, 16384])
+@pytest.mark.parametrize("b", [1, 2, 8, 1024])
+def test_sparse_launch_geometry_keeps_the_block_within_card_limits(b, l):
+    """The sparse E-step's launch geometry: the doc block (the stop
+    groups) is pick_block's, one CTA or one cluster per block; a cluster
+    of 1-8 CTAs, and more than one only for a block of one document; at
+    most MAX_THREADS threads in whole warps; a staged tile covers the
+    document's share of L in 16-byte rows and fits in a CTA's shared
+    memory beside the kernel's static arrays."""
+    for k in (5, 20, 64):
+        geom = tsparse.launch_geometry(b, l, k)
+        block, cluster = geom["block"], geom["cluster"]
+        assert block == tsparse.pick_block(b) == geom["docs_per_cta"]
+        assert cluster in (1, 2, 4, 8) and (cluster == 1 or block == 1)
+        assert cluster <= tsparse.MAX_CLUSTER
+        assert geom["ctas"] == b // block * cluster
+        assert geom["threads"] == 32 * block * geom["warps_per_doc"]
+        assert geom["threads"] <= tsparse.MAX_THREADS == 256
+        if geom["staged"]:
+            assert geom["tile_len"] % 4 == 0
+            assert geom["tile_len"] * cluster >= l
+            assert geom["smem_bytes"] == block * 4 * (k + 1) * geom["tile_len"]
+            assert geom["smem_bytes"] <= (tpallas.SMEM_PER_CTA
+                                          - tpallas.SMEM_STATIC)
+        else:
+            # Only where no cluster can help: a block of several
+            # documents, or a document past 8 CTAs' tiles.
+            assert geom["smem_bytes"] == 0 and (cluster == 8 or block > 1)
+
+
+@pytest.mark.parametrize("l", [128, 4096, 16384])
+@pytest.mark.parametrize("b", [1, 2, 8, 1024])
+def test_sparse_geometry_is_the_fixed_points(b, l, monkeypatch):
+    """One rule for both kernels that stage 4 * (K + 1) bytes a token:
+    the sparse geometry is the fixed point's, key for key, at every K
+    and at each tokens-per-warp setting of the sweep."""
+    for tpw in (32, 128, 256):
+        monkeypatch.setattr(tpallas, "TOKENS_PER_WARP", tpw)
+        for k in (5, 20, 64):
+            assert tsparse.launch_geometry(b, l, k) == tpallas.launch_geometry(
+                b, l, k, tsparse.pick_block(b))
+
+
+def test_sparse_wrapper_limits_are_the_kernel_source():
+    """The sparse wrapper's CTA, cluster and shared-memory limits are the
+    numbers csrc/sparse_estep.cu sizes its launch and static arrays by:
+    MAX_THREADS is kMaxThreads, MAX_CLUSTER kMaxCluster, SMEM_STATIC
+    covers the static arrays at that CTA and K <= 64 (two halves of
+    per-warp and per-CTA topic sums, the deltas, N_d and the live
+    bounds)."""
+    import pathlib
+    import re
+
+    csrc = pathlib.Path(tsparse.__file__).parents[1] / "csrc"
+    src = (csrc / "sparse_estep.cu").read_text()
+
+    def const(name, text=src):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+    threads = const("kMaxThreads")
+    assert threads == tsparse.MAX_THREADS
+    assert const("kMaxCluster") == tsparse.MAX_CLUSTER
+    kernel = src[src.index("sparse_estep_kernel("):src.index("sparse_scatter_kernel(")]
+    decl = re.findall(r"__shared__ (?:float|int) s_\w+(\[[^;]*);", kernel)
+    assert len(decl) == 5
+    warps, ns = threads // 32, 2
+    static = 4 * (2 * warps * ns * 32 + 2 * ns * 32 + 2 * warps + 2 * warps)
+    assert static <= tpallas.SMEM_STATIC < static + 1024
+
+
+# (B, L, min_live) at V=5,520 for each launch geometry the sparse
+# E-step's rule gives (sparse_estep.launch_geometry), at K 5 and 20 alike:
+# one warp per document (blocks of 4), four warps per document (blocks
+# of 2), a cluster of 2 and of 8 CTAs per document, and the beta rows
+# read from the table in device memory, for a document longer than 8
+# CTAs' tiles and for a block of 4 documents whose tiles do not fit one
+# CTA (as in the flow day's buckets of 264 documents or more at L 2,048).
+SPARSE_GEOMETRIES = {
+    "one_warp": (1024, 32, 8),
+    "four_warps": (264, 512, 129),
+    "cluster2": (40, 256, 129),
+    "cluster8": (8, 4096, 2049),
+    "unstaged": (1, 81920, 40961),
+    "unstaged_block": (1024, 4096, 2049),
+}
+
+
+def _sparse_geometry_holds(case, geom):
+    return {
+        "one_warp": geom["warps_per_doc"] == 1 and geom["block"] == 4
+        and geom["cluster"] == 1 and geom["staged"],
+        "four_warps": geom["warps_per_doc"] == 4 and geom["block"] == 2
+        and geom["staged"],
+        "cluster2": geom["cluster"] == 2 and geom["staged"],
+        "cluster8": geom["cluster"] == 8 and geom["staged"],
+        "unstaged": geom["cluster"] == 8 and not geom["staged"],
+        "unstaged_block": geom["block"] > 1 and not geom["staged"],
+    }[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 20])
+@pytest.mark.parametrize("case", list(SPARSE_GEOMETRIES))
+def test_cuda_sparse_kernel_matches_plain_version_in_every_geometry(
+        cuda, case, k):
+    """csrc/sparse_estep.cu in each geometry, at K 20 (16-byte staging
+    copies and reads) and K 5 (4-byte ones), against
+    fixed_point_full_reference, fresh and warm: iterations within one
+    per block; gamma rtol 1e-4 (rcp.approx + one Newton step and another
+    f32 summation order) in the blocks that stop together, the others
+    within 2 var_tol by the stop rule's own measure; the tail (phi_c rtol
+    1e-4, docll and ass 1e-5) against the plain tail on the kernel's
+    gamma; two launches give the same bits."""
+    b, l, min_live = SPARSE_GEOMETRIES[case]
+    geom = tsparse.launch_geometry(b, l, k)
+    assert _sparse_geometry_holds(case, geom), geom
+    lb, w, c, m, gp = _long_case(40 + b, b, l, min_live, k)
+    expb = tsparse.exp_beta_table(torch.from_numpy(lb).to(cuda))
+    args = (expb, torch.tensor(2.5, device=cuda), torch.from_numpy(w).to(cuda),
+            torch.from_numpy(c).to(cuda), torch.from_numpy(m).to(cuda), 20, 1e-6)
+    block = geom["block"]
+    for warm in (False, True):
+        kw = {"block": block, "warm": torch.tensor(int(warm)),
+              "gamma_prev": torch.from_numpy(gp).to(cuda) if warm else None}
+        got = tsparse.fixed_point_blocks(*args, **kw)
+        again = tsparse.fixed_point_blocks(*args, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        ref = tsparse.fixed_point_full_reference(*args, **kw)
+        _check_block_parity((got[0], got[4]), (ref[0], ref[4]), block, 1e-6)
+        tail = tsparse.fixed_point_full_reference(
+            *args[:5], 0, 1e-6, block=block, gamma_prev=got[0],
+            warm=torch.tensor(1))
+        rt = tail[1].cpu().numpy()
+        np.testing.assert_allclose(got[1].cpu().numpy(), rt, rtol=1e-4,
+                                   atol=1e-4 * np.abs(rt).max())
+        for i in (2, 3):
+            r = tail[i].cpu().numpy()
+            np.testing.assert_allclose(got[i].cpu().numpy(), r, rtol=1e-5,
+                                       atol=1e-5 * np.abs(r).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [60, 5520])
+def test_cuda_scatter_on_spread_and_empty_batches(cuda, v):
+    """The scatter's [V, K] output on words spread over V: the rows of
+    words no live token holds are zeros, before, between and after the
+    words that occur, and a batch with no live token gives all zeros,
+    as on the CPU."""
+    lb, a, w, c, m, _ = _problem(23, 16, 24, 4)
+    w = (w * (v // V)).astype(np.int32)         # spread the words over V
+    dev = cuda
+    phic = torch.rand((16, 24, K), device=dev)
+    for counts in (c, np.zeros_like(c)):
+        tw, tc = torch.from_numpy(w).to(dev), torch.from_numpy(counts).to(dev)
+        live = tsparse.live_tokens(tw, tc)
+        got = tsparse.scatter_live(phic, live, v)
+        cpu = tsparse.scatter_live(phic.cpu(), tsparse.live_tokens(
+            tw.cpu(), tc.cpu()), v)
+        assert torch.equal(got.cpu(), cpu)
