@@ -21,11 +21,13 @@ Phases (any failure exits non-zero before the result line):
              library yardstick.  Each case's cap on fixed-point iterations
              lies above what most blocks need, so the per-block stop
              decision is compared too.
-3. e2e       a small synthetic day through the port on the card and on
-             the CPU (plain versions), with each ONI_ML_TPU_ESTEP value
-             (sparse, dense, pallas, xla, compact): the EM trajectories
-             must agree; and twice on the card with each: final.* must
-             be the same bytes.
+3. e2e       a small synthetic flow day and a small synthetic DNS day
+             through the port's entry point on the card and on the CPU
+             (plain versions), with each ONI_ML_TPU_ESTEP value (sparse,
+             dense, pallas, xla, compact): the EM trajectories must
+             agree; and twice on the card with each: final.* must be the
+             same bytes.  The same for a small proxy day under the
+             default engine.
 4. pipeline  a 2,000,000-event synthetic flow day through the port's
              entry point on the card, its engine from the measured
              dense-vs-sparse crossover (a fresh plan cache, so the run
@@ -36,7 +38,22 @@ Phases (any failure exits non-zero before the result line):
              fixed-point kernel) through train_corpus, each scored.
              Each path's kernels must have launched on it (the counts
              are zeroed just before each and read just after).
-5. profile   20 EM iterations over that day's corpus four ways (sparse
+5. pipeline_dns  a 2,000,000-event synthetic DNS day (the JAX bench's
+             shape: 20,000 clients, 5,000 domains, seed 13) through
+             `ml_ops.main([... "dns" ...])` on the card, its engine from
+             the crossover measured in a fresh plan cache: stage walls,
+             EM docs/s, V, the engine and member with their sources, the
+             crossover's times, each kernel's launches enqueued and run;
+             the member's kernels must have launched.  Then 20 EM
+             iterations of that engine over the day's corpus, profiled
+             (ms per iteration, device idle share).
+6. resume    on the small flow day with the sparse engine pinned:
+             `--stages pre,corpus` then `--stages lda,score` must write
+             the one-shot card run's bytes; an EM fit cut at iteration 3
+             with checkpoint_every 1 and resumed to 6 must equal the
+             uninterrupted card fit (warm start off), under both
+             drivers.
+7. profile   20 EM iterations over the flow day's corpus four ways (sparse
              engine under the chunk driver, sparse under the stepwise
              driver, dense and per-batch pallas under the chunk driver):
              wall without the
@@ -48,8 +65,9 @@ Phases (any failure exits non-zero before the result line):
              under each driver.  Then the sparse [V, K] scatter over the
              day's batches against index_add_.
 
-Then it prints the kernels line, the card's name and power limit, and
-last `{"ok": true, "device": {...}}`.  Without a CUDA device, or
+Then it prints the kernels line (each kernel with its launches on its
+flow-day path and, as `dns_launches`, on the DNS day's), the card's name
+and power limit, and last `{"ok": true, "device": {...}}`.  Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
 """
 
@@ -102,6 +120,7 @@ MAX_MOVED_SHARE = 0.05
 # (f32 sums in another order, the approximate reciprocal).
 RTOL_E2E = 1e-4
 PIPELINE_EVENTS = 2_000_000
+DNS_EVENTS = 2_000_000
 # float32 operations of one digamma_pos (estep_common.cuh): 7 guarded
 # recurrence steps (compare, divide, two adds) and the series.
 DIGAMMA_FLOPS = 40
@@ -460,60 +479,94 @@ def fixed_point_parity(label, b, l, min_live, warm, var_max_iters, var_tol):
     return rec
 
 
-def run_day(raw, data, dev, engine, em_iters):
-    """The small day through ml_ops.main with ONI_ML_TPU_ESTEP=engine."""
+# Each source's input flag, and the small day's raw events and columns
+# of a results row (TOL 1.1 flags every raw event: all scores are below
+# 1; the flow day's first line is its header).
+DAY_FLAGS = {"flow": "--flow-path", "dns": "--dns-path",
+             "proxy": "--proxy-path"}
+SMALL_ROWS = {"flow": (19_999, 37), "dns": (20_000, 16), "proxy": (20_000, 15)}
+
+
+def run_day(dsource, raw, data, dev, engine, em_iters, *extra):
+    """A day through ml_ops.main with ONI_ML_TPU_ESTEP=engine (unset for
+    None)."""
     from oni_ml_tpu_torch.runner import ml_ops
 
-    os.environ["ONI_ML_TPU_ESTEP"] = engine
+    if engine:
+        os.environ["ONI_ML_TPU_ESTEP"] = engine
     try:
-        ml_ops.main(["20160122", "flow", "1.1", "--flow-path", raw,
-                     "--data-dir", data, "--device", dev,
-                     "--em-max-iters", str(em_iters), "--dup-factor", "0"])
+        rc = ml_ops.main(["20160122", dsource, "1.1", DAY_FLAGS[dsource], raw,
+                          "--data-dir", data, "--device", dev,
+                          "--em-max-iters", str(em_iters), "--dup-factor",
+                          "0", *extra])
     finally:
-        del os.environ["ONI_ML_TPU_ESTEP"]
+        os.environ.pop("ONI_ML_TPU_ESTEP", None)
+    if rc != 0:
+        fail(f"ml_ops {dsource} {extra} on {dev} returned {rc}")
     return os.path.join(data, "20160122")
 
 
-# ONI_ML_TPU_ESTEP values the small day runs, and the family member each
+# ONI_ML_TPU_ESTEP values the small days run, and the family member each
 # must train with under the chunk driver.
 E2E_MEMBERS = {"sparse": "sparse", "dense": "dense",
                "pallas": "per_batch:pallas", "xla": "per_batch:xla",
                "compact": "compact"}
 
 
-def e2e_small(tmp):
-    """A 20,000-event day through the port on the card and on the CPU
-    (plain versions) from one beta, with each ONI_ML_TPU_ESTEP value: the
-    first EM iterations' likelihoods must agree to RTOL_E2E.  And a
-    second card run per value: final.* byte for byte (no atomics on the
-    path)."""
-    from oni_ml_tpu_torch.synth import write_flow_day
+def small_days(tmp):
+    """The small days' raw files: 20,000 events each of flow (400
+    sources, 100 destinations), DNS (400 clients, 500 domains) and proxy
+    (the proxy spec's benign day behind a header line)."""
+    from oni_ml_tpu_torch.sources import get
+    from oni_ml_tpu_torch.synth import write_dns_day, write_flow_day
 
-    raw = os.path.join(tmp, "small.csv")
-    with open(raw, "w") as f:
+    raws = {name: os.path.join(tmp, f"small_{name}.csv")
+            for name in DAY_FLAGS}
+    with open(raws["flow"], "w") as f:
         write_flow_day(f, 20_000, n_src=400, n_dst=100, seed=5)
-    for engine, member in E2E_MEMBERS.items():
-        days = {run: run_day(raw, os.path.join(tmp, f"small_{engine}_{run}"),
-                             run.split("_")[0], engine, 5)
+    with open(raws["dns"], "w") as f:
+        write_dns_day(f, 20_000, n_clients=400, n_doms=500, seed=5)
+    spec = get("proxy")
+    with open(raws["proxy"], "w") as f:
+        f.write(",".join(spec.columns) + "\n"
+                + "\n".join(spec.synth_benign(20_000, seed=5)) + "\n")
+    return raws
+
+
+def e2e_small(tmp, raws):
+    """The small flow and DNS days through the port on the card and on
+    the CPU (plain versions) from one beta, with each ONI_ML_TPU_ESTEP
+    value, and the proxy day under the default engine: the first EM
+    iterations' likelihoods must agree to RTOL_E2E.  And a second card
+    run of each: final.* byte for byte (no atomics on the path)."""
+    cases = [(dsource, engine, member) for dsource in ("flow", "dns")
+             for engine, member in E2E_MEMBERS.items()]
+    cases.append(("proxy", None, None))
+    for dsource, engine, member in cases:
+        days = {run: run_day(dsource, raws[dsource], os.path.join(
+                    tmp, f"small_{dsource}_{engine}_{run}"),
+                    run.split("_")[0], engine, 5)
                 for run in ("cuda", "cpu", "cuda_again")}
-        lls = {}
+        lls, members = {}, {}
         for run, day in days.items():
             lls[run] = formats.read_likelihood(os.path.join(day, "likelihood.dat"))
             with open(os.path.join(day, "metrics.json")) as f:
                 lda = {r["stage"]: r for r in json.load(f)}["lda"]
-            if lda["member"] != member or lda["driver"] != "fused":
-                fail(f"e2e {engine} {run}: trained {lda['member']} under "
-                     f"the {lda['driver']} driver")
-            with open(os.path.join(day, "flow_results.csv"), "rb") as f:
+            members[run] = lda["member"]
+            if (member and lda["member"] != member) or lda["driver"] != "fused":
+                fail(f"e2e {dsource} {engine} {run}: trained {lda['member']} "
+                     f"under the {lda['driver']} driver")
+            with open(os.path.join(day, f"{dsource}_results.csv"), "rb") as f:
                 rows = f.read().splitlines()
-            # TOL 1.1 flags every raw event (all scores are below 1).
-            if len(rows) != 19_999 or any(len(r.split(b",")) != 37 for r in rows):
-                fail(f"e2e {engine} {run}: flow_results.csv has {len(rows)} "
-                     "rows or a row without 37 columns")
+            n_rows, n_cols = SMALL_ROWS[dsource]
+            if len(rows) != n_rows or any(len(r.split(b",")) != n_cols
+                                          for r in rows):
+                fail(f"e2e {dsource} {engine} {run}: {dsource}_results.csv "
+                     f"has {len(rows)} rows or a row without {n_cols} columns")
         a, b = lls["cuda"][:, 0], lls["cpu"][:, 0]
         if a.shape != b.shape or not np.allclose(a, b, rtol=RTOL_E2E, atol=0):
-            fail(f"e2e {engine} likelihoods differ: cuda {a.tolist()} "
-                 f"cpu {b.tolist()}")
+            fail(f"e2e {dsource} {engine} likelihoods differ: cuda "
+                 f"{a.tolist()} cpu {b.tolist()}")
         same = {}
         for name in ("final.beta", "final.gamma", "final.other",
                      "likelihood.dat"):
@@ -521,9 +574,11 @@ def e2e_small(tmp):
                     open(os.path.join(days["cuda_again"], name), "rb") as f2:
                 same[name] = f1.read() == f2.read()
         if not all(same.values()):
-            fail(f"e2e {engine}: two card runs wrote different bytes: {same}")
+            fail(f"e2e {dsource} {engine}: two card runs wrote different "
+                 f"bytes: {same}")
         log("e2e " + json.dumps({
-            "estep_env": engine, "member": member, "em_iters": len(a),
+            "dsource": dsource, "estep_env": engine, "member": members,
+            "em_iters": len(a),
             "cuda_vs_cpu_max_rel": float(np.max(np.abs(a - b) / np.abs(b))),
             "card_runs_byte_identical": same,
         }))
@@ -555,7 +610,8 @@ def pipeline(tmp):
     day_counts = (launch_counts(), executed_counts())
     day = os.path.join(data, "20160122")
     recs = {r["stage"]: r for r in run.records}
-    missing = [n for n in ml_ops.ARTIFACTS if not os.path.exists(os.path.join(day, n))]
+    missing = [n for n in ml_ops.artifacts("flow")
+               if not os.path.exists(os.path.join(day, n))]
     if missing:
         fail(f"pipeline artifacts missing: {missing}")
     lda, corpus = recs["lda"], recs["corpus"]
@@ -573,6 +629,7 @@ def pipeline(tmp):
         "events": PIPELINE_EVENTS, "docs": corpus["docs"],
         "vocab": corpus["vocab"], "tokens": corpus["tokens"],
         "stage_wall_s": walls, "day_wall_s": sum(walls.values()),
+        "pre_pickle_s": recs["pre"]["pickle_s"],
         "flagged": recs["score"]["flagged"], "lda": lda,
     }))
     path_counts = {lda["member"]: day_counts}
@@ -638,7 +695,9 @@ def train_path(label, run, config, cfg_kw, env, member, recs, tmp):
     rec = dict(ml_ops.lda_record(result, counts0, "cuda"), em_s=em_s,
                em_docs_per_s=run.corpus.num_docs * result.em_iters / em_s)
     t0 = time.perf_counter()
-    score = ml_ops.stage_score(run.features, run.corpus, result, config, out)
+    score = ml_ops.stage_score(ml_ops.RunContext(
+        config, "20160122", "flow", out, features=run.features,
+        corpus=run.corpus, result=result))
     score_s = time.perf_counter() - t0
     if rec["member"] != member:
         fail(f"{label} day trained {rec['member']}, expected {member}")
@@ -657,7 +716,7 @@ def train_path(label, run, config, cfg_kw, env, member, recs, tmp):
     return counts
 
 
-def check_day(day, recs, corpus, lda):
+def check_day(day, recs, corpus, lda, dsource="flow"):
     vocab = formats.read_words_dat(os.path.join(day, "words.dat"))
     docs = formats.read_doc_dat(os.path.join(day, "doc.dat"))
     ptr, widx, cnts = formats.read_model_dat(os.path.join(day, "model.dat"))
@@ -667,7 +726,7 @@ def check_day(day, recs, corpus, lda):
     ll = formats.read_likelihood(os.path.join(day, "likelihood.dat"))
     names, theta = formats.read_doc_results(os.path.join(day, "doc_results.csv"))
     words, p = formats.read_word_results(os.path.join(day, "word_results.csv"))
-    with open(os.path.join(day, "flow_results.csv"), "rb") as f:
+    with open(os.path.join(day, f"{dsource}_results.csv"), "rb") as f:
         flagged = [r.split(b",") for r in f.read().splitlines()]
     checks = {
         "vocab": len(vocab) == corpus["vocab"] == len(words),
@@ -680,13 +739,163 @@ def check_day(day, recs, corpus, lda):
         "likelihood": ll.shape[0] == lda["em_iters"] and np.isfinite(ll).all(),
         "doc_results": np.allclose(theta.sum(1), 1.0),
         "word_results": np.allclose(p.sum(0), 1.0),
-        "flow_results": all(len(r) == 37 for r in flagged)
+        "results": all(len(r) == SMALL_ROWS[dsource][1] for r in flagged)
         and len(flagged) == recs["score"]["flagged"],
         "driver": lda["member"] in ENGINE_KERNELS and lda["driver"] == "fused",
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        fail(f"pipeline checks failed: {bad}")
+        fail(f"{dsource} pipeline checks failed: {bad}")
+
+
+def pipeline_dns(tmp):
+    """The 2M-event DNS day (the JAX bench's shape) through ml_ops.main
+    on the card, its engine from the crossover measured in a fresh plan
+    cache.  Returns the kernel counts (launched, ran) of the run."""
+    from oni_ml_tpu_torch.runner import ml_ops
+    from oni_ml_tpu_torch.synth import write_dns_day
+
+    raw = os.path.join(tmp, "dns_day.csv")
+    t0 = time.perf_counter()
+    with open(raw, "w") as f:
+        write_dns_day(f, DNS_EVENTS, n_clients=20_000, n_doms=5_000, seed=13)
+    log(f"pipeline_dns: wrote {DNS_EVENTS} events in "
+        f"{time.perf_counter() - t0:.1f} s")
+    data = os.path.join(tmp, "dns_data")
+    plans = os.environ["ONI_ML_TPU_PLAN_CACHE"]
+    os.environ["ONI_ML_TPU_PLAN_CACHE"] = os.path.join(tmp, "dns_plans.jsonl")
+    sparse_estep._CROSSOVER_CACHE.clear()
+    try:
+        reset_kernel_counts()
+        rc = ml_ops.main(["20160122", "dns", "1e-20", "--dns-path", raw,
+                          "--data-dir", data])
+        counts = (launch_counts(), executed_counts())
+    finally:
+        os.environ["ONI_ML_TPU_PLAN_CACHE"] = plans
+    day = os.path.join(data, "20160122")
+    if rc != 0:
+        fail(f"pipeline_dns: ml_ops returned {rc}")
+    missing = [n for n in ml_ops.artifacts("dns")
+               if not os.path.exists(os.path.join(day, n))]
+    if missing:
+        fail(f"pipeline_dns artifacts missing: {missing}")
+    with open(os.path.join(day, "metrics.json")) as f:
+        recs = {r["stage"]: r for r in json.load(f)}
+    lda, corpus = recs["lda"], recs["corpus"]
+    check_day(day, recs, corpus, lda, "dns")
+    cross = lda["crossover"]
+    if lda["engine_source"] != "measured" or not cross or (
+            cross["engine"] != lda["engine"]):
+        fail(f"pipeline_dns engine {lda['engine']} ({lda['engine_source']}) "
+             f"did not come from a measured crossover: {cross}")
+    check_launches(lda["member"], lda, counts, extra={
+        kname: cross.get("e_steps", {}).get(engine, 0)
+        for engine in ("sparse", "dense") for kname in ENGINE_KERNELS[engine]})
+    # Where the DNS day's EM time goes: 20 iterations of its engine over
+    # its corpus (the trainer's gates pick the same member), profiled.
+    from oni_ml_tpu_torch.config import LDAConfig
+    from oni_ml_tpu_torch.models.lda import LDATrainer
+
+    dns_corpus = Corpus.from_model_dat(os.path.join(day, "model.dat"),
+                                       os.path.join(day, "words.dat"),
+                                       os.path.join(day, "doc.dat"))
+    if lda["engine"] == "sparse":
+        batches = list(dns_corpus.bucketed_layout(
+            min_len=128, batch_cap=1024,
+            pad_multiple=sparse_estep.pad_multiple_for("f32")).batches)
+    else:
+        batches = make_batches(dns_corpus, 1024, 16, pad_multiple=8)
+    prof = profile_fit(f"dns_{lda['member']}", LDATrainer(
+        LDAConfig(em_max_iters=20, em_tol=0.0), dns_corpus.num_terms,
+        device="cuda"), batches, dns_corpus.num_docs, lda["engine"], 20)
+    walls = {s: recs[s]["wall_s"] for s in ("pre", "corpus", "lda", "score")}
+    log("pipeline_dns " + json.dumps({
+        "events": DNS_EVENTS, "docs": corpus["docs"],
+        "vocab": corpus["vocab"], "tokens": corpus["tokens"],
+        "stage_wall_s": walls, "day_wall_s": sum(walls.values()),
+        "pre_pickle_s": recs["pre"]["pickle_s"],
+        "em_s": lda["em_s"], "em_docs_per_s": lda["em_docs_per_s"],
+        "em_iters": lda["em_iters"], "engine": lda["engine"],
+        "engine_source": lda["engine_source"], "member": lda["member"],
+        "crossover": {key: cross[key] for key in (
+            "engine", "sparse_s", "dense_s", "source", "shape")},
+        "batches": lda["batches"], "batch_shapes": lda["batch_shapes"],
+        "kernel_launches": lda["kernel_launches"],
+        "executed_launches": lda["executed_launches"],
+        "flagged": recs["score"]["flagged"],
+        "dense_corpus_bytes": corpus["docs"] * dense_estep.padded_width(
+            corpus["vocab"]) * 4,
+        "em_profile": {key: prof[key] for key in (
+            "member", "ms_per_em_iteration", "device_busy_s",
+            "device_idle_share")},
+    }))
+    return counts
+
+
+def resume(tmp, raw):
+    """The small flow day with the sparse engine pinned: --stages
+    pre,corpus then --stages lda,score write the one-shot card run's
+    bytes; an EM fit cut at iteration 3 (checkpoint_every 1) and resumed
+    to 6 equals the uninterrupted card fit, warm start off, under both
+    drivers."""
+    from dataclasses import replace
+
+    from oni_ml_tpu_torch.config import LDAConfig
+    from oni_ml_tpu_torch.models import train_corpus
+    from oni_ml_tpu_torch.models.lda import save_checkpoint
+
+    one = run_day("flow", raw, os.path.join(tmp, "resume_one"), "cuda",
+                  "sparse", 5)
+    split = os.path.join(tmp, "resume_split")
+    run_day("flow", raw, split, "cuda", "sparse", 5, "--stages", "pre,corpus")
+    two = run_day("flow", raw, split, "cuda", "sparse", 5, "--stages",
+                  "lda,score")
+    names = ["word_counts.dat", "words.dat", "doc.dat", "model.dat",
+             "final.beta", "final.gamma", "final.other", "likelihood.dat",
+             "doc_results.csv", "word_results.csv", "flow_results.csv"]
+    same = {}
+    for name in names:
+        with open(os.path.join(one, name), "rb") as f1, \
+                open(os.path.join(two, name), "rb") as f2:
+            same[name] = f1.read() == f2.read()
+    with open(os.path.join(two, "metrics.json")) as f:
+        recs = {r["stage"]: r for r in json.load(f)}
+    if not all(same.values()) or recs["lda"]["corpus"] != "file" or (
+            recs["score"]["features"] != "file"):
+        fail(f"resume: the split run differs from the one-shot run: {same}, "
+             f"lda corpus {recs['lda']['corpus']}, score features "
+             f"{recs['score']['features']}")
+    corpus = Corpus.from_model_dat(os.path.join(two, "model.dat"),
+                                   os.path.join(two, "words.dat"),
+                                   os.path.join(two, "doc.dat"))
+    fits = {}
+    for driver, chunk in (("fused", 128), ("stepwise", 1)):
+        cfg = LDAConfig(em_max_iters=6, em_tol=0.0, warm_start_gamma=False,
+                        checkpoint_every=1, fused_em_chunk=chunk,
+                        estep_engine="sparse")
+        full = train_corpus(corpus, cfg, device="cuda")
+        part = train_corpus(corpus, replace(cfg, em_max_iters=3),
+                            device="cuda")
+        out = formats.ensure_dir(os.path.join(tmp, f"resume_fit_{driver}"))
+        save_checkpoint(os.path.join(out, "checkpoint.npz"), part.log_beta,
+                        part.alpha, 3, part.likelihoods)
+        res = train_corpus(corpus, cfg, out_dir=out, device="cuda")
+        fits[driver] = {
+            "driver": res.stats["driver"], "em_iters": res.em_iters,
+            "likelihoods_equal": res.likelihoods == full.likelihoods,
+            "beta_equal": bool(np.array_equal(res.log_beta, full.log_beta)),
+            "gamma_equal": bool(np.array_equal(res.gamma, full.gamma)),
+            "alpha_equal": res.alpha == full.alpha,
+            "checkpoint_removed": not os.path.exists(
+                os.path.join(out, "checkpoint.npz")),
+        }
+        if not all(v for k, v in fits[driver].items()
+                   if k not in ("driver", "em_iters")) or (
+                res.stats["driver"] != driver):
+            fail(f"resume: the {driver} fit resumed at 3 differs from the "
+                 f"uninterrupted card fit: {fits[driver]}")
+    log("resume " + json.dumps({"split_run_byte_identical": same,
+                                "checkpoint_resume": fits}))
 
 
 def check_launches(engine, lda, counts, extra=None):
@@ -1154,8 +1363,11 @@ def main() -> int:
     # read from an earlier run's cache.
     os.environ["ONI_ML_TPU_PLAN_CACHE"] = os.path.join(tmp, "plans.jsonl")
     try:
-        e2e_small(tmp)
+        raws = small_days(tmp)
+        e2e_small(tmp, raws)
         corpus, path_counts = pipeline(tmp)
+        dns_counts = pipeline_dns(tmp)
+        resume(tmp, raws["flow"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     scatter_rec = profile_em(corpus)
@@ -1176,6 +1388,8 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": REPLACES[kname], "launches": launched[kname],
             "executed_launches": ran[kname],
+            "dns_launches": dns_counts[0][kname],
+            "dns_executed_launches": dns_counts[1][kname],
             "max_abs_err": max(errs), "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),

@@ -7,14 +7,22 @@ Modules keep the JAX package's names so each counterpart is easy to
 find:
 
     device.py               device policy (cuda by default, TF32 off)
-    config.py               LDAConfig / ScoringConfig / FeedbackConfig
-    features/               netflow featurization (pure numpy)
+    config.py               LDAConfig / ScoringConfig / FeedbackConfig /
+                            TelemetryConfig / PipelineConfig
+    features/               netflow and DNS featurization (pure numpy)
+    sources/                the source registry: flow, dns, proxy
     io/                     file contracts, CSR corpus, bucketed layout
     ops/                    stop rule, special functions, E/M-step,
-                            the fused sparse E-step kernel wrapper
-    models/                 LDA EM trainer, JAX <-> torch state
+                            the E-step kernels' wrappers
+    models/                 LDA EM trainer and checkpoints, JAX <-> torch
+                            state
     scoring/                float64 host scorer
-    runner/ml_ops.py        the flow day: pre -> corpus -> lda -> score
+    telemetry/              the crash-safe run journal
+    plans/                  the plan cache (the measured crossover)
+    runner/ml_ops.py        a flow, dns or proxy day: pre -> corpus ->
+                            lda -> score, resumable stage by stage
+    runner/lda_cli.py       drop-in for the reference's `lda est` binary
+    synth.py                synthetic flow and DNS days
     csrc/                   hand-written CUDA sources (sm_90a)
 """
 

@@ -1,7 +1,7 @@
 """Typed configuration for the port: the fields of the JAX package's
-config that the flow day reads, with the same defaults
-(oni_ml_tpu/config.py LDAConfig, FeedbackConfig, ScoringConfig and the
-flow part of PipelineConfig)."""
+config that the flow, DNS and proxy days read, with the same defaults
+(oni_ml_tpu/config.py LDAConfig, FeedbackConfig, ScoringConfig,
+TelemetryConfig and the batch-day part of PipelineConfig)."""
 
 from __future__ import annotations
 
@@ -69,6 +69,10 @@ class LDAConfig:
     warm_start_gamma: bool = True
     # Floor of the bucketed layout's power-of-two token lengths.
     sparse_min_bucket_len: int = 128
+    # Persist (beta, alpha, iteration, likelihoods) to
+    # <out_dir>/checkpoint.npz every this many EM iterations; a fit that
+    # finds the file resumes from it (0 = off).
+    checkpoint_every: int = 0
 
 
 @dataclass(frozen=True)
@@ -81,21 +85,40 @@ class FeedbackConfig:
 
 @dataclass(frozen=True)
 class ScoringConfig:
-    """Event scoring threshold and the unseen-key fallback per topic."""
+    """Event scoring threshold and the unseen-key fallback per topic
+    (0.05 for flow and 0.1 for dns, the reference's hardcoded vectors;
+    0.1 for proxy)."""
 
     threshold: float = 1e-20
     flow_fallback: float = 0.05
+    dns_fallback: float = 0.1
+    proxy_fallback: float = 0.1
+
+
+@dataclass(frozen=True)
+class TelemetryConfig:
+    """The crash-safe run journal (run_journal.jsonl in the day
+    directory): stage begin/end/skip records and EM likelihood points.
+    The runner resumes against it."""
+
+    journal: bool = True
+    # fsync after this many appends (stage boundaries always fsync).
+    journal_fsync_every: int = 16
 
 
 @dataclass(frozen=True)
 class PipelineConfig:
-    """The flow day's run configuration."""
+    """A batch day's run configuration."""
 
     data_dir: str = "."
-    flow_path: str = ""
+    flow_path: str = ""            # netflow CSV file/dir/glob/comma list
+    dns_path: str = ""             # DNS CSV (or parquet) paths, same forms
+    proxy_path: str = ""           # proxy/HTTP log CSV paths, same forms
+    top_domains_path: str = ""     # Alexa top-1m.csv (DNS whitelist)
     lda: LDAConfig = field(default_factory=LDAConfig)
     feedback: FeedbackConfig = field(default_factory=FeedbackConfig)
     scoring: ScoringConfig = field(default_factory=ScoringConfig)
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
 
     def day_dir(self, fdate: str) -> str:
         return os.path.join(self.data_dir, fdate)

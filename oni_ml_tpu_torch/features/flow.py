@@ -38,6 +38,7 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
+from .pickling import PackedPickle
 from .quantiles import DECILES, QUINTILES, bin_values, ecdf_cuts
 
 # Column indices in the 27-column netflow schema (flow_pre_lda.scala:46-72).
@@ -66,10 +67,12 @@ def _to_double(s: str) -> float:
 
 
 @dataclass
-class FlowFeatures:
+class FlowFeatures(PackedPickle):
     """Featurized day of netflow.  Everything scoring needs rides along so
     the post stage never re-featurizes (removing the SURVEY §1 duplication
     and its nondeterminism risk)."""
+
+    _PACKED = ("rows", "word_port", "ip_pair", "src_word", "dest_word")
 
     rows: list[list[str]]         # 27-col rows (post-filter, incl. feedback)
     num_time: np.ndarray          # [N] f64 fractional hour

@@ -102,6 +102,28 @@ class Corpus:
         word_counts.dat the pre stage emits (first-seen ids)."""
         return cls.from_word_counts(features.word_counts())
 
+    @classmethod
+    def from_word_counts_file(cls, path: str) -> "Corpus":
+        """The corpus of a word_counts.dat file (the resumed corpus
+        stage's input): the same ids as `from_word_counts` over the
+        triples the pre stage wrote."""
+        return cls.from_word_counts(formats.read_word_counts(path))
+
+    @classmethod
+    def from_model_dat(cls, path: str, words_path: "str | None" = None,
+                       docs_path: "str | None" = None) -> "Corpus":
+        """The corpus of an LDA-C model.dat (the resumed lda stage's
+        input), with vocab and doc names from words.dat / doc.dat when
+        given, else their ids as strings (lda_cli: model.dat alone)."""
+        ptr, widx, cnts = formats.read_model_dat(path)
+        vocab = formats.read_words_dat(words_path) if words_path else [
+            str(i) for i in range(int(widx.max()) + 1 if len(widx) else 0)
+        ]
+        docs = formats.read_doc_dat(docs_path) if docs_path else [
+            str(i + 1) for i in range(len(ptr) - 1)
+        ]
+        return cls(docs, vocab, ptr, widx, cnts)
+
     def bucket_shapes(
         self,
         min_len: int = 128,

@@ -24,7 +24,7 @@ framework drop-in compatible:
 from __future__ import annotations
 
 import os
-from typing import Iterable, Sequence, TextIO
+from typing import Iterable, Iterator, Sequence, TextIO
 
 import numpy as np
 
@@ -55,6 +55,19 @@ def write_word_counts(path: str, triples: Iterable[tuple[str, str, int]]) -> Non
                 block.clear()
         if block:
             f.write("".join(block))
+
+
+def read_word_counts(path: str) -> Iterator[tuple[str, str, int]]:
+    """word_counts.dat -> (ip, word, count) triples in file order."""
+    with contract_open(path) as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line:
+                continue
+            # Words hold no commas (bins joined by '_'); split from the
+            # right so a comma in the ip column cannot shift fields.
+            ip, word, count = line.rsplit(",", 2)
+            yield ip, word, int(count)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Variational-EM LDA trainer (port of oni_ml_tpu/models/lda.py: the
-alpha Newton, the random init, LDAResult, the engine choice, its gates
-and the two EM drivers) — the in-tree replacement for the reference's
-MPI `oni-lda-c` engine (SURVEY.md §2.8, ml_ops.sh:80).
+alpha Newton, the random init, LDAResult, the engine choice, its gates,
+the two EM drivers and the EM checkpoints) — the in-tree replacement
+for the reference's MPI `oni-lda-c` engine (SURVEY.md §2.8,
+ml_ops.sh:80).
 
 Outputs follow the reference contract: `final.beta` (K x V log
 p(w|z)), `final.gamma` (D x K), `final.other`, and `likelihood.dat`
@@ -26,6 +27,14 @@ default), which reads the host once per dispatch of up to
 min(fused_em_chunk, host_sync_every) iterations, and the stepwise
 driver (fused_em_chunk <= 1), which reads it once per EM iteration and
 runs the dense family per batch.
+
+With a checkpoint path and `LDAConfig.checkpoint_every` > 0, a fit
+saves (beta, alpha, iteration, likelihoods) every that many EM
+iterations (the chunk driver caps each dispatch at the next checkpoint
+iteration), resumes from the file when it exists, and deletes it when
+the fit completes.  A resumed fit starts its gammas fresh, as the JAX
+package's does: with warm_start_gamma off it repeats the uninterrupted
+fit.
 """
 
 from __future__ import annotations
@@ -90,6 +99,54 @@ def update_alpha(alpha_ss, alpha_init, d: int, k: int,
     # Guard divergence: keep the previous value (EM stays monotone-safe).
     bad = torch.isnan(a) | (a <= 0) | torch.isinf(a)
     return torch.where(bad, alpha_init, a)
+
+
+# ---------------------------------------------------------------------------
+# EM checkpoints
+# ---------------------------------------------------------------------------
+
+
+def save_checkpoint(path: str, log_beta: np.ndarray, alpha: float,
+                    em_iter: int, likelihoods: list) -> None:
+    """Atomic in-training checkpoint: (beta, alpha, EM iteration,
+    likelihood history), written to a temporary file and renamed.  The
+    reference has no in-training resume: a crashed MPI run restarts
+    from scratch (SURVEY §5.3-5.4)."""
+    tmp = path + ".tmp.npz"  # savez appends nothing to an .npz name
+    np.savez(
+        tmp,
+        log_beta=np.asarray(log_beta),
+        alpha=np.float64(alpha),
+        em_iter=np.int64(em_iter),
+        likelihoods=np.asarray(likelihoods, np.float64).reshape(-1, 2),
+    )
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str) -> dict:
+    """Load a batch EM checkpoint, rejecting streaming-LDA checkpoints
+    that can share the out_dir/checkpoint.npz name: new-format ones
+    carry `lam`, and legacy ones hold a strictly positive lambda in
+    `log_beta`, where real log-probabilities are <= 0."""
+    with np.load(path) as z:
+        if "lam" in z.files:
+            raise ValueError(
+                f"{path} is a streaming-LDA checkpoint; resume it with "
+                "the online trainer or remove it"
+            )
+        log_beta = z["log_beta"]
+        if log_beta.size and (log_beta > 0).all():
+            raise ValueError(
+                f"{path} holds strictly positive values — a legacy "
+                "streaming-LDA checkpoint (lambda), not batch log_beta; "
+                "resume it with the online trainer or remove it"
+            )
+        return {
+            "log_beta": log_beta,
+            "alpha": float(z["alpha"]),
+            "em_iter": int(z["em_iter"]),
+            "likelihoods": [tuple(row) for row in z["likelihoods"]],
+        }
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +266,20 @@ def _resolve_em_plan(config: LDAConfig) -> "tuple[int, int, dict]":
     return config.fused_em_chunk, config.host_sync_every, record
 
 
+@dataclass
+class _Run:
+    """What both EM drivers carry for one fit: the iteration it starts
+    after (0, or a checkpoint's), the last likelihood before it, the
+    likelihood history, and where iterations are recorded."""
+
+    start_it: int
+    ll_prev: "float | None"
+    likelihoods: list
+    ll_file: object
+    progress: "Callable[[int, float, float], None] | None"
+    checkpoint_path: "str | None"
+
+
 class LDATrainer:
     """Single-process EM over padded batches on one device."""
 
@@ -227,12 +298,19 @@ class LDATrainer:
         initial_log_beta: "np.ndarray | None" = None,
         initial_alpha: "float | None" = None,
         engine: str = "sparse",
+        checkpoint_path: "str | None" = None,
     ) -> LDAResult:
         """Run EM to convergence over `batches` (the bucketed layout's
         for the sparse engine, make_batches' for the dense family), with
         the engine family `engine`; the dense family's gates
         (_use_dense, _plan_compact) pick its member under the chunk
-        driver, and the stepwise driver runs it per batch."""
+        driver, and the stepwise driver runs it per batch.
+
+        With `checkpoint_path`, the state is saved every
+        `config.checkpoint_every` EM iterations and, if the file exists,
+        the fit resumes from it: at iteration min(its iteration,
+        em_max_iters - 1), its likelihoods carried into likelihood.dat.
+        The file is removed when the fit completes."""
         cfg = self.config
         k, v, dev = cfg.num_topics, self.num_terms, self.device
         if cfg.compute_dtype != "float32":
@@ -250,6 +328,20 @@ class LDATrainer:
                 member = "compact" if compact is not None else (
                     "per_batch:" + estep.resolve_backend(
                         "auto", *batches[0].word_idx.shape, k, dev))
+        restored: list = []
+        start_it = 0
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            ckpt = load_checkpoint(checkpoint_path)
+            if ckpt["log_beta"].shape != (k, v):
+                raise ValueError(
+                    f"checkpoint beta shape {ckpt['log_beta'].shape} does "
+                    f"not match config ({k}, {v})")
+            initial_log_beta = ckpt["log_beta"]
+            initial_alpha = ckpt["alpha"]
+            restored = ckpt["likelihoods"]
+            # A run checkpointed at (or past) the last iteration re-runs
+            # one: gamma comes from the final E-step.
+            start_it = min(ckpt["em_iter"], cfg.em_max_iters - 1)
         if initial_log_beta is not None:
             log_beta = convert.from_reference(initial_log_beta, 0.0,
                                               device=dev).log_beta
@@ -263,22 +355,28 @@ class LDATrainer:
             cfg.alpha_init if initial_alpha is None else initial_alpha,
             dtype=torch.float32, device=dev,
         )
-        likelihoods: list = []
+        likelihoods: list = list(restored[:start_it])
         gamma_out = np.zeros((num_docs, k), dtype=np.float64)
         ll_file = open(likelihood_file, "w") if likelihood_file else None
+        if ll_file:
+            for ll_r, conv_r in likelihoods:
+                formats.append_likelihood(ll_file, ll_r, conv_r)
+        run = _Run(start_it, likelihoods[-1][0] if likelihoods else None,
+                   likelihoods, ll_file, progress, checkpoint_path)
         try:
             if chunk > 1:
                 log_beta, alpha, it, stats = self._fused_loop(
                     batches, member, e_fn, compact, chunk, sync, log_beta,
-                    alpha, num_docs, likelihoods, ll_file, progress,
-                    gamma_out)
+                    alpha, num_docs, run, gamma_out)
             else:
                 log_beta, alpha, it, stats = self._stepwise_loop(
-                    batches, e_fn, log_beta, alpha, num_docs, likelihoods,
-                    ll_file, progress, gamma_out)
+                    batches, e_fn, log_beta, alpha, num_docs, run,
+                    gamma_out)
         finally:
             if ll_file:
                 ll_file.close()
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            os.remove(checkpoint_path)  # the fit completed
         stats.update(member=member, batches=len(batches), batch_shapes=sorted(
             {tuple(int(n) for n in b.word_idx.shape) for b in batches}))
         log_beta_np, alpha_f, _ = convert.to_reference(
@@ -380,6 +478,14 @@ class LDATrainer:
             progress(it, ll, conv)
         return conv
 
+    def _maybe_checkpoint(self, run: "_Run", log_beta, alpha, it) -> None:
+        every = self.config.checkpoint_every
+        if run.checkpoint_path and every and it % every == 0:
+            beta_host, alpha_f, _ = convert.to_reference(
+                convert.ModelState(log_beta, alpha))
+            save_checkpoint(run.checkpoint_path, beta_host, alpha_f, it,
+                            run.likelihoods)
+
     @staticmethod
     def _scatter_gammas(gamma_out, batches, pairs) -> None:
         """Per-batch gammas [B, K] back to document order."""
@@ -388,8 +494,8 @@ class LDATrainer:
             sel = b.doc_mask == 1
             gamma_out[b.doc_index[sel]] = g[sel]
 
-    def _stepwise_loop(self, batches, e_fn, log_beta, alpha, num_docs,
-                       likelihoods, ll_file, progress, gamma_out):
+    def _stepwise_loop(self, batches, e_fn, log_beta, alpha, num_docs, run,
+                       gamma_out):
         """One E-step call per batch per EM iteration through `e_fn`
         (the sparse engine, or the dense family's per-batch dispatch);
         the likelihood reaches the host once per EM iteration for the
@@ -405,11 +511,11 @@ class LDATrainer:
                                 sparse_estep.live_tokens(widx, cnts)))
         use_warm = cfg.warm_start_gamma and getattr(
             e_fn, "_oni_warm_capable", False)
-        ll_prev = None
+        ll_prev = run.ll_prev
         gammas: list = []
-        it = 0
+        it = run.start_it
         warm_one = torch.tensor(1, dtype=torch.int32)
-        for it in range(1, cfg.em_max_iters + 1):
+        for it in range(run.start_it + 1, cfg.em_max_iters + 1):
             expb = sparse_estep.exp_beta_table(log_beta)
             alpha_const = estep.alpha_constant(alpha, k)
             total_ss = torch.zeros((v, k), dtype=torch.float32, device=dev)
@@ -433,19 +539,20 @@ class LDATrainer:
                 alpha = update_alpha(total_ass, alpha, num_docs, k,
                                      max_iters=cfg.alpha_max_iters)
             ll = float(total_ll)
-            conv = self._log_iteration(it, ll, ll_prev, likelihoods, ll_file,
-                                       progress)
+            conv = self._log_iteration(it, ll, ll_prev, run.likelihoods,
+                                       run.ll_file, run.progress)
+            self._maybe_checkpoint(run, log_beta, alpha, it)
             if ll_prev is not None and conv < cfg.em_tol:
                 break
             ll_prev = ll
         self._scatter_gammas(gamma_out, batches, (
             (bi, g.to("cpu", torch.float64).numpy())
             for bi, g in enumerate(gammas)))
-        return log_beta, alpha, it, {"driver": "stepwise", "host_syncs": it}
+        return log_beta, alpha, it, {"driver": "stepwise",
+                                     "host_syncs": it - run.start_it}
 
     def _fused_loop(self, batches, member, e_fn, compact, chunk, sync,
-                    log_beta, alpha, num_docs, likelihoods, ll_file, progress,
-                    gamma_out):
+                    log_beta, alpha, num_docs, run, gamma_out):
         """Device-resident EM (models/fused.py): up to
         min(chunk, host_sync_every) iterations per dispatch.  The device
         tests convergence in float32 to stop inside a dispatch; at each
@@ -473,18 +580,25 @@ class LDATrainer:
             dense_wmajor=wmajor, warm_start=cfg.warm_start_gamma,
             alpha_max_iters=cfg.alpha_max_iters,
         )
-        ll_prev = None
-        ll_prev_dev = torch.tensor(math.nan, device=self.device)
+        ll_prev = run.ll_prev
+        ll_prev_dev = torch.tensor(math.nan if ll_prev is None else ll_prev,
+                                   dtype=torch.float32, device=self.device)
         gammas_prev = fused.initial_gammas(groups.arrays, k,
                                            dense_wmajor=wmajor)
         have_prev = False
         # host_sync_every bounds the iterations per dispatch whatever the
         # chunk, so likelihood.dat streams at least that often.
         per_dispatch = min(chunk, sync) if sync else chunk
-        it = dispatches = skipped = 0
+        every = cfg.checkpoint_every if run.checkpoint_path else 0
+        it = run.start_it
+        dispatches = skipped = 0
         res = None
         while it < cfg.em_max_iters:
             n = min(per_dispatch, cfg.em_max_iters - it)
+            if every:
+                # A dispatch ends at the next checkpoint iteration (the
+                # runner takes its length at run time).
+                n = min(n, (it // every + 1) * every - it)
             res = run_chunk(log_beta, alpha, ll_prev_dev, groups.arrays, n,
                             gammas_prev, have_prev)
             dispatches += 1
@@ -499,9 +613,11 @@ class LDATrainer:
             for ll in res.lls[:steps].to("cpu", torch.float64).numpy():
                 it += 1
                 ll = float(ll)
-                host_conv = self._log_iteration(it, ll, ll_prev, likelihoods,
-                                                ll_file, progress)
+                host_conv = self._log_iteration(it, ll, ll_prev,
+                                                run.likelihoods, run.ll_file,
+                                                run.progress)
                 ll_prev = ll
+            self._maybe_checkpoint(run, log_beta, alpha, it)
             if steps == 0:
                 break
             # float64 conv decides; res.converged only ended the dispatch.
@@ -538,7 +654,9 @@ def train_corpus(
     to document order through `Batch.doc_index`.  `LDAResult.plan`
     records the engine and the driver's knobs with their sources (and
     the crossover's record where it decided); `stats["member"]` the
-    family member that ran."""
+    family member that ran.  With `config.checkpoint_every` and an
+    `out_dir`, the fit checkpoints to and resumes from
+    `out_dir/checkpoint.npz`."""
     dev = resolve_device(device)
     engine, engine_src, crossover = _resolve_engine(corpus, config, dev)
     if engine == "sparse":
@@ -563,6 +681,8 @@ def train_corpus(
         progress=progress,
         initial_log_beta=initial_log_beta,
         engine=engine,
+        checkpoint_path=(os.path.join(out_dir, "checkpoint.npz")
+                         if out_dir and config.checkpoint_every else None),
     )
     result.plan["estep_engine"] = {"value": engine, "source": engine_src}
     if crossover is not None:

@@ -1,16 +1,21 @@
-"""The flow day on the card (port of oni_ml_tpu/runner/ml_ops.py, flow
-only) — replaces ml_ops.sh YYYYMMDD flow TOL:
+"""A day of flow, DNS or proxy events on the card (port of
+oni_ml_tpu/runner/ml_ops.py without its dataplane) — replaces
+ml_ops.sh YYYYMMDD flow|dns TOL:
 
-    python -m oni_ml_tpu_torch.runner.ml_ops 20160122 flow 1e-20 \\
-        --flow-path raw.csv --data-dir /data [--device cuda|cpu]
+    python -m oni_ml_tpu_torch.runner.ml_ops 20160122 dns 1e-20 \\
+        --dns-path raw.csv --top-domains top-1m.csv --data-dir /data \\
+        [--device cuda|cpu] [--stages pre,corpus] [--force] \\
+        [--checkpoint-every N]
 
-Stages, each writing the JAX runner's artifacts into <data-dir>/<fdate>:
+Stages, each writing the JAX runner's artifacts into <data-dir>/<fdate>
+(the source's hooks come from the registry, `sources.get(dsource)`):
 
-    pre     raw netflow (+ flow_scores.csv feedback) -> word_counts.dat
+    pre     raw events (+ <dsource>_scores.csv feedback) -> features.pkl,
+            word_counts.dat
     corpus  word counts -> words.dat / doc.dat / model.dat
     lda     EM on the device -> final.beta/.gamma/.other, likelihood.dat,
             doc_results.csv, word_results.csv
-    score   float64 host scoring -> flow_results.csv
+    score   float64 host scoring -> <dsource>_results.csv
 
 Pre, corpus and score are host work; LDA is the one stage on the
 device, its E-step a hand-written CUDA kernel: the engine family comes
@@ -22,8 +27,24 @@ the engine with its source, the family member that ran, the crossover's
 record where it decided, the EM driver with its knobs and their
 sources, the batches trained, the kernel launches enqueued and those
 that ran (the kernels count these on the card; the rest were enqueued
-after the device stopped EM) and the host syncs.  The whole day runs in one process:
-the featurized day and the corpus pass between stages in memory.
+after the device stopped EM) and the host syncs.
+
+Resume contract: every stage's outputs land by temporary file and
+rename, so a file under its contract name is complete.  A stage whose
+outputs all exist is skipped (unless --force); --stages runs a subset.
+A stage that runs first removes its old outputs and those of the stages
+after it, which were made from them; pre and corpus, and a forced lda,
+also remove an EM checkpoint.npz, which only a rerun of lda alone
+resumes from.
+Within one process the live featurized day, corpus and model pass from
+stage to stage; a stage whose upstream ran in another process reads the
+files instead (word_counts.dat; the model.dat triplet; features.pkl and
+the results CSVs), and fails fast, naming the missing file and the
+command that writes it, when one is absent.  Both ways give the same
+bytes.  run_journal.jsonl records every stage, so a skip names whether
+the journal or only the files vouched for it.  With --checkpoint-every
+N the lda stage saves EM state to checkpoint.npz every N iterations and
+a rerun resumes from it.
 """
 
 from __future__ import annotations
@@ -31,25 +52,63 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import pickle
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from enum import Enum
 
 import numpy as np
 
-from ..config import FeedbackConfig, LDAConfig, PipelineConfig, ScoringConfig
+from .. import sources
+from ..config import (FeedbackConfig, LDAConfig, PipelineConfig,
+                      ScoringConfig, TelemetryConfig)
 from ..device import resolve_device
-from ..features import featurize_flow, read_flow_feedback_rows
-from ..features.lineio import iter_flow_lines
 from ..io import Corpus, formats
 from ..models import train_corpus
 from ..ops import dense_estep, pallas_estep, sparse_estep
-from ..scoring import ScoringModel, score_flow_csv
+from ..scoring import ScoringModel
+from ..telemetry import Journal, RunJournal
 
-ARTIFACTS = [
-    "word_counts.dat", "words.dat", "doc.dat", "model.dat",
-    "final.beta", "final.gamma", "final.other", "likelihood.dat",
-    "doc_results.csv", "word_results.csv", "flow_results.csv",
-]
+
+class Stage(str, Enum):
+    PRE = "pre"
+    CORPUS = "corpus"
+    LDA = "lda"
+    SCORE = "score"
+
+
+STAGE_ORDER = [Stage.PRE, Stage.CORPUS, Stage.LDA, Stage.SCORE]
+
+# Stage -> the files that mark it complete (the score stage's results
+# file is named after the dsource: RunContext.results_name).
+_STAGE_OUTPUTS = {
+    Stage.PRE: ["features.pkl", "word_counts.dat"],
+    Stage.CORPUS: ["words.dat", "doc.dat", "model.dat"],
+    Stage.LDA: [
+        "final.beta", "final.gamma", "final.other", "likelihood.dat",
+        "doc_results.csv", "word_results.csv",
+    ],
+    Stage.SCORE: [],
+}
+
+
+# The EM checkpoint an interrupted lda stage leaves (models/lda.py
+# train_corpus): fit to the corpus on disk, so stale once pre or corpus
+# runs again.
+CHECKPOINT = "checkpoint.npz"
+
+
+class MissingArtifactError(RuntimeError):
+    """A stage needed an upstream file that is missing or that the port
+    cannot load — a `--stages` run against an incomplete day.  Raised
+    before any loader runs, naming the file and the command that writes
+    it."""
+
+
+def artifacts(dsource: str) -> list:
+    """Every file a complete day of `dsource` holds."""
+    return [n for s in STAGE_ORDER for n in _STAGE_OUTPUTS[s]] + [
+        f"{dsource}_results.csv"]
 
 
 # The kernels each family member launches, once per batch per EM
@@ -132,49 +191,292 @@ def lda_record(result, counts0: tuple, dev) -> dict:
 
 
 @dataclass
+class RunContext:
+    """One invocation's state.  `features` (and its `word_counts`
+    triples), `corpus` and `result` are the live hand-offs between
+    stages of this process (None where the stage that makes them did not
+    run here: the next stage then reads its files)."""
+
+    config: PipelineConfig
+    fdate: str
+    dsource: str
+    day_dir: str
+    device: object = None
+    initial_log_beta: "np.ndarray | None" = None
+    emit: object = print
+    metrics: list = field(default_factory=list)
+    features: object = None
+    word_counts: "list | None" = None
+    corpus: "Corpus | None" = None
+    result: object = None
+    journal: "RunJournal | None" = None
+    # Stages a replayed journal records complete (empty under --force).
+    journal_done: set = field(default_factory=set)
+
+    def path(self, name: str) -> str:
+        return os.path.join(self.day_dir, name)
+
+    def results_name(self) -> str:
+        return f"{self.dsource}_results.csv"
+
+    def outputs(self, stage: Stage) -> list:
+        return _STAGE_OUTPUTS[stage] or [self.results_name()]
+
+    def record(self, rec: dict) -> None:
+        rec = {"fdate": self.fdate, "dsource": self.dsource, **rec}
+        self.metrics.append(rec)
+        self.emit(json.dumps(rec), flush=True)
+
+
+@dataclass
 class DayRun:
-    """What `run_pipeline` leaves in memory: the stage records, the
-    featurized day, its corpus and the trained model — so a caller can
-    train and score the same corpus again without repeating pre and
-    corpus (chip_smoke.py does, with the other engine)."""
+    """What `run_pipeline` leaves in memory: the stage records and the
+    live featurized day, corpus and trained model of the stages that ran
+    (so a caller can train and score the same corpus again without
+    repeating pre and corpus; chip_smoke.py does, with other engines)."""
 
     records: list
     features: object
-    corpus: Corpus
+    corpus: "Corpus | None"
     result: object
 
 
-def stage_lda(corpus: Corpus, config: PipelineConfig, day_dir: str, dev,
-              initial_log_beta: "np.ndarray | None" = None):
+def _write_atomic(path: str, write) -> None:
+    """`write(tmp)` then rename: a file under its contract name is
+    always complete."""
+    tmp = path + ".tmp"
+    write(tmp)
+    os.replace(tmp, path)
+
+
+def _stage_done(ctx: RunContext, stage: Stage) -> "str | None":
+    """Why this stage can be skipped, or None if it must run.  The files
+    decide (a journal that says "done" about deleted outputs does not
+    win); the journal names where the evidence came from."""
+    if not all(os.path.exists(ctx.path(n)) for n in ctx.outputs(stage)):
+        return None
+    if stage.value in ctx.journal_done:
+        return "journal: stage completed in a prior run"
+    return "outputs exist"
+
+
+def _require_artifacts(ctx: RunContext, names: list, stage: Stage,
+                       regen_stage: Stage) -> None:
+    """Fail fast, naming the file and the command that regenerates it,
+    when a stage's file input is missing."""
+    missing = [n for n in names if not os.path.exists(ctx.path(n))]
+    if not missing:
+        return
+    raise MissingArtifactError(
+        f"stage {stage.value} needs {missing[0]} in {ctx.day_dir} and it "
+        f"does not exist; regenerate it with `ml_ops {ctx.fdate} "
+        f"{ctx.dsource} --stages {regen_stage.value} --force`"
+        + (f" (also missing: {', '.join(missing[1:])})"
+           if len(missing) > 1 else "")
+    )
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Loads only the port's classes, numpy's and builtins: a
+    features.pkl that names another package's classes (the JAX
+    package's runner writes oni_ml_tpu.features.* containers) is refused
+    without importing that package."""
+
+    def find_class(self, module, name):
+        if module.split(".")[0] in ("oni_ml_tpu_torch", "numpy", "builtins"):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"{module}.{name}")
+
+
+def load_features(ctx: RunContext):
+    """The featurized day from features.pkl (a resumed score stage)."""
+    _require_artifacts(ctx, ["features.pkl"], Stage.SCORE, Stage.PRE)
+    try:
+        with open(ctx.path("features.pkl"), "rb") as f:
+            return _PortUnpickler(f).load()
+    except pickle.UnpicklingError as e:
+        raise MissingArtifactError(
+            f"{ctx.path('features.pkl')} names {e}, which the port does "
+            "not load (features.pkl written by another package, such as "
+            "the JAX package's runner); the port must re-run pre: "
+            f"`ml_ops {ctx.fdate} {ctx.dsource} --stages pre --force`"
+        ) from None
+
+
+# ---------------------------------------------------------------------------
+# Stages
+# ---------------------------------------------------------------------------
+
+
+def stage_pre(ctx: RunContext) -> dict:
+    """The source's featurizer over the day -> features.pkl (the
+    containers pickle their string lists packed: features/pickling.py)
+    and word_counts.dat."""
+    features, fb_rows = sources.get(ctx.dsource).featurize_day(ctx.config)
+
+    def dump(tmp):
+        with open(tmp, "wb") as f:
+            pickle.dump(features, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+    t0 = time.perf_counter()
+    _write_atomic(ctx.path("features.pkl"), dump)
+    pickle_s = time.perf_counter() - t0
+    triples = features.word_counts()
+    _write_atomic(ctx.path("word_counts.dat"),
+                  lambda tmp: formats.write_word_counts(tmp, triples))
+    ctx.features, ctx.word_counts = features, triples
+    return {"events": features.num_events, "word_count_rows": len(triples),
+            "feedback_rows": len(fb_rows), "pickle_s": pickle_s}
+
+
+def stage_corpus(ctx: RunContext) -> dict:
+    """Word counts -> the corpus -> words.dat / doc.dat / model.dat."""
+    if ctx.word_counts is not None:
+        corpus = Corpus.from_word_counts(ctx.word_counts)
+        ctx.word_counts = None
+        handoff = "direct"
+    else:
+        _require_artifacts(ctx, ["word_counts.dat"], Stage.CORPUS, Stage.PRE)
+        corpus = Corpus.from_word_counts_file(ctx.path("word_counts.dat"))
+        handoff = "file"
+    tmp = formats.ensure_dir(ctx.path(".corpus.tmp"))
+    corpus.save(tmp)
+    for name in _STAGE_OUTPUTS[Stage.CORPUS]:
+        os.replace(os.path.join(tmp, name), ctx.path(name))
+    os.rmdir(tmp)
+    ctx.corpus = corpus
+    return {"docs": corpus.num_docs, "vocab": corpus.num_terms,
+            "tokens": corpus.num_tokens, "handoff": handoff}
+
+
+def stage_lda(ctx: RunContext) -> dict:
     """EM on the device, then final.*, doc_results.csv and
-    word_results.csv -> (the train_corpus result, the record's fields)."""
+    word_results.csv (likelihood.dat streams during the fit)."""
+    if ctx.corpus is not None:
+        corpus, corpus_src = ctx.corpus, "handoff"
+    else:
+        _require_artifacts(ctx, ["model.dat", "words.dat", "doc.dat"],
+                           Stage.LDA, Stage.CORPUS)
+        corpus = Corpus.from_model_dat(ctx.path("model.dat"),
+                                       ctx.path("words.dat"),
+                                       ctx.path("doc.dat"))
+        corpus_src = "file"
+    progress = None
+    if ctx.journal is not None:
+        progress = ctx.journal.em_likelihood
     t0 = time.perf_counter()
     counts0 = kernel_counts()
-    result = train_corpus(corpus, config.lda, out_dir=day_dir,
-                          save_final=False, device=dev,
-                          initial_log_beta=initial_log_beta)
+    result = train_corpus(corpus, ctx.config.lda, out_dir=ctx.day_dir,
+                          save_final=False, device=ctx.device,
+                          initial_log_beta=ctx.initial_log_beta,
+                          progress=progress)
     em_s = time.perf_counter() - t0
-    result.save(day_dir, num_terms=corpus.num_terms, include_likelihood=False)
-    formats.write_doc_results(os.path.join(day_dir, "doc_results.csv"),
-                              corpus.doc_names, result.gamma)
-    formats.write_word_results(os.path.join(day_dir, "word_results.csv"),
-                               corpus.vocab, result.log_beta)
-    return result, dict(lda_record(result, counts0, dev), em_s=em_s,
-                        em_docs_per_s=corpus.num_docs * result.em_iters / em_s)
+    k, v = result.log_beta.shape
+    for name, write in (
+        ("final.beta", lambda p: formats.write_beta(p, result.log_beta)),
+        ("final.gamma", lambda p: formats.write_gamma(p, result.gamma)),
+        ("final.other", lambda p: formats.write_other(p, k, v, result.alpha)),
+        ("doc_results.csv", lambda p: formats.write_doc_results(
+            p, corpus.doc_names, result.gamma)),
+        ("word_results.csv", lambda p: formats.write_word_results(
+            p, corpus.vocab, result.log_beta)),
+    ):
+        _write_atomic(ctx.path(name), write)
+    ctx.corpus, ctx.result = corpus, result
+    return dict(lda_record(result, counts0, ctx.device), em_s=em_s,
+                em_docs_per_s=corpus.num_docs * result.em_iters / em_s,
+                corpus=corpus_src)
 
 
-def stage_score(features, corpus: Corpus, result, config: PipelineConfig,
-                day_dir: str) -> dict:
-    """float64 host scoring -> flow_results.csv; the record's fields."""
-    model = ScoringModel.from_lda(corpus.doc_names, result.gamma,
-                                  corpus.vocab, result.log_beta,
-                                  config.scoring.flow_fallback)
-    blob, scores = score_flow_csv(features, model, config.scoring.threshold)
-    with open(os.path.join(day_dir, "flow_results.csv"), "wb") as f:
-        f.write(blob)
+def stage_score(ctx: RunContext) -> dict:
+    """float64 host scoring -> <dsource>_results.csv."""
+    spec = sources.get(ctx.dsource)
+    if ctx.features is not None:
+        features, feat_src = ctx.features, "handoff"
+    else:
+        features, feat_src = load_features(ctx), "file"
+    if not spec.matches_features(features):
+        raise MissingArtifactError(
+            f"{ctx.path('features.pkl')} holds a "
+            f"{type(features).__name__}, not a {ctx.dsource} day; re-run "
+            f"pre: `ml_ops {ctx.fdate} {ctx.dsource} --stages pre --force`")
+    sc = ctx.config.scoring
+    fallback = spec.fallback(sc)
+    if ctx.result is not None:
+        corpus, result = ctx.corpus, ctx.result
+        model = ScoringModel.from_lda(corpus.doc_names, result.gamma,
+                                      corpus.vocab, result.log_beta, fallback)
+        model_src = "handoff"
+    else:
+        _require_artifacts(ctx, ["doc_results.csv", "word_results.csv"],
+                           Stage.SCORE, Stage.LDA)
+        model = ScoringModel.from_files(ctx.path("doc_results.csv"),
+                                        ctx.path("word_results.csv"),
+                                        fallback)
+        model_src = "file"
+    blob, scores = spec.score_csv(features, model, sc.threshold)
+
+    def write(tmp):
+        with open(tmp, "wb") as f:
+            f.write(blob)
+
+    _write_atomic(ctx.path(ctx.results_name()), write)
     return {"scored_events": features.num_raw_events,
             "flagged": int(len(scores)),
-            "min_score": float(scores[0]) if len(scores) else None}
+            "min_score": float(scores[0]) if len(scores) else None,
+            "features": feat_src, "model": model_src}
+
+
+_STAGE_FNS = {
+    Stage.PRE: stage_pre,
+    Stage.CORPUS: stage_corpus,
+    Stage.LDA: stage_lda,
+    Stage.SCORE: stage_score,
+}
+
+
+def _run_stage(ctx: RunContext, stage: Stage, force: bool) -> None:
+    """Run one stage, journaled begin and end.  Its old outputs and
+    those of every later stage (made from them) are removed first: a run
+    that dies mid-stage leaves the stage not done, and no later stage
+    skips on outputs of an older run.  So is the EM checkpoint when the
+    corpus is remade or a fresh fit is forced: only an lda stage rerun
+    on the same corpus resumes from it."""
+    stale = [name for later in STAGE_ORDER[STAGE_ORDER.index(stage):]
+             for name in ctx.outputs(later)]
+    if stage in (Stage.PRE, Stage.CORPUS) or (stage is Stage.LDA and force):
+        stale.append(CHECKPOINT)
+    for name in stale:
+        if os.path.exists(ctx.path(name)):
+            os.unlink(ctx.path(name))
+    if ctx.journal is not None:
+        ctx.journal.stage_begin(stage.value)
+    t0 = time.perf_counter()
+    try:
+        info = _STAGE_FNS[stage](ctx)
+    except BaseException as e:
+        if ctx.journal is not None:
+            ctx.journal.stage_end(stage.value, ok=False,
+                                  wall_s=time.perf_counter() - t0,
+                                  error=repr(e)[:300])
+        raise
+    wall_s = time.perf_counter() - t0
+    ctx.record({"stage": stage.value, "wall_s": wall_s, **info})
+    if ctx.journal is not None:
+        ctx.journal.stage_end(stage.value, ok=True, wall_s=wall_s, **info)
+
+
+def _run_stages(ctx: RunContext, wanted, force: bool) -> None:
+    for stage in STAGE_ORDER:
+        if stage not in wanted:
+            continue
+        done = _stage_done(ctx, stage)
+        if done and not force:
+            ctx.record({"stage": stage.value, "skipped": done})
+            if ctx.journal is not None:
+                ctx.journal.stage_skipped(stage.value, done)
+            continue
+        _run_stage(ctx, stage, force)
 
 
 def run_pipeline(
@@ -182,75 +484,69 @@ def run_pipeline(
     fdate: str,
     dsource: str = "flow",
     device=None,
+    force: bool = False,
+    stages: "list[Stage] | None" = None,
     initial_log_beta: "np.ndarray | None" = None,
     emit=print,
 ) -> DayRun:
-    """Run the flow day; the per-stage records are also written to
-    metrics.json in the day directory."""
-    if dsource != "flow":
-        raise ValueError(f"the port runs the flow day only, got {dsource!r}")
+    """Run (or resume) one day.  Stages whose outputs exist are skipped
+    unless `force`; `stages` restricts the run to a subset (run in
+    pipeline order).  The records also go to metrics.json in the day
+    directory, and every stage to run_journal.jsonl there unless
+    config.telemetry.journal is off."""
+    if dsource not in sources.names():
+        raise ValueError(f"dsource must be one of "
+                         f"{'|'.join(sources.names())}, got {dsource!r}")
     dev = resolve_device(device)
-    day_dir = formats.ensure_dir(config.day_dir(fdate))
-    records: list = []
-
-    def path(name):
-        return os.path.join(day_dir, name)
-
-    def record(stage, t0, **info):
-        rec = {"fdate": fdate, "dsource": dsource, "stage": stage,
-               "wall_s": time.perf_counter() - t0, **info}
-        records.append(rec)
-        emit(json.dumps(rec), flush=True)
-
-    t0 = time.perf_counter()
-    fb = config.feedback
-    fb_rows = read_flow_feedback_rows(
-        os.path.join(config.data_dir, "flow_scores.csv"),
-        fb.dup_factor, fb.nonthreatening_severity,
-    )
-    features = featurize_flow(iter_flow_lines(config.flow_path),
-                              feedback_rows=fb_rows)
-    triples = features.word_counts()
-    formats.write_word_counts(path("word_counts.dat.tmp"), triples)
-    os.replace(path("word_counts.dat.tmp"), path("word_counts.dat"))
-    record("pre", t0, events=features.num_events,
-           word_count_rows=len(triples), feedback_rows=len(fb_rows))
-
-    t0 = time.perf_counter()
-    corpus = Corpus.from_word_counts(triples)
-    del triples
-    corpus.save(day_dir)
-    record("corpus", t0, docs=corpus.num_docs, vocab=corpus.num_terms,
-           tokens=corpus.num_tokens)
-
-    t0 = time.perf_counter()
-    result, info = stage_lda(corpus, config, day_dir, dev, initial_log_beta)
-    record("lda", t0, **info)
-
-    t0 = time.perf_counter()
-    record("score", t0, **stage_score(features, corpus, result, config,
-                                      day_dir))
-
-    with open(path("metrics.json"), "w") as f:
-        json.dump(records, f, indent=1)
-    return DayRun(records, features, corpus, result)
+    ctx = RunContext(config, fdate, dsource,
+                     formats.ensure_dir(config.day_dir(fdate)), dev,
+                     initial_log_beta, emit)
+    wanted = stages or STAGE_ORDER
+    tel = config.telemetry
+    if tel.journal:
+        jpath = ctx.path("run_journal.jsonl")
+        prior_done = RunJournal.completed_stages(Journal.replay(jpath))
+        ctx.journal = RunJournal(
+            Journal(jpath, fsync_every=tel.journal_fsync_every))
+        ctx.journal_done = set() if force else prior_done
+        ctx.journal.run_start(force=force, fdate=fdate, dsource=dsource,
+                              stages=[Stage(s).value for s in wanted],
+                              journal_done=sorted(prior_done))
+    ok = False
+    try:
+        _run_stages(ctx, wanted, force)
+        ok = True
+    finally:
+        if ctx.journal is not None:
+            ctx.journal.run_end(ok=ok)
+            ctx.journal.close()
+    with open(ctx.path("metrics.json"), "w") as f:
+        json.dump(ctx.metrics, f, indent=1)
+    return DayRun(ctx.metrics, ctx.features, ctx.corpus, ctx.result)
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="oni_ml_tpu_torch.runner.ml_ops",
-        description="oni_ml_tpu_torch flow day on the GPU "
-        "(replaces ml_ops.sh YYYYMMDD flow TOL)",
+        description="oni_ml_tpu_torch day on the GPU "
+        "(replaces ml_ops.sh YYYYMMDD flow|dns TOL)",
     )
     p.add_argument("fdate", help="day to analyze, YYYYMMDD")
-    p.add_argument("dsource", choices=["flow"])
+    p.add_argument("dsource", choices=list(sources.names()))
     p.add_argument("tol", nargs="?", type=float,
                    default=float(os.environ.get("TOL", 1.1)),
                    help="suspicion threshold (ml_ops.sh defaults TOL=1.1)")
     p.add_argument("--data-dir", default=None, help="working dir (LPATH)")
     p.add_argument("--flow-path", default=None,
                    help="netflow CSV input: file, directory, glob, or "
-                   "comma-separated list")
+                   "comma-separated list (FLOW_PATH)")
+    p.add_argument("--dns-path", default=None,
+                   help="DNS input: CSV (or parquet) file, directory, glob, "
+                   "or comma-separated list (DNS_PATH)")
+    p.add_argument("--proxy-path", default=None,
+                   help="proxy/HTTP log CSV input, same forms (PROXY_PATH)")
+    p.add_argument("--top-domains", default=None,
+                   help="top-1m.csv path (the DNS whitelist)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device of the LDA stage (default cuda; a machine "
                    "without one raises unless --device cpu)")
@@ -259,35 +555,63 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--em-max-iters", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=1024)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save (beta, alpha, iteration) every N EM "
+                   "iterations to checkpoint.npz; an interrupted lda stage "
+                   "resumes from it (0 = off)")
     p.add_argument("--dup-factor", type=int, default=None,
                    help="feedback duplication (default: DUPFACTOR env or 1000)")
     p.add_argument("--warm-start", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="seed each EM iteration's fixed point from the "
                    "previous gamma")
+    p.add_argument("--stages", default=None,
+                   help="comma-separated subset of pre,corpus,lda,score")
+    p.add_argument("--force", action="store_true",
+                   help="re-run stages whose outputs exist")
+    p.add_argument("--no-journal", action="store_true",
+                   help="do not write run_journal.jsonl")
     return p
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    p = build_parser()
+    args = p.parse_args(argv)
     if len(args.fdate) != 8 or not args.fdate.isdigit():
-        raise SystemExit("fdate must be YYYYMMDD")
+        p.error("fdate must be YYYYMMDD")
+    try:
+        stages = ([Stage(s) for s in args.stages.split(",")]
+                  if args.stages else None)
+    except ValueError as e:
+        p.error(str(e))
     env = os.environ
     config = PipelineConfig(
         data_dir=args.data_dir or env.get("LPATH", "."),
         flow_path=args.flow_path or env.get("FLOW_PATH", ""),
+        dns_path=args.dns_path or env.get("DNS_PATH", ""),
+        proxy_path=args.proxy_path or env.get("PROXY_PATH", ""),
+        top_domains_path=args.top_domains or "",
         lda=LDAConfig(
             num_topics=args.topics, alpha_init=args.alpha,
             em_max_iters=args.em_max_iters, batch_size=args.batch_size,
             seed=args.seed, warm_start_gamma=args.warm_start,
+            checkpoint_every=args.checkpoint_every,
         ),
         feedback=FeedbackConfig(
             dup_factor=(args.dup_factor if args.dup_factor is not None
                         else int(env.get("DUPFACTOR", 1000)))
         ),
         scoring=ScoringConfig(threshold=args.tol),
+        telemetry=TelemetryConfig(journal=not args.no_journal),
     )
-    run_pipeline(config, args.fdate, args.dsource, device=args.device)
+    try:
+        run_pipeline(config, args.fdate, args.dsource, device=args.device,
+                     force=args.force, stages=stages)
+    except MissingArtifactError as e:
+        print(json.dumps({"fdate": args.fdate, "dsource": args.dsource,
+                          "error": "missing_artifact", "detail": str(e)}),
+              flush=True)
+        return 2
     return 0
 
 

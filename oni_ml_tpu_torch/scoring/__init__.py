@@ -1,5 +1,13 @@
-"""Float64 host scoring of the flow day."""
+"""Float64 host scoring of the flow and DNS days."""
 
-from .score import ScoringModel, flow_event_indices, score_flow_csv
+from .score import (
+    ScoringModel,
+    dns_event_indices,
+    flow_event_indices,
+    score_dns,
+    score_dns_csv,
+    score_flow_csv,
+)
 
-__all__ = ["ScoringModel", "flow_event_indices", "score_flow_csv"]
+__all__ = ["ScoringModel", "dns_event_indices", "flow_event_indices",
+           "score_dns", "score_dns_csv", "score_flow_csv"]

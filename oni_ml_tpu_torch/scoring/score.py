@@ -1,14 +1,17 @@
-"""Suspicious-connects scoring for the flow day (port of the host path of
-oni_ml_tpu/scoring/score.py; flow_post_lda.scala:227-248).
+"""Suspicious-connects scoring of the flow and DNS days (port of the
+host path of oni_ml_tpu/scoring/score.py; flow_post_lda.scala:227-248,
+dns_post_lda.scala:312-331).
 
 p(event) = sum_k p(topic k | event's IP) * p(event's word | topic k);
 events scoring below the threshold are emitted ascending (most
 suspicious first).  The model is two dense float64 matrices — theta
 [D+1, K] and p [V+1, K], each with its fallback vector as the extra
-final row (0.05 per topic for flow, the reference's quirky fallback) —
-and scoring is two row gathers and a dot on the host in float64, the
-JAX package's golden-bytes path: the same arithmetic in the same order,
-so the scored CSV is byte-identical for the same model.
+final row (0.05 per topic for flow, 0.1 for dns: the reference's
+fallbacks) — and scoring is two row gathers and a dot on the host in
+float64, the JAX package's golden-bytes path: the same arithmetic in
+the same order, so the scored CSV is byte-identical for the same model.
+The device scorer (the JAX package's engine="device") is not ported:
+asking for it raises.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..features.dns import DNS_COLUMNS, DnsFeatures
 from ..features.flow import FLOW_COLUMNS, FlowFeatures
 from ..io import formats
 
@@ -127,6 +131,18 @@ def _keep_order(scores: np.ndarray, threshold: float) -> np.ndarray:
     return keep[np.argsort(scores[keep], kind="stable")]
 
 
+def _host_only(engine: "str | None") -> None:
+    """The port scores on the host only: an explicit engine="device"
+    raises until the device scorer is ported."""
+    if engine == "device":
+        raise NotImplementedError(
+            "the device scorer is not ported yet; use engine='host' (the "
+            "float64 host scorer)")
+    if engine not in (None, "host"):
+        raise ValueError(
+            f"scoring engine must be 'host' or 'device', got {engine!r}")
+
+
 def flow_event_indices(features: FlowFeatures, ip_index: dict,
                        word_index: dict):
     """Model-row index arrays (sip, src word, dip, dest word) for every
@@ -166,10 +182,64 @@ def _flow_scored(features: FlowFeatures, model: ScoringModel,
     return rows, min_scores[order]
 
 
+def _csv_blob(rows) -> bytes:
+    return "".join(r + "\n" for r in rows).encode("utf-8", "surrogateescape")
+
+
 def score_flow_csv(features: FlowFeatures, model: ScoringModel,
-                   threshold: float) -> "tuple[bytes, np.ndarray]":
+                   threshold: float, engine: "str | None" = None,
+                   ) -> "tuple[bytes, np.ndarray]":
     """Flow scoring with the output as one CSV buffer (newline-terminated
     rows) for flow_results.csv."""
+    _host_only(engine)
     rows, scores = _flow_scored(features, model, threshold)
-    blob = "".join(r + "\n" for r in rows).encode("utf-8", "surrogateescape")
-    return blob, scores
+    return _csv_blob(rows), scores
+
+
+def _dns_client_strings(features: DnsFeatures, n: int) -> list:
+    """The client IP (ip_dst, the document) of the first n events."""
+    ip_col = DNS_COLUMNS["ip_dst"]
+    return [r[ip_col] for r in features.rows[:n]]
+
+
+def dns_event_indices(features: DnsFeatures, ip_index: dict,
+                      word_index: dict):
+    """Model-row index arrays (ip, word) for every raw DNS event; misses
+    get the fallback row `len(index)`."""
+    n = features.num_raw_events
+    return (
+        _index_rows(ip_index, _dns_client_strings(features, n),
+                    len(ip_index)),
+        _index_rows(word_index, features.word[:n], len(word_index)),
+    )
+
+
+def _dns_scored(features: DnsFeatures, model: ScoringModel,
+                threshold: float):
+    """-> (csv rows under threshold, their scores ascending).  Each row is
+    the 15 featurized columns + score; only raw events are scored."""
+    ip_idx, word_idx = dns_event_indices(features, model.ip_index,
+                                         model.word_index)
+    scores = _batched_scores(model, ip_idx, word_idx)
+    order = _keep_order(scores, threshold)
+    rows = [",".join(features.featurized_row(i) + [str(scores[i])])
+            for i in order]
+    return rows, scores[order]
+
+
+def score_dns_csv(features: DnsFeatures, model: ScoringModel,
+                  threshold: float, engine: "str | None" = None,
+                  ) -> "tuple[bytes, np.ndarray]":
+    """DNS scoring as one CSV buffer for dns_results.csv."""
+    _host_only(engine)
+    rows, scores = _dns_scored(features, model, threshold)
+    return _csv_blob(rows), scores
+
+
+def score_dns(features: DnsFeatures, model: ScoringModel, threshold: float,
+              engine: "str | None" = None) -> "tuple[list, np.ndarray]":
+    """DNS scoring: one <theta_ip_dst, p_word> per event
+    (dns_post_lda.scala:312-331); (csv rows under threshold ascending,
+    their scores)."""
+    _host_only(engine)
+    return _dns_scored(features, model, threshold)

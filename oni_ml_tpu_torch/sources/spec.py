@@ -1,0 +1,104 @@
+"""The event-source contract the runner resolves through (port of
+oni_ml_tpu/sources/spec.py, the batch-day hooks).
+
+A *source* is one raw event schema (netflow, DNS, proxy/HTTP) plus what
+the batch day needs to turn its CSV lines into scored output: the
+featurizer, the feedback rows, the input paths, the scorer and its
+unseen-key fallback, and a synthetic benign-day generator.  The runner
+asks the registry (sources/registry.py) for a `SourceSpec` and calls its
+hooks instead of branching on ``dsource``.
+
+Two spec families implement it: `builtin.FlowSource` /
+`builtin.DnsSource`, which delegate to features/flow.py and
+features/dns.py, and `generic.TableSourceSpec`, a declarative spec
+(fields, cut strategies, word template); the proxy source is one.
+
+Not ported yet (the modules that call them are not in the port): the
+serving hooks (`event_featurizer`, `event_pairs`, `event_documents`,
+`event_time_s`, `event_indices`), continuous mode's `derive_cuts` and
+`cuts_of`, and flow's `qtiles_cuts` file reader (`--qtiles`).
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Sequence
+
+import numpy as np
+
+
+class SourceSpec:
+    """Abstract event-source declaration: subclasses set the class
+    attributes and override the hooks."""
+
+    #: registry key; also the ``dsource`` value on the command line.
+    name: str = ""
+    #: exact CSV column count a valid event must have.
+    num_columns: int = 0
+    #: an always-numeric column: probing it on the first line of a
+    #: stream detects a header.
+    header_probe_col: int = 0
+
+    # -- featurization ----------------------------------------------------
+
+    def featurize(self, events: Iterable, *, precomputed_cuts=None,
+                  skip_header: bool = False, feedback_rows: Sequence = (),
+                  top_domains: frozenset = frozenset()):
+        """Raw CSV lines (or pre-split rows) -> feature container."""
+        raise NotImplementedError
+
+    def featurize_day(self, config):
+        """The pre stage: (features, feedback_rows) for a whole day."""
+        fb_rows = self.feedback_rows(config)
+        lines = self.read_input(self.input_path(config))
+        feats = self.featurize(
+            lines, skip_header=True, feedback_rows=fb_rows,
+            top_domains=self.top_domains(config),
+        )
+        return feats, fb_rows
+
+    def feedback_rows(self, config) -> Sequence:
+        """Analyst-feedback duplicates appended to the training rows
+        (flow/dns read <dsource>_scores.csv; default: none)."""
+        return ()
+
+    def matches_features(self, features) -> bool:
+        """Does this container belong to this source?"""
+        return False
+
+    # -- scoring ----------------------------------------------------------
+
+    def score_csv(self, features, model, threshold: float,
+                  engine=None) -> "tuple[bytes, np.ndarray]":
+        """The score stage: (results CSV bytes, ascending kept scores)."""
+        raise NotImplementedError
+
+    def fallback(self, scoring_cfg) -> float:
+        """The unseen-ip/word fallback probability for this source."""
+        return getattr(scoring_cfg, f"{self.name}_fallback")
+
+    # -- input plumbing ---------------------------------------------------
+
+    def input_path(self, config) -> str:
+        return getattr(config, f"{self.name}_path", "")
+
+    def top_domains(self, config) -> frozenset:
+        return frozenset()
+
+    def read_input(self, path: str) -> Iterable[str]:
+        """Input spec -> raw CSV lines (comma lists / dirs / globs, the
+        forms of features.lineio.expand_flow_paths)."""
+        from ..features.lineio import expand_flow_paths
+
+        paths = expand_flow_paths(path)
+        if not paths:
+            raise OSError(f"no {self.name} input files match {path!r}")
+        for p in paths:
+            with open(p) as f:
+                yield from f
+
+    # -- synthetic days ---------------------------------------------------
+
+    def synth_benign(self, n_events: int, seed: int) -> "list[str]":
+        """A deterministic synthetic benign day (raw CSV lines, event-
+        time ordered)."""
+        raise NotImplementedError

@@ -1,8 +1,9 @@
-"""Synthetic 27-column netflow days, in the JAX package's benchmark
-format (bench.py `_write_flow_day`, default mode): uniform source and
-destination populations, a fixed service-port mix, seeded numpy draws.
-The same seed and arguments give the same bytes as the benchmark's
-writer."""
+"""Synthetic days in the JAX package's benchmark formats: 27-column
+netflow (bench.py `_write_flow_day`, default mode: uniform source and
+destination populations, a fixed service-port mix) and 8-column DNS
+(bench.py `_write_dns_day`: uniform clients, domains and subdomains),
+from seeded numpy draws.  The same seed and arguments give the same
+bytes as the benchmark's writers."""
 
 from __future__ import annotations
 
@@ -51,5 +52,29 @@ def write_flow_day(f, n_events: int, n_src: int = 4000, n_dst: int = 2000,
             f"{fmt_dst(dip_i[i])},"
             f"{sports[i]},{dports[i]},TCP,,0,0,{ipkts[i]},{ibyts[i]},"
             "0,0,0,0,0,0,0,0,0"
+            for i in range(m)
+        ) + "\n")
+
+
+def write_dns_day(f, n_events: int, n_clients: int = 20_000,
+                  n_doms: int = 5_000, seed: int = 13,
+                  chunk: int = 200_000) -> None:
+    """Write `n_events` 8-column DNS rows (no header) to the open text
+    file `f`, in chunks: client 10.a.b.9, query subN.domM.com, uniform
+    timestamps over a day, frame lengths, query types and rcodes."""
+    rng = np.random.default_rng(seed)
+    for start in range(0, n_events, chunk):
+        m = min(chunk, n_events - start)
+        ts = rng.integers(1454000000, 1454086400, size=m)
+        flen = rng.integers(40, 1500, size=m)
+        cli = rng.integers(0, n_clients, size=m)
+        dom = rng.integers(0, n_doms, size=m)
+        sub = rng.integers(0, 500, size=m)
+        qtype = rng.integers(1, 17, size=m)
+        rcode = rng.integers(0, 4, size=m)
+        f.write("\n".join(
+            f"t,{ts[i]},{flen[i]},"
+            f"10.{cli[i] >> 8}.{cli[i] & 255}.9,"
+            f"sub{sub[i]}.dom{dom[i]}.com,1,{qtype[i]},{rcode[i]}"
             for i in range(m)
         ) + "\n")
