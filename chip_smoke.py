@@ -47,12 +47,27 @@ Phases (any failure exits non-zero before the result line):
              the member's kernels must have launched.  Then 20 EM
              iterations of that engine over the day's corpus, profiled
              (ms per iteration, device idle share).
+   score_device  the device scoring engine on both 2M-event days:
+             `--stages score` under ONI_ML_TPU_SCORE=device, then host,
+             at a threshold that keeps about 0.1% of the day: score walls,
+             the DispatchStats and the chunk loop's roofline record; the
+             survivors must be the host engine's (but for counted events
+             on the float32 threshold boundary), featurized columns
+             byte-equal, scores within rel 1e-6, in host order up to
+             float32 ties.  Then chunked_scores at two chunk sizes must
+             equal device_scores in one dispatch bit for bit.
 6. resume    on the small flow day with the sparse engine pinned:
              `--stages pre,corpus` then `--stages lda,score` must write
              the one-shot card run's bytes; an EM fit cut at iteration 3
              with checkpoint_every 1 and resumed to 6 must equal the
              uninterrupted card fit (warm start off), under both
              drivers.
+   telemetry the small flow day plain and with `--heartbeat 1
+             --profile DIR`: final.* byte-equal; the journal holds stage
+             spans, em.host_sync spans, one estep_crossover record and
+             heartbeats; metrics.json an em.run_chunk roofline record
+             with utilization under 100%; DIR a Chrome trace with CUDA
+             kernel events.
 7. profile   20 EM iterations over the flow day's corpus four ways (sparse
              engine under the chunk driver, sparse under the stepwise
              driver, dense and per-batch pallas under the chunk driver):
@@ -92,11 +107,12 @@ from oni_ml_tpu_torch.ops import (  # noqa: E402
 from oni_ml_tpu_torch.runner.ml_ops import (  # noqa: E402
     ENGINE_KERNELS, executed_counts, kernel_counts, launch_counts,
     reset_kernel_counts)
+from oni_ml_tpu_torch.telemetry import roofline  # noqa: E402
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and
-# float32 (non-tensor-core) FLOP/s — the kernels' arithmetic is f32 FMA.
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
+# Published H100 SXM peaks (telemetry/roofline.py, NVIDIA's data sheet):
+# device-memory bytes/s and float32 (non-tensor-core) FLOP/s — the
+# kernels' arithmetic is f32 FMA.
+PEAK = roofline.H100_SXM
 
 K, V = 20, 5_520
 W = dense_estep.padded_width(V)              # 5,632
@@ -121,9 +137,6 @@ MAX_MOVED_SHARE = 0.05
 RTOL_E2E = 1e-4
 PIPELINE_EVENTS = 2_000_000
 DNS_EVENTS = 2_000_000
-# float32 operations of one digamma_pos (estep_common.cuh): 7 guarded
-# recurrence steps (compare, divide, two adds) and the series.
-DIGAMMA_FLOPS = 40
 # Host-clock walls vary between calls (the host's cores are shared):
 # each profiled wall is the median of this many runs.
 WALL_REPS = 3
@@ -238,9 +251,10 @@ def check_fixed_point(label, got, ref, block, var_max_iters, var_tol, errs):
 
 
 def bound(nbytes, flops):
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """(least ms the card could take, what bounds it), from the package's
+    peaks (telemetry/roofline.py bound_s)."""
+    least, by = roofline.bound_s(flops, nbytes, PEAK)
+    return least * 1e3, by
 
 
 def bmm_yardstick_ms(slab_kbl, b, l):
@@ -284,15 +298,14 @@ def sparse_parity(label, b, l, min_live, warm, var_max_iters, var_tol):
     ms = time_ms(lambda: sparse_estep.fixed_point_blocks(*args, **kw), 20)
     plain_ms = time_ms(
         lambda: sparse_estep.fixed_point_full_reference(*args, **kw), 3)
-    # Bound: each input read once, each output written once; operations
-    # 4*K per live token per iteration (+1 for the tail), with this
-    # run's per-block iteration counts.
+    # Bound, from this run's inputs and per-block iteration counts
+    # (sparse_estep.kernel_cost: each input read once, each output
+    # written once).
     iters = got[4].long().cpu().numpy()
     doc_iters = np.repeat(iters, block)
     live = (case["counts"] != 0).sum(1).cpu().numpy()
-    flops = float(4 * K * (live * (doc_iters + 1)).sum())
-    nbytes = (V * K * 4 + b * l * 8 + b * 4 + 4 + (b * K * 4 if warm else 0)
-              + b * K * 4 + b * l * K * 4 + b * 8 + (b // block) * 4)
+    flops, nbytes = sparse_estep.kernel_cost(b, l, K, V, live, doc_iters,
+                                             block, warm)
     bound_ms, bound_by = bound(nbytes, flops)
     # Library yardstick, as for the fixed point: the two batched products
     # of one iteration over the gathered slab, times the mean iteration
@@ -365,19 +378,16 @@ def dense_parity(label, b, l, min_live, wmajor, warm, var_max_iters, var_tol):
     plain_ms = time_ms(lambda: dense_estep.dense_fixed_point_reference(
         eb, case["alpha"], dense, case["mask"], var_max_iters, var_tol, block,
         gamma_prev=case["gamma_prev"], warm=kw["warm"]), 3)
-    # Bound, counted from this run's inputs.  Every output depends only on
-    # the non-zero cells of C (a zero cell adds exactly zero to s, T and
-    # the token term), so the function needs 4*K flops per non-zero cell
-    # per fixed-point iteration of its block (q and the s contraction),
-    # plus 4*K per non-zero cell for the tail (q and T); bytes: C read
-    # once, beta, gamma (in when warm, out), T, mask, docll, ass and
-    # iters.  The kernel does the dense formulation's work, 4*K*W flops
-    # per doc and iteration over every cell: printed beside the bound.
+    # Bound, counted from this run's inputs (dense_estep.kernel_cost:
+    # the work of C's non-zero cells only).  The kernel does the dense
+    # formulation's work, 4*K*W flops per doc and iteration over every
+    # cell (sparse_estep.dense_equiv_flops per block): printed beside the
+    # bound.
     iters = got[4].long().cpu().numpy()
-    flops = float(4 * K * ((nnz_block * iters).sum() + nnz_doc.sum()))
-    dense_flops = float(4 * K * W * block * iters.sum() + 4 * K * W * b)
-    nbytes = (b * W * 4 + 2 * K * W * 4 + b * 4 + (b * K * 4 if warm else 0)
-              + b * K * 4 + b * 8 + (b // block) * 4)
+    flops, nbytes = dense_estep.kernel_cost(b, W, K, nnz_doc, nnz_block,
+                                            iters, block, warm)
+    dense_flops = float(sum(sparse_estep.dense_equiv_flops(block, V, K, it)
+                            for it in iters))
     bound_ms, bound_by = bound(nbytes, flops)
     rec = {
         "kernel": "dense_estep", "case": label, "B": b, "W": W, "K": K,
@@ -390,7 +400,7 @@ def dense_parity(label, b, l, min_live, wmajor, warm, var_max_iters, var_tol):
         "gamma_rel_err_same_stop": rel_same, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "bytes": nbytes, "flops": flops, "dense_cell_flops": dense_flops,
-        "dense_cell_flops_ms": dense_flops / PEAK_F32_FLOPS * 1e3,
+        "dense_cell_flops_ms": dense_flops / PEAK.flops_per_s * 1e3,
         "geometry": geom, "bit_identical_relaunch": True,
     }
     log("parity " + json.dumps(rec))
@@ -444,17 +454,13 @@ def fixed_point_parity(label, b, l, min_live, warm, var_max_iters, var_tol):
     ms = time_ms(lambda: pallas_estep.fixed_point_blocks(*args, **kw), 20)
     plain_ms = time_ms(lambda: pallas_estep.fixed_point_reference(
         *args[:6], block, gamma_prev=kw["gamma_prev"], warm=kw["warm"]), 3)
-    # Bound, from this run's inputs: the slab read once, counts, mask,
-    # alpha and gamma in (warm) read once, gamma and the iteration counts
-    # written once; operations 4*K per live token (the two contractions)
-    # and K + 1 digammas per document, for each fixed-point iteration its
-    # block ran.
+    # Bound, from this run's inputs and per-block iteration counts
+    # (pallas_estep.kernel_cost).
     iters = got[1].long().cpu().numpy()
     doc_iters = np.repeat(iters, block)
     live = (case["counts"] != 0).sum(1).cpu().numpy()
-    flops = float((doc_iters * (4 * K * live + (K + 1) * DIGAMMA_FLOPS)).sum())
-    nbytes = (K * b * l * 4 + b * l * 4 + b * 4 + 4 + (b * K * 4 if warm else 0)
-              + b * K * 4 + (b // block) * 4)
+    flops, nbytes = pallas_estep.kernel_cost(b, l, K, live, doc_iters, block,
+                                             warm)
     bound_ms, bound_by = bound(nbytes, flops)
     # Library yardstick: the two batched products of one iteration
     # (torch.bmm over [B, L, K]: phinorm, then the ratio contraction),
@@ -898,6 +904,303 @@ def resume(tmp, raw):
                                 "checkpoint_resume": fits}))
 
 
+# Survivors of the score_device phase's threshold: about this share of a
+# 2M-event day (a suspicion threshold keeps a small fraction).
+SCORE_KEEP = 1e-3
+# Device (float32) against host (float64) scores: rel 1e-6 at K=20; an
+# event whose host score lies within this of the threshold may land on
+# either side (the float32 boundary) and is counted, not failed.
+RTOL_SCORE = 1e-6
+
+
+def day_scores(day, dsource):
+    """(model, the day's index pairs, the device engine's float32 scores
+    of every raw event: min(src, dest) for flow) from the day's files,
+    through the package (the features.pkl loader, the model files, the
+    event index resolution, pipeline.chunked_scores on the card)."""
+    from oni_ml_tpu_torch.config import ScoringConfig
+    from oni_ml_tpu_torch.runner.ml_ops import _PortUnpickler
+    from oni_ml_tpu_torch.scoring import pipeline
+    from oni_ml_tpu_torch.scoring import score as score_mod
+    from oni_ml_tpu_torch.sources import get
+
+    with open(os.path.join(day, "features.pkl"), "rb") as f:
+        features = _PortUnpickler(f).load()
+    model = score_mod.ScoringModel.from_files(
+        os.path.join(day, "doc_results.csv"),
+        os.path.join(day, "word_results.csv"),
+        get(dsource).fallback(ScoringConfig()))
+    if dsource == "flow":
+        idx = score_mod.flow_event_indices(features, model.ip_index,
+                                           model.word_index)
+        pairs = [idx[:2], idx[2:]]
+    else:
+        pairs = [score_mod.dns_event_indices(features, model.ip_index,
+                                             model.word_index)]
+    del features
+    scores = [pipeline.chunked_scores(model, *pr, device="cuda")
+              for pr in pairs]
+    key = scores[0] if len(scores) == 1 else np.minimum(*scores)
+    return model, pairs, key
+
+
+def gap_threshold(scores, share):
+    """A threshold about `share` of the scores fall under: the geometric
+    midpoint of two adjacent distinct scores at that quantile."""
+    s = np.unique(scores)
+    i = max(1, int(np.searchsorted(s, np.quantile(scores, share))))
+    return float(np.sqrt(s[i - 1] * s[i]))
+
+
+def parse_results(path, ncols):
+    """[(featurized columns as bytes, [score columns])] of a results
+    CSV, in file order."""
+    with open(path, "rb") as f:
+        rows = f.read().splitlines()
+    out = []
+    for r in rows:
+        head, *cols = r.rsplit(b",", ncols)
+        out.append((head, [float(c) for c in cols]))
+    return out
+
+
+def compare_engines(host, dev, tol):
+    """The device engine's results against the host engine's: the same
+    events (by featurized columns, byte-equal) but for events whose host
+    score lies within RTOL_SCORE of the threshold (counted), scores
+    within RTOL_SCORE, and the device order ascending in host scores up
+    to RTOL_SCORE ties (the order of events a float32 rounding apart may
+    swap; counted)."""
+    from collections import Counter
+
+    h_count = Counter(h for h, _ in host)
+    d_count = Counter(h for h, _ in dev)
+    h_scores = dict(host)
+    d_scores = dict(dev)
+    only_host = list((h_count - d_count).elements())
+    only_dev = list((d_count - h_count).elements())
+
+    def key(cols):
+        return min(cols)
+
+    off_boundary = [h for h in only_host
+                    if abs(key(h_scores[h]) / tol - 1.0) > RTOL_SCORE]
+    off_boundary += [h for h in only_dev
+                     if abs(key(d_scores[h]) / tol - 1.0) > RTOL_SCORE]
+    if off_boundary:
+        fail(f"score_device: {len(off_boundary)} events differ between the "
+             "engines away from the float32 threshold boundary")
+    worst = 0.0
+    for h, cols in d_scores.items():
+        if h in h_scores:
+            ref = np.asarray(h_scores[h])
+            worst = max(worst, float(np.max(np.abs(np.asarray(cols) - ref)
+                                            / np.abs(ref))))
+    if worst > RTOL_SCORE:
+        fail(f"score_device: scores differ by rel {worst:.3e} > "
+             f"{RTOL_SCORE}")
+    seq = [key(h_scores[h]) for h, _ in dev if h in h_scores]
+    bad_order = sum(1 for a, b in zip(seq, seq[1:])
+                    if b < a * (1.0 - RTOL_SCORE))
+    if bad_order:
+        fail(f"score_device: {bad_order} device rows out of host order")
+    dev_keys = [key(c) for _, c in dev]
+    if any(b < a for a, b in zip(dev_keys, dev_keys[1:])):
+        fail("score_device: the device rows are not ascending")
+    common = [h for h, _ in host if h in d_scores]
+    swaps = sum(1 for a, b in zip(common, [h for h, _ in dev
+                                           if h in h_scores]) if a != b)
+    return {"host_rows": len(host), "device_rows": len(dev),
+            "boundary_only_host": len(only_host),
+            "boundary_only_device": len(only_dev),
+            "max_score_rel_err": worst,
+            "rows_swapped_on_float32_ties": swaps}
+
+
+def score_device(tmp, smi):
+    """The device scoring engine on the two 2M-event days that `pipeline`
+    and `pipeline_dns` wrote: `--stages score` through ml_ops.main under
+    ONI_ML_TPU_SCORE=device, then host, at a threshold that keeps about
+    SCORE_KEEP of the day (the days' own 1e-20 keeps none): each
+    engine's score wall, the device run's score_dispatch record and its
+    chunk loop's roofline record, and the engines' results compared
+    (compare_engines).  Then the bitwise check: chunked_scores at two
+    chunk sizes against device_scores in one dispatch, on the flow
+    day's events."""
+    from oni_ml_tpu_torch.runner import ml_ops
+    from oni_ml_tpu_torch.scoring import chunked_scores, device_scores
+
+    bitwise = None
+    for dsource, data, raw in (
+            ("flow", os.path.join(tmp, "data"),
+             os.path.join(tmp, "flow_day.csv")),
+            ("dns", os.path.join(tmp, "dns_data"),
+             os.path.join(tmp, "dns_day.csv"))):
+        day = os.path.join(data, "20160122")
+        t0 = time.perf_counter()
+        model, pairs, scores = day_scores(day, dsource)
+        tol = gap_threshold(scores, SCORE_KEEP)
+        prep_s = time.perf_counter() - t0
+        runs = {}
+        for engine in ("device", "host"):
+            os.environ["ONI_ML_TPU_SCORE"] = engine
+            try:
+                rc = ml_ops.main(["20160122", dsource, repr(tol),
+                                  DAY_FLAGS[dsource], raw, "--data-dir",
+                                  data, "--stages", "score", "--force"])
+            finally:
+                os.environ.pop("ONI_ML_TPU_SCORE", None)
+            if rc != 0:
+                fail(f"score_device {dsource} {engine}: ml_ops returned {rc}")
+            with open(os.path.join(day, "metrics.json")) as f:
+                recs = {r["stage"]: r for r in json.load(f)}
+            runs[engine] = (recs, parse_results(
+                os.path.join(day, f"{dsource}_results.csv"),
+                2 if dsource == "flow" else 1))
+        dev_recs, dev_rows = runs["device"]
+        host_recs, host_rows = runs["host"]
+        score = dev_recs["score"]
+        if score.get("engine") != "device" or "score_dispatch" not in score:
+            fail(f"score_device {dsource}: the device run did not score "
+                 f"through the pipeline: {score}")
+        if host_recs["score"].get("engine") != "host":
+            fail(f"score_device {dsource}: the host run scored on "
+                 f"{host_recs['score'].get('engine')}")
+        loop = [r for r in dev_recs.get("roofline", {}).get("records", [])
+                if r["phase"].startswith("score.device.")]
+        if len(loop) != 1 or not loop[0]["utilization"]:
+            fail(f"score_device {dsource}: no chunk-loop roofline record "
+                 f"with utilization: {loop}")
+        cmp = compare_engines(host_rows, dev_rows, tol)
+        if not cmp["device_rows"]:
+            fail(f"score_device {dsource}: no event under the threshold")
+        dispatch = score["score_dispatch"]
+        chunk = dispatch["chunk"]
+        log("score_device " + json.dumps({
+            "dsource": dsource, "card": smi, "events": score["scored_events"],
+            "threshold": tol, "threshold_prep_s": prep_s,
+            "score_wall_s": {"device": score["wall_s"],
+                             "host": host_recs["score"]["wall_s"]},
+            "score_dispatch": dispatch,
+            "chunk_loop_roofline": loop[0],
+            "bound_ms_per_chunk": 1e3 * roofline.bound_s(
+                loop[0]["flops"] / loop[0]["dispatches"],
+                loop[0]["bytes"] / loop[0]["dispatches"], PEAK)[0],
+            "chunk": chunk, **cmp,
+        }))
+        if dsource == "flow":
+            ip, w = pairs[0]
+            one = device_scores(model, ip, w, chunk=len(ip), device="cuda")
+            sizes = (1 << 16, 100_003)
+            same = {c: bool(np.array_equal(
+                one, chunked_scores(model, ip, w, chunk=c, device="cuda")))
+                for c in sizes}
+            if not all(same.values()):
+                fail(f"score_device: chunked scores differ from one "
+                     f"dispatch: {same}")
+            bitwise = {"events": len(ip), "one_dispatch_vs_chunks": same}
+            log("score_bitwise " + json.dumps(bitwise))
+    return bitwise
+
+
+def telemetry(tmp, raw):
+    """The flight recorder on the card: the small flow day through
+    ml_ops.main, then again with `--heartbeat 1 --profile DIR`; the
+    second run's journal must hold stage spans, em.host_sync spans, one
+    estep_crossover record and heartbeat records, its metrics.json an
+    em.run_chunk roofline record with utilization under 100%, DIR a
+    Chrome trace with CUDA kernel events, and final.* (and the results)
+    the first run's bytes.  The same two runs again, each in a fresh
+    process as a user starts one (`python -m
+    oni_ml_tpu_torch.runner.ml_ops`): in this process an earlier phase
+    has started the profiler already, and there the profiler starts
+    cold; their final.* must be the same bytes too."""
+    from collections import Counter
+
+    from oni_ml_tpu_torch.runner import ml_ops
+    from oni_ml_tpu_torch.telemetry import Journal
+
+    prof = os.path.join(tmp, "telemetry_profile")
+    days = {}
+    for label, extra in (("plain", []),
+                         ("recorded", ["--heartbeat", "1", "--profile",
+                                       prof]),
+                         ("fresh_plain", []),
+                         ("fresh_recorded", ["--heartbeat", "1", "--profile",
+                                             prof + "_fresh"])):
+        data = os.path.join(tmp, f"telemetry_{label}")
+        argv = ["20160122", "flow", "1.1", "--flow-path", raw,
+                "--data-dir", data, *extra]
+        t0 = time.perf_counter()
+        if label.startswith("fresh"):
+            out = subprocess.run(
+                [sys.executable, "-m", "oni_ml_tpu_torch.runner.ml_ops",
+                 *argv], cwd=os.path.dirname(os.path.abspath(__file__)),
+                capture_output=True, text=True, timeout=300)
+            rc = out.returncode
+            if rc != 0:
+                log(out.stderr[-4000:])
+        else:
+            rc = ml_ops.main(argv)
+        if rc != 0:
+            fail(f"telemetry {label}: ml_ops returned {rc}")
+        days[label] = (os.path.join(data, "20160122"),
+                       time.perf_counter() - t0)
+    plain, rec_day = days["plain"][0], days["recorded"][0]
+    # Each run's wall outside its four stages: what the profiler's start
+    # and its trace export cost on top of the recorded stages (and, in a
+    # fresh process, the interpreter's start and the card's).
+    outside = {}
+    for label, (day, wall) in days.items():
+        with open(os.path.join(day, "metrics.json")) as f:
+            outside[label] = wall - sum(
+                r["wall_s"] for r in json.load(f)
+                if r["stage"] in ("pre", "corpus", "lda", "score"))
+    same = {}
+    for name in ("final.beta", "final.gamma", "final.other",
+                 "likelihood.dat", "flow_results.csv"):
+        with open(os.path.join(plain, name), "rb") as f:
+            want = f.read()
+        for label in ("recorded", "fresh_plain", "fresh_recorded"):
+            with open(os.path.join(days[label][0], name), "rb") as f:
+                same[f"{label}:{name}"] = f.read() == want
+    records = Journal.replay(os.path.join(rec_day, "run_journal.jsonl"))
+    kinds = Counter(r["kind"] for r in records)
+    span_names = Counter(r["name"] for r in records if r["kind"] == "span")
+    with open(os.path.join(rec_day, "metrics.json")) as f:
+        recs = {r["stage"]: r for r in json.load(f)}
+    em = [r for r in recs.get("roofline", {}).get("records", [])
+          if r["phase"] == "em.run_chunk"]
+    trace_path = os.path.join(prof, "20160122.flow.trace.json")
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernel_events = sum(1 for e in events if e.get("cat") == "kernel")
+    checks = {
+        "final_bytes_equal": all(same.values()),
+        "stage_spans": all(span_names[f"stage.{s}"] == 1
+                           for s in ("pre", "corpus", "lda", "score")),
+        "em_host_sync_spans": span_names["em.host_sync"] > 0,
+        "one_crossover_record": kinds["estep_crossover"] == 1,
+        "heartbeats": kinds["heartbeat"] > 0 and all(
+            r["ok"] for r in records if r["kind"] == "heartbeat"),
+        "em_roofline": len(em) == 1 and bool(em[0]["utilization"]) and all(
+            0 < v < 100 for v in em[0]["utilization"].values()),
+        "cuda_kernel_events": kernel_events > 0,
+    }
+    log("telemetry " + json.dumps({
+        "checks": checks, "final_bytes_equal": same,
+        "walls_s": {k: v[1] for k, v in days.items()},
+        "outside_stages_s": outside,
+        "journal_kinds": dict(kinds), "span_names": dict(span_names),
+        "em_roofline": em[0] if em else None,
+        "trace_events": len(events), "cuda_kernel_events": kernel_events,
+        "trace_bytes": os.path.getsize(trace_path),
+    }))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"telemetry checks failed: {bad}")
+
+
 def check_launches(engine, lda, counts, extra=None):
     """Each kernel of the family member `engine` launched once per batch
     per EM iteration enqueued (those after the device stop included) and
@@ -1276,10 +1579,11 @@ def scatter_timing(batches, v):
     n = len(items)
     live_tokens = sum(int(live.pos.numel()) for _, _, live in items)
     words = sum(int(live.seg_word.numel()) for _, _, live in items)
-    # Bytes: the live rows of phi_c, their positions, the word runs, the
-    # [V, K] output of each launch; one add per live token and topic.
-    nbytes = live_tokens * (K * 4 + 4) + words * 8 + n * (v * K * 4 + 4)
-    bound_ms, bound_by = bound(nbytes, float(live_tokens * K))
+    # sparse_estep.scatter_cost: the live rows of phi_c, their
+    # positions, the word runs, the [V, K] output of each launch; one add
+    # per live token and topic.
+    flops, nbytes = sparse_estep.scatter_cost(live_tokens, words, n, v, K)
+    bound_ms, bound_by = bound(nbytes, flops)
     rec = {
         "kernel": "sparse_scatter", "batches": n,
         "slots": sum(int(w.numel()) for w, _, _ in items),
@@ -1307,6 +1611,12 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"device: {name} | {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
+    from oni_ml_tpu_torch.plans import device_fingerprint
+
+    fp = device_fingerprint("cuda")
+    if roofline.peaks_for(fp) is not PEAK:
+        fail(f"card {fp}: the package's peaks are for the H100 SXM; the "
+             "bounds and roofline shares would be wrong here")
 
     t0 = time.perf_counter()
     _cuda.build([sparse_estep.KERNEL, dense_estep.KERNEL, pallas_estep.KERNEL])
@@ -1367,7 +1677,9 @@ def main() -> int:
         e2e_small(tmp, raws)
         corpus, path_counts = pipeline(tmp)
         dns_counts = pipeline_dns(tmp)
+        score_device(tmp, smi)
         resume(tmp, raws["flow"])
+        telemetry(tmp, raws["flow"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     scatter_rec = profile_em(corpus)

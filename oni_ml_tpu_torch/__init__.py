@@ -16,9 +16,12 @@ find:
                             the E-step kernels' wrappers
     models/                 LDA EM trainer and checkpoints, JAX <-> torch
                             state
-    scoring/                float64 host scorer
-    telemetry/              the crash-safe run journal
-    plans/                  the plan cache (the measured crossover)
+    scoring/                float64 host scorer and the device engine's
+                            chunked pipeline
+    telemetry/              the flight recorder: run journal, spans,
+                            roofline records, heartbeat, OpenMetrics
+    plans/                  the plan cache (the measured crossover, the
+                            scorer's calibration) and knob resolution
     runner/ml_ops.py        a flow, dns or proxy day: pre -> corpus ->
                             lda -> score, resumable stage by stage
     runner/lda_cli.py       drop-in for the reference's `lda est` binary

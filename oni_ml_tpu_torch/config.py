@@ -93,17 +93,31 @@ class ScoringConfig:
     flow_fallback: float = 0.05
     dns_fallback: float = 0.1
     proxy_fallback: float = 0.1
+    # Scoring engine of the score stage: "host" is the float64 path
+    # whose results-CSV bytes are pinned to the JAX package's; "device"
+    # runs the chunked gather-dot-filter pipeline on the card
+    # (scoring/pipeline.py): float32 arithmetic (~1e-6 relative in the
+    # score columns), survivors-only readback.  "" follows
+    # ONI_ML_TPU_SCORE (default host).
+    engine: str = ""
 
 
 @dataclass(frozen=True)
 class TelemetryConfig:
-    """The crash-safe run journal (run_journal.jsonl in the day
-    directory): stage begin/end/skip records and EM likelihood points.
-    The runner resumes against it."""
+    """The flight recorder: the crash-safe run journal
+    (run_journal.jsonl in the day directory: stage records and spans, EM
+    likelihood points and host-sync spans, scoring DispatchStats,
+    roofline records, heartbeats) and the device heartbeat.  The runner
+    resumes against the journal."""
 
     journal: bool = True
     # fsync after this many appends (stage boundaries always fsync).
     journal_fsync_every: int = 16
+    # Background device-liveness probe interval (telemetry/heartbeat.py);
+    # 0 disables.  A device that stops answering becomes a clean
+    # BackendLost at the next stage boundary (journaled as
+    # backend_lost) instead of a hang.
+    heartbeat_s: float = 0.0
 
 
 @dataclass(frozen=True)

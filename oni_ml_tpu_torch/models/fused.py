@@ -51,6 +51,7 @@ import torch
 
 from ..io import Batch
 from ..ops import dense_estep, estep, sparse_estep
+from ..telemetry.spans import current_recorder
 
 # Which chunk impl the most recent dispatch ran ("fast" | "generic";
 # None before any).  Observability: the two impls are pinned equal by
@@ -511,11 +512,21 @@ def make_chunk_runner(
                have_prev=None) -> ChunkResult:
         global LAST_CHUNK_PLAN
         if _is_single_dense(groups):
-            LAST_CHUNK_PLAN = "fast"
-            return run_chunk_impl_fast(log_beta, alpha, ll_prev, groups,
-                                       n_steps, gammas_in, have_prev)
-        LAST_CHUNK_PLAN = "generic"
-        return run_chunk_impl(log_beta, alpha, ll_prev, groups, n_steps,
-                              gammas_in, have_prev)
+            LAST_CHUNK_PLAN, impl = "fast", run_chunk_impl_fast
+        else:
+            LAST_CHUNK_PLAN, impl = "generic", run_chunk_impl
+        rec = current_recorder()
+        if rec is None:
+            return impl(log_beta, alpha, ll_prev, groups, n_steps, gammas_in,
+                        have_prev)
+        # Under a recorder: the dispatch's enqueue span (the device work
+        # is asynchronous; the driver's em.host_sync span holds the wait)
+        # and the em.chunk_dispatches counter.
+        with rec.span("em.run_chunk", chunk=chunk, n_steps=int(n_steps),
+                      plan=LAST_CHUNK_PLAN):
+            out = impl(log_beta, alpha, ll_prev, groups, n_steps, gammas_in,
+                       have_prev)
+        rec.counter("em.chunk_dispatches").add(1)
+        return out
 
     return runner

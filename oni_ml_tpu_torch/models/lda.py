@@ -51,6 +51,7 @@ from ..config import LDAConfig
 from ..device import resolve_device
 from ..io import Batch, Corpus, formats, make_batches
 from ..ops import dense_estep, estep, sparse_estep
+from ..telemetry.spans import current_recorder, maybe_span, now_ns
 from . import convert, fused
 
 
@@ -515,6 +516,12 @@ class LDATrainer:
         gammas: list = []
         it = run.start_it
         warm_one = torch.tensor(1, dtype=torch.int32)
+        # Roofline accounting (telemetry/roofline.py) only under an
+        # active recorder: the iterations' fixed-point counts are read
+        # at the host sync there, and nowhere else.
+        instrumented = current_recorder() is not None
+        vi_counts: list = []
+        t_loop0 = now_ns()
         for it in range(run.start_it + 1, cfg.em_max_iters + 1):
             expb = sparse_estep.exp_beta_table(log_beta)
             alpha_const = estep.alpha_constant(alpha, k)
@@ -523,6 +530,7 @@ class LDATrainer:
             total_ass = torch.zeros((), dtype=torch.float32, device=dev)
             prev_gammas = gammas if use_warm else []
             gammas = []
+            batch_vis = []
             for bi, (widx, cnts, mask, live) in enumerate(dev_batches):
                 warm = {}
                 if prev_gammas:
@@ -530,6 +538,8 @@ class LDATrainer:
                 res = e_fn(log_beta, alpha, widx, cnts, mask,
                            cfg.var_max_iters, cfg.var_tol, expb_vk=expb,
                            live=live, alpha_const=alpha_const, **warm)
+                if instrumented:
+                    batch_vis.append(torch.as_tensor(res.vi_iters))
                 total_ss = total_ss + res.suff_stats
                 total_ll = total_ll + res.likelihood
                 total_ass = total_ass + res.alpha_ss
@@ -538,18 +548,55 @@ class LDATrainer:
             if cfg.estimate_alpha:
                 alpha = update_alpha(total_ass, alpha, num_docs, k,
                                      max_iters=cfg.alpha_max_iters)
-            ll = float(total_ll)
+            # The stepwise driver's one host sync per EM iteration.
+            with maybe_span("em.host_sync", it=it):
+                ll = float(total_ll)
+                if instrumented:
+                    vi_counts.append(int(torch.stack(batch_vis).max()))
             conv = self._log_iteration(it, ll, ll_prev, run.likelihoods,
                                        run.ll_file, run.progress)
             self._maybe_checkpoint(run, log_beta, alpha, it)
             if ll_prev is not None and conv < cfg.em_tol:
                 break
             ll_prev = ll
+        if instrumented and vi_counts:
+            self._emit_em_roofline(
+                "em.e_step", (now_ns() - t_loop0) / 1e9, batches, num_docs,
+                vi_counts, len(vi_counts) * len(batches))
         self._scatter_gammas(gamma_out, batches, (
             (bi, g.to("cpu", torch.float64).numpy())
             for bi, g in enumerate(gammas)))
         return log_beta, alpha, it, {"driver": "stepwise",
                                      "host_syncs": it - run.start_it}
+
+    def _emit_em_roofline(self, phase, wall_s, batches, num_docs, vi_counts,
+                          dispatches, **extra) -> None:
+        """The EM loop's roofline record: the analytic cost of the
+        iterations run (sparse_estep.em_iteration_cost at each
+        iteration's fixed-point count, over the corpus' live entries),
+        registered per dispatch and joined with the loop's wall.
+
+        The count is an upper count of the work (`count: "upper"` in the
+        record): the drivers read one fixed-point count per EM iteration,
+        the largest over its batches and their doc blocks, and every live
+        token is charged it, where the kernels run each doc block only
+        for its own count.  The share it gives is at most that high."""
+        from ..telemetry import roofline
+
+        k = self.config.num_topics
+        live = sum(int(np.count_nonzero(b.counts)) for b in batches)
+        costs = [sparse_estep.em_iteration_cost(num_docs, live,
+                                                self.num_terms, k, vi)
+                 for vi in vi_counts]
+        roofline.register_cost(
+            phase, flops=sum(c["flops"] for c in costs) / dispatches,
+            nbytes=sum(c["bytes"] for c in costs) / dispatches,
+            shape=f"d{num_docs}.n{live}.v{self.num_terms}.k{k}",
+            device=self.device)
+        roofline.emit(phase, wall_s, dispatches=dispatches, count="upper",
+                      em_iters=len(vi_counts),
+                      dense_equiv_flops=sum(c["dense_equiv_flops"]
+                                            for c in costs), **extra)
 
     def _fused_loop(self, batches, member, e_fn, compact, chunk, sync,
                     log_beta, alpha, num_docs, run, gamma_out):
@@ -593,6 +640,9 @@ class LDATrainer:
         it = run.start_it
         dispatches = skipped = 0
         res = None
+        instrumented = current_recorder() is not None
+        vi_counts: list = []
+        t_loop0 = now_ns()
         while it < cfg.em_max_iters:
             n = min(per_dispatch, cfg.em_max_iters - it)
             if every:
@@ -606,11 +656,16 @@ class LDATrainer:
             gammas_prev = res.gammas
             # The host sync: the one point per dispatch where the host
             # waits for the device.
-            steps = int(res.steps_done)
+            with maybe_span("em.host_sync", it=it) as sp:
+                steps = int(res.steps_done)
+                lls = res.lls[:steps].to("cpu", torch.float64).numpy()
+                if instrumented:
+                    sp.annotate(steps=steps)
+                    vi_counts.extend(res.vi_iters[:steps].tolist())
             have_prev = steps > 0
             skipped += n - steps
             host_conv = None
-            for ll in res.lls[:steps].to("cpu", torch.float64).numpy():
+            for ll in lls:
                 it += 1
                 ll = float(ll)
                 host_conv = self._log_iteration(it, ll, ll_prev,
@@ -623,6 +678,10 @@ class LDATrainer:
             # float64 conv decides; res.converged only ended the dispatch.
             if host_conv is not None and host_conv < cfg.em_tol:
                 break
+        if instrumented and vi_counts:
+            self._emit_em_roofline(
+                "em.run_chunk", (now_ns() - t_loop0) / 1e9, batches,
+                num_docs, vi_counts, dispatches, chunk=chunk)
         if res is not None and int(res.steps_done) > 0:
             for g_arr, slots in zip(res.gammas, groups.batch_slots):
                 g_host = g_arr.to("cpu", torch.float64).numpy()

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _cuda, estep
@@ -109,6 +110,26 @@ def padded_width(num_terms: int) -> int:
     width).  The pad columns hold real zeros in C and in beta, so they
     add exact zeros to every contraction."""
     return -(-num_terms // 128) * 128
+
+
+def kernel_cost(b: int, w: int, k: int, nnz_doc, nnz_block, block_iters,
+                block: int, warm: bool) -> "tuple[float, float]":
+    """(FLOPs, bytes) one launch needs for these inputs.  Every output
+    depends only on the non-zero cells of C (a zero cell adds exactly
+    zero to s, T and the token term), so: 4*K operations per non-zero
+    cell per fixed-point iteration of its block (q and the s
+    contraction), plus 4*K per non-zero cell for the tail (q and T)
+    (`nnz_doc` per document, `nnz_block` and `block_iters` per block);
+    bytes: C [B, W] read once, beta in and T out ([K, W] each), mask,
+    gamma in when warm, gamma, docll and ass out, iterations per
+    block."""
+    nnz_doc = np.asarray(nnz_doc, np.int64)
+    nnz_block = np.asarray(nnz_block, np.int64)
+    block_iters = np.asarray(block_iters, np.int64)
+    flops = float(4 * k * ((nnz_block * block_iters).sum() + nnz_doc.sum()))
+    nbytes = (b * w * 4 + 2 * k * w * 4 + b * 4 + (b * k * 4 if warm else 0)
+              + b * k * 4 + b * 8 + (b // block) * 4)
+    return flops, float(nbytes)
 
 
 def _max_block(k: int) -> int:

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _cuda, estep
@@ -116,6 +117,28 @@ def pick_block(b: int) -> int:
     while bb > 1 and (b % bb or b // bb < NUM_SMS):
         bb //= 2
     return bb
+
+
+# float32 operations of one digamma_pos (csrc/estep_common.cuh): 7
+# guarded recurrence steps (compare, divide, two adds) and the series.
+DIGAMMA_FLOPS = 40
+
+
+def kernel_cost(b: int, l: int, k: int, live, doc_iters, block: int,
+                warm: bool) -> "tuple[float, float]":
+    """(FLOPs, bytes) one launch needs for these inputs: 4*K operations
+    per live token (the two contractions) and K + 1 digammas per
+    document, for each fixed-point iteration its block ran (`live`,
+    `doc_iters`: per document); bytes: the [K, B, L] slab, counts, mask,
+    alpha and gamma when warm read once, gamma and the iterations per
+    block written once."""
+    live = np.asarray(live, np.int64)
+    doc_iters = np.asarray(doc_iters, np.int64)
+    flops = float((doc_iters * (4 * k * live
+                                + (k + 1) * DIGAMMA_FLOPS)).sum())
+    nbytes = (k * b * l * 4 + b * l * 4 + b * 4 + 4
+              + (b * k * 4 if warm else 0) + b * k * 4 + (b // block) * 4)
+    return flops, float(nbytes)
 
 
 def _tile_len(l: int, cluster: int) -> int:

@@ -481,6 +481,49 @@ def dense_equiv_flops(b: int, v: int, k: int, vi_iters: float) -> float:
     return 4.0 * b * k * dense_estep.padded_width(v) * (float(vi_iters) + 1.0)
 
 
+def em_iteration_cost(num_docs: int, live_tokens: int, num_terms: int,
+                      k: int, vi_iters: float) -> dict:
+    """The analytic cost of one EM iteration over a corpus, whatever
+    engine runs it: FLOPs effective_flops over the live (doc, word)
+    entries; bytes each input read once (word ids and counts 8 per live
+    entry, beta [V, K] and the previous gamma [D, K] in f32) and each
+    output written once (beta and gamma).  `dense_equiv_flops` is what a
+    dense formulation over the padded vocabulary does for the same
+    iteration."""
+    return {
+        "flops": effective_flops(1, live_tokens, k, vi_iters),
+        "bytes": float(8 * live_tokens + 8 * num_terms * k + 8 * num_docs * k),
+        "dense_equiv_flops": dense_equiv_flops(num_docs, num_terms, k,
+                                               vi_iters),
+    }
+
+
+def kernel_cost(b: int, l: int, k: int, v: int, live, doc_iters, block: int,
+                warm: bool) -> "tuple[float, float]":
+    """(FLOPs, bytes) one launch of the kernel needs for these inputs:
+    4*K operations per live token for each fixed-point iteration its
+    block ran, plus one for the tail (`live`, `doc_iters`: per document);
+    bytes: each input read once (the [V, K] table, word ids and counts,
+    mask, alpha, gamma when warm) and each output written once (gamma,
+    phi_c [B, L, K], docll and ass, iterations per block)."""
+    live = np.asarray(live, np.int64)
+    doc_iters = np.asarray(doc_iters, np.int64)
+    flops = float(4 * k * (live * (doc_iters + 1)).sum())
+    nbytes = (v * k * 4 + b * l * 8 + b * 4 + 4 + (b * k * 4 if warm else 0)
+              + b * k * 4 + b * l * k * 4 + b * 8 + (b // block) * 4)
+    return flops, float(nbytes)
+
+
+def scatter_cost(live_tokens: int, words: int, launches: int, v: int,
+                 k: int) -> "tuple[float, float]":
+    """(FLOPs, bytes) of `launches` [V, K] scatters over these inputs:
+    one add per live token and topic; the live rows of phi_c and their
+    positions, the word runs read, each launch's [V, K] output written."""
+    nbytes = (live_tokens * (k * 4 + 4) + words * 8
+              + launches * (v * k * 4 + 4))
+    return float(live_tokens * k), float(nbytes)
+
+
 # ---------------------------------------------------------------------------
 # Measured dense-vs-sparse crossover, persisted in the plan cache
 # ---------------------------------------------------------------------------
@@ -593,9 +636,41 @@ def crossover_kernels() -> str:
                     for name in (KERNEL, dense_estep.KERNEL))
 
 
+def _journal_crossover(rec: dict) -> None:
+    """Journal a resolved crossover through the active recorder, so a
+    run's engine choice can be told apart afterwards ({"kind":
+    "estep_crossover"}).  Never raises."""
+    try:
+        from ..telemetry.spans import current_recorder
+
+        r = current_recorder()
+        if r is not None:
+            r.journal_record({
+                "kind": "estep_crossover",
+                "engine": rec["engine"],
+                "shape": rec["shape"],
+                "dense_s": rec["dense_s"],
+                "sparse_s": rec["sparse_s"],
+                "source": rec["source"],
+            })
+    except Exception:
+        pass
+
+
 def engine_crossover(k: int, v: int, b: int, l: int, *,
                      precision: str = "f32", force: bool = False,
                      device="cuda") -> dict:
+    """The measured dense-vs-sparse engine decision (_engine_crossover),
+    journaled once per call through the active recorder."""
+    rec = _engine_crossover(k, v, b, l, precision=precision, force=force,
+                            device=device)
+    _journal_crossover(rec)
+    return rec
+
+
+def _engine_crossover(k: int, v: int, b: int, l: int, *,
+                      precision: str = "f32", force: bool = False,
+                      device="cuda") -> dict:
     """The measured dense-vs-sparse engine decision for this shape on
     `device`.  ONI_ML_TPU_ESTEP_ENGINE=sparse|dense pins it (source
     "env"); else this process's memo; else a plan-cache entry for the

@@ -5,7 +5,7 @@ ml_ops.sh YYYYMMDD flow|dns TOL:
     python -m oni_ml_tpu_torch.runner.ml_ops 20160122 dns 1e-20 \\
         --dns-path raw.csv --top-domains top-1m.csv --data-dir /data \\
         [--device cuda|cpu] [--stages pre,corpus] [--force] \\
-        [--checkpoint-every N]
+        [--checkpoint-every N] [--heartbeat SECS] [--profile DIR]
 
 Stages, each writing the JAX runner's artifacts into <data-dir>/<fdate>
 (the source's hooks come from the registry, `sources.get(dsource)`):
@@ -15,7 +15,9 @@ Stages, each writing the JAX runner's artifacts into <data-dir>/<fdate>
     corpus  word counts -> words.dat / doc.dat / model.dat
     lda     EM on the device -> final.beta/.gamma/.other, likelihood.dat,
             doc_results.csv, word_results.csv
-    score   float64 host scoring -> <dsource>_results.csv
+    score   scoring -> <dsource>_results.csv: the float64 host engine,
+            or with ONI_ML_TPU_SCORE=device (ScoringConfig.engine) the
+            chunked gather-dot-filter pipeline on the card
 
 Pre, corpus and score are host work; LDA is the one stage on the
 device, its E-step a hand-written CUDA kernel: the engine family comes
@@ -45,11 +47,25 @@ bytes.  run_journal.jsonl records every stage, so a skip names whether
 the journal or only the files vouched for it.  With --checkpoint-every
 N the lda stage saves EM state to checkpoint.npz every N iterations and
 a rerun resumes from it.
+
+Flight recorder (telemetry/): with the journal on, a Recorder bound to
+it records a `stage.<name>` span per stage, the EM drivers'
+`em.host_sync` spans and `em.chunk_dispatches` counter, the engine
+crossover (`estep_crossover`), the scorer's chunk-loop span and
+`dispatch` stats, and `roofline` records (analytic FLOPs and bytes over
+the measured wall, against the card's peaks), which metrics.json also
+gets as one `{"stage": "roofline", "records": [...]}` entry.
+`--heartbeat SECS` probes the device on a background thread and turns a
+device that stops answering into a clean BackendLost (exit 3) at the
+next stage boundary; `--profile DIR` writes a torch.profiler trace of
+the whole run (CPU and, on the card, CUDA activity) as Chrome trace
+JSON.  Neither changes a result.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import pickle
@@ -66,8 +82,11 @@ from ..device import resolve_device
 from ..io import Corpus, formats
 from ..models import train_corpus
 from ..ops import dense_estep, pallas_estep, sparse_estep
-from ..scoring import ScoringModel
-from ..telemetry import Journal, RunJournal
+from ..scoring import DispatchStats, ScoringModel
+from ..scoring.score import _score_engine
+from ..telemetry import (BackendLost, HeartbeatMonitor, Journal, Recorder,
+                         RunJournal, maybe_span, roofline, use_recorder)
+from ..telemetry.heartbeat import device_add_probe
 
 
 class Stage(str, Enum):
@@ -212,6 +231,10 @@ class RunContext:
     journal: "RunJournal | None" = None
     # Stages a replayed journal records complete (empty under --force).
     journal_done: set = field(default_factory=set)
+    # The flight recorder bound to the journal, and the device heartbeat
+    # whose check() gates each stage entry (None when off).
+    recorder: "Recorder | None" = None
+    heartbeat: "HeartbeatMonitor | None" = None
 
     def path(self, name: str) -> str:
         return os.path.join(self.day_dir, name)
@@ -389,7 +412,10 @@ def stage_lda(ctx: RunContext) -> dict:
 
 
 def stage_score(ctx: RunContext) -> dict:
-    """float64 host scoring -> <dsource>_results.csv."""
+    """Scoring -> <dsource>_results.csv, by the resolved engine: the
+    float64 host engine, or the device pipeline in chunks of
+    pipeline.DEFAULT_CHUNK events, which records `score_dispatch` (also
+    journaled as a `dispatch` record)."""
     spec = sources.get(ctx.dsource)
     if ctx.features is not None:
         features, feat_src = ctx.features, "handoff"
@@ -414,17 +440,26 @@ def stage_score(ctx: RunContext) -> dict:
                                         ctx.path("word_results.csv"),
                                         fallback)
         model_src = "file"
-    blob, scores = spec.score_csv(features, model, sc.threshold)
+    engine = _score_engine(sc.engine)
+    stats = DispatchStats() if engine == "device" else None
+    blob, scores = spec.score_csv(features, model, sc.threshold,
+                                  engine=engine, stats=stats,
+                                  device=ctx.device)
 
     def write(tmp):
         with open(tmp, "wb") as f:
             f.write(blob)
 
     _write_atomic(ctx.path(ctx.results_name()), write)
-    return {"scored_events": features.num_raw_events,
-            "flagged": int(len(scores)),
-            "min_score": float(scores[0]) if len(scores) else None,
-            "features": feat_src, "model": model_src}
+    out = {"scored_events": features.num_raw_events,
+           "flagged": int(len(scores)),
+           "min_score": float(scores[0]) if len(scores) else None,
+           "features": feat_src, "model": model_src, "engine": engine}
+    if stats is not None:
+        out["score_dispatch"] = stats.as_record()
+        if ctx.journal is not None:
+            ctx.journal.dispatch_stats(stats.as_record(), stage="score")
+    return out
 
 
 _STAGE_FNS = {
@@ -442,6 +477,11 @@ def _run_stage(ctx: RunContext, stage: Stage, force: bool) -> None:
     skips on outputs of an older run.  So is the EM checkpoint when the
     corpus is remade or a fresh fit is forced: only an lda stage rerun
     on the same corpus resumes from it."""
+    if ctx.heartbeat is not None:
+        # Fail cleanly at the stage boundary once the device is gone
+        # (before touching any output): entering the stage would hang in
+        # its first device call.
+        ctx.heartbeat.check()
     stale = [name for later in STAGE_ORDER[STAGE_ORDER.index(stage):]
              for name in ctx.outputs(later)]
     if stage in (Stage.PRE, Stage.CORPUS) or (stage is Stage.LDA and force):
@@ -453,7 +493,9 @@ def _run_stage(ctx: RunContext, stage: Stage, force: bool) -> None:
         ctx.journal.stage_begin(stage.value)
     t0 = time.perf_counter()
     try:
-        info = _STAGE_FNS[stage](ctx)
+        with maybe_span(f"stage.{stage.value}", fdate=ctx.fdate,
+                        dsource=ctx.dsource):
+            info = _STAGE_FNS[stage](ctx)
     except BaseException as e:
         if ctx.journal is not None:
             ctx.journal.stage_end(stage.value, ok=False,
@@ -512,14 +554,30 @@ def run_pipeline(
         ctx.journal.run_start(force=force, fdate=fdate, dsource=dsource,
                               stages=[Stage(s).value for s in wanted],
                               journal_done=sorted(prior_done))
+        ctx.recorder = Recorder(journal=ctx.journal.journal)
+    if tel.heartbeat_s > 0:
+        ctx.heartbeat = HeartbeatMonitor(
+            interval_s=tel.heartbeat_s, journal=ctx.journal,
+            probe=lambda t: device_add_probe(t, device=dev),
+            recorder=ctx.recorder).start()
+    roofline0 = roofline.emit_count()
     ok = False
     try:
-        _run_stages(ctx, wanted, force)
+        with (use_recorder(ctx.recorder) if ctx.recorder is not None
+              else contextlib.nullcontext()):
+            _run_stages(ctx, wanted, force)
         ok = True
     finally:
+        if ctx.heartbeat is not None:
+            ctx.heartbeat.stop()
         if ctx.journal is not None:
             ctx.journal.run_end(ok=ok)
             ctx.journal.close()
+    records = roofline.emitted_records(since=roofline0)
+    if records:
+        # Into metrics.json only (stdout keeps one line per stage).
+        ctx.metrics.append({"fdate": fdate, "dsource": dsource,
+                            "stage": "roofline", "records": records})
     with open(ctx.path("metrics.json"), "w") as f:
         json.dump(ctx.metrics, f, indent=1)
     return DayRun(ctx.metrics, ctx.features, ctx.corpus, ctx.result)
@@ -571,7 +629,36 @@ def build_parser() -> argparse.ArgumentParser:
                    help="re-run stages whose outputs exist")
     p.add_argument("--no-journal", action="store_true",
                    help="do not write run_journal.jsonl")
+    p.add_argument("--heartbeat", type=float, default=0.0, metavar="SECS",
+                   help="probe device liveness every SECS seconds on a "
+                   "background thread (a tiny add on the device, "
+                   "journaled); a device that stops answering becomes a "
+                   "clean BackendLost failure at the next stage boundary "
+                   "(exit 3) instead of a hang (0 = off)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the whole run "
+                   "(CPU and, on the card, CUDA activity) to "
+                   "DIR/<fdate>.<dsource>.trace.json (Chrome trace JSON)")
     return p
+
+
+@contextlib.contextmanager
+def _profiled(out_dir: "str | None", device: str, name: str):
+    """A torch.profiler trace of the block, exported as Chrome trace
+    JSON to out_dir/name when the block completes (nothing when
+    out_dir is None)."""
+    if not out_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(out_dir, name))
 
 
 def main(argv=None) -> int:
@@ -602,11 +689,22 @@ def main(argv=None) -> int:
                         else int(env.get("DUPFACTOR", 1000)))
         ),
         scoring=ScoringConfig(threshold=args.tol),
-        telemetry=TelemetryConfig(journal=not args.no_journal),
+        telemetry=TelemetryConfig(journal=not args.no_journal,
+                                  heartbeat_s=args.heartbeat),
     )
     try:
-        run_pipeline(config, args.fdate, args.dsource, device=args.device,
-                     force=args.force, stages=stages)
+        with _profiled(args.profile, args.device,
+                       f"{args.fdate}.{args.dsource}.trace.json"):
+            run_pipeline(config, args.fdate, args.dsource,
+                         device=args.device, force=args.force,
+                         stages=stages)
+    except BackendLost as e:
+        # The heartbeat's point: a dead device exits as a structured,
+        # journaled failure, not a hang.
+        print(json.dumps({"fdate": args.fdate, "dsource": args.dsource,
+                          "error": "backend_lost", "detail": str(e)}),
+              flush=True)
+        return 3
     except MissingArtifactError as e:
         print(json.dumps({"fdate": args.fdate, "dsource": args.dsource,
                           "error": "missing_artifact", "detail": str(e)}),

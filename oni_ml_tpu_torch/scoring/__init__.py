@@ -1,7 +1,16 @@
-"""Float64 host scoring of the flow and DNS days."""
+"""Scoring of the flow, DNS and proxy days: the float64 host scorer
+(score.py, the default engine) and the device engine's chunked
+pipeline (pipeline.py)."""
 
+from .pipeline import (
+    DispatchStats,
+    chunked_scores,
+    filtered_flow_scores,
+    filtered_scores,
+)
 from .score import (
     ScoringModel,
+    device_scores,
     dns_event_indices,
     flow_event_indices,
     score_dns,
@@ -9,5 +18,7 @@ from .score import (
     score_flow_csv,
 )
 
-__all__ = ["ScoringModel", "dns_event_indices", "flow_event_indices",
-           "score_dns", "score_dns_csv", "score_flow_csv"]
+__all__ = ["DispatchStats", "ScoringModel", "chunked_scores",
+           "device_scores", "dns_event_indices", "filtered_flow_scores",
+           "filtered_scores", "flow_event_indices", "score_dns",
+           "score_dns_csv", "score_flow_csv"]

@@ -65,10 +65,12 @@ class FlowSource(SourceSpec):
     def matches_features(self, features) -> bool:
         return hasattr(features, "ibyt_cuts")
 
-    def score_csv(self, features, model, threshold, engine=None):
+    def score_csv(self, features, model, threshold, engine=None,
+                  chunk=None, stats=None, device=None):
         from ..scoring.score import score_flow_csv
 
-        return score_flow_csv(features, model, threshold, engine=engine)
+        return score_flow_csv(features, model, threshold, engine=engine,
+                              chunk=chunk, stats=stats, device=device)
 
     def synth_benign(self, n_events: int, seed: int) -> "list[str]":
         """Office-hours netflow to a small service mix.  Packet/byte
@@ -163,10 +165,12 @@ class DnsSource(SourceSpec):
     def matches_features(self, features) -> bool:
         return hasattr(features, "entropy_cuts")
 
-    def score_csv(self, features, model, threshold, engine=None):
+    def score_csv(self, features, model, threshold, engine=None,
+                  chunk=None, stats=None, device=None):
         from ..scoring.score import score_dns_csv
 
-        return score_dns_csv(features, model, threshold, engine=engine)
+        return score_dns_csv(features, model, threshold, engine=engine,
+                             chunk=chunk, stats=stats, device=device)
 
     def top_domains(self, config) -> frozenset:
         if not config.top_domains_path:

@@ -268,22 +268,23 @@ class TableSourceSpec(SourceSpec):
     def matches_features(self, features) -> bool:
         return getattr(features, "source_name", None) == self.name
 
-    def score_csv(self, features, model, threshold, engine=None):
+    def score_csv(self, features, model, threshold, engine=None,
+                  chunk=None, stats=None, device=None):
         """(results CSV bytes, ascending kept scores): one <theta_doc,
         p_word> per raw event, each kept row the source columns, the
-        field bins, the word and the score."""
-        from ..scoring.score import (_batched_scores, _index_rows,
-                                     _host_only, _keep_order)
+        field bins, the word and the score; engine="device" runs the
+        pipeline's filtered_scores (scoring.score.scored_events)."""
+        from ..scoring.score import _index_rows, scored_events
 
-        _host_only(engine)
         n = features.num_raw_events
         c = features.doc_col
         ip_idx = _index_rows(model.ip_index, [r[c] for r in features.rows[:n]],
                              len(model.ip_index))
         word_idx = _index_rows(model.word_index, features.word[:n],
                                len(model.word_index))
-        scores = _batched_scores(model, ip_idx, word_idx)
-        order = _keep_order(scores, threshold)
+        order, (scores,), kept = scored_events(
+            model, [(ip_idx, word_idx)], threshold, engine, chunk, stats,
+            device)
         rows = [
             ",".join(features.featurized_row(i) + [str(scores[i])])
             for i in order
@@ -291,7 +292,7 @@ class TableSourceSpec(SourceSpec):
         blob = "".join(r + "\n" for r in rows).encode(
             "utf-8", "surrogateescape"
         )
-        return blob, scores[order]
+        return blob, kept
 
     def fallback(self, scoring_cfg) -> float:
         return getattr(scoring_cfg, f"{self.name}_fallback",

@@ -23,9 +23,10 @@ restarts per Journal instance; replayed consumers order by file
 position, which O_APPEND makes authoritative.
 
 `RunJournal` layers the batch day's record vocabulary on top (run and
-stage begin/end/skip, EM likelihood points; the JAX package's scoring,
-serving, heartbeat and bench records come with those layers) and owns
-the resume contract:
+stage begin/end/skip, EM likelihood points, the scoring pipeline's
+DispatchStats, heartbeats and a lost backend, phases and free-form
+annotations; the JAX package's serving records come with that layer)
+and owns the resume contract:
 `RunJournal.completed_stages(records)` is what the runner consults so
 `--stages` resume picks up from the journal without re-running
 completed stages.
@@ -80,6 +81,12 @@ class Journal:
                 os.fsync(self._fd)
                 self._since_sync = 0
             return rec
+
+    def sync(self) -> None:
+        with self._lock:
+            if not self._closed:
+                os.fsync(self._fd)
+                self._since_sync = 0
 
     def close(self) -> None:
         with self._lock:
@@ -183,6 +190,24 @@ class RunJournal:
         self.append({"kind": "em_ll", "iter": int(it), "ll": float(ll),
                      "conv": float(conv)})
 
+    def dispatch_stats(self, record: dict, **info) -> None:
+        """Scoring pipeline DispatchStats.as_record() payload."""
+        self.append({"kind": "dispatch", **info, "stats": record})
+
+    def heartbeat(self, ok: bool, **info) -> None:
+        self.append({"kind": "heartbeat", "ok": bool(ok), **info})
+
+    def backend_lost(self, **info) -> None:
+        self.append({"kind": "backend_lost", **info}, sync=True)
+
+    def phase(self, name: str, ok: bool = True, **info) -> None:
+        """A named phase's completion or failure (a smoke or bench run)."""
+        self.append({"kind": "phase", "name": name, "ok": bool(ok),
+                     **info}, sync=True)
+
+    def annotation(self, kind: str, **info) -> None:
+        self.append({"kind": kind, **info})
+
     # -- resume contract -------------------------------------------------
     @staticmethod
     def completed_stages(records: list[dict]) -> set:
@@ -200,3 +225,12 @@ class RunJournal:
                 if stage:
                     done.add(stage)
         return done
+
+    @staticmethod
+    def likelihood_points(records: list[dict]) -> list[tuple]:
+        """(iter, ll, conv) points from em_ll records, in order."""
+        return [
+            (r.get("iter"), r.get("ll"), r.get("conv"))
+            for r in records
+            if r.get("kind") == "em_ll"
+        ]

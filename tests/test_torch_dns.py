@@ -10,6 +10,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from oni_ml_tpu.features import dns as jdns
 from oni_ml_tpu.features import feedback as jfeedback
@@ -159,12 +160,28 @@ def test_golden_scoring_pinned():
     assert np.all(np.diff(scores) >= 0)
 
 
-def test_device_scorer_not_ported_raises():
+def test_device_scorer_not_ported_raises(monkeypatch):
+    """The device engine scores the golden day through the pipeline: on
+    the CPU (device="cpu") the same events as the pinned
+    dns_results.csv, featurized columns byte-equal and scores within rel
+    1e-6; without a card and without device="cpu" it raises instead of
+    giving way to the host engine; an unknown engine raises."""
     feats = featurize_dns(_rows(), load_top_domains(TOP1M))
     model = ScoringModel.from_files(
         os.path.join(EXPECTED, "doc_results.csv"),
         os.path.join(EXPECTED, "word_results.csv"), DNS_FALLBACK)
-    with pytest.raises(NotImplementedError, match="device scorer"):
+    blob, scores = score_dns_csv(feats, model, DNS_TOL, engine="device",
+                                 device="cpu")
+    with open(os.path.join(EXPECTED, "dns_results.csv"), "rb") as f:
+        want = f.read().decode().splitlines()
+    got = blob.decode().splitlines()
+    assert len(got) == len(want) == len(scores)
+    for g, w in zip(got, want):
+        assert g.rsplit(",", 1)[0] == w.rsplit(",", 1)[0]
+        np.testing.assert_allclose(float(g.rsplit(",", 1)[1]),
+                                   float(w.rsplit(",", 1)[1]), rtol=1e-6)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         score_dns_csv(feats, model, DNS_TOL, engine="device")
     with pytest.raises(ValueError, match="'host' or 'device'"):
         score_dns_csv(feats, model, DNS_TOL, engine="gpu")

@@ -11,6 +11,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from oni_ml_tpu import sources as jsources
 from oni_ml_tpu.config import FeedbackConfig as JFeedbackConfig
@@ -129,10 +130,13 @@ def test_spec_for_features_resolves_each_container():
         sources.spec_for_features(object())
 
 
-def test_proxy_score_csv_matches_reference():
+def test_proxy_score_csv_matches_reference(monkeypatch):
     """The proxy spec's scorer with one model: the same bytes and scores
     as the JAX spec's host engine (unseen docs and words take the 0.1
-    fallback row)."""
+    fallback row); its device engine (on the CPU) the same events in the
+    same order as the JAX spec's device engine, the featurized columns
+    byte-equal and the scores within rel 1e-6; without a card the device
+    engine raises."""
     spec, ref = sources.get("proxy"), jsources.get("proxy")
     port, jfeat = _features("proxy", n=200, seed=5)
     triples = port.word_counts()
@@ -148,7 +152,16 @@ def test_proxy_score_csv_matches_reference():
         jblob, jscores = ref.score_csv(jfeat, jmodel, tol, engine="host")
         assert blob == jblob and len(blob)
         np.testing.assert_array_equal(scores, jscores)
-    with pytest.raises(NotImplementedError):
+        dblob, dscores = spec.score_csv(port, model, tol, engine="device",
+                                        device="cpu")
+        jdblob, jdscores = ref.score_csv(jfeat, jmodel, tol, engine="device")
+        got, want = dblob.decode().splitlines(), jdblob.decode().splitlines()
+        assert len(got) == len(want) == len(dscores) > 0
+        for g, w in zip(got, want):
+            assert g.rsplit(",", 1)[0] == w.rsplit(",", 1)[0]
+        np.testing.assert_allclose(dscores, jdscores, rtol=1e-6)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         spec.score_csv(port, model, 1.1, engine="device")
 
 
