@@ -5,7 +5,9 @@
 Phases (any failure exits non-zero before the result line):
 
 1. build     compile the port's CUDA sources from csrc/, one nvcc each,
-             in parallel.
+             and its C++ host libraries from native_src/, one g++ each
+             (native_build.py), all in parallel; print the host's cores
+             and `g++ --version`.
 2. parity    each kernel against its plain PyTorch version on the card,
              at the flow day's shapes, fresh and warm starts (the dense
              E-step in both layouts, at the main shape and on long
@@ -56,6 +58,18 @@ Phases (any failure exits non-zero before the result line):
              byte-equal, scores within rel 1e-6, in host order up to
              float32 ties.  Then chunked_scores at two chunk sizes must
              equal device_scores in one dispatch bit for bit.
+   native_pre  the native C++ pre path against the Python one
+             (ONI_ML_TPU_NO_NATIVE=1) on the card's host: the 2M-event
+             flow day's `--stages pre,corpus` in Python and natively at
+             --pre-workers 1 write the pipeline run's word_counts.dat,
+             words.dat, doc.dat and model.dat (native, workers auto); its
+             score stage resumed in Python at score_device's threshold
+             writes the native day's flow_results.csv; the small flow and
+             DNS days (sparse pinned) write every file alike.  Prints the
+             pre walls of both paths and the resumed score walls.  The 2M
+             days' `pipeline` / `pipeline_dns` lines carry the pre
+             engine, its workers and the pass walls, and must have run
+             native.
 6. resume    on the small flow day with the sparse engine pinned:
              `--stages pre,corpus` then `--stages lda,score` must write
              the one-shot card run's bytes; an EM fit cut at iteration 3
@@ -94,6 +108,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -101,6 +116,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from oni_ml_tpu_torch import native_build  # noqa: E402
 from oni_ml_tpu_torch.io import Corpus, formats, make_batches  # noqa: E402
 from oni_ml_tpu_torch.ops import (  # noqa: E402
     _cuda, dense_estep, pallas_estep, sparse_estep)
@@ -595,8 +611,8 @@ def pipeline(tmp):
     measured crossover; then the same corpus through train_corpus on the
     dense family's full-V path and on the per-batch pallas path (and on
     the sparse engine, where the crossover did not pick it), each
-    scored.  Returns the corpus and each family member's kernel counts
-    (launched, ran) on its path."""
+    scored.  Returns the corpus, each family member's kernel counts
+    (launched, ran) on its path, and the pre stage's record."""
     from oni_ml_tpu_torch.config import PipelineConfig, ScoringConfig
     from oni_ml_tpu_torch.runner import ml_ops
     from oni_ml_tpu_torch.synth import write_flow_day
@@ -635,7 +651,7 @@ def pipeline(tmp):
         "events": PIPELINE_EVENTS, "docs": corpus["docs"],
         "vocab": corpus["vocab"], "tokens": corpus["tokens"],
         "stage_wall_s": walls, "day_wall_s": sum(walls.values()),
-        "pre_pickle_s": recs["pre"]["pickle_s"],
+        "pre_pickle_s": recs["pre"]["pickle_s"], **pre_fields(recs, "flow"),
         "flagged": recs["score"]["flagged"], "lda": lda,
     }))
     path_counts = {lda["member"]: day_counts}
@@ -646,7 +662,7 @@ def pipeline(tmp):
     for label, cfg_kw, env, member in paths:
         path_counts[member] = train_path(label, run, config, cfg_kw, env,
                                          member, recs, tmp)
-    return run.corpus, path_counts
+    return run.corpus, path_counts, recs["pre"]
 
 
 def crossover(corpus, lda):
@@ -720,6 +736,22 @@ def train_path(label, run, config, cfg_kw, env, member, recs, tmp):
         "dense_corpus_bytes": run.corpus.num_docs * W * 4,
     }))
     return counts
+
+
+# The pre record's fields that the 2M-day lines carry beside
+# `pre_pickle_s`: the featurizer engine, its workers with their source,
+# and the pass walls.
+PRE_FIELDS = ("pre_engine", "pre_workers", "pre_workers_source", "parse_s",
+              "cuts_s", "word_build_s", "merge_s", "wc_emit_s")
+
+
+def pre_fields(recs, dsource):
+    """The pre record's PRE_FIELDS; the 2M days must featurize natively."""
+    pre = recs["pre"]
+    if pre.get("pre_engine") != "native":
+        fail(f"{dsource} 2M day: pre ran {pre.get('pre_engine')} "
+             f"({pre.get('python_reason')}), not the native featurizer")
+    return {key: pre.get(key) for key in PRE_FIELDS}
 
 
 def check_day(day, recs, corpus, lda, dsource="flow"):
@@ -819,7 +851,7 @@ def pipeline_dns(tmp):
         "events": DNS_EVENTS, "docs": corpus["docs"],
         "vocab": corpus["vocab"], "tokens": corpus["tokens"],
         "stage_wall_s": walls, "day_wall_s": sum(walls.values()),
-        "pre_pickle_s": recs["pre"]["pickle_s"],
+        "pre_pickle_s": recs["pre"]["pickle_s"], **pre_fields(recs, "dns"),
         "em_s": lda["em_s"], "em_docs_per_s": lda["em_docs_per_s"],
         "em_iters": lda["em_iters"], "engine": lda["engine"],
         "engine_source": lda["engine_source"], "member": lda["member"],
@@ -930,13 +962,8 @@ def day_scores(day, dsource):
         os.path.join(day, "doc_results.csv"),
         os.path.join(day, "word_results.csv"),
         get(dsource).fallback(ScoringConfig()))
-    if dsource == "flow":
-        idx = score_mod.flow_event_indices(features, model.ip_index,
-                                           model.word_index)
-        pairs = [idx[:2], idx[2:]]
-    else:
-        pairs = [score_mod.dns_event_indices(features, model.ip_index,
-                                             model.word_index)]
+    idx = features.event_indices(model.ip_index, model.word_index)
+    pairs = [idx[:2], idx[2:]] if dsource == "flow" else [idx]
     del features
     scores = [pipeline.chunked_scores(model, *pr, device="cuda")
               for pr in pairs]
@@ -1026,11 +1053,12 @@ def score_device(tmp, smi):
     chunk loop's roofline record, and the engines' results compared
     (compare_engines).  Then the bitwise check: chunked_scores at two
     chunk sizes against device_scores in one dispatch, on the flow
-    day's events."""
+    day's events.  Returns {dsource: (threshold, the host engine's score
+    wall)}: the host run is the last, so its results stay in the day."""
     from oni_ml_tpu_torch.runner import ml_ops
     from oni_ml_tpu_torch.scoring import chunked_scores, device_scores
 
-    bitwise = None
+    host = {}
     for dsource, data, raw in (
             ("flow", os.path.join(tmp, "data"),
              os.path.join(tmp, "flow_day.csv")),
@@ -1074,6 +1102,7 @@ def score_device(tmp, smi):
         cmp = compare_engines(host_rows, dev_rows, tol)
         if not cmp["device_rows"]:
             fail(f"score_device {dsource}: no event under the threshold")
+        host[dsource] = (tol, host_recs["score"]["wall_s"])
         dispatch = score["score_dispatch"]
         chunk = dispatch["chunk"]
         log("score_device " + json.dumps({
@@ -1098,9 +1127,117 @@ def score_device(tmp, smi):
             if not all(same.values()):
                 fail(f"score_device: chunked scores differ from one "
                      f"dispatch: {same}")
-            bitwise = {"events": len(ip), "one_dispatch_vs_chunks": same}
-            log("score_bitwise " + json.dumps(bitwise))
-    return bitwise
+            log("score_bitwise " + json.dumps(
+                {"events": len(ip), "one_dispatch_vs_chunks": same}))
+    return host
+
+
+# A day's files that the native and the Python pre paths must write
+# alike: all but the pickle, the native path's spill, and the run's own
+# records.
+NOT_PINNED = ("features.pkl", "raw_lines.bin", "metrics.json",
+              "run_journal.jsonl")
+
+
+def same_files(a, b, names):
+    """{name: whether day dirs a and b hold the same bytes under it}."""
+    out = {}
+    for name in names:
+        with open(os.path.join(a, name), "rb") as f1, \
+                open(os.path.join(b, name), "rb") as f2:
+            out[name] = f1.read() == f2.read()
+    return out
+
+
+def ml_ops_day(dsource, tol, raw, data, *extra, python=False):
+    """One ml_ops.main run (under ONI_ML_TPU_NO_NATIVE=1 when `python`)
+    -> (the day dir, its stage records)."""
+    from oni_ml_tpu_torch.runner import ml_ops
+
+    if python:
+        os.environ["ONI_ML_TPU_NO_NATIVE"] = "1"
+    try:
+        rc = ml_ops.main(["20160122", dsource, repr(tol), DAY_FLAGS[dsource],
+                          raw, "--data-dir", data, *extra])
+    finally:
+        os.environ.pop("ONI_ML_TPU_NO_NATIVE", None)
+    if rc != 0:
+        fail(f"native_pre: ml_ops {dsource} {extra} (python={python}) "
+             f"returned {rc}")
+    day = os.path.join(data, "20160122")
+    with open(os.path.join(day, "metrics.json")) as f:
+        return day, {r["stage"]: r for r in json.load(f)}
+
+
+def native_pre(tmp, raws, flow_pre, host_score, host):
+    """The native pre path against the Python one (ONI_ML_TPU_NO_NATIVE=1)
+    on the card's host.  The 2M-event flow day: `--stages pre,corpus` in
+    Python and natively at --pre-workers 1 must write the word counts and
+    the corpus triplet of the pipeline's run (native, workers auto); the
+    Python day's score stage, resumed at score_device's threshold over
+    the pipeline's model, must write the native day's results.  The
+    small flow and DNS days (sparse engine pinned, so both runs train
+    alike): every file of the day alike, results CSVs included."""
+    flow_day = os.path.join(tmp, "data", "20160122")
+    raw = os.path.join(tmp, "flow_day.csv")
+    tol, native_score_s = host_score["flow"]
+    py_day, py = ml_ops_day("flow", 1e-20, raw,
+                            os.path.join(tmp, "native_pre_py"), "--stages",
+                            "pre,corpus", python=True)
+    w1_day, w1 = ml_ops_day("flow", 1e-20, raw,
+                            os.path.join(tmp, "native_pre_w1"), "--stages",
+                            "pre,corpus", "--pre-workers", "1")
+    if py["pre"]["pre_engine"] != "python" or (
+            w1["pre"]["pre_engine"] != "native"
+            or w1["pre"]["pre_workers"] != 1):
+        fail(f"native_pre: the runs took {py['pre']} and {w1['pre']}")
+    files = ["word_counts.dat", "words.dat", "doc.dat", "model.dat"]
+    equal = {"python": same_files(flow_day, py_day, files),
+             "native_workers_1": same_files(flow_day, w1_day, files)}
+    for name in ("doc_results.csv", "word_results.csv"):
+        shutil.copy(os.path.join(flow_day, name), os.path.join(py_day, name))
+    _, py_score = ml_ops_day("flow", tol, raw,
+                             os.path.join(tmp, "native_pre_py"), "--stages",
+                             "score", python=True)
+    equal["python"].update(same_files(flow_day, py_day, ["flow_results.csv"]))
+    shutil.rmtree(py_day, ignore_errors=True)
+    shutil.rmtree(w1_day, ignore_errors=True)
+    small = {}
+    for dsource in ("flow", "dns"):
+        days = {"native": run_day(dsource, raws[dsource], os.path.join(
+            tmp, f"native_pre_small_{dsource}_native"), "cuda", "sparse", 5)}
+        os.environ["ONI_ML_TPU_NO_NATIVE"] = "1"
+        try:
+            days["python"] = run_day(dsource, raws[dsource], os.path.join(
+                tmp, f"native_pre_small_{dsource}_python"), "cuda", "sparse",
+                5)
+        finally:
+            os.environ.pop("ONI_ML_TPU_NO_NATIVE", None)
+        names = {run: sorted(n for n in os.listdir(day) if n not in NOT_PINNED)
+                 for run, day in days.items()}
+        if names["native"] != names["python"]:
+            fail(f"native_pre small {dsource}: the days hold other files: "
+                 f"{names}")
+        small[dsource] = same_files(days["native"], days["python"],
+                                    names["native"])
+    bad = [f"{k}:{n}" for k, v in {**equal, **small}.items()
+           for n, ok in v.items() if not ok]
+    if bad:
+        fail(f"native_pre: the native and Python paths wrote other bytes: "
+             f"{bad}")
+    log("native_pre " + json.dumps({
+        "host": host, "events": PIPELINE_EVENTS,
+        "pre_wall_s": {"native": flow_pre["wall_s"],
+                       "native_workers_1": w1["pre"]["wall_s"],
+                       "python": py["pre"]["wall_s"]},
+        "native_pre_workers": flow_pre["pre_workers"],
+        "corpus_wall_s": {"native_workers_1": w1["corpus"]["wall_s"],
+                          "python": py["corpus"]["wall_s"]},
+        "resumed_score_wall_s": {"native": native_score_s,
+                                 "python": py_score["score"]["wall_s"]},
+        "score_threshold": tol, "flagged": py_score["score"]["flagged"],
+        "bytes_equal_2m_flow": equal, "bytes_equal_small": small,
+    }))
 
 
 def telemetry(tmp, raw):
@@ -1618,9 +1755,34 @@ def main() -> int:
         fail(f"card {fp}: the package's peaks are for the H100 SXM; the "
              "bounds and roofline shares would be wrong here")
 
+    # The host: its cores (the pre workers' auto count) and g++, which
+    # builds the port's C++ host libraries (native_build.py).
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
+    host = {"cores": os.cpu_count(), "gxx": gxx}
+    log("host " + json.dumps(host))
+
+    # The C++ host libraries build (one g++ each) while nvcc builds the
+    # kernels (one nvcc each), all at once.
     t0 = time.perf_counter()
+    native_err = []
+
+    def build_native():
+        try:
+            native_build.build(list(native_build.SOURCES))
+        except Exception as e:  # reported below, the run fails
+            native_err.append(e)
+
+    native_thread = threading.Thread(target=build_native)
+    native_thread.start()
     _cuda.build([sparse_estep.KERNEL, dense_estep.KERNEL, pallas_estep.KERNEL])
+    native_thread.join()
+    if native_err:
+        fail(f"native host libraries did not build: {native_err[0]}")
     log(f"build: {time.perf_counter() - t0:.2f} s (in parallel)")
+    for lname, info in native_build.BUILD_INFO.items():
+        log(f"build native {lname}: {info['seconds']:.2f} s "
+            f"({os.path.basename(native_build.lib_path(lname))})")
     for kname, info in _cuda.BUILD_INFO.items():
         log(f"build {kname}: {info['seconds']:.2f} s")
         for line in info["ptxas"].splitlines():
@@ -1675,9 +1837,10 @@ def main() -> int:
     try:
         raws = small_days(tmp)
         e2e_small(tmp, raws)
-        corpus, path_counts = pipeline(tmp)
+        corpus, path_counts, flow_pre = pipeline(tmp)
         dns_counts = pipeline_dns(tmp)
-        score_device(tmp, smi)
+        host_score = score_device(tmp, smi)
+        native_pre(tmp, raws, flow_pre, host_score, host)
         resume(tmp, raws["flow"])
         telemetry(tmp, raws["flow"])
     finally:

@@ -129,6 +129,14 @@ class PipelineConfig:
     dns_path: str = ""             # DNS CSV (or parquet) paths, same forms
     proxy_path: str = ""           # proxy/HTTP log CSV paths, same forms
     top_domains_path: str = ""     # Alexa top-1m.csv (DNS whitelist)
+    # Precomputed flow quantile cuts (features/qtiles.py format): skips
+    # the in-run ECDF pass and pins word identity across days.
+    qtiles_path: str = ""
+    # Pre-stage shard workers of the native featurizers
+    # (features/shards.resolve_pre_workers): 0 = auto (one per host
+    # core), 1 = the sequential pass, N = N workers.  Never changes a
+    # byte.
+    pre_workers: int = 0
     lda: LDAConfig = field(default_factory=LDAConfig)
     feedback: FeedbackConfig = field(default_factory=FeedbackConfig)
     scoring: ScoringConfig = field(default_factory=ScoringConfig)

@@ -42,7 +42,7 @@ import numpy as np
 
 from ..io.formats import contract_open as _open
 from .flow import _to_double
-from .pickling import PackedPickle
+from .container import PythonContainer, csv_blob, index_rows
 from .quantiles import DECILES, QUINTILES, bin_values, ecdf_cuts
 
 # The 8 columns selected from the raw source (dns_pre_lda.scala:149).
@@ -140,7 +140,7 @@ def load_top_domains(path: str) -> frozenset[str]:
 
 
 @dataclass
-class DnsFeatures(PackedPickle):
+class DnsFeatures(PythonContainer):
     """Featurized day of DNS.  Scoring consumes `word` directly instead of
     re-featurizing (SURVEY §1)."""
 
@@ -194,6 +194,26 @@ class DnsFeatures(PackedPickle):
             str(int(self.top_domain[i])),
             self.word[i],
         ]
+
+    def event_indices(self, ip_index: dict, word_index: dict):
+        """Model-row index arrays (client ip, word), int32, of every raw
+        event; misses get the fallback row `len(index)`."""
+        n = self.num_raw_events
+        ip_col = DNS_COLUMNS["ip_dst"]
+        return (
+            index_rows(ip_index, [r[ip_col] for r in self.rows[:n]],
+                       len(ip_index)),
+            index_rows(word_index, self.word[:n], len(word_index)),
+        )
+
+    def results_rows(self, scores, order) -> "list[str]":
+        """dns_results.csv's rows: those of `order`, each its 15
+        featurized columns + score."""
+        return [",".join(self.featurized_row(i) + [str(scores[i])])
+                for i in order]
+
+    def results_csv(self, scores, order) -> bytes:
+        return csv_blob(self.results_rows(scores, order))
 
 
 def featurize_dns(

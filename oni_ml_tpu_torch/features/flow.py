@@ -38,7 +38,7 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
-from .pickling import PackedPickle
+from .container import PythonContainer, csv_blob, index_rows
 from .quantiles import DECILES, QUINTILES, bin_values, ecdf_cuts
 
 # Column indices in the 27-column netflow schema (flow_pre_lda.scala:46-72).
@@ -67,7 +67,7 @@ def _to_double(s: str) -> float:
 
 
 @dataclass
-class FlowFeatures(PackedPickle):
+class FlowFeatures(PythonContainer):
     """Featurized day of netflow.  Everything scoring needs rides along so
     the post stage never re-featurizes (removing the SURVEY §1 duplication
     and its nondeterminism risk)."""
@@ -132,6 +132,28 @@ class FlowFeatures(PackedPickle):
             self.src_word[i],
             self.dest_word[i],
         ]
+
+    def event_indices(self, ip_index: dict, word_index: dict):
+        """Model-row index arrays (sip, src word, dip, dest word), int32,
+        of every raw event; misses get the fallback row `len(index)`."""
+        n = self.num_raw_events
+        fb_ip, fb_w = len(ip_index), len(word_index)
+        s_col, d_col = FLOW_COLUMNS["sip"], FLOW_COLUMNS["dip"]
+        rows = self.rows[:n]
+        return (
+            index_rows(ip_index, [r[s_col] for r in rows], fb_ip),
+            index_rows(word_index, self.src_word[:n], fb_w),
+            index_rows(ip_index, [r[d_col] for r in rows], fb_ip),
+            index_rows(word_index, self.dest_word[:n], fb_w),
+        )
+
+    def results_csv(self, src_scores, dest_scores, order) -> bytes:
+        """flow_results.csv's bytes: the rows of `order`, each its 35
+        featurized columns + src_score + dest_score."""
+        return csv_blob(
+            ",".join(self.featurized_row(i)
+                     + [str(src_scores[i]), str(dest_scores[i])])
+            for i in order)
 
 
 def _adjust_port_words(

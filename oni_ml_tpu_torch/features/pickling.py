@@ -7,6 +7,11 @@ each string list is one NUL-joined string (with the row lengths for a
 list of rows): pickling it is one copy, and loading it one split.  A
 list in which a string holds NUL pickles as it is, so every day round
 trips to equal lists.
+
+The native containers (native_flow.NativeFlowFeatures,
+native_dns.NativeDnsFeatures) hold numpy arrays and interned tables, and
+their raw rows in the spill file: they pickle that file's path and size
+(blob.MmapBlob), not its bytes.
 """
 
 from __future__ import annotations

@@ -97,16 +97,56 @@ class Corpus:
 
     @classmethod
     def from_features(cls, features) -> "Corpus":
-        """Direct featurizer->corpus hand-off: the corpus of the
-        featurized day's word-count triples, identical to parsing the
-        word_counts.dat the pre stage emits (first-seen ids)."""
-        return cls.from_word_counts(features.word_counts())
+        """Direct featurizer->corpus hand-off: the container's own
+        `to_corpus()` (features/container.py), the same corpus as parsing
+        the word_counts.dat the pre stage emits (first-seen ids)."""
+        return features.to_corpus()
+
+    @classmethod
+    def from_interned(cls, ip_table, word_table, wc_ip, wc_word,
+                      wc_count) -> "Corpus":
+        """The CSR of a native container's aggregated word counts
+        (`wc_ip` / `wc_word` / `wc_count`, ids into `ip_table` /
+        `word_table`), with no word-count text in between: the corpus of
+        `from_word_counts` over the same triples, its first-seen ids here
+        a vectorized first-occurrence remap of the table ids."""
+        wc_ip = np.asarray(wc_ip)
+        wc_word = np.asarray(wc_word)
+        wc_count = np.asarray(wc_count)
+
+        def first_seen(ids: np.ndarray) -> "tuple[np.ndarray, np.ndarray]":
+            """(table ids in first-seen order, old -> new id map)."""
+            uniq, first = np.unique(ids, return_index=True)
+            order = uniq[np.argsort(first, kind="stable")]
+            remap = np.empty(int(uniq.max()) + 1 if len(uniq) else 0,
+                             dtype=np.int64)
+            remap[order] = np.arange(len(order))
+            return order, remap
+
+        w_order, w_remap = first_seen(wc_word)
+        d_order, d_remap = first_seen(wc_ip)
+        d_arr = d_remap[wc_ip] if len(wc_ip) else np.zeros(0, np.int64)
+        perm = np.argsort(d_arr, kind="stable")
+        ptr = np.zeros(len(d_order) + 1, dtype=np.int64)
+        np.cumsum(np.bincount(d_arr, minlength=len(d_order)), out=ptr[1:])
+        widx = (w_remap[wc_word][perm].astype(np.int32) if len(wc_word)
+                else np.zeros(0, np.int32))
+        return cls([ip_table[int(j)] for j in d_order],
+                   [word_table[int(j)] for j in w_order], ptr, widx,
+                   wc_count[perm].astype(np.int32, copy=False))
 
     @classmethod
     def from_word_counts_file(cls, path: str) -> "Corpus":
         """The corpus of a word_counts.dat file (the resumed corpus
-        stage's input): the same ids as `from_word_counts` over the
-        triples the pre stage wrote."""
+        stage's input), read by the native ingest (io/native.py; in
+        Python under ONI_ML_TPU_NO_NATIVE=1): the ids of
+        `from_word_counts` over the triples the pre stage wrote."""
+        from ..native_build import enabled
+
+        if enabled():
+            from .native import load_corpus
+
+            return load_corpus(path)
         return cls.from_word_counts(formats.read_word_counts(path))
 
     @classmethod

@@ -1,7 +1,8 @@
 """Readers/writers for every file contract at the reference's stage
-boundaries (port of oni_ml_tpu/io/formats.py, pure Python).  Each boundary in the reference pipeline is a
-file with a fixed textual format; preserving these formats keeps the new
-framework drop-in compatible:
+boundaries (port of oni_ml_tpu/io/formats.py; model.dat is built by the
+native emitter, native_emit.model_emit).  Each boundary in the reference
+pipeline is a file with a fixed textual format; preserving these formats
+keeps the new framework drop-in compatible:
 
 - ``word_counts`` / ``doc_wc.dat``: ``ip,word,count`` lines
   (flow_pre_lda.scala:373, dns_pre_lda.scala:330-334)
@@ -129,8 +130,17 @@ def write_model_dat(
     counts: np.ndarray,
 ) -> None:
     """CSR corpus -> LDA-C lines ``N w1:c1 ... wN:cN`` (lda_pre.py:84-94).
-    The JAX package's pure-Python branch, byte for byte, over Python
-    ints (`tolist`) instead of per-element numpy scalars."""
+    The whole buffer is built in C++ (native_emit.model_emit); under
+    ONI_ML_TPU_NO_NATIVE=1 the JAX package's pure-Python branch writes
+    the same bytes, over Python ints (`tolist`)."""
+    from ..native_build import enabled
+
+    if enabled():
+        from ..native_emit import model_emit
+
+        with open(path, "wb") as f:
+            f.write(model_emit(doc_ptr, word_idx, counts))
+        return
     ptr = np.asarray(doc_ptr).tolist()
     pairs = [
         f"{w}:{c}" for w, c in zip(np.asarray(word_idx).tolist(),

@@ -5,13 +5,16 @@ ml_ops.sh YYYYMMDD flow|dns TOL:
     python -m oni_ml_tpu_torch.runner.ml_ops 20160122 dns 1e-20 \\
         --dns-path raw.csv --top-domains top-1m.csv --data-dir /data \\
         [--device cuda|cpu] [--stages pre,corpus] [--force] \\
-        [--checkpoint-every N] [--heartbeat SECS] [--profile DIR]
+        [--checkpoint-every N] [--heartbeat SECS] [--profile DIR] \\
+        [--pre-workers N] [--qtiles FILE]
 
 Stages, each writing the JAX runner's artifacts into <data-dir>/<fdate>
 (the source's hooks come from the registry, `sources.get(dsource)`):
 
     pre     raw events (+ <dsource>_scores.csv feedback) -> features.pkl,
-            word_counts.dat
+            word_counts.dat (flow and DNS: the native C++ featurizers,
+            sharded over --pre-workers, raw rows spilled to
+            raw_lines.bin; ONI_ML_TPU_NO_NATIVE=1 runs them in Python)
     corpus  word counts -> words.dat / doc.dat / model.dat
     lda     EM on the device -> final.beta/.gamma/.other, likelihood.dat,
             doc_results.csv, word_results.csv
@@ -19,12 +22,13 @@ Stages, each writing the JAX runner's artifacts into <data-dir>/<fdate>
             or with ONI_ML_TPU_SCORE=device (ScoringConfig.engine) the
             chunked gather-dot-filter pipeline on the card
 
-Pre, corpus and score are host work; LDA is the one stage on the
-device, its E-step a hand-written CUDA kernel: the engine family comes
-from ONI_ML_TPU_ESTEP, else LDAConfig.estep_engine, else (on the card)
-the measured dense-vs-sparse crossover (models/lda.py
-resolve_estep_engine).  Each stage prints one JSON record with its wall
-time; all records land in metrics.json.  The `lda` record also names
+Pre, corpus and score are host work, their hot loops in the port's C++
+libraries (native_build.py: built with g++ at first use); LDA is the
+one stage on the device, its E-step a hand-written CUDA kernel: the
+engine family comes from ONI_ML_TPU_ESTEP, else LDAConfig.estep_engine,
+else (on the card) the measured dense-vs-sparse crossover
+(models/lda.py resolve_estep_engine).  Each stage prints one JSON
+record with its wall time; all records land in metrics.json.  The `lda` record also names
 the engine with its source, the family member that ran, the crossover's
 record where it decided, the EM driver with its knobs and their
 sources, the batches trained, the kernel launches enqueued and those
@@ -115,6 +119,10 @@ _STAGE_OUTPUTS = {
 # train_corpus): fit to the corpus on disk, so stale once pre or corpus
 # runs again.
 CHECKPOINT = "checkpoint.npz"
+# The native featurizers' spilled raw rows: features.pkl names it, so a
+# resumed score stage reads it; a run of pre removes the old one first.
+# Not a stage output (the Python featurizers write none).
+SPILL = "raw_lines.bin"
 
 
 class MissingArtifactError(RuntimeError):
@@ -211,10 +219,10 @@ def lda_record(result, counts0: tuple, dev) -> dict:
 
 @dataclass
 class RunContext:
-    """One invocation's state.  `features` (and its `word_counts`
-    triples), `corpus` and `result` are the live hand-offs between
-    stages of this process (None where the stage that makes them did not
-    run here: the next stage then reads its files)."""
+    """One invocation's state.  `features`, `corpus` and `result` are
+    the live hand-offs between stages of this process (None where the
+    stage that makes them did not run here: the next stage then reads
+    its files)."""
 
     config: PipelineConfig
     fdate: str
@@ -225,7 +233,6 @@ class RunContext:
     emit: object = print
     metrics: list = field(default_factory=list)
     features: object = None
-    word_counts: "list | None" = None
     corpus: "Corpus | None" = None
     result: object = None
     journal: "RunJournal | None" = None
@@ -312,11 +319,12 @@ class _PortUnpickler(pickle.Unpickler):
 
 
 def load_features(ctx: RunContext):
-    """The featurized day from features.pkl (a resumed score stage)."""
+    """The featurized day from features.pkl (a resumed score stage), its
+    spilled raw rows checked (resolve_spill)."""
     _require_artifacts(ctx, ["features.pkl"], Stage.SCORE, Stage.PRE)
     try:
         with open(ctx.path("features.pkl"), "rb") as f:
-            return _PortUnpickler(f).load()
+            features = _PortUnpickler(f).load()
     except pickle.UnpicklingError as e:
         raise MissingArtifactError(
             f"{ctx.path('features.pkl')} names {e}, which the port does "
@@ -324,6 +332,42 @@ def load_features(ctx: RunContext):
             "the JAX package's runner); the port must re-run pre: "
             f"`ml_ops {ctx.fdate} {ctx.dsource} --stages pre --force`"
         ) from None
+    resolve_spill(ctx, features)
+    return features
+
+
+def resolve_spill(ctx: RunContext, features) -> None:
+    """A native container names its spilled raw rows by the path and size
+    they had at pre time (features/blob.MmapBlob).  The file of that name
+    in this day directory wins, since the pre stage owns its day
+    directory: a copied day never reads its original's spill.  The
+    recorded path stands in only when this directory has none.  Either
+    must have the recorded size: a spill of another run would misalign
+    every row.  Raises MissingArtifactError, naming the file and
+    `--stages pre --force`, when neither is there or the size differs."""
+    from ..features.blob import MmapBlob
+
+    regen = f"`ml_ops {ctx.fdate} {ctx.dsource} --stages pre --force`"
+    for attr in ("lines_blob", "rows_blob"):
+        blob = getattr(features, attr, None)
+        if not isinstance(blob, MmapBlob):
+            continue
+        path = ctx.path(os.path.basename(blob.path))
+        if not os.path.exists(path):
+            path = blob.path
+            if not os.path.exists(path):
+                raise MissingArtifactError(
+                    f"stage score needs {os.path.basename(blob.path)} in "
+                    f"{ctx.day_dir} (features.pkl's spilled raw rows, "
+                    f"recorded at {blob.path}) and it does not exist; "
+                    f"regenerate it with {regen}")
+        have = os.path.getsize(path)
+        if blob.size is not None and have != blob.size:
+            raise MissingArtifactError(
+                f"features.pkl's spilled raw rows held {blob.size} bytes at "
+                f"pre time and {path} holds {have}: a spill of another run; "
+                f"regenerate it with {regen}")
+        blob.path = path
 
 
 # ---------------------------------------------------------------------------
@@ -332,10 +376,23 @@ def load_features(ctx: RunContext):
 
 
 def stage_pre(ctx: RunContext) -> dict:
-    """The source's featurizer over the day -> features.pkl (the
-    containers pickle their string lists packed: features/pickling.py)
-    and word_counts.dat."""
-    features, fb_rows = sources.get(ctx.dsource).featurize_day(ctx.config)
+    """The source's featurizer over the day -> features.pkl and
+    word_counts.dat.  Flow and DNS run the native featurizers: raw rows
+    stream to raw_lines.bin (which features.pkl names), the passes shard
+    over the pre workers, and word_counts.dat is emitted in C++ from the
+    interned tables.  The record names the engine that ran ("native" or
+    "python", and why a day with the library took Python), the workers
+    with their source, and the pass walls."""
+    from ..features.shards import resolve_pre_workers
+
+    cfg = ctx.config
+    workers, workers_src = resolve_pre_workers(cfg.pre_workers,
+                                               with_source=True)
+    timings: dict = {}
+    features, fb_rows = sources.get(ctx.dsource).featurize_day(
+        cfg, ctx.path(SPILL), workers, timings)
+    engine = timings.pop("pre_engine")
+    reason = timings.pop("python_reason", None)
 
     def dump(tmp):
         with open(tmp, "wb") as f:
@@ -343,20 +400,33 @@ def stage_pre(ctx: RunContext) -> dict:
 
     t0 = time.perf_counter()
     _write_atomic(ctx.path("features.pkl"), dump)
-    pickle_s = time.perf_counter() - t0
-    triples = features.word_counts()
-    _write_atomic(ctx.path("word_counts.dat"),
-                  lambda tmp: formats.write_word_counts(tmp, triples))
-    ctx.features, ctx.word_counts = features, triples
-    return {"events": features.num_events, "word_count_rows": len(triples),
-            "feedback_rows": len(fb_rows), "pickle_s": pickle_s}
+    timings["pickle_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_wc = 0
+
+    def write(tmp):
+        nonlocal n_wc
+        n_wc = features.write_word_counts(tmp)
+
+    _write_atomic(ctx.path("word_counts.dat"), write)
+    timings["wc_emit_s"] = time.perf_counter() - t0
+    ctx.features = features
+    out = {"events": features.num_events, "word_count_rows": n_wc,
+           "feedback_rows": len(fb_rows), "pre_engine": engine,
+           "pre_workers": workers, "pre_workers_source": workers_src,
+           **timings}
+    if reason is not None:
+        out["python_reason"] = reason
+    return out
 
 
 def stage_corpus(ctx: RunContext) -> dict:
-    """Word counts -> the corpus -> words.dat / doc.dat / model.dat."""
-    if ctx.word_counts is not None:
-        corpus = Corpus.from_word_counts(ctx.word_counts)
-        ctx.word_counts = None
+    """Word counts -> the corpus -> words.dat / doc.dat / model.dat.  In
+    the process that ran pre, the live container hands off its corpus
+    (`to_corpus`: a native container's id arrays, a Python one's
+    triples); else word_counts.dat is read (natively)."""
+    if ctx.features is not None:
+        corpus = ctx.features.to_corpus()
         handoff = "direct"
     else:
         _require_artifacts(ctx, ["word_counts.dat"], Stage.CORPUS, Stage.PRE)
@@ -486,6 +556,8 @@ def _run_stage(ctx: RunContext, stage: Stage, force: bool) -> None:
              for name in ctx.outputs(later)]
     if stage in (Stage.PRE, Stage.CORPUS) or (stage is Stage.LDA and force):
         stale.append(CHECKPOINT)
+    if stage is Stage.PRE:
+        stale.append(SPILL)
     for name in stale:
         if os.path.exists(ctx.path(name)):
             os.unlink(ctx.path(name))
@@ -605,6 +677,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="proxy/HTTP log CSV input, same forms (PROXY_PATH)")
     p.add_argument("--top-domains", default=None,
                    help="top-1m.csv path (the DNS whitelist)")
+    p.add_argument("--qtiles", default=None,
+                   help="precomputed flow quantile cuts file (flow_qtiles "
+                   "format, features/qtiles.py); skips the in-run ECDF pass "
+                   "and pins word identity across days")
+    p.add_argument("--pre-workers", type=int, default=0, metavar="N",
+                   help="pre-stage shard workers: each day file split into "
+                   "line-aligned byte ranges featurized concurrently, with a "
+                   "first-seen merge keeping every output byte-identical to "
+                   "the sequential pass (0 = auto from the host's cores, 1 = "
+                   "sequential)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device of the LDA stage (default cuda; a machine "
                    "without one raises unless --device cpu)")
@@ -678,6 +760,8 @@ def main(argv=None) -> int:
         dns_path=args.dns_path or env.get("DNS_PATH", ""),
         proxy_path=args.proxy_path or env.get("PROXY_PATH", ""),
         top_domains_path=args.top_domains or "",
+        qtiles_path=args.qtiles or "",
+        pre_workers=args.pre_workers,
         lda=LDAConfig(
             num_topics=args.topics, alpha_init=args.alpha,
             em_max_iters=args.em_max_iters, batch_size=args.batch_size,

@@ -11,14 +11,11 @@ from .pipeline import (
 from .score import (
     ScoringModel,
     device_scores,
-    dns_event_indices,
-    flow_event_indices,
     score_dns,
     score_dns_csv,
     score_flow_csv,
 )
 
 __all__ = ["DispatchStats", "ScoringModel", "chunked_scores",
-           "device_scores", "dns_event_indices", "filtered_flow_scores",
-           "filtered_scores", "flow_event_indices", "score_dns",
-           "score_dns_csv", "score_flow_csv"]
+           "device_scores", "filtered_flow_scores", "filtered_scores",
+           "score_dns", "score_dns_csv", "score_flow_csv"]

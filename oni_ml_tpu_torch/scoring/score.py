@@ -10,6 +10,12 @@ final row (0.05 per topic for flow, 0.1 for dns: the reference's
 fallbacks) — and scoring is two row gathers and a dot on the host in
 float64, the JAX package's golden-bytes path: the same arithmetic in
 the same order, so the scored CSV is byte-identical for the same model.
+The gather-dot runs in the port's C++ library (native_emit.score_dot;
+under ONI_ML_TPU_NO_NATIVE=1 a numpy loop of the same bits).  The index
+arrays and the results CSV come from the feature container
+(`event_indices`, `results_csv`): a native container resolves once per
+unique IP and word and assembles its CSV in C++, a Python one loops; the
+bytes are the same.
 
 Engines: that host float64 path is the default and the golden-bytes
 oracle; scoring/pipeline.py is the DEVICE engine, the gather-dot-filter
@@ -27,8 +33,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..features.dns import DNS_COLUMNS, DnsFeatures
-from ..features.flow import FLOW_COLUMNS, FlowFeatures
+from ..features.dns import DnsFeatures
+from ..features.flow import FlowFeatures
 from ..io import formats
 
 
@@ -89,14 +95,6 @@ class ScoringModel:
                                 fallback)
 
 
-def _index_rows(index: dict, queries, fallback_row: int) -> np.ndarray:
-    """Row per query; misses get the fallback row."""
-    get = index.get
-    return np.fromiter(
-        (get(s, fallback_row) for s in queries), np.int32, len(queries)
-    )
-
-
 def _check_index_range(model: ScoringModel, ip_idx, word_idx) -> None:
     ip_arr = np.asarray(ip_idx)
     w_arr = np.asarray(word_idx)
@@ -109,15 +107,23 @@ def _check_index_range(model: ScoringModel, ip_idx, word_idx) -> None:
 
 def _batched_scores(model: ScoringModel, ip_idx, word_idx,
                     batch: int = 1 << 20) -> np.ndarray:
-    """score[i] = <theta[ip_idx[i]], p[word_idx[i]]> in float64, in
-    fixed-size chunks.  Sequential k-order accumulation: the
-    reference's per-event fold (flow_post_lda.scala:231), and the JAX
-    package's bytes (np.einsum's SIMD partial sums would move the last
-    ulp of str(score))."""
-    _check_index_range(model, ip_idx, word_idx)
-    n = len(ip_idx)
+    """score[i] = <theta[ip_idx[i]], p[word_idx[i]]> in float64:
+    native_emit.score_dot, the fused C gather-dot (no [N, K] gather
+    temporaries), or under ONI_ML_TPU_NO_NATIVE=1 numpy in fixed-size
+    chunks.  Both sum in k order: the reference's per-event fold
+    (flow_post_lda.scala:231) and the JAX package's bytes (np.einsum's
+    SIMD partial sums would move the last ulp of str(score)).  Both
+    raise IndexError on an index outside the model's rows."""
+    from ..native_build import enabled
+
     theta = np.asarray(model.theta, np.float64)
     p = np.asarray(model.p, np.float64)
+    if enabled():
+        from ..native_emit import score_dot
+
+        return score_dot(theta, p, ip_idx, word_idx)
+    _check_index_range(model, ip_idx, word_idx)
+    n = len(ip_idx)
     out = np.empty(n, dtype=np.float64)
     k = theta.shape[1]
     for lo in range(0, n, batch):
@@ -193,22 +199,6 @@ def _score_engine(engine: "str | None") -> str:
     return engine
 
 
-def flow_event_indices(features: FlowFeatures, ip_index: dict,
-                       word_index: dict):
-    """Model-row index arrays (sip, src word, dip, dest word) for every
-    raw flow event; misses get the fallback row `len(index)`."""
-    n = features.num_raw_events
-    s_col, d_col = FLOW_COLUMNS["sip"], FLOW_COLUMNS["dip"]
-    rows = features.rows[:n]
-    fb_ip, fb_w = len(ip_index), len(word_index)
-    return (
-        _index_rows(ip_index, [r[s_col] for r in rows], fb_ip),
-        _index_rows(word_index, features.src_word[:n], fb_w),
-        _index_rows(ip_index, [r[d_col] for r in rows], fb_ip),
-        _index_rows(word_index, features.dest_word[:n], fb_w),
-    )
-
-
 def scored_events(model: ScoringModel, pairs, threshold: float,
                   engine: "str | None" = None, chunk: "int | None" = None,
                   stats=None, device=None):
@@ -249,86 +239,45 @@ def scored_events(model: ScoringModel, pairs, threshold: float,
     return order, full, key[order]
 
 
-def _flow_scored(features: FlowFeatures, model: ScoringModel,
-                 threshold: float, engine=None, chunk=None, stats=None,
-                 device=None):
-    """-> (csv rows under threshold, their min scores ascending).  Each
-    row is the 35 featurized columns + src_score + dest_score; only raw
-    events are scored (feedback duplicates train but are never
-    emitted)."""
-    sip_idx, sw_idx, dip_idx, dw_idx = flow_event_indices(
-        features, model.ip_index, model.word_index
-    )
-    order, (src_scores, dest_scores), kept = scored_events(
-        model, [(sip_idx, sw_idx), (dip_idx, dw_idx)], threshold, engine,
-        chunk, stats, device)
-    rows = [
-        ",".join(
-            features.featurized_row(i)
-            + [str(src_scores[i]), str(dest_scores[i])]
-        )
-        for i in order
-    ]
-    return rows, kept
-
-
-def _csv_blob(rows) -> bytes:
-    return "".join(r + "\n" for r in rows).encode("utf-8", "surrogateescape")
-
-
 def score_flow_csv(features: FlowFeatures, model: ScoringModel,
                    threshold: float, engine: "str | None" = None,
                    chunk: "int | None" = None, stats=None, device=None,
                    ) -> "tuple[bytes, np.ndarray]":
-    """Flow scoring with the output as one CSV buffer (newline-terminated
-    rows) for flow_results.csv.  engine/chunk/stats/device select and
-    instrument the device pipeline (scored_events)."""
-    rows, scores = _flow_scored(features, model, threshold, engine, chunk,
-                                stats, device)
-    return _csv_blob(rows), scores
-
-
-def _dns_client_strings(features: DnsFeatures, n: int) -> list:
-    """The client IP (ip_dst, the document) of the first n events."""
-    ip_col = DNS_COLUMNS["ip_dst"]
-    return [r[ip_col] for r in features.rows[:n]]
-
-
-def dns_event_indices(features: DnsFeatures, ip_index: dict,
-                      word_index: dict):
-    """Model-row index arrays (ip, word) for every raw DNS event; misses
-    get the fallback row `len(index)`."""
-    n = features.num_raw_events
-    return (
-        _index_rows(ip_index, _dns_client_strings(features, n),
-                    len(ip_index)),
-        _index_rows(word_index, features.word[:n], len(word_index)),
-    )
+    """Flow scoring -> (flow_results.csv's bytes, the kept events' min
+    scores ascending).  Each row is the 35 featurized columns +
+    src_score + dest_score; only raw events are scored (feedback
+    duplicates train but are never emitted).  engine/chunk/stats/device
+    select and instrument the device pipeline (scored_events)."""
+    # The container resolves the model rows (features/container.py): a
+    # native one once per unique IP and word, then a gather by event id.
+    sip_idx, sw_idx, dip_idx, dw_idx = features.event_indices(
+        model.ip_index, model.word_index)
+    order, (src_scores, dest_scores), kept = scored_events(
+        model, [(sip_idx, sw_idx), (dip_idx, dw_idx)], threshold, engine,
+        chunk, stats, device)
+    return features.results_csv(src_scores, dest_scores, order), kept
 
 
 def _dns_scored(features: DnsFeatures, model: ScoringModel,
                 threshold: float, engine=None, chunk=None, stats=None,
                 device=None):
-    """-> (csv rows under threshold, their scores ascending).  Each row is
-    the 15 featurized columns + score; only raw events are scored."""
-    ip_idx, word_idx = dns_event_indices(features, model.ip_index,
-                                         model.word_index)
-    order, (scores,), kept = scored_events(
-        model, [(ip_idx, word_idx)], threshold, engine, chunk, stats, device)
-    rows = [",".join(features.featurized_row(i) + [str(scores[i])])
-            for i in order]
-    return rows, kept
+    """-> (order: the raw events under threshold, ascending; their score
+    array; their scores ascending)."""
+    ip_idx, word_idx = features.event_indices(model.ip_index,
+                                              model.word_index)
+    return scored_events(model, [(ip_idx, word_idx)], threshold, engine,
+                         chunk, stats, device)
 
 
 def score_dns_csv(features: DnsFeatures, model: ScoringModel,
                   threshold: float, engine: "str | None" = None,
                   chunk: "int | None" = None, stats=None, device=None,
                   ) -> "tuple[bytes, np.ndarray]":
-    """DNS scoring as one CSV buffer for dns_results.csv (see
-    score_flow_csv)."""
-    rows, scores = _dns_scored(features, model, threshold, engine, chunk,
-                               stats, device)
-    return _csv_blob(rows), scores
+    """DNS scoring as one CSV buffer for dns_results.csv: each row the
+    15 featurized columns + score (see score_flow_csv)."""
+    order, (scores,), kept = _dns_scored(features, model, threshold, engine,
+                                         chunk, stats, device)
+    return features.results_csv(scores, order), kept
 
 
 def score_dns(features: DnsFeatures, model: ScoringModel, threshold: float,
@@ -337,4 +286,6 @@ def score_dns(features: DnsFeatures, model: ScoringModel, threshold: float,
     """DNS scoring: one <theta_ip_dst, p_word> per event
     (dns_post_lda.scala:312-331); (csv rows under threshold ascending,
     their scores)."""
-    return _dns_scored(features, model, threshold, engine, device=device)
+    order, (scores,), kept = _dns_scored(features, model, threshold, engine,
+                                         device=device)
+    return features.results_rows(scores, order), kept

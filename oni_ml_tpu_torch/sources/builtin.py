@@ -4,8 +4,11 @@ oni_ml_tpu/sources/builtin.py).
 These specs own no featurization logic: every hook delegates to
 features/flow.py, features/dns.py and scoring/score.py, so words,
 word counts and scores stay byte-identical to those modules' (and to
-the JAX package's).  The pre stage runs the port's pure-Python
-featurizers; the JAX package's native featurizers are not ported.
+the JAX package's).  The pre stage (`featurize_day`) runs the native C++
+featurizers (features/native_flow.py, native_dns.py): raw rows stream to
+the spill file, and the passes shard over the pre workers;
+ONI_ML_TPU_NO_NATIVE=1 runs the pure-Python featurizers, whose bytes are
+the same.
 """
 
 from __future__ import annotations
@@ -45,13 +48,26 @@ class FlowSource(SourceSpec):
             precomputed_cuts=precomputed_cuts,
         )
 
-    def featurize_day(self, config):
-        from ..features.flow import featurize_flow
-        from ..features.lineio import iter_flow_lines
+    def featurize_day(self, config, spill_path=None, workers=1,
+                      timings=None):
+        """The whole day through features/native_flow.featurize_flow_file,
+        cut at the --qtiles file's cuts when one is configured."""
+        from ..features.native_flow import featurize_flow_file
 
         fb_rows = self.feedback_rows(config)
-        return featurize_flow(iter_flow_lines(config.flow_path),
-                              feedback_rows=fb_rows), fb_rows
+        features = featurize_flow_file(
+            config.flow_path, feedback_rows=fb_rows,
+            precomputed_cuts=self.qtiles_cuts(config),
+            spill_path=spill_path, workers=workers, timings=timings)
+        return features, fb_rows
+
+    def qtiles_cuts(self, config):
+        """(time, ibyt, ipkt) cuts of config.qtiles_path, or None."""
+        if not config.qtiles_path:
+            return None
+        from ..features.qtiles import read_flow_qtiles
+
+        return read_flow_qtiles(config.qtiles_path)
 
     def feedback_rows(self, config) -> Sequence:
         from ..features.feedback import read_flow_feedback_rows
@@ -132,25 +148,17 @@ class DnsSource(SourceSpec):
             precomputed_cuts=precomputed_cuts,
         )
 
-    def featurize_day(self, config):
+    def featurize_day(self, config, spill_path=None, workers=1,
+                      timings=None):
         """Every event of `_dns_sources`' paths, in order, through
-        featurize_dns: the JAX package's pure-Python pre path
-        (features/native_dns.featurize_dns_sources without its native
-        library), whose bytes that package pins equal to its native
-        one."""
-        from ..features.dns import featurize_dns
-        from ..features.lineio import iter_raw_lines
+        features/native_dns.featurize_dns_sources."""
+        from ..features.native_dns import featurize_dns_sources
 
         fb_rows = self.feedback_rows(config)
-        rows: "list[list[str]]" = []
-        for src in _dns_sources(config.dns_path):
-            if isinstance(src, str):
-                rows.extend(line.split(",") for line in iter_raw_lines(src)
-                            if line)
-            else:
-                rows.extend(list(r) for r in src)
-        features = featurize_dns(rows, top_domains=self.top_domains(config),
-                                 feedback_rows=fb_rows)
+        features = featurize_dns_sources(
+            _dns_sources(config.dns_path),
+            top_domains=self.top_domains(config), feedback_rows=fb_rows,
+            spill_path=spill_path, workers=workers, timings=timings)
         return features, fb_rows
 
     def feedback_rows(self, config) -> Sequence:

@@ -32,7 +32,7 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
-from ..features.pickling import PackedPickle
+from ..features.container import PythonContainer, csv_blob, index_rows
 from .spec import SourceSpec
 
 _STRATEGIES = ("decile", "quintile")
@@ -73,7 +73,7 @@ class CutDef:
             )
 
 
-class GenericFeatures(PackedPickle):
+class GenericFeatures(PythonContainer):
     """Feature container for declaratively-featurized events — the
     TableSourceSpec analogue of FlowFeatures/DnsFeatures.  Rows past
     ``num_raw_events`` are feedback duplicates: they train the model
@@ -274,24 +274,20 @@ class TableSourceSpec(SourceSpec):
         p_word> per raw event, each kept row the source columns, the
         field bins, the word and the score; engine="device" runs the
         pipeline's filtered_scores (scoring.score.scored_events)."""
-        from ..scoring.score import _index_rows, scored_events
+        from ..scoring.score import scored_events
 
         n = features.num_raw_events
         c = features.doc_col
-        ip_idx = _index_rows(model.ip_index, [r[c] for r in features.rows[:n]],
-                             len(model.ip_index))
-        word_idx = _index_rows(model.word_index, features.word[:n],
-                               len(model.word_index))
+        ip_idx = index_rows(model.ip_index, [r[c] for r in features.rows[:n]],
+                            len(model.ip_index))
+        word_idx = index_rows(model.word_index, features.word[:n],
+                              len(model.word_index))
         order, (scores,), kept = scored_events(
             model, [(ip_idx, word_idx)], threshold, engine, chunk, stats,
             device)
-        rows = [
+        blob = csv_blob(
             ",".join(features.featurized_row(i) + [str(scores[i])])
-            for i in order
-        ]
-        blob = "".join(r + "\n" for r in rows).encode(
-            "utf-8", "surrogateescape"
-        )
+            for i in order)
         return blob, kept
 
     def fallback(self, scoring_cfg) -> float:

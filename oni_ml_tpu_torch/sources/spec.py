@@ -46,8 +46,14 @@ class SourceSpec:
         """Raw CSV lines (or pre-split rows) -> feature container."""
         raise NotImplementedError
 
-    def featurize_day(self, config):
-        """The pre stage: (features, feedback_rows) for a whole day."""
+    def featurize_day(self, config, spill_path=None, workers=1,
+                      timings=None):
+        """The pre stage: (features, feedback_rows) for a whole day.
+        `spill_path`, `workers` and `timings` serve the native featurizers
+        (flow and DNS); a source with none featurizes in Python and says
+        so in `timings`."""
+        if timings is not None:
+            timings["pre_engine"] = "python"
         fb_rows = self.feedback_rows(config)
         lines = self.read_input(self.input_path(config))
         feats = self.featurize(
