@@ -82,6 +82,34 @@ Phases (any failure exits non-zero before the result line):
              heartbeats; metrics.json an em.run_chunk roofline record
              with utilization under 100%; DIR a Chrome trace with CUDA
              kernel events.
+   dataplane the 2M-event flow and DNS days through ml_ops.main by
+             default (the streaming dataplane) and with --no-dataplane,
+             the engine pinned to the crossover's pick
+             (ONI_ML_TPU_ESTEP_ENGINE): every artifact the same bytes;
+             both runs' stage walls, day walls (the stage walls and the
+             plane's drain), run walls (the host clock around the call)
+             and the plane's record (background task walls by stage, channel stalls).
+             The small flow and DNS days with --no-dataplane write the
+             e2e phase's (dataplane) card bytes; --no-checkpoints on the
+             small flow day writes only the results CSV, metrics.json and
+             the journal, and a `--stages score --force` run then stops
+             with exit 2 naming features.pkl, the results kept.
+   online    streaming SVI (train_corpus_online, K 20, batch 1024) over
+             the 2M flow day's corpus three ways: dense_em auto (the
+             dense kernel per micro-batch), off (the sparse kernel) and
+             off under ONI_ML_TPU_ESTEP=pallas (the fixed point): each
+             run's launches (counts zeroed just before, read just after:
+             the member's kernel once per micro-batch, the inference
+             pass's per-batch kernel and the scatter once per batch),
+             wall, micro-batches and documents per second.  On the small
+             flow day's corpus (dense_em on): card against CPU (per-step
+             likelihood, final beta) within 1e-4, two card runs the same
+             bits, step_many against sequential step() within the online
+             tests' bounds.
+   eval      --eval-quality and --eval-holdout 0.1 on the small flow day
+             on the card and on the CPU: completion and held-out
+             per-token likelihoods within RTOL_E2E; the card's quality run
+             with --publish DIR: DIR/<fdate> holds the day's bytes.
 7. profile   20 EM iterations over the flow day's corpus four ways (sparse
              engine under the chunk driver, sparse under the stepwise
              driver, dense and per-batch pallas under the chunk driver):
@@ -95,7 +123,8 @@ Phases (any failure exits non-zero before the result line):
              day's batches against index_add_.
 
 Then it prints the kernels line (each kernel with its launches on its
-flow-day path and, as `dns_launches`, on the DNS day's), the card's name
+flow-day path, as `dns_launches` on the DNS day's and as
+`online_launches` on its online run's), the card's name
 and power limit, and last `{"ok": true, "device": {...}}`.  Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
 """
@@ -509,6 +538,18 @@ DAY_FLAGS = {"flow": "--flow-path", "dns": "--dns-path",
 SMALL_ROWS = {"flow": (19_999, 37), "dns": (20_000, 16), "proxy": (20_000, 15)}
 
 
+def day_walls(recs):
+    """A day's four stage walls and its day wall: their sum plus the
+    dataplane's drain (`join_wall_s` of the plane's record), where the
+    background writes that outlast the score stage finish; so the day
+    wall runs until every artifact is written, with the plane on or
+    off."""
+    walls = {s: recs[s]["wall_s"] for s in ("pre", "corpus", "lda", "score")}
+    plane = recs.get("dataplane")
+    return walls, sum(walls.values()) + (plane["join_wall_s"] if plane
+                                         else 0.0)
+
+
 def run_day(dsource, raw, data, dev, engine, em_iters, *extra):
     """A day through ml_ops.main with ONI_ML_TPU_ESTEP=engine (unset for
     None)."""
@@ -627,8 +668,10 @@ def pipeline(tmp):
     config = PipelineConfig(data_dir=data, flow_path=raw,
                             scoring=ScoringConfig(threshold=1e-20))
     reset_kernel_counts()
+    t0 = time.perf_counter()
     run = ml_ops.run_pipeline(config, "20160122", "flow", device="cuda",
                               emit=lambda *a, **k: None)
+    run_wall = time.perf_counter() - t0
     day_counts = (launch_counts(), executed_counts())
     day = os.path.join(data, "20160122")
     recs = {r["stage"]: r for r in run.records}
@@ -646,12 +689,13 @@ def pipeline(tmp):
         kname: e_steps.get(engine, 0) for engine in ("sparse", "dense")
         for kname in ENGINE_KERNELS[engine]})
     crossover(run.corpus, lda)
-    walls = {s: recs[s]["wall_s"] for s in ("pre", "corpus", "lda", "score")}
+    walls, day_wall = day_walls(recs)
     log("pipeline " + json.dumps({
         "events": PIPELINE_EVENTS, "docs": corpus["docs"],
         "vocab": corpus["vocab"], "tokens": corpus["tokens"],
-        "stage_wall_s": walls, "day_wall_s": sum(walls.values()),
-        "pre_pickle_s": recs["pre"]["pickle_s"], **pre_fields(recs, "flow"),
+        "stage_wall_s": walls, "day_wall_s": day_wall,
+        "run_wall_s": run_wall,
+        **pre_fields(recs, "flow"),
         "flagged": recs["score"]["flagged"], "lda": lda,
     }))
     path_counts = {lda["member"]: day_counts}
@@ -662,7 +706,7 @@ def pipeline(tmp):
     for label, cfg_kw, env, member in paths:
         path_counts[member] = train_path(label, run, config, cfg_kw, env,
                                          member, recs, tmp)
-    return run.corpus, path_counts, recs["pre"]
+    return run.corpus, path_counts, recs["pre"], lda["engine"]
 
 
 def crossover(corpus, lda):
@@ -738,11 +782,11 @@ def train_path(label, run, config, cfg_kw, env, member, recs, tmp):
     return counts
 
 
-# The pre record's fields that the 2M-day lines carry beside
-# `pre_pickle_s`: the featurizer engine, its workers with their source,
-# and the pass walls.
+# The pre record's fields that the 2M-day lines carry: the featurizer
+# engine, its workers with their source, the pass walls, and where the
+# dataplane wrote features.pkl and word_counts.dat ("background").
 PRE_FIELDS = ("pre_engine", "pre_workers", "pre_workers_source", "parse_s",
-              "cuts_s", "word_build_s", "merge_s", "wc_emit_s")
+              "cuts_s", "word_build_s", "merge_s", "pickle", "wc_write")
 
 
 def pre_fields(recs, dsource):
@@ -805,8 +849,10 @@ def pipeline_dns(tmp):
     sparse_estep._CROSSOVER_CACHE.clear()
     try:
         reset_kernel_counts()
+        t0 = time.perf_counter()
         rc = ml_ops.main(["20160122", "dns", "1e-20", "--dns-path", raw,
                           "--data-dir", data])
+        run_wall = time.perf_counter() - t0
         counts = (launch_counts(), executed_counts())
     finally:
         os.environ["ONI_ML_TPU_PLAN_CACHE"] = plans
@@ -846,12 +892,13 @@ def pipeline_dns(tmp):
     prof = profile_fit(f"dns_{lda['member']}", LDATrainer(
         LDAConfig(em_max_iters=20, em_tol=0.0), dns_corpus.num_terms,
         device="cuda"), batches, dns_corpus.num_docs, lda["engine"], 20)
-    walls = {s: recs[s]["wall_s"] for s in ("pre", "corpus", "lda", "score")}
+    walls, day_wall = day_walls(recs)
     log("pipeline_dns " + json.dumps({
         "events": DNS_EVENTS, "docs": corpus["docs"],
         "vocab": corpus["vocab"], "tokens": corpus["tokens"],
-        "stage_wall_s": walls, "day_wall_s": sum(walls.values()),
-        "pre_pickle_s": recs["pre"]["pickle_s"], **pre_fields(recs, "dns"),
+        "stage_wall_s": walls, "day_wall_s": day_wall,
+        "run_wall_s": run_wall,
+        **pre_fields(recs, "dns"),
         "em_s": lda["em_s"], "em_docs_per_s": lda["em_docs_per_s"],
         "em_iters": lda["em_iters"], "engine": lda["engine"],
         "engine_source": lda["engine_source"], "member": lda["member"],
@@ -867,7 +914,7 @@ def pipeline_dns(tmp):
             "member", "ms_per_em_iteration", "device_busy_s",
             "device_idle_share")},
     }))
-    return counts
+    return counts, lda["engine"]
 
 
 def resume(tmp, raw):
@@ -1162,8 +1209,7 @@ def ml_ops_day(dsource, tol, raw, data, *extra, python=False):
     finally:
         os.environ.pop("ONI_ML_TPU_NO_NATIVE", None)
     if rc != 0:
-        fail(f"native_pre: ml_ops {dsource} {extra} (python={python}) "
-             f"returned {rc}")
+        fail(f"ml_ops {dsource} {extra} (python={python}) returned {rc}")
     day = os.path.join(data, "20160122")
     with open(os.path.join(day, "metrics.json")) as f:
         return day, {r["stage"]: r for r in json.load(f)}
@@ -1336,6 +1382,287 @@ def telemetry(tmp, raw):
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         fail(f"telemetry checks failed: {bad}")
+
+
+def dataplane(tmp, raws, engines):
+    """The streaming dataplane on the card.  The 2M-event flow and DNS
+    days through ml_ops.main twice each, by default (dataplane on) and
+    with --no-dataplane, the engine pinned to the one the crossover
+    picked for the day (ONI_ML_TPU_ESTEP_ENGINE), so only the plane
+    differs: every artifact the same bytes (features.pkl names its day's
+    spill); both runs' stage walls, day wall, run wall and the plane's
+    record (task walls by stage, edge stalls).  Then the small
+    flow and DNS days with --no-dataplane against the e2e phase's card
+    days (dataplane on, sparse): the same bytes.  Then --no-checkpoints
+    on the small flow day: only the products, and a `--stages score
+    --force` run afterwards stops naming features.pkl and leaves the
+    results CSV as it was."""
+    import contextlib
+    import io
+
+    from oni_ml_tpu_torch.runner import ml_ops
+
+    big = {"flow": os.path.join(tmp, "flow_day.csv"),
+           "dns": os.path.join(tmp, "dns_day.csv")}
+    rec = {}
+    for dsource, raw in big.items():
+        os.environ["ONI_ML_TPU_ESTEP_ENGINE"] = engines[dsource]
+        runs = {}
+        try:
+            for label, extra in (("dataplane", ()),
+                                 ("no_dataplane", ("--no-dataplane",))):
+                t0 = time.perf_counter()
+                day, recs = ml_ops_day(dsource, 1e-20, raw, os.path.join(
+                    tmp, f"dp_{dsource}_{label}"), *extra)
+                runs[label] = (day, recs, time.perf_counter() - t0)
+        finally:
+            os.environ.pop("ONI_ML_TPU_ESTEP_ENGINE", None)
+        names = [n for n in ml_ops.artifacts(dsource) if n != "features.pkl"]
+        equal = same_files(runs["dataplane"][0], runs["no_dataplane"][0],
+                           names)
+        plane = runs["dataplane"][1].get("dataplane")
+        if not all(equal.values()) or not plane or not all(
+                t["ok"] for t in plane["tasks"].values()):
+            fail(f"dataplane {dsource}: the days differ or a task failed: "
+                 f"{equal}, {plane}")
+        out = {}
+        for label, (day, recs, wall) in runs.items():
+            walls, day_wall = day_walls(recs)
+            out[label] = {"stage_wall_s": walls,
+                          "day_wall_s": day_wall,
+                          "run_wall_s": wall,
+                          "member": recs["lda"]["member"],
+                          "em_s": recs["lda"]["em_s"],
+                          "prep": recs["score"]["prep"]}
+            shutil.rmtree(os.path.dirname(day), ignore_errors=True)
+        by_stage: dict = {}
+        for name, t in plane["tasks"].items():
+            by_stage.setdefault(t["stage"], {})[name] = t["wall_s"]
+        out["dataplane"]["record"] = {
+            "task_wall_s_by_stage": by_stage, "edges": plane["edges"],
+            "background_wall_s": plane["background_wall_s"],
+            "join_wall_s": plane["join_wall_s"]}
+        out["engine"] = engines[dsource]
+        out["bytes_equal"] = all(equal.values())
+        rec[dsource] = out
+        log(f"dataplane_{dsource} " + json.dumps(out))
+    small = {}
+    for dsource in ("flow", "dns"):
+        serial = run_day(dsource, raws[dsource], os.path.join(
+            tmp, f"dp_small_{dsource}"), "cuda", "sparse", 5,
+            "--no-dataplane")
+        plane_day = os.path.join(tmp, f"small_{dsource}_sparse_cuda",
+                                 "20160122")
+        names = [n for n in ml_ops.artifacts(dsource) if n != "features.pkl"]
+        small[dsource] = same_files(plane_day, serial, names)
+        if not all(small[dsource].values()):
+            fail(f"dataplane small {dsource}: the dataplane day and the "
+                 f"--no-dataplane day differ: {small[dsource]}")
+    data = os.path.join(tmp, "dp_products")
+    day = run_day("flow", raws["flow"], data, "cuda", "sparse", 5,
+                  "--no-checkpoints")
+    products = sorted(os.listdir(day))
+    with open(os.path.join(day, "flow_results.csv"), "rb") as f:
+        results = f.read()
+    with open(os.path.join(tmp, "small_flow_sparse_cuda", "20160122",
+                           "flow_results.csv"), "rb") as f:
+        same_results = f.read() == results
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ml_ops.main(["20160122", "flow", "1.1", "--flow-path",
+                          raws["flow"], "--data-dir", data, "--stages",
+                          "score", "--force"])
+    refusal = json.loads(buf.getvalue().strip().splitlines()[-1])
+    with open(os.path.join(day, "flow_results.csv"), "rb") as f:
+        kept = f.read() == results
+    if (products != ["flow_results.csv", "metrics.json",
+                     "run_journal.jsonl"] or not same_results or rc != 2
+            or "features.pkl" not in refusal.get("detail", "")
+            or "--no-checkpoints" not in refusal["detail"] or not kept):
+        fail(f"dataplane --no-checkpoints: files {products}, results as the "
+             f"checkpointed day's {same_results}, resume rc {rc} "
+             f"{refusal}, results kept {kept}")
+    log("dataplane_small " + json.dumps({
+        "no_dataplane_bytes_equal": small,
+        "no_checkpoints_files": products,
+        "no_checkpoints_results_equal": same_results,
+        "resume_refused": refusal["detail"], "results_kept": kept}))
+
+
+# Online runs: (label, dense_em, ONI_ML_TPU_ESTEP, the member that takes
+# the micro-batch steps, the per-batch kernel of the inference pass).
+ONLINE_RUNS = (("dense", "auto", None, "dense", "sparse_estep"),
+               ("sparse", "off", None, "per_batch:sparse", "sparse_estep"),
+               ("fixed_point", "off", "pallas", "per_batch:pallas",
+                "fixed_point_estep"))
+# Online on the card against the CPU (the cuda test's bound) and
+# step_many against sequential step() (tests/test_torch_online.py's).
+RTOL_ONLINE_CPU = 1e-4
+RTOL_ONLINE_LL, RTOL_ONLINE_LAM, ATOL_ONLINE_LAM = 1e-5, 2e-4, 1e-4
+
+
+def check_online_launches(label, res, counts, member, infer):
+    """Each micro-batch step launched its member's kernel (and, per
+    batch, the [V, K] scatter), the inference pass its per-batch kernel
+    and the scatter once per batch, no other kernel; every launch ran
+    (online has no device stop)."""
+    launched, executed = counts
+    steps, nb = res.em_iters, res.stats["batches"]
+    want = {name: 0 for name in launched}
+    want[infer] += nb
+    want["sparse_scatter"] += nb
+    for name in ENGINE_KERNELS[member]:
+        want[name] += steps
+    if (res.stats["member"] != member or launched != want
+            or executed != want):
+        fail(f"online {label}: member {res.stats['member']}, launched "
+             f"{launched}, ran {executed}, expected {member} and {want}")
+
+
+def online(tmp, corpus):
+    """Online SVI on the card.  The 2M flow day's corpus through
+    train_corpus_online (K 20, batch 1024, one epoch) three ways: dense_em
+    auto (the dense kernel), off (the sparse kernel) and off under
+    ONI_ML_TPU_ESTEP=pallas (the fixed point): each kernel's launches,
+    the wall, micro-batches and documents per second.  On the small flow
+    day's corpus: the card against the CPU (per-step likelihood and
+    final lambda), step_many against sequential step(), and two card
+    runs the same bits.  Returns each kernel's launches on its path."""
+    from dataclasses import replace
+
+    from oni_ml_tpu_torch.config import OnlineLDAConfig
+    from oni_ml_tpu_torch.models.online_lda import (OnlineLDATrainer,
+                                                    train_corpus_online)
+
+    paths = {}
+    for label, dense_em, env, member, infer in ONLINE_RUNS:
+        if env:
+            os.environ["ONI_ML_TPU_ESTEP"] = env
+        try:
+            reset_kernel_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = train_corpus_online(corpus, OnlineLDAConfig(
+                dense_em=dense_em), device="cuda")
+            wall = time.perf_counter() - t0
+            counts = (launch_counts(), executed_counts())
+        finally:
+            os.environ.pop("ONI_ML_TPU_ESTEP", None)
+        check_online_launches(label, res, counts, member, infer)
+        lls = [ll for ll, _ in res.likelihoods]
+        if not (np.isfinite(res.log_beta).all() and np.isfinite(lls).all()
+                and (res.gamma > 0).all()):
+            fail(f"online {label}: a non-finite model")
+        paths[member] = counts[0]
+        log(f"online_{label} " + json.dumps({
+            "docs": corpus.num_docs, "vocab": corpus.num_terms,
+            "member": member, "micro_batches": res.em_iters,
+            "batch_shapes": res.stats["batch_shapes"], "wall_s": wall,
+            "micro_batches_per_s": res.em_iters / wall,
+            "docs_per_s": corpus.num_docs / wall,
+            "final_likelihood": lls[-1], "kernel_launches": counts[0]}))
+    day = os.path.join(tmp, "small_flow_sparse_cuda", "20160122")
+    small = Corpus.from_model_dat(os.path.join(day, "model.dat"),
+                                  os.path.join(day, "words.dat"),
+                                  os.path.join(day, "doc.dat"))
+    cfg = OnlineLDAConfig(dense_em="on")
+    runs = {}
+    for label, dev in (("cuda", "cuda"), ("cpu", "cpu"), ("cuda_again",
+                                                           "cuda")):
+        lls = []
+        res = train_corpus_online(small, cfg, device=dev, progress=lambda
+                                  info: lls.append(float(info.likelihood)))
+        runs[label] = (res, np.asarray(lls))
+    (a, la), (b, lb) = runs["cuda"], runs["cpu"]
+    cpu_ll = float(np.max(np.abs(la - lb) / np.abs(lb)))
+    beta_a, beta_b = np.exp(a.log_beta), np.exp(b.log_beta)
+    cpu_beta = float(np.max(np.abs(beta_a - beta_b) / np.maximum(beta_b,
+                                                                  1e-7)))
+    again = runs["cuda_again"]
+    same_bits = bool(np.array_equal(a.log_beta, again[0].log_beta)
+                     and np.array_equal(la, again[1])
+                     and np.array_equal(a.gamma, again[0].gamma))
+    from oni_ml_tpu_torch.io import make_batches as mb
+
+    # Each micro-batch four times over: same-shape runs of 4 that step_many
+    # takes on the device schedule.
+    stream = [bt for bt in mb(small, 1024, 16, pad_multiple=8)
+              for _ in range(4)]
+    seq = OnlineLDATrainer(replace(cfg, dense_em="off"), small.num_terms,
+                           small.num_docs, device="cuda")
+    for bt in stream:
+        seq.step(bt)
+    many = OnlineLDATrainer(replace(cfg, dense_em="off"), small.num_terms,
+                            small.num_docs, device="cuda")
+    infos = many.step_many(stream, chunk=16)
+    seq_ll = np.asarray([float(h.likelihood) for h in seq.history])
+    many_ll = np.asarray([float(i.likelihood) for i in infos])
+    lam_s, lam_m = seq.lam.cpu().numpy(), many.lam.cpu().numpy()
+    many_ok = bool(np.allclose(many_ll, seq_ll, rtol=RTOL_ONLINE_LL, atol=0)
+                   and np.allclose(lam_m, lam_s, rtol=RTOL_ONLINE_LAM,
+                                   atol=ATOL_ONLINE_LAM))
+    rec = {"docs": small.num_docs, "steps": a.em_iters,
+           "cuda_vs_cpu_ll_max_rel": cpu_ll,
+           "cuda_vs_cpu_beta_max_rel": cpu_beta,
+           "card_runs_same_bits": same_bits,
+           "step_many_vs_step_ll_max_rel": float(np.max(
+               np.abs(many_ll - seq_ll) / np.abs(seq_ll))),
+           "step_many_vs_step_lam_max_abs": float(np.max(np.abs(
+               lam_m - lam_s))),
+           "step_many_ok": many_ok}
+    log("online_small " + json.dumps(rec))
+    if (cpu_ll > RTOL_ONLINE_CPU or not np.allclose(
+            beta_a, beta_b, rtol=RTOL_ONLINE_CPU, atol=1e-7)
+            or not same_bits or not many_ok):
+        fail(f"online small day: {rec}")
+    return paths
+
+
+# --eval-quality / --eval-holdout on the card against the CPU: the model
+# itself carries the card-vs-CPU EM gap (RTOL_E2E), which the scores
+# inherit.
+RTOL_EVAL = RTOL_E2E
+
+
+def evaluate(tmp, raw):
+    """--eval-quality and --eval-holdout 0.1 on the small flow day (sparse
+    pinned, 5 EM iterations) on the card and on the CPU: the completion
+    and held-out per-token likelihoods within RTOL_EVAL; the card's
+    quality run publishes to a local directory, which must hold the day
+    directory's bytes (metrics.json as written before the copy)."""
+    dest = formats.ensure_dir(os.path.join(tmp, "published"))
+    scores = {}
+    for flag, key, extra in (
+            ("quality", "completion_per_token_ll", ("--eval-quality",)),
+            ("holdout", "held_out_per_token_ll", ("--eval-holdout", "0.1"))):
+        for dev, run in (("cuda", "card"), ("cpu", "host")):
+            more = ("--publish", dest) if (flag, run) == ("quality",
+                                                          "card") else ()
+            day = run_day("flow", raw, os.path.join(
+                tmp, f"eval_{flag}_{run}"), dev, "sparse", 5, *extra, *more)
+            with open(os.path.join(day, "metrics.json")) as f:
+                recs = json.load(f)
+            scores[f"{flag}_{run}"] = {r["stage"]: r for r in recs}["lda"][key]
+            if more:
+                pub_day = day
+                pub_recs = recs
+    rel = {flag: abs(scores[f"{flag}_card"] - scores[f"{flag}_host"])
+           / abs(scores[f"{flag}_host"]) for flag in ("quality", "holdout")}
+    out = os.path.join(dest, "20160122")
+    names = sorted(os.listdir(pub_day))
+    copied = sorted(os.listdir(out)) == names and all(
+        same_files(pub_day, out, [n for n in names
+                                  if n != "metrics.json"]).values())
+    with open(os.path.join(out, "metrics.json")) as f:
+        delivered = json.load(f)
+    copied = copied and delivered == pub_recs[:-1] and (
+        pub_recs[-1]["stage"] == "publish")
+    rec = {"scores": scores, "cuda_vs_cpu_rel": rel,
+           "published_files": len(names), "published_byte_equal": copied}
+    log("eval " + json.dumps(rec))
+    if (max(rel.values()) > RTOL_EVAL or not copied
+            or not all(np.isfinite(v) and v < 0 for v in scores.values())):
+        fail(f"eval: {rec}")
 
 
 def check_launches(engine, lda, counts, extra=None):
@@ -1837,12 +2164,15 @@ def main() -> int:
     try:
         raws = small_days(tmp)
         e2e_small(tmp, raws)
-        corpus, path_counts, flow_pre = pipeline(tmp)
-        dns_counts = pipeline_dns(tmp)
+        corpus, path_counts, flow_pre, flow_engine = pipeline(tmp)
+        dns_counts, dns_engine = pipeline_dns(tmp)
         host_score = score_device(tmp, smi)
         native_pre(tmp, raws, flow_pre, host_score, host)
         resume(tmp, raws["flow"])
         telemetry(tmp, raws["flow"])
+        dataplane(tmp, raws, {"flow": flow_engine, "dns": dns_engine})
+        online_counts = online(tmp, corpus)
+        evaluate(tmp, raws["flow"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     scatter_rec = profile_em(corpus)
@@ -1865,6 +2195,12 @@ def main() -> int:
             "executed_launches": ran[kname],
             "dns_launches": dns_counts[0][kname],
             "dns_executed_launches": dns_counts[1][kname],
+            # On the online path of the 2M flow day's corpus whose
+            # micro-batch steps take this kernel (the dense, sparse and
+            # fixed-point runs; the scatter: the sparse run's).
+            "online_launches": online_counts[
+                {"dense_estep": "dense", "fixed_point_estep":
+                 "per_batch:pallas"}.get(kname, "per_batch:sparse")][kname],
             "max_abs_err": max(errs), "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),

@@ -1,7 +1,8 @@
 """Typed configuration for the port: the fields of the JAX package's
 config that the flow, DNS and proxy days read, with the same defaults
-(oni_ml_tpu/config.py LDAConfig, FeedbackConfig, ScoringConfig,
-TelemetryConfig and the batch-day part of PipelineConfig)."""
+(oni_ml_tpu/config.py LDAConfig, OnlineLDAConfig, FeedbackConfig,
+ScoringConfig, TelemetryConfig, DataplaneConfig and the single-card part
+of PipelineConfig)."""
 
 from __future__ import annotations
 
@@ -76,6 +77,35 @@ class LDAConfig:
 
 
 @dataclass(frozen=True)
+class OnlineLDAConfig:
+    """Streaming (stochastic variational) LDA hyperparameters
+    (models/online_lda.py, `ml_ops --online`).  tau0/kappa defaults
+    follow Hoffman et al. (NIPS 2010); eta is the symmetric topic-word
+    Dirichlet prior."""
+
+    num_topics: int = 20
+    alpha: float = 2.5           # doc-topic prior (fixed in SVI)
+    eta: float = 0.01            # topic-word prior
+    tau0: float = 64.0           # learning-rate delay
+    kappa: float = 0.7           # learning-rate decay in (0.5, 1]
+    var_max_iters: int = 20
+    var_tol: float = 1e-6        # relative to mean gamma (see LDAConfig)
+    batch_size: int = 1024       # docs per micro-batch
+    min_bucket_len: int = 16
+    # float32 only: bf16 storage waits for ROADMAP Queue 2 item 5.
+    compute_dtype: str = "float32"
+    seed: int = 0
+    # Checkpoint (lambda, step) every N micro-batch steps (0 = disabled).
+    checkpoint_every: int = 0
+    # Dense E-step for micro-batches (csrc/dense_estep.cu): "auto" runs
+    # it on the card when the kernel takes K (one densify per
+    # micro-batch instead of a beta gather in every fixed-point
+    # iteration); "on"/"off" force.  Elsewhere the per-batch dispatch
+    # ops/estep.e_step runs (the sparse kernel on the card).
+    dense_em: str = "auto"
+
+
+@dataclass(frozen=True)
 class FeedbackConfig:
     """Analyst feedback: severity-3 rows replicated DUPFACTOR times."""
 
@@ -121,8 +151,29 @@ class TelemetryConfig:
 
 
 @dataclass(frozen=True)
+class DataplaneConfig:
+    """Streaming dataplane (dataplane/): in-memory columnar hand-offs
+    through pre -> corpus -> EM -> score with bounded-buffer overlap,
+    and the inter-stage files demoted to background checkpoint writes.
+    Artifacts stay byte-identical to the serial file path
+    (--no-dataplane): the dataplane changes when files are written and
+    what the next stage reads, never the bytes."""
+
+    # Stream hand-offs + background checkpoint sinks (--no-dataplane:
+    # inline writes, each stage re-reading its input from the files).
+    enabled: bool = True
+    # Write the demoted inter-stage files (features.pkl,
+    # word_counts.dat, words/doc/model.dat, final.*, likelihood.dat,
+    # doc/word_results.csv).  --no-checkpoints skips them all: the run
+    # writes only its products (results CSV, metrics.json,
+    # run_journal.jsonl), and a later `--stages` resume is refused,
+    # naming the missing file.  Full-chain batch runs only.
+    checkpoints: bool = True
+
+
+@dataclass(frozen=True)
 class PipelineConfig:
-    """A batch day's run configuration."""
+    """A single-card day's run configuration."""
 
     data_dir: str = "."
     flow_path: str = ""            # netflow CSV file/dir/glob/comma list
@@ -138,9 +189,11 @@ class PipelineConfig:
     # byte.
     pre_workers: int = 0
     lda: LDAConfig = field(default_factory=LDAConfig)
+    online_lda: OnlineLDAConfig = field(default_factory=OnlineLDAConfig)
     feedback: FeedbackConfig = field(default_factory=FeedbackConfig)
     scoring: ScoringConfig = field(default_factory=ScoringConfig)
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
+    dataplane: DataplaneConfig = field(default_factory=DataplaneConfig)
 
     def day_dir(self, fdate: str) -> str:
         return os.path.join(self.data_dir, fdate)

@@ -7,8 +7,11 @@ which kind of container a day produced:
 
 - `write_word_counts(path)` -> rows written (word_counts.dat);
 - `to_corpus()` -> the corpus of those word counts;
-- flow and DNS: `event_indices(ip_index, word_index)` -> model-row index
-  arrays, and `results_csv(...)` -> the results CSV's bytes.
+- `word_count_columns()` -> the same word counts as the dataplane's
+  columnar hand-off (dataplane/columns.py), which its streaming corpus
+  builder turns into that corpus;
+- `event_indices(ip_index, word_index)` -> model-row index arrays;
+- flow and DNS: `results_csv(...)` -> the results CSV's bytes.
 """
 
 from __future__ import annotations
@@ -32,19 +35,33 @@ def csv_blob(rows) -> bytes:
 
 
 class PythonContainer(PackedPickle):
-    """word_counts.dat and the corpus from the container's own
-    `word_counts()` triples (its first-seen rule).  The triples that
-    write_word_counts made are kept for the one to_corpus call that
-    follows in the same process, then dropped; they are never pickled."""
+    """word_counts.dat, the corpus and the columnar hand-off from the
+    container's own `word_counts()` triples (its first-seen rule),
+    computed once: kept for the to_corpus call that follows in the same
+    process (which drops them), never pickled."""
 
     _MEMO = "_word_count_triples"
+
+    def _triples(self) -> list:
+        triples = self.__dict__.get(self._MEMO)
+        if triples is None:
+            triples = self.__dict__[self._MEMO] = self.word_counts()
+        return triples
 
     def write_word_counts(self, path: str) -> int:
         from ..io import formats
 
-        triples = self.__dict__[self._MEMO] = self.word_counts()
+        triples = self._triples()
         formats.write_word_counts(path, triples)
         return len(triples)
+
+    def word_count_columns(self):
+        """The triples interned in first-seen order
+        (dataplane.intern_word_counts), so the streaming corpus builder
+        assigns the file contract's ids."""
+        from ..dataplane.columns import intern_word_counts
+
+        return intern_word_counts(self._triples())
 
     def to_corpus(self):
         from ..io.corpus import Corpus

@@ -142,6 +142,16 @@ class InternedCounts:
         return Corpus.from_interned(self.ip_table, self.word_table,
                                     self.wc_ip, self.wc_word, self.wc_count)
 
+    def word_count_columns(self):
+        """The columnar hand-off (dataplane/columns.py) straight from the
+        aggregated id arrays: no strings materialized; the streaming
+        corpus builder's first-seen remap gives `to_corpus()`."""
+        from ..dataplane.columns import make_word_count_columns
+
+        return make_word_count_columns(self.wc_ip, self.wc_word,
+                                       self.wc_count, self.ip_table,
+                                       self.word_table)
+
     def _rows_of(self, ip_index: dict, word_index: dict):
         """(model row per ip_table entry, per word_table entry), int32:
         one dict lookup per unique IP and word, then the callers gather

@@ -278,14 +278,40 @@ class Corpus:
     # -- serialization (reference contracts) --------------------------------
 
     def save(self, directory: str) -> None:
-        """Write words.dat / doc.dat / model.dat into ``directory``."""
+        """Write words.dat / doc.dat / model.dat into ``directory``, each
+        published by tmp+rename (formats.atomic_write): the dataplane's
+        background corpus checkpoint overlaps the whole LDA stage, so a
+        kill mid-write must never leave a partial file under a contract
+        name."""
         import os
 
-        formats.write_words_dat(os.path.join(directory, "words.dat"), self.vocab)
-        formats.write_doc_dat(os.path.join(directory, "doc.dat"), self.doc_names)
-        formats.write_model_dat(
-            os.path.join(directory, "model.dat"), self.doc_ptr, self.word_idx, self.counts
-        )
+        def path(name):
+            return os.path.join(directory, name)
+
+        formats.atomic_write(path("words.dat"), lambda p: formats.write_words_dat(
+            p, self.vocab))
+        formats.atomic_write(path("doc.dat"), lambda p: formats.write_doc_dat(
+            p, self.doc_names))
+        formats.atomic_write(path("model.dat"), lambda p: formats.write_model_dat(
+            p, self.doc_ptr, self.word_idx, self.counts))
+
+    def select(self, doc_indices) -> "Corpus":
+        """Sub-corpus of the given documents (shared vocabulary, same
+        word ids, so a model trained on a subset scores the full
+        corpus).  The runner's --eval-holdout split."""
+        doc_indices = np.asarray(doc_indices, np.int64)
+        lens = self.doc_lengths()[doc_indices]
+        ptr = np.zeros(len(doc_indices) + 1, np.int64)
+        np.cumsum(lens, out=ptr[1:])
+        widx = np.empty(int(ptr[-1]), self.word_idx.dtype)
+        cnts = np.empty(int(ptr[-1]), self.counts.dtype)
+        for j, d in enumerate(doc_indices):
+            lo, hi = int(self.doc_ptr[d]), int(self.doc_ptr[d + 1])
+            widx[ptr[j]:ptr[j + 1]] = self.word_idx[lo:hi]
+            cnts[ptr[j]:ptr[j + 1]] = self.counts[lo:hi]
+        return Corpus([self.doc_names[int(d)] for d in doc_indices],
+                      self.vocab, ptr, widx, cnts)
+
 
 def _bucket_len(n: int, min_bucket: int) -> int:
     if min_bucket < 1:

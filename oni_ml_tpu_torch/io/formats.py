@@ -39,6 +39,23 @@ def contract_open(path: str, mode: str = "r"):
     return open(path, mode, encoding="utf-8", errors="surrogateescape")
 
 
+def atomic_write(path: str, write_fn) -> None:
+    """Run `write_fn(tmp_path)` then publish tmp -> path atomically, so
+    a file under its contract name is always complete: a kill mid-write
+    never leaves a partial file that a resumed run's `_stage_done`
+    existence checks would trust."""
+    tmp = path + ".tmp"
+    write_fn(tmp)
+    os.replace(tmp, path)
+
+
+def atomic_write_bytes(path: str, data) -> None:
+    def _write(tmp):
+        with open(tmp, "wb") as f:
+            f.write(data)
+    atomic_write(path, _write)
+
+
 # ---------------------------------------------------------------------------
 # word_counts triples ("ip,word,count")
 # ---------------------------------------------------------------------------

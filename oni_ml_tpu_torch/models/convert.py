@@ -8,7 +8,11 @@ cannot be reproduced from a torch seed, so a test that starts both
 trainers from the same beta draws it in JAX and carries it across here.
 The chunk driver's state between dispatches (log beta, alpha, ll_prev
 and the per-group gammas) crosses the same way (`chunk_state_from_reference`),
-so a test can start both chunk runners from one state.
+so a test can start both chunk runners from one state.  So does the
+online trainer's lambda (`lam_from_reference`): the JAX trainer draws
+its initial lambda as `jax.random.gamma(PRNGKey(seed), 100, (K, V)) /
+100`, the port from a torch.Generator, so a parity test passes the JAX
+draw as the port's `initial_lam`.
 """
 
 from __future__ import annotations
@@ -43,6 +47,14 @@ def to_reference(state: ModelState):
 
     return (a(state.log_beta), float(state.alpha),
             None if state.gamma is None else a(state.gamma))
+
+
+def lam_from_reference(lam, device: "str | torch.device" = "cpu"
+                       ) -> torch.Tensor:
+    """A JAX online trainer's lambda [K, V] (numpy or array-like) -> the
+    port's float32 tensor on `device` (OnlineLDATrainer's
+    `initial_lam`)."""
+    return torch.as_tensor(np.array(lam, dtype=np.float32), device=device)
 
 
 @dataclass

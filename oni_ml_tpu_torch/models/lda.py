@@ -113,15 +113,16 @@ def save_checkpoint(path: str, log_beta: np.ndarray, alpha: float,
     likelihood history), written to a temporary file and renamed.  The
     reference has no in-training resume: a crashed MPI run restarts
     from scratch (SURVEY §5.3-5.4)."""
-    tmp = path + ".tmp.npz"  # savez appends nothing to an .npz name
-    np.savez(
-        tmp,
-        log_beta=np.asarray(log_beta),
-        alpha=np.float64(alpha),
-        em_iter=np.int64(em_iter),
-        likelihoods=np.asarray(likelihoods, np.float64).reshape(-1, 2),
-    )
-    os.replace(tmp, path)
+    def write(tmp):
+        with open(tmp, "wb") as f:  # a file object: savez adds no .npz
+            np.savez(
+                f,
+                log_beta=np.asarray(log_beta),
+                alpha=np.float64(alpha),
+                em_iter=np.int64(em_iter),
+                likelihoods=np.asarray(likelihoods, np.float64).reshape(-1, 2),
+            )
+    formats.atomic_write(path, write)
 
 
 def load_checkpoint(path: str) -> dict:
@@ -176,17 +177,25 @@ class LDAResult:
     def save(self, directory: str, num_terms: "int | None" = None,
              include_likelihood: bool = True) -> None:
         """final.beta / final.gamma / final.other (and likelihood.dat
-        unless the trainer already streamed it)."""
+        unless the trainer already streamed it), each written to a
+        temporary file and renamed, so a file under its contract name is
+        complete."""
         k, v = self.log_beta.shape
-        formats.write_beta(os.path.join(directory, "final.beta"), self.log_beta)
-        formats.write_gamma(os.path.join(directory, "final.gamma"), self.gamma)
-        formats.write_other(
-            os.path.join(directory, "final.other"), k, num_terms or v, self.alpha
-        )
-        if include_likelihood:
-            with open(os.path.join(directory, "likelihood.dat"), "w") as f:
+
+        def publish(name, write):
+            formats.atomic_write(os.path.join(directory, name), write)
+
+        def write_likelihood(path):
+            with open(path, "w") as f:
                 for ll, conv in self.likelihoods:
                     formats.append_likelihood(f, ll, conv)
+
+        publish("final.beta", lambda p: formats.write_beta(p, self.log_beta))
+        publish("final.gamma", lambda p: formats.write_gamma(p, self.gamma))
+        publish("final.other", lambda p: formats.write_other(
+            p, k, num_terms or v, self.alpha))
+        if include_likelihood:
+            publish("likelihood.dat", write_likelihood)
 
 
 def init_log_beta(generator: torch.Generator, k: int, v: int,

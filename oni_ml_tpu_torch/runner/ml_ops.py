@@ -1,12 +1,14 @@
 """A day of flow, DNS or proxy events on the card (port of
-oni_ml_tpu/runner/ml_ops.py without its dataplane) — replaces
+oni_ml_tpu/runner/ml_ops.py, single-card) — replaces
 ml_ops.sh YYYYMMDD flow|dns TOL:
 
     python -m oni_ml_tpu_torch.runner.ml_ops 20160122 dns 1e-20 \\
         --dns-path raw.csv --top-domains top-1m.csv --data-dir /data \\
         [--device cuda|cpu] [--stages pre,corpus] [--force] \\
         [--checkpoint-every N] [--heartbeat SECS] [--profile DIR] \\
-        [--pre-workers N] [--qtiles FILE]
+        [--pre-workers N] [--qtiles FILE] [--no-dataplane] \\
+        [--no-checkpoints] [--online [--eta E --tau0 T --kappa K]] \\
+        [--eval-quality | --eval-holdout FRAC] [--publish DEST]
 
 Stages, each writing the JAX runner's artifacts into <data-dir>/<fdate>
 (the source's hooks come from the registry, `sources.get(dsource)`):
@@ -17,7 +19,11 @@ Stages, each writing the JAX runner's artifacts into <data-dir>/<fdate>
             raw_lines.bin; ONI_ML_TPU_NO_NATIVE=1 runs them in Python)
     corpus  word counts -> words.dat / doc.dat / model.dat
     lda     EM on the device -> final.beta/.gamma/.other, likelihood.dat,
-            doc_results.csv, word_results.csv
+            doc_results.csv, word_results.csv (--online: streaming SVI,
+            models/online_lda.py; --eval-holdout FRAC: EM on the
+            documents outside a name-hashed split, whose held-out
+            per-token likelihood the record carries; --eval-quality:
+            the model's document-completion score, models/evaluate.py)
     score   scoring -> <dsource>_results.csv: the float64 host engine,
             or with ONI_ML_TPU_SCORE=device (ScoringConfig.engine) the
             chunked gather-dot-filter pipeline on the card
@@ -35,6 +41,25 @@ sources, the batches trained, the kernel launches enqueued and those
 that ran (the kernels count these on the card; the rest were enqueued
 after the device stopped EM) and the host syncs.
 
+Streaming dataplane (dataplane/, on by default; --no-dataplane runs the
+serial path): within one process the live featurized day, corpus and
+model pass from stage to stage either way; with the dataplane the
+inter-stage files become background checkpoint writes that overlap the
+later stages (features.pkl and word_counts.dat behind corpus and EM,
+the corpus triplet behind EM, final.* and the results CSVs behind
+scoring), the word counts stream into corpus assembly through a bounded
+channel, and scoring's index prep runs on a host thread while EM runs.
+The results CSV, a product, is written in the background too but never
+skipped.  run_pipeline joins every background write before it returns,
+and one that failed fails the run.  Every artifact is byte-identical
+either way.  --no-checkpoints skips the inter-stage files (and removes
+the spill once the run ends): the run writes only its products (the
+results CSV, metrics.json, run_journal.jsonl), and a later `--stages`
+run against that day is refused, naming the missing file.  metrics.json
+gets the plane's record (`{"stage": "dataplane"}`: each background
+task's wall by stage, each channel's stalls); the journal its
+`{"kind": "dataplane"}` records and `dataplane.*` spans.
+
 Resume contract: every stage's outputs land by temporary file and
 rename, so a file under its contract name is complete.  A stage whose
 outputs all exist is skipped (unless --force); --stages runs a subset.
@@ -42,15 +67,14 @@ A stage that runs first removes its old outputs and those of the stages
 after it, which were made from them; pre and corpus, and a forced lda,
 also remove an EM checkpoint.npz, which only a rerun of lda alone
 resumes from.
-Within one process the live featurized day, corpus and model pass from
-stage to stage; a stage whose upstream ran in another process reads the
-files instead (word_counts.dat; the model.dat triplet; features.pkl and
-the results CSVs), and fails fast, naming the missing file and the
-command that writes it, when one is absent.  Both ways give the same
-bytes.  run_journal.jsonl records every stage, so a skip names whether
-the journal or only the files vouched for it.  With --checkpoint-every
-N the lda stage saves EM state to checkpoint.npz every N iterations and
-a rerun resumes from it.
+A stage whose upstream ran in another process reads the files instead
+(word_counts.dat; the model.dat triplet; features.pkl and the results
+CSVs), and fails fast, naming the missing file and the command that
+writes it, when one is absent.  Both ways give the same bytes.
+run_journal.jsonl records every stage, so a skip names whether the
+journal or only the files vouched for it.  With --checkpoint-every N
+the lda stage saves EM state to checkpoint.npz every N iterations (N
+micro-batches under --online) and a rerun resumes from it.
 
 Flight recorder (telemetry/): with the journal on, a Recorder bound to
 it records a `stage.<name>` span per stage, the EM drivers'
@@ -63,7 +87,9 @@ gets as one `{"stage": "roofline", "records": [...]}` entry.
 device that stops answering into a clean BackendLost (exit 3) at the
 next stage boundary; `--profile DIR` writes a torch.profiler trace of
 the whole run (CPU and, on the card, CUDA activity) as Chrome trace
-JSON.  Neither changes a result.
+JSON.  Neither changes a result.  `--publish DEST` copies the finished
+day directory (metrics.json included) to DEST, or to an scp-style
+host:path.
 """
 
 from __future__ import annotations
@@ -78,14 +104,19 @@ from dataclasses import dataclass, field
 from enum import Enum
 
 import numpy as np
+import torch
 
 from .. import sources
-from ..config import (FeedbackConfig, LDAConfig, PipelineConfig,
-                      ScoringConfig, TelemetryConfig)
+from ..config import (DataplaneConfig, FeedbackConfig, LDAConfig,
+                      OnlineLDAConfig, PipelineConfig, ScoringConfig,
+                      TelemetryConfig)
+from ..dataplane import (Dataplane, atomic_write, atomic_write_bytes,
+                         build_scoring_prep, consume_corpus,
+                         stream_word_counts, word_count_columns)
 from ..device import resolve_device
-from ..io import Corpus, formats
-from ..models import train_corpus
-from ..ops import dense_estep, pallas_estep, sparse_estep
+from ..io import Corpus, formats, make_batches
+from ..models import LDAResult, train_corpus, train_corpus_online
+from ..ops import dense_estep, estep, pallas_estep, sparse_estep
 from ..scoring import DispatchStats, ScoringModel
 from ..scoring.score import _score_engine
 from ..telemetry import (BackendLost, HeartbeatMonitor, Journal, Recorder,
@@ -217,12 +248,38 @@ def lda_record(result, counts0: tuple, dev) -> dict:
     }
 
 
+def online_record(result, counts0: tuple, dev, em_s: float,
+                  num_docs: int, epochs: int = 1) -> dict:
+    """The `lda` stage's fields from a train_corpus_online result (its
+    stats: the member that ran the micro-batch E-steps, the micro-batch
+    shapes, the inference pass) and the kernel_counts() before it.  The
+    micro-batch steps stand in for EM iterations (`em_iters`)."""
+    launches0, executed0 = counts0
+    stats = result.stats
+    lls = [ll for ll, _ in result.likelihoods]
+    return {
+        "device": str(dev), "engine": "online", "member": stats["member"],
+        "driver": "online", "em_iters": result.em_iters,
+        "final_likelihood": lls[-1] if lls else None,
+        "alpha": result.alpha, "batches": stats["batches"],
+        "batch_shapes": stats["batch_shapes"],
+        "kernel_launches": {name: n - launches0[name]
+                            for name, n in launch_counts().items()},
+        "executed_launches": {name: n - executed0[name]
+                              for name, n in executed_counts().items()},
+        "em_s": em_s, "micro_batches_per_s": result.em_iters / em_s,
+        "docs_per_s": num_docs * epochs / em_s,
+    }
+
+
 @dataclass
 class RunContext:
     """One invocation's state.  `features`, `corpus` and `result` are
     the live hand-offs between stages of this process (None where the
     stage that makes them did not run here: the next stage then reads
-    its files)."""
+    its files).  `plane` is the run's dataplane (None: the serial path),
+    `word_counts` the featurized day's columnar word counts it streams
+    into the corpus stage, `score_prep` its scoring-prep task."""
 
     config: PipelineConfig
     fdate: str
@@ -242,6 +299,18 @@ class RunContext:
     # whose check() gates each stage entry (None when off).
     recorder: "Recorder | None" = None
     heartbeat: "HeartbeatMonitor | None" = None
+    online: bool = False
+    eval_quality: bool = False
+    eval_holdout: float = 0.0
+    plane: "Dataplane | None" = None
+    word_counts: object = None
+    score_prep: object = None
+    # The stages this invocation may run: whether the lda stage starts
+    # the scoring prep.
+    wanted: list = field(default_factory=lambda: list(STAGE_ORDER))
+    # A replayed journal shows a --no-checkpoints run of this day: a
+    # missing file's message says why it is missing.
+    prior_no_checkpoints: bool = False
 
     def path(self, name: str) -> str:
         return os.path.join(self.day_dir, name)
@@ -271,14 +340,6 @@ class DayRun:
     result: object
 
 
-def _write_atomic(path: str, write) -> None:
-    """`write(tmp)` then rename: a file under its contract name is
-    always complete."""
-    tmp = path + ".tmp"
-    write(tmp)
-    os.replace(tmp, path)
-
-
 def _stage_done(ctx: RunContext, stage: Stage) -> "str | None":
     """Why this stage can be skipped, or None if it must run.  The files
     decide (a journal that says "done" about deleted outputs does not
@@ -297,13 +358,39 @@ def _require_artifacts(ctx: RunContext, names: list, stage: Stage,
     missing = [n for n in names if not os.path.exists(ctx.path(n))]
     if not missing:
         return
-    raise MissingArtifactError(
+    msg = (
         f"stage {stage.value} needs {missing[0]} in {ctx.day_dir} and it "
         f"does not exist; regenerate it with `ml_ops {ctx.fdate} "
         f"{ctx.dsource} --stages {regen_stage.value} --force`"
         + (f" (also missing: {', '.join(missing[1:])})"
            if len(missing) > 1 else "")
     )
+    if ctx.prior_no_checkpoints:
+        msg += (
+            " — note: a prior run of this day used --no-checkpoints, so "
+            "no inter-stage files were written; resume is refused by "
+            "design, re-run the full day"
+        )
+    raise MissingArtifactError(msg)
+
+
+def _require_inputs(ctx: RunContext, stage: Stage) -> None:
+    """A stage's file inputs where its upstream did not run in this
+    process (no live hand-off): checked before the stage removes
+    anything, so a refused resume leaves the day as it was."""
+    if stage is Stage.CORPUS and ctx.features is None:
+        _require_artifacts(ctx, ["word_counts.dat"], stage, Stage.PRE)
+    elif stage is Stage.LDA and ctx.corpus is None:
+        _require_artifacts(ctx, ["model.dat", "words.dat", "doc.dat"],
+                           stage, Stage.CORPUS)
+    elif stage is Stage.SCORE and ctx.features is None:
+        _require_artifacts(ctx, ["features.pkl"], stage, Stage.PRE)
+
+
+def _score_wanted(ctx: RunContext) -> bool:
+    """Whether this invocation may still run the score stage (the lda
+    stage then starts the scoring prep)."""
+    return Stage.SCORE in ctx.wanted
 
 
 class _PortUnpickler(pickle.Unpickler):
@@ -380,9 +467,10 @@ def stage_pre(ctx: RunContext) -> dict:
     word_counts.dat.  Flow and DNS run the native featurizers: raw rows
     stream to raw_lines.bin (which features.pkl names), the passes shard
     over the pre workers, and word_counts.dat is emitted in C++ from the
-    interned tables.  The record names the engine that ran ("native" or
-    "python", and why a day with the library took Python), the workers
-    with their source, and the pass walls."""
+    interned tables.  With the dataplane both files are background
+    checkpoints (_finish_pre_dataplane).  The record names the engine
+    that ran ("native" or "python", and why a day with the library took
+    Python), the workers with their source, and the pass walls."""
     from ..features.shards import resolve_pre_workers
 
     cfg = ctx.config
@@ -393,23 +481,21 @@ def stage_pre(ctx: RunContext) -> dict:
         cfg, ctx.path(SPILL), workers, timings)
     engine = timings.pop("pre_engine")
     reason = timings.pop("python_reason", None)
+    if ctx.plane is not None:
+        n_wc = _finish_pre_dataplane(ctx, features, timings)
+    else:
+        t0 = time.perf_counter()
+        atomic_write(ctx.path("features.pkl"), _pickler(features))
+        timings["pickle_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_wc = 0
 
-    def dump(tmp):
-        with open(tmp, "wb") as f:
-            pickle.dump(features, f, protocol=pickle.HIGHEST_PROTOCOL)
+        def write(tmp):
+            nonlocal n_wc
+            n_wc = features.write_word_counts(tmp)
 
-    t0 = time.perf_counter()
-    _write_atomic(ctx.path("features.pkl"), dump)
-    timings["pickle_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    n_wc = 0
-
-    def write(tmp):
-        nonlocal n_wc
-        n_wc = features.write_word_counts(tmp)
-
-    _write_atomic(ctx.path("word_counts.dat"), write)
-    timings["wc_emit_s"] = time.perf_counter() - t0
+        atomic_write(ctx.path("word_counts.dat"), write)
+        timings["wc_emit_s"] = time.perf_counter() - t0
     ctx.features = features
     out = {"events": features.num_events, "word_count_rows": n_wc,
            "feedback_rows": len(fb_rows), "pre_engine": engine,
@@ -420,72 +506,288 @@ def stage_pre(ctx: RunContext) -> dict:
     return out
 
 
+def _pickler(features):
+    """features.pkl's writer: `write(tmp)` for atomic_write."""
+    def dump(tmp):
+        with open(tmp, "wb") as f:
+            pickle.dump(features, f, protocol=pickle.HIGHEST_PROTOCOL)
+    return dump
+
+
+def _finish_pre_dataplane(ctx: RunContext, features, timings) -> int:
+    """The pre stage's dataplane tail: the live container is the hand-off
+    (to corpus assembly, through its columnar word counts, and to
+    scoring), and features.pkl and word_counts.dat become background
+    checkpoints overlapping the later stages (skipped under
+    --no-checkpoints).  Returns the word-count rows."""
+    plane = ctx.plane
+    ctx.word_counts = word_count_columns(features)
+    if plane.checkpoints:
+        plane.checkpoint("features_pkl", lambda: atomic_write(
+            ctx.path("features.pkl"), _pickler(features)),
+            stage=Stage.PRE.value)
+        plane.checkpoint("word_counts", lambda: atomic_write(
+            ctx.path("word_counts.dat"), features.write_word_counts),
+            stage=Stage.PRE.value)
+        timings["pickle"] = timings["wc_write"] = "background"
+    else:
+        timings["pickle"] = timings["wc_write"] = "skipped"
+    return ctx.word_counts.ids.num_rows
+
+
 def stage_corpus(ctx: RunContext) -> dict:
     """Word counts -> the corpus -> words.dat / doc.dat / model.dat.  In
-    the process that ran pre, the live container hands off its corpus
-    (`to_corpus`: a native container's id arrays, a Python one's
-    triples); else word_counts.dat is read (natively)."""
-    if ctx.features is not None:
+    the process that ran pre, the live container hands off its corpus:
+    with the dataplane its columnar word counts stream through a bounded
+    channel into first-seen assembly (StreamingCorpusBuilder) and the
+    triplet is a background checkpoint; on the serial path `to_corpus`
+    (a native container's id arrays, a Python one's triples).  Else
+    word_counts.dat is read (natively)."""
+    plane = ctx.plane
+    stream = None
+    if ctx.features is not None and plane is not None:
+        wc = ctx.word_counts
+        ctx.word_counts = None
+        ch = plane.channel("pre.wc->corpus")
+        plane.spawn(
+            "wc_stream",
+            lambda: stream_word_counts(wc, ch),
+            stage=Stage.CORPUS.value,
+            # put() backpressure waits are idle, not work.
+            stall=lambda: ch.stats()["put_stall_s"],
+        )
+        corpus, builder = consume_corpus(ch, wc.ip_table, wc.word_table)
+        handoff = "direct"
+        stream = {"chunks": builder.chunks, "rows": builder.rows}
+    elif ctx.features is not None:
         corpus = ctx.features.to_corpus()
         handoff = "direct"
     else:
-        _require_artifacts(ctx, ["word_counts.dat"], Stage.CORPUS, Stage.PRE)
         corpus = Corpus.from_word_counts_file(ctx.path("word_counts.dat"))
         handoff = "file"
-    tmp = formats.ensure_dir(ctx.path(".corpus.tmp"))
-    corpus.save(tmp)
-    for name in _STAGE_OUTPUTS[Stage.CORPUS]:
-        os.replace(os.path.join(tmp, name), ctx.path(name))
-    os.rmdir(tmp)
+    if plane is not None:
+        plane.checkpoint("corpus_dat", lambda: corpus.save(ctx.day_dir),
+                         stage=Stage.CORPUS.value)
+    else:
+        corpus.save(ctx.day_dir)
     ctx.corpus = corpus
-    return {"docs": corpus.num_docs, "vocab": corpus.num_terms,
-            "tokens": corpus.num_tokens, "handoff": handoff}
+    out = {"docs": corpus.num_docs, "vocab": corpus.num_terms,
+           "tokens": corpus.num_tokens, "handoff": handoff}
+    if stream is not None:
+        out["stream"] = stream
+    return out
 
 
 def stage_lda(ctx: RunContext) -> dict:
-    """EM on the device, then final.*, doc_results.csv and
-    word_results.csv (likelihood.dat streams during the fit)."""
+    """EM on the device (or --online SVI, or --eval-holdout's EM on the
+    training split), then final.*, doc_results.csv and word_results.csv
+    (likelihood.dat streams during the fit).  With the dataplane the
+    scoring prep runs on a host thread during the fit, and a batch fit's
+    model files are background checkpoints (_demote_lda_artifacts)."""
     if ctx.corpus is not None:
         corpus, corpus_src = ctx.corpus, "handoff"
     else:
-        _require_artifacts(ctx, ["model.dat", "words.dat", "doc.dat"],
-                           Stage.LDA, Stage.CORPUS)
         corpus = Corpus.from_model_dat(ctx.path("model.dat"),
                                        ctx.path("words.dat"),
                                        ctx.path("doc.dat"))
         corpus_src = "file"
-    progress = None
-    if ctx.journal is not None:
-        progress = ctx.journal.em_likelihood
+    plane = ctx.plane
+    # The online and holdout trainers write their model files inline.
+    streamline = (plane is not None and not ctx.online
+                  and not ctx.eval_holdout)
+    if (plane is not None and ctx.features is not None and not ctx.online
+            and _score_wanted(ctx)):
+        # The event index prep needs only the corpus orderings and the
+        # featurized day, both final here: it runs during the fit.
+        feats = ctx.features
+        ctx.score_prep = plane.spawn(
+            "score_prep",
+            lambda: build_scoring_prep(feats, corpus.doc_names, corpus.vocab,
+                                       ctx.dsource),
+            stage=Stage.SCORE.value)
     t0 = time.perf_counter()
     counts0 = kernel_counts()
-    result = train_corpus(corpus, ctx.config.lda, out_dir=ctx.day_dir,
-                          save_final=False, device=ctx.device,
+    held: dict = {}
+    if ctx.online:
+        if ctx.eval_holdout:
+            raise ValueError("--eval-holdout is batch-mode only")
+        progress = None
+        if ctx.journal is not None:
+            def progress(info, journal=ctx.journal):
+                # The em_ll stream batch EM writes, with the step's rho
+                # as its third column (conv has no online analogue).
+                journal.append({"kind": "em_ll", "iter": int(info.step),
+                                "ll": float(info.likelihood),
+                                "rho": float(info.rho)})
+        result = train_corpus_online(corpus, ctx.config.online_lda,
+                                     out_dir=ctx.day_dir, progress=progress,
+                                     device=ctx.device)
+        em_s = time.perf_counter() - t0
+        rec = online_record(result, counts0, ctx.device, em_s,
+                            corpus.num_docs)
+    else:
+        progress = ctx.journal.em_likelihood if ctx.journal else None
+        if ctx.eval_holdout:
+            result, held = _train_with_holdout(ctx, corpus, progress)
+        else:
+            # With checkpoints off, out_dir=None turns off likelihood.dat
+            # and checkpoint.npz too: the journal's em_ll stream is the
+            # run's record of the fit.
+            out_dir = ctx.day_dir if (plane is None or plane.checkpoints) \
+                else None
+            result = train_corpus(corpus, ctx.config.lda, out_dir=out_dir,
+                                  save_final=False, device=ctx.device,
+                                  initial_log_beta=ctx.initial_log_beta,
+                                  progress=progress)
+        em_s = time.perf_counter() - t0
+        rec = dict(lda_record(result, counts0, ctx.device), em_s=em_s,
+                   em_docs_per_s=corpus.num_docs * result.em_iters / em_s)
+    writes = _model_writes(corpus, result)
+    if streamline:
+        _demote_lda_artifacts(ctx, writes)
+    else:
+        for name, write in writes.items():
+            # train_corpus_online wrote final.* (and likelihood.dat).
+            if not (ctx.online and name.startswith("final.")):
+                atomic_write(ctx.path(name), write)
+    ctx.corpus, ctx.result = corpus, result
+    rec["corpus"] = corpus_src
+    if ctx.eval_quality:
+        rec.update(_completion_score(ctx, result.log_beta, result.alpha,
+                                     corpus))
+    rec.update(held)
+    return rec
+
+
+def _model_writes(corpus: Corpus, result) -> dict:
+    """{file name: write(path)} of the lda stage's model files."""
+    k, v = result.log_beta.shape
+    return {
+        "final.beta": lambda p: formats.write_beta(p, result.log_beta),
+        "final.gamma": lambda p: formats.write_gamma(p, result.gamma),
+        "final.other": lambda p: formats.write_other(p, k, v, result.alpha),
+        "doc_results.csv": lambda p: formats.write_doc_results(
+            p, corpus.doc_names, result.gamma),
+        "word_results.csv": lambda p: formats.write_word_results(
+            p, corpus.vocab, result.log_beta),
+    }
+
+
+def _demote_lda_artifacts(ctx: RunContext, writes: dict) -> None:
+    """The model files as background checkpoints overlapping the score
+    stage (the same bytes as the serial writes, each published by
+    tmp+rename): final.* as one task, each results CSV as its own."""
+    plane = ctx.plane
+
+    def write_final():
+        for name in ("final.beta", "final.gamma", "final.other"):
+            atomic_write(ctx.path(name), writes[name])
+
+    plane.checkpoint("final_model", write_final, stage=Stage.LDA.value)
+    for task, name in (("doc_results", "doc_results.csv"),
+                       ("word_results", "word_results.csv")):
+        plane.checkpoint(task, lambda name=name: atomic_write(
+            ctx.path(name), writes[name]), stage=Stage.LDA.value)
+
+
+def _train_with_holdout(ctx: RunContext, corpus: Corpus, progress):
+    """--eval-holdout FRAC: hash-split the documents by name BEFORE
+    training, train beta on the remainder, and report the held-out
+    per-token log-likelihood of the excluded split (models/evaluate.py:
+    document completion) — valid for hyperparameter selection, unlike
+    --eval-quality's training-day score, since beta never saw those
+    documents.
+
+    The file contract holds: final.gamma and doc_results.csv carry every
+    document (the held-out rows inferred under the trained beta through
+    the "xla" E-step, as the JAX runner does; the scorer needs a theta
+    row per IP), and final.beta / likelihood.dat are the training
+    split's fit."""
+    import math
+
+    from ..models.evaluate import hash_split, held_out_per_token_ll
+
+    cfg = ctx.config.lda
+    train_idx, held_idx = hash_split(corpus.doc_names, ctx.eval_holdout)
+    if len(held_idx) == 0 or len(train_idx) == 0:
+        raise ValueError(
+            f"--eval-holdout {ctx.eval_holdout} split to "
+            f"{len(train_idx)} train / {len(held_idx)} held-out docs of "
+            f"{corpus.num_docs}; need both non-empty (tiny day?)"
+        )
+    result = train_corpus(corpus.select(train_idx), cfg,
+                          out_dir=ctx.day_dir, save_final=False,
+                          device=ctx.device,
                           initial_log_beta=ctx.initial_log_beta,
                           progress=progress)
-    em_s = time.perf_counter() - t0
-    k, v = result.log_beta.shape
-    for name, write in (
-        ("final.beta", lambda p: formats.write_beta(p, result.log_beta)),
-        ("final.gamma", lambda p: formats.write_gamma(p, result.gamma)),
-        ("final.other", lambda p: formats.write_other(p, k, v, result.alpha)),
-        ("doc_results.csv", lambda p: formats.write_doc_results(
-            p, corpus.doc_names, result.gamma)),
-        ("word_results.csv", lambda p: formats.write_word_results(
-            p, corpus.vocab, result.log_beta)),
-    ):
-        _write_atomic(ctx.path(name), write)
-    ctx.corpus, ctx.result = corpus, result
-    return dict(lda_record(result, counts0, ctx.device), em_s=em_s,
-                em_docs_per_s=corpus.num_docs * result.em_iters / em_s,
-                corpus=corpus_src)
+    held_batches = make_batches(corpus.select(held_idx),
+                                batch_size=cfg.batch_size,
+                                min_bucket_len=cfg.min_bucket_len)
+    score = held_out_per_token_ll(result.log_beta, result.alpha,
+                                  held_batches,
+                                  var_max_iters=cfg.var_max_iters,
+                                  var_tol=cfg.var_tol, device=ctx.device)
+    dev = ctx.device
+    full_gamma = np.zeros((corpus.num_docs, result.gamma.shape[1]))
+    full_gamma[train_idx] = result.gamma
+    log_beta = torch.as_tensor(np.asarray(result.log_beta, np.float32),
+                               device=dev)
+    alpha = torch.tensor(result.alpha, dtype=torch.float32, device=dev)
+    for b in held_batches:
+        word_idx = torch.as_tensor(b.word_idx, device=dev)
+        counts = torch.as_tensor(b.counts, dtype=torch.float32, device=dev)
+        res = estep.e_step(
+            log_beta, alpha, word_idx, counts,
+            torch.as_tensor(b.doc_mask, dtype=torch.float32, device=dev),
+            var_max_iters=cfg.var_max_iters, var_tol=cfg.var_tol,
+            backend="xla",
+            live=(sparse_estep.live_tokens(word_idx, counts)
+                  if dev.type == "cuda" else None))
+        sel = b.doc_mask == 1
+        full_gamma[held_idx[b.doc_index[sel]]] = res.gamma.to(
+            "cpu", torch.float64).numpy()[sel]
+    full = LDAResult(log_beta=result.log_beta, gamma=full_gamma,
+                     alpha=result.alpha, likelihoods=result.likelihoods,
+                     em_iters=result.em_iters, plan=result.plan,
+                     stats=result.stats)
+    return full, {
+        "held_out_frac": ctx.eval_holdout,
+        "held_out_docs": int(len(held_idx)),
+        "held_out_per_token_ll": score,
+        "held_out_perplexity": math.exp(-score),
+    }
+
+
+def _completion_score(ctx: RunContext, log_beta, alpha,
+                      corpus: "Corpus | None" = None) -> dict:
+    """--eval-quality: the day's model scored by document completion
+    (models/evaluate.py: gamma fit on each doc's even token slots, the
+    odd slots scored).  Over the TRAINING day this is a drift-monitoring
+    number comparable across days, optimistic against a true held-out
+    split (--eval-holdout).  A resumed run whose lda stage was skipped
+    reads the corpus from model.dat."""
+    import math
+
+    from ..models.evaluate import held_out_per_token_ll
+
+    if corpus is None:
+        corpus = Corpus.from_model_dat(ctx.path("model.dat"),
+                                       ctx.path("words.dat"),
+                                       ctx.path("doc.dat"))
+    score = held_out_per_token_ll(
+        log_beta, alpha, make_batches(corpus, ctx.config.lda.batch_size),
+        device=ctx.device)
+    return {"completion_per_token_ll": score,
+            "completion_perplexity": math.exp(-score)}
 
 
 def stage_score(ctx: RunContext) -> dict:
     """Scoring -> <dsource>_results.csv, by the resolved engine: the
     float64 host engine, or the device pipeline in chunks of
     pipeline.DEFAULT_CHUNK events, which records `score_dispatch` (also
-    journaled as a `dispatch` record)."""
+    journaled as a `dispatch` record).  With the dataplane the event
+    indices come from the prep that ran during EM (`prep`: "overlapped")
+    and the results CSV is written in the background."""
     spec = sources.get(ctx.dsource)
     if ctx.features is not None:
         features, feat_src = ctx.features, "handoff"
@@ -510,21 +812,31 @@ def stage_score(ctx: RunContext) -> dict:
                                         ctx.path("word_results.csv"),
                                         fallback)
         model_src = "file"
+    prep = None
+    if ctx.score_prep is not None:
+        # A long join here means the overlap did not hide the prep.
+        with maybe_span("dataplane.prep_join"):
+            prep = ctx.score_prep.result()
+        ctx.score_prep = None
     engine = _score_engine(sc.engine)
     stats = DispatchStats() if engine == "device" else None
     blob, scores = spec.score_csv(features, model, sc.threshold,
                                   engine=engine, stats=stats,
-                                  device=ctx.device)
-
-    def write(tmp):
-        with open(tmp, "wb") as f:
-            f.write(blob)
-
-    _write_atomic(ctx.path(ctx.results_name()), write)
+                                  device=ctx.device, prep=prep)
+    res_path = ctx.path(ctx.results_name())
+    if ctx.plane is not None:
+        # A product, not a checkpoint: written in the background, never
+        # skipped.
+        ctx.plane.output("results_csv",
+                         lambda: atomic_write_bytes(res_path, blob),
+                         stage=Stage.SCORE.value)
+    else:
+        atomic_write_bytes(res_path, blob)
     out = {"scored_events": features.num_raw_events,
            "flagged": int(len(scores)),
            "min_score": float(scores[0]) if len(scores) else None,
-           "features": feat_src, "model": model_src, "engine": engine}
+           "features": feat_src, "model": model_src, "engine": engine,
+           "prep": "overlapped" if prep is not None else "inline"}
     if stats is not None:
         out["score_dispatch"] = stats.as_record()
         if ctx.journal is not None:
@@ -546,12 +858,14 @@ def _run_stage(ctx: RunContext, stage: Stage, force: bool) -> None:
     that dies mid-stage leaves the stage not done, and no later stage
     skips on outputs of an older run.  So is the EM checkpoint when the
     corpus is remade or a fresh fit is forced: only an lda stage rerun
-    on the same corpus resumes from it."""
+    on the same corpus resumes from it.  A stage whose file inputs are
+    missing fails before it removes anything (_require_inputs)."""
     if ctx.heartbeat is not None:
         # Fail cleanly at the stage boundary once the device is gone
         # (before touching any output): entering the stage would hang in
         # its first device call.
         ctx.heartbeat.check()
+    _require_inputs(ctx, stage)
     stale = [name for later in STAGE_ORDER[STAGE_ORDER.index(stage):]
              for name in ctx.outputs(later)]
     if stage in (Stage.PRE, Stage.CORPUS) or (stage is Stage.LDA and force):
@@ -586,11 +900,53 @@ def _run_stages(ctx: RunContext, wanted, force: bool) -> None:
             continue
         done = _stage_done(ctx, stage)
         if done and not force:
-            ctx.record({"stage": stage.value, "skipped": done})
+            record = {"stage": stage.value, "skipped": done}
+            if stage is Stage.LDA and ctx.eval_quality:
+                # The score needs only the saved model: a resumed run
+                # still gets its day-quality number.
+                record.update(_completion_score(
+                    ctx, formats.read_beta(ctx.path("final.beta")),
+                    formats.read_other(ctx.path("final.other"))["alpha"]))
+            ctx.record(record)
             if ctx.journal is not None:
                 ctx.journal.stage_skipped(stage.value, done)
             continue
         _run_stage(ctx, stage, force)
+
+
+def _check_modes(dp: DataplaneConfig, stages, online: bool,
+                 eval_quality: bool, eval_holdout: float) -> None:
+    """The JAX runner's refusals of flag combinations, its messages."""
+    if online and eval_holdout:
+        raise ValueError("--eval-holdout is batch-mode only")
+    if eval_quality and eval_holdout:
+        # Together they would score the full corpus under a beta trained
+        # on the remainder: neither flag's number.
+        raise ValueError(
+            "--eval-quality and --eval-holdout are mutually exclusive: "
+            "use --eval-quality for drift monitoring (full-day training "
+            "and scoring) or --eval-holdout for a true held-out score"
+        )
+    if not dp.checkpoints:
+        # Checkpoints off is the pure-streaming mode: only a full
+        # in-process batch chain is coherent without the file contract.
+        if not dp.enabled:
+            raise ValueError(
+                "--no-checkpoints requires the streaming dataplane "
+                "(drop --no-dataplane)"
+            )
+        if stages is not None:
+            raise ValueError(
+                "--no-checkpoints cannot run a --stages subset: without "
+                "the file contract there is nothing for a partial run "
+                "to read or resume from"
+            )
+        if online or eval_holdout:
+            raise ValueError(
+                "--no-checkpoints supports the plain batch pipeline "
+                "only (the online/holdout trainers own their file "
+                "contracts)"
+            )
 
 
 def run_pipeline(
@@ -602,57 +958,144 @@ def run_pipeline(
     stages: "list[Stage] | None" = None,
     initial_log_beta: "np.ndarray | None" = None,
     emit=print,
+    online: bool = False,
+    publish: "str | None" = None,
+    eval_quality: bool = False,
+    eval_holdout: float = 0.0,
 ) -> DayRun:
     """Run (or resume) one day.  Stages whose outputs exist are skipped
     unless `force`; `stages` restricts the run to a subset (run in
     pipeline order).  The records also go to metrics.json in the day
     directory, and every stage to run_journal.jsonl there unless
-    config.telemetry.journal is off."""
+    config.telemetry.journal is off.  `online` trains by streaming SVI
+    (config.online_lda); `eval_quality` / `eval_holdout` add the lda
+    stage's quality numbers; `publish` copies the finished day directory
+    to that destination (publish_day).  config.dataplane runs the
+    streaming dataplane (the default) or the serial path; a background
+    write that failed fails the run (RuntimeError naming it) after every
+    other write has been joined."""
     if dsource not in sources.names():
         raise ValueError(f"dsource must be one of "
                          f"{'|'.join(sources.names())}, got {dsource!r}")
+    dp = config.dataplane
+    _check_modes(dp, stages, online, eval_quality, eval_holdout)
     dev = resolve_device(device)
     ctx = RunContext(config, fdate, dsource,
                      formats.ensure_dir(config.day_dir(fdate)), dev,
-                     initial_log_beta, emit)
+                     initial_log_beta, emit, online=online,
+                     eval_quality=eval_quality, eval_holdout=eval_holdout)
     wanted = stages or STAGE_ORDER
+    ctx.wanted = list(wanted)
     tel = config.telemetry
     if tel.journal:
         jpath = ctx.path("run_journal.jsonl")
-        prior_done = RunJournal.completed_stages(Journal.replay(jpath))
+        replayed = Journal.replay(jpath)
+        prior_done = RunJournal.completed_stages(replayed)
+        ctx.prior_no_checkpoints = any(
+            r.get("kind") == "run_start" and r.get("checkpoints") is False
+            for r in replayed)
         ctx.journal = RunJournal(
             Journal(jpath, fsync_every=tel.journal_fsync_every))
         ctx.journal_done = set() if force else prior_done
         ctx.journal.run_start(force=force, fdate=fdate, dsource=dsource,
                               stages=[Stage(s).value for s in wanted],
-                              journal_done=sorted(prior_done))
+                              journal_done=sorted(prior_done),
+                              checkpoints=dp.checkpoints)
         ctx.recorder = Recorder(journal=ctx.journal.journal)
     if tel.heartbeat_s > 0:
         ctx.heartbeat = HeartbeatMonitor(
             interval_s=tel.heartbeat_s, journal=ctx.journal,
             probe=lambda t: device_add_probe(t, device=dev),
             recorder=ctx.recorder).start()
+    if dp.enabled:
+        ctx.plane = Dataplane(
+            dp, recorder=ctx.recorder,
+            journal=ctx.journal.journal if ctx.journal is not None else None)
     roofline0 = roofline.emit_count()
     ok = False
+    run_err: "BaseException | None" = None
+    plane_record = None
+    background_errs: list = []
     try:
         with (use_recorder(ctx.recorder) if ctx.recorder is not None
               else contextlib.nullcontext()):
             _run_stages(ctx, wanted, force)
         ok = True
+    except BaseException as e:
+        run_err = e
+        raise
     finally:
+        if ctx.plane is not None:
+            # Every background write and task joins before the day
+            # directory is handed on, on a failing run too.
+            plane_record = ctx.plane.drain()
+            background_errs = ctx.plane.errors
         if ctx.heartbeat is not None:
             ctx.heartbeat.stop()
         if ctx.journal is not None:
-            ctx.journal.run_end(ok=ok)
+            err = run_err if run_err is not None else (
+                background_errs[0][1] if background_errs else None)
+            ctx.journal.run_end(
+                ok=ok and not background_errs,
+                **({} if err is None else {"error": repr(err)[:300]}))
             ctx.journal.close()
+    if background_errs:
+        name, first = background_errs[0]
+        raise RuntimeError(
+            f"dataplane background write/task {name!r} failed") from first
+    if not dp.checkpoints and os.path.exists(ctx.path(SPILL)):
+        # The featurizer's scratch: only this run's score stage read it.
+        os.unlink(ctx.path(SPILL))
     records = roofline.emitted_records(since=roofline0)
     if records:
         # Into metrics.json only (stdout keeps one line per stage).
         ctx.metrics.append({"fdate": fdate, "dsource": dsource,
                             "stage": "roofline", "records": records})
-    with open(ctx.path("metrics.json"), "w") as f:
-        json.dump(ctx.metrics, f, indent=1)
+    if plane_record is not None and (plane_record["tasks"]
+                                     or plane_record["edges"]):
+        # Each background task's wall by stage, each channel's stalls
+        # (metrics.json only, as the roofline).
+        ctx.metrics.append({"fdate": fdate, "dsource": dsource,
+                            "stage": "dataplane", **plane_record})
+
+    def dump_metrics():
+        with open(ctx.path("metrics.json"), "w") as f:
+            json.dump(ctx.metrics, f, indent=1)
+
+    # metrics.json lands before the publish, so the delivered day carries
+    # it and a failed delivery cannot lose it.
+    dump_metrics()
+    if publish:
+        t0 = time.perf_counter()
+        info = publish_day(ctx.day_dir, publish)
+        ctx.record({"stage": "publish",
+                    "wall_s": time.perf_counter() - t0, **info})
+        dump_metrics()
     return DayRun(ctx.metrics, ctx.features, ctx.corpus, ctx.result)
+
+
+def publish_day(day_dir: str, dest: str) -> dict:
+    """Deliver the finished day directory to the analysts' side: the
+    reference's final `scp -r ${LPATH} ${UINODE}:${RPATH}`.  `dest` is a
+    local or mounted directory (copied with shutil, over an earlier
+    delivery) or an scp-style `host:path`; a failed scp raises with its
+    stderr."""
+    name = os.path.basename(os.path.normpath(day_dir))
+    if ":" in dest.split(os.sep, 1)[0]:
+        import subprocess
+
+        proc = subprocess.run(["scp", "-r", day_dir, dest],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"publish to {dest} failed (rc={proc.returncode}): "
+                f"{proc.stderr.strip()[-500:]}")
+        return {"published": f"{dest}/{name}", "transport": "scp"}
+    import shutil
+
+    target = os.path.join(dest, name)
+    shutil.copytree(day_dir, target, dirs_exist_ok=True)
+    return {"published": target, "transport": "copy"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -721,6 +1164,48 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace of the whole run "
                    "(CPU and, on the card, CUDA activity) to "
                    "DIR/<fdate>.<dsource>.trace.json (Chrome trace JSON)")
+    p.add_argument("--eval-quality", action="store_true",
+                   help="score the day's model by document completion "
+                   "(per-token log-likelihood / perplexity on each doc's "
+                   "odd token slots; models/evaluate.py) and record it in "
+                   "the lda stage metrics — a drift-monitoring number "
+                   "comparable across days, optimistic vs a true held-out "
+                   "split")
+    p.add_argument("--eval-holdout", type=float, default=0.0,
+                   metavar="FRAC",
+                   help="hash-split FRAC of documents out BEFORE training, "
+                   "train beta on the remainder, and record the held-out "
+                   "per-token log-likelihood of the excluded split in the "
+                   "lda stage metrics.  doc_results.csv still covers every "
+                   "document (held-out docs get their theta inferred under "
+                   "the trained beta).  Batch mode only; mutually exclusive "
+                   "with --eval-quality")
+    p.add_argument("--online", action="store_true",
+                   help="streaming (stochastic variational) LDA instead of "
+                   "batch EM")
+    p.add_argument("--eta", type=float, default=0.01,
+                   help="online: topic-word Dirichlet prior")
+    p.add_argument("--tau0", type=float, default=64.0,
+                   help="online: learning-rate delay")
+    p.add_argument("--kappa", type=float, default=0.7,
+                   help="online: learning-rate decay exponent")
+    p.add_argument("--publish", default=None, metavar="DEST",
+                   help="after all stages complete, deliver the day "
+                   "directory to DEST: a local/NFS path (copied) or an "
+                   "scp-style host:path — the reference's final scp to "
+                   "the UI node")
+    p.add_argument("--no-dataplane", action="store_true",
+                   help="disable the streaming dataplane (dataplane/): "
+                   "every stage writes its artifacts inline.  Artifacts are "
+                   "byte-identical either way; the dataplane only changes "
+                   "when files land and what the stages read")
+    p.add_argument("--no-checkpoints", action="store_true",
+                   help="skip the inter-stage checkpoint files entirely "
+                   "(features.pkl, word_counts.dat, words/doc/model.dat, "
+                   "final.*, likelihood.dat, doc/word_results.csv): the run "
+                   "writes only its products (results CSV, metrics.json, "
+                   "run_journal.jsonl), and a later --stages resume against "
+                   "such a day is refused.  Full-chain batch runs only")
     return p
 
 
@@ -768,6 +1253,11 @@ def main(argv=None) -> int:
             seed=args.seed, warm_start_gamma=args.warm_start,
             checkpoint_every=args.checkpoint_every,
         ),
+        online_lda=OnlineLDAConfig(
+            num_topics=args.topics, alpha=args.alpha, eta=args.eta,
+            tau0=args.tau0, kappa=args.kappa, batch_size=args.batch_size,
+            seed=args.seed, checkpoint_every=args.checkpoint_every,
+        ),
         feedback=FeedbackConfig(
             dup_factor=(args.dup_factor if args.dup_factor is not None
                         else int(env.get("DUPFACTOR", 1000)))
@@ -775,13 +1265,18 @@ def main(argv=None) -> int:
         scoring=ScoringConfig(threshold=args.tol),
         telemetry=TelemetryConfig(journal=not args.no_journal,
                                   heartbeat_s=args.heartbeat),
+        dataplane=DataplaneConfig(enabled=not args.no_dataplane,
+                                  checkpoints=not args.no_checkpoints),
     )
     try:
         with _profiled(args.profile, args.device,
                        f"{args.fdate}.{args.dsource}.trace.json"):
             run_pipeline(config, args.fdate, args.dsource,
                          device=args.device, force=args.force,
-                         stages=stages)
+                         stages=stages, online=args.online,
+                         publish=args.publish,
+                         eval_quality=args.eval_quality,
+                         eval_holdout=args.eval_holdout)
     except BackendLost as e:
         # The heartbeat's point: a dead device exits as a structured,
         # journaled failure, not a hang.

@@ -239,19 +239,37 @@ def scored_events(model: ScoringModel, pairs, threshold: float,
     return order, full, key[order]
 
 
+def prep_indices(prep, features, model: ScoringModel, dsource: str):
+    """The event index arrays: a dataplane ScoringPrep's when one is
+    given (checked against this day and this model's index spaces: a
+    mismatch is a bug and raises), else the container's
+    `event_indices` resolved here (features/container.py: a native one
+    once per unique IP and word, then a gather by event id)."""
+    if prep is None:
+        return features.event_indices(model.ip_index, model.word_index)
+    if prep.dsource != dsource:
+        raise ValueError(f"scoring prep is for dsource {prep.dsource!r}, "
+                         f"scoring {dsource!r}")
+    if prep.num_raw_events != features.num_raw_events:
+        raise ValueError(
+            f"scoring prep covers {prep.num_raw_events} raw events, "
+            f"features carry {features.num_raw_events}")
+    prep.check_model(model)
+    return prep.indices
+
+
 def score_flow_csv(features: FlowFeatures, model: ScoringModel,
                    threshold: float, engine: "str | None" = None,
                    chunk: "int | None" = None, stats=None, device=None,
-                   ) -> "tuple[bytes, np.ndarray]":
+                   prep=None) -> "tuple[bytes, np.ndarray]":
     """Flow scoring -> (flow_results.csv's bytes, the kept events' min
     scores ascending).  Each row is the 35 featurized columns +
     src_score + dest_score; only raw events are scored (feedback
     duplicates train but are never emitted).  engine/chunk/stats/device
-    select and instrument the device pipeline (scored_events)."""
-    # The container resolves the model rows (features/container.py): a
-    # native one once per unique IP and word, then a gather by event id.
-    sip_idx, sw_idx, dip_idx, dw_idx = features.event_indices(
-        model.ip_index, model.word_index)
+    select and instrument the device pipeline (scored_events); `prep`
+    is the dataplane's ScoringPrep (prep_indices)."""
+    sip_idx, sw_idx, dip_idx, dw_idx = prep_indices(prep, features, model,
+                                                    "flow")
     order, (src_scores, dest_scores), kept = scored_events(
         model, [(sip_idx, sw_idx), (dip_idx, dw_idx)], threshold, engine,
         chunk, stats, device)
@@ -260,11 +278,10 @@ def score_flow_csv(features: FlowFeatures, model: ScoringModel,
 
 def _dns_scored(features: DnsFeatures, model: ScoringModel,
                 threshold: float, engine=None, chunk=None, stats=None,
-                device=None):
+                device=None, prep=None):
     """-> (order: the raw events under threshold, ascending; their score
     array; their scores ascending)."""
-    ip_idx, word_idx = features.event_indices(model.ip_index,
-                                              model.word_index)
+    ip_idx, word_idx = prep_indices(prep, features, model, "dns")
     return scored_events(model, [(ip_idx, word_idx)], threshold, engine,
                          chunk, stats, device)
 
@@ -272,11 +289,11 @@ def _dns_scored(features: DnsFeatures, model: ScoringModel,
 def score_dns_csv(features: DnsFeatures, model: ScoringModel,
                   threshold: float, engine: "str | None" = None,
                   chunk: "int | None" = None, stats=None, device=None,
-                  ) -> "tuple[bytes, np.ndarray]":
+                  prep=None) -> "tuple[bytes, np.ndarray]":
     """DNS scoring as one CSV buffer for dns_results.csv: each row the
     15 featurized columns + score (see score_flow_csv)."""
     order, (scores,), kept = _dns_scored(features, model, threshold, engine,
-                                         chunk, stats, device)
+                                         chunk, stats, device, prep)
     return features.results_csv(scores, order), kept
 
 

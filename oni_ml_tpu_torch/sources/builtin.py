@@ -82,11 +82,12 @@ class FlowSource(SourceSpec):
         return hasattr(features, "ibyt_cuts")
 
     def score_csv(self, features, model, threshold, engine=None,
-                  chunk=None, stats=None, device=None):
+                  chunk=None, stats=None, device=None, prep=None):
         from ..scoring.score import score_flow_csv
 
         return score_flow_csv(features, model, threshold, engine=engine,
-                              chunk=chunk, stats=stats, device=device)
+                              chunk=chunk, stats=stats, device=device,
+                              prep=prep)
 
     def synth_benign(self, n_events: int, seed: int) -> "list[str]":
         """Office-hours netflow to a small service mix.  Packet/byte
@@ -174,11 +175,12 @@ class DnsSource(SourceSpec):
         return hasattr(features, "entropy_cuts")
 
     def score_csv(self, features, model, threshold, engine=None,
-                  chunk=None, stats=None, device=None):
+                  chunk=None, stats=None, device=None, prep=None):
         from ..scoring.score import score_dns_csv
 
         return score_dns_csv(features, model, threshold, engine=engine,
-                             chunk=chunk, stats=stats, device=device)
+                             chunk=chunk, stats=stats, device=device,
+                             prep=prep)
 
     def top_domains(self, config) -> frozenset:
         if not config.top_domains_path:

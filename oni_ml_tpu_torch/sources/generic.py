@@ -22,7 +22,7 @@ Field kinds:
 Cut strategies are the reference's ECDF deciles/quintiles
 (features/quantiles.py).  Not ported yet: the serving featurizer
 (`GenericEventFeaturizer`, `event_featurizer`, `event_time_s`,
-`event_pairs`) and the dataplane's `GenericFeatures.word_count_columns`.
+`event_pairs`).
 """
 
 from __future__ import annotations
@@ -110,6 +110,15 @@ class GenericFeatures(PythonContainer):
             k = (row[c], self.word[i])
             agg[k] = agg.get(k, 0) + 1
         return [(ip, w, n) for (ip, w), n in agg.items()]
+
+    def event_indices(self, ip_index: dict, word_index: dict):
+        """(document row, word row) per raw event, int32; misses get the
+        fallback row (len of the index)."""
+        n = self.num_raw_events
+        c = self.doc_col
+        return (index_rows(ip_index, [r[c] for r in self.rows[:n]],
+                           len(ip_index)),
+                index_rows(word_index, self.word[:n], len(word_index)))
 
     def featurized_row(self, i: int) -> "list[str]":
         """Original columns + per-field bins + the word — the pre-score
@@ -269,19 +278,15 @@ class TableSourceSpec(SourceSpec):
         return getattr(features, "source_name", None) == self.name
 
     def score_csv(self, features, model, threshold, engine=None,
-                  chunk=None, stats=None, device=None):
+                  chunk=None, stats=None, device=None, prep=None):
         """(results CSV bytes, ascending kept scores): one <theta_doc,
         p_word> per raw event, each kept row the source columns, the
         field bins, the word and the score; engine="device" runs the
-        pipeline's filtered_scores (scoring.score.scored_events)."""
-        from ..scoring.score import scored_events
+        pipeline's filtered_scores (scoring.score.scored_events); `prep`
+        is the dataplane's ScoringPrep (scoring.score.prep_indices)."""
+        from ..scoring.score import prep_indices, scored_events
 
-        n = features.num_raw_events
-        c = features.doc_col
-        ip_idx = index_rows(model.ip_index, [r[c] for r in features.rows[:n]],
-                            len(model.ip_index))
-        word_idx = index_rows(model.word_index, features.word[:n],
-                              len(model.word_index))
+        ip_idx, word_idx = prep_indices(prep, features, model, self.name)
         order, (scores,), kept = scored_events(
             model, [(ip_idx, word_idx)], threshold, engine, chunk, stats,
             device)

@@ -74,12 +74,13 @@ class SourceSpec:
     # -- scoring ----------------------------------------------------------
 
     def score_csv(self, features, model, threshold: float, engine=None,
-                  chunk=None, stats=None,
-                  device=None) -> "tuple[bytes, np.ndarray]":
+                  chunk=None, stats=None, device=None,
+                  prep=None) -> "tuple[bytes, np.ndarray]":
         """The score stage: (results CSV bytes, ascending kept scores).
         `engine` picks the host or device scorer (scoring.score
         scored_events); `chunk`, `stats` and `device` drive and
-        instrument the device pipeline."""
+        instrument the device pipeline; `prep` is the dataplane's
+        ScoringPrep of the day (scoring.score.prep_indices)."""
         raise NotImplementedError
 
     def fallback(self, scoring_cfg) -> float:

@@ -601,3 +601,128 @@ def test_cuda_scatter_on_spread_and_empty_batches(cuda, v):
         cpu = tsparse.scatter_live(phic.cpu(), tsparse.live_tokens(
             tw.cpu(), tc.cpu()), v)
         assert torch.equal(got.cpu(), cpu)
+
+
+# ---------------------------------------------------------------------------
+# Online SVI and the dataplane day on the card
+# ---------------------------------------------------------------------------
+
+
+def _random_corpus(seed, docs=300, v=200):
+    """A corpus of `docs` documents of 5-60 distinct words out of `v`."""
+    from oni_ml_tpu_torch.io import Corpus
+
+    rng = np.random.default_rng(seed)
+    ptr, widx, cnts = [0], [], []
+    for _ in range(docs):
+        n = int(rng.integers(5, 61))
+        widx.extend(rng.choice(v, size=n, replace=False).tolist())
+        cnts.extend(rng.integers(1, 6, size=n).tolist())
+        ptr.append(len(widx))
+    return Corpus([f"d{i}" for i in range(docs)], [f"w{i}" for i in range(v)],
+                  np.asarray(ptr, np.int64), np.asarray(widx, np.int32),
+                  np.asarray(cnts, np.int32))
+
+
+# dense_em, ONI_ML_TPU_ESTEP -> the member and the kernels its micro-batch
+# steps launch; the final inference pass runs the per-batch E-step.
+ONLINE_PATHS = {"dense": ("auto", None, "dense"),
+                "sparse": ("off", None, "per_batch:sparse"),
+                "fixed_point": ("off", "pallas", "per_batch:pallas")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(ONLINE_PATHS))
+def test_cuda_online_paths_launch_their_kernels(cuda, path, monkeypatch):
+    """train_corpus_online on the card through each micro-batch E-step:
+    every step launches its kernel (dense, sparse or fixed point, the
+    per-batch ones with the [V, K] scatter), the inference pass its
+    per-batch kernel once per batch; the per-step likelihoods and final
+    lambda agree with the CPU's plain versions to 1e-4 relative."""
+    from dataclasses import replace
+
+    from oni_ml_tpu_torch.config import OnlineLDAConfig
+    from oni_ml_tpu_torch.models import online_lda
+    from oni_ml_tpu_torch.runner.ml_ops import launch_counts, reset_kernel_counts
+
+    dense_em, env, member = ONLINE_PATHS[path]
+    if env:
+        monkeypatch.setenv("ONI_ML_TPU_ESTEP", env)
+    corpus = _random_corpus(3)
+    cfg = OnlineLDAConfig(num_topics=20, batch_size=64, dense_em=dense_em,
+                          seed=1)
+    runs = {}
+    for dev in ("cpu", cuda):
+        reset_kernel_counts()
+        lls = []
+        # On the CPU "auto" is the per-batch path: force the dense one.
+        res = online_lda.train_corpus_online(
+            corpus, replace(cfg, dense_em="on") if dev == "cpu" and
+            member == "dense" else cfg, device=dev,
+            progress=lambda info: lls.append(float(info.likelihood)))
+        runs[str(dev)] = (res, lls, launch_counts())
+    res, lls, launches = runs["cuda"]
+    cpu_res, cpu_lls, cpu_launches = runs["cpu"]
+    assert res.stats["member"] == member
+    assert cpu_launches == {k: 0 for k in cpu_launches}
+    steps, nb = res.em_iters, res.stats["batches"]
+    infer = "fixed_point_estep" if env == "pallas" else "sparse_estep"
+    want = {k: 0 for k in launches}
+    want[infer] += nb
+    want["sparse_scatter"] += nb
+    if member == "dense":
+        want["dense_estep"] += steps
+    else:
+        want[infer] += steps
+        want["sparse_scatter"] += steps
+    assert launches == want
+    np.testing.assert_allclose(lls, cpu_lls, rtol=1e-4)
+    np.testing.assert_allclose(np.exp(res.log_beta), np.exp(cpu_res.log_beta),
+                               rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_cuda_held_out_ll_matches_cpu(cuda):
+    from oni_ml_tpu_torch.io import make_batches
+    from oni_ml_tpu_torch.models.evaluate import held_out_per_token_ll
+
+    corpus = _random_corpus(5)
+    rng = np.random.default_rng(2)
+    log_beta = np.log(rng.dirichlet(np.full(200, 0.3), size=20))
+    batches = make_batches(corpus, 128, 16)
+    got = held_out_per_token_ll(log_beta, 2.5, batches, device=cuda)
+    want = held_out_per_token_ll(log_beta, 2.5, batches, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_dataplane_day_is_the_serial_day(cuda, tmp_path, monkeypatch):
+    """A small flow day on the card, sparse engine pinned: the dataplane
+    day writes the --no-dataplane day's bytes, and --no-checkpoints its
+    results CSV alone."""
+    from oni_ml_tpu_torch.config import (DataplaneConfig, LDAConfig,
+                                         PipelineConfig, ScoringConfig)
+    from oni_ml_tpu_torch.runner import ml_ops
+    from oni_ml_tpu_torch.synth import write_flow_day
+
+    monkeypatch.setenv("ONI_ML_TPU_ESTEP", "sparse")
+    raw = tmp_path / "flow.csv"
+    with open(raw, "w") as f:
+        write_flow_day(f, 5000, n_src=200, n_dst=50, seed=5)
+    days = {}
+    for label, dp in (("plane", {}), ("serial", {"enabled": False}),
+                      ("products", {"checkpoints": False})):
+        ml_ops.run_pipeline(PipelineConfig(
+            data_dir=str(tmp_path / label), flow_path=str(raw),
+            lda=LDAConfig(em_max_iters=5), scoring=ScoringConfig(threshold=1.1),
+            dataplane=DataplaneConfig(**dp)), "20160122", "flow",
+            device=cuda, emit=lambda *a, **k: None)
+        days[label] = tmp_path / label / "20160122"
+    for name in ml_ops.artifacts("flow"):
+        if name != "features.pkl":
+            assert (days["plane"] / name).read_bytes() == \
+                (days["serial"] / name).read_bytes(), name
+    assert sorted(p.name for p in days["products"].iterdir()) == [
+        "flow_results.csv", "metrics.json", "run_journal.jsonl"]
+    assert (days["products"] / "flow_results.csv").read_bytes() == \
+        (days["plane"] / "flow_results.csv").read_bytes()

@@ -602,14 +602,18 @@ def test_runner_native_matches_python(tmp_path, capsys, monkeypatch,
     assert pre["pre_engine"] == "native"
     assert pre["pre_workers_source"] == "default"
     assert pre["pre_workers"] == max(1, os.cpu_count() or 1)
-    for key in ("parse_s", "cuts_s", "word_build_s", "merge_s",
-                "wc_emit_s", "pickle_s"):
+    for key in ("parse_s", "cuts_s", "word_build_s", "merge_s"):
         assert pre[key] >= 0, key
+    # The dataplane (the default) writes both pre files in the background.
+    assert pre["pickle"] == pre["wc_write"] == "background"
     assert recs["corpus"]["handoff"] == "direct"
     monkeypatch.setenv("ONI_ML_TPU_NO_NATIVE", "1")
-    rc, precs, _ = _run(_day_argv(dsource, tmp_path / "py"), capsys)
+    rc, precs, _ = _run(_day_argv(dsource, tmp_path / "py",
+                                  "--no-dataplane"), capsys)
     assert rc == 0
     assert precs["pre"]["pre_engine"] == "python"
+    for key in ("wc_emit_s", "pickle_s"):
+        assert precs["pre"][key] >= 0, key
     nat, py = tmp_path / "nat" / FDATE, tmp_path / "py" / FDATE
     assert (nat / ml_ops.SPILL).exists() and not (py / ml_ops.SPILL).exists()
     names = sorted(n for n in os.listdir(nat) if n not in NOT_PINNED)
