@@ -110,6 +110,27 @@ Phases (any failure exits non-zero before the result line):
              on the card and on the CPU: completion and held-out
              per-token likelihoods within RTOL_E2E; the card's quality run
              with --publish DIR: DIR/<fdate> holds the day's bytes.
+   serve     `ml_ops serve` over the 2M flow and DNS days' models, each
+             streamed 196,608 raw events of its own input: refresh off,
+             the first 32,768 with every flush on the host (bit-equal to
+             the day's own scores over features.pkl) and with every flush
+             on the card (rel 1e-6); then all of them at the ServingConfig
+             defaults (calibrated dispatch) with a refresh every 8
+             flushes, in process (the kernels' counts zeroed just before,
+             read just after: the dense kernel, the sparse kernel and the
+             scatter once each per refresh) and through the CLI as a
+             subprocess (exit 0, every event scored once, >= 2 model
+             versions served, an OpenMetrics file): the calibration,
+             events/s, flush latency p50/p99 by path, refresh walls.  On
+             the flow day, 9 flushes served with the refresh trainer's
+             dense_em off, once on the sparse kernel and once under
+             ONI_ML_TPU_ESTEP=pallas (counts zeroed and read around
+             each).  On each day, the stream's first 8 flushes of
+             evidence through one refresh on the card and on the CPU per
+             member (dense, and the per-batch sparse and fixed point): p
+             and theta within rel 1e-4 of the CPU's on every nonzero
+             entry, their median entry moved from the day's by more,
+             each member's launches.  `serve --dry-run` on cuda.
 7. profile   20 EM iterations over the flow day's corpus four ways (sparse
              engine under the chunk driver, sparse under the stepwise
              driver, dense and per-batch pallas under the chunk driver):
@@ -123,8 +144,9 @@ Phases (any failure exits non-zero before the result line):
              day's batches against index_add_.
 
 Then it prints the kernels line (each kernel with its launches on its
-flow-day path, as `dns_launches` on the DNS day's and as
-`online_launches` on its online run's), the card's name
+flow-day path, as `dns_launches` on the DNS day's, as
+`online_launches` on its online run's and as `launches_serve` on the
+served streams'), the card's name
 and power limit, and last `{"ok": true, "device": {...}}`.  Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
 """
@@ -1665,6 +1687,430 @@ def evaluate(tmp, raw):
         fail(f"eval: {rec}")
 
 
+# Serving (`ml_ops serve`): the two 2M days' models, each streamed
+# SERVE_EVENTS raw events of its own input at the ServingConfig defaults.
+# 196,608 events = 48 flushes of max_batch, 6 refreshes.  Cut from
+# 262,144 (64 flushes), whose phase took 97-104 s on the card and
+# brought the whole run to ~520 s; the parity streams (refresh off, host
+# pinned or every flush on the card) take the first 32,768 (8 flushes).
+SERVE_EVENTS = 196_608
+SERVE_REFRESH_EVERY = 8
+SERVE_PARITY_EVENTS = 32_768
+# The per-batch members' served streams: one refresh, then a flush on
+# the refreshed model.
+SERVE_MEMBER_EVENTS = (SERVE_REFRESH_EVERY + 1) * 4096
+# Device-path scores against the host's float64 (score_device's bound).
+RTOL_SERVE_DEVICE = RTOL_SCORE
+# A refresh on the card against the CPU: relative error over every
+# nonzero entry of p and theta.  p's entries are ~1/V, so an absolute
+# bound says nothing of them; the card reads ~1e-6 (float32 summation
+# order), and the published p must move away from the day's p by more
+# than this bound, so a step that did nothing cannot pass.
+RTOL_REFRESH = 1e-4
+# The refresh members: (label, OnlineLDAConfig.dense_em, ONI_ML_TPU_ESTEP,
+# the step's member, the inference pass's member).
+REFRESH_MEMBERS = (("dense", "auto", None, "dense", "per_batch:sparse"),
+                   ("sparse", "off", None, "per_batch:sparse",
+                    "per_batch:sparse"),
+                   ("fixed_point", "off", "pallas", "per_batch:pallas",
+                    "per_batch:pallas"))
+
+
+def serve_events(tmp, dsource, raw):
+    """The day's first SERVE_EVENTS raw events, as a file and as a list:
+    its input's first lines, past the flow day's first line, which the
+    flow pre stage drops as the header whatever it holds (synth.py
+    writes none)."""
+    lines = []
+    with open(raw) as f:
+        if dsource == "flow":
+            f.readline()
+        for line in f:
+            lines.append(line)
+            if len(lines) == SERVE_EVENTS:
+                break
+    path = os.path.join(tmp, f"serve_{dsource}.csv")
+    with open(path, "w") as f:
+        f.writelines(lines)
+    return path, lines
+
+
+def serve_registry(day, dsource):
+    """(registry holding the day's model, the day's serving featurizer,
+    the day's host scores of its first SERVE_EVENTS raw events: the
+    float64 scorer over features.pkl's own rows, min(src, dest) for
+    flow)."""
+    from oni_ml_tpu_torch.config import ScoringConfig
+    from oni_ml_tpu_torch.runner.ml_ops import _PortUnpickler
+    from oni_ml_tpu_torch.scoring.score import _batched_scores
+    from oni_ml_tpu_torch.serving import (ModelRegistry,
+                                          featurizer_from_features)
+    from oni_ml_tpu_torch.sources import get
+
+    reg = ModelRegistry()
+    model = reg.load_day(day, get(dsource).fallback(ScoringConfig())).model
+    with open(os.path.join(day, "features.pkl"), "rb") as f:
+        features = _PortUnpickler(f).load()
+    featurizer = featurizer_from_features(features)
+    idx = features.event_indices(model.ip_index, model.word_index)
+    pairs = [idx[:2], idx[2:]] if dsource == "flow" else [idx]
+    del features
+    day_scores = [_batched_scores(model, ip[:SERVE_EVENTS], w[:SERVE_EVENTS])
+                  for ip, w in pairs]
+    return reg, featurizer, (day_scores[0] if len(day_scores) == 1
+                             else np.minimum(*day_scores))
+
+
+def quantiles(values):
+    if not values:
+        return None
+    return {"p50": float(np.percentile(values, 50)),
+            "p99": float(np.percentile(values, 99)), "flushes": len(values)}
+
+
+def flush_stats(records):
+    """Flush latency p50/p99 by path (host or device flushes) from the
+    flush records, and their error records."""
+    flushes = [r for r in records if "trigger" in r and "error" not in r]
+    errors = [r for r in records if "error" in r or "on_batch_error" in r]
+    return {path: quantiles([r["latency_ms"] for r in flushes
+                             if r["scorer"] == path])
+            for path in ("host", "device")}, flushes, errors
+
+
+def serve_stream_in_process(dsource, reg, featurizer, lines, device_min,
+                            refresh_every=0, dense_em="auto"):
+    """One stream through a BatchScorer on the card, submitted as fast as
+    it takes them, the refresh trainer at `dense_em`: (scores, versions,
+    wall, the flush records, the refresh walls, the scorer)."""
+    from oni_ml_tpu_torch.config import OnlineLDAConfig, ServingConfig
+    from oni_ml_tpu_torch.serving import (BatchScorer, MetricsEmitter,
+                                          RefreshLoop, event_documents)
+
+    cfg = ServingConfig(device_score_min=device_min,
+                        refresh_every=refresh_every)
+    metrics = MetricsEmitter(to_stdout=False, keep_records=1 << 20)
+    refresh = (RefreshLoop(reg, OnlineLDAConfig(
+        num_topics=reg.active().model.num_topics, dense_em=dense_em),
+        every=refresh_every, device="cuda") if refresh_every else None)
+    refresh_s = []
+
+    def on_batch(snapshot, feats, scores):
+        if refresh is not None:
+            new = refresh.observe(snapshot, *event_documents(feats, dsource))
+            if new is not None:
+                refresh_s.append(refresh.last_refresh_s)
+
+    scorer = BatchScorer(reg, featurizer, cfg, metrics=metrics,
+                         on_batch=on_batch, device="cuda")
+    t0 = time.perf_counter()
+    futures = [scorer.submit(line) for line in lines]
+    scorer.close()
+    wall = time.perf_counter() - t0
+    if not all(f.done() for f in futures):
+        fail(f"serve {dsource}: a future never resolved")
+    results = [f.result(timeout=0) for f in futures]
+    scores = np.array([s for s, _ in results])
+    versions = np.array([v for _, v in results])
+    return scores, versions, wall, list(metrics.records), refresh_s, scorer
+
+
+def serve_cli(tmp, dsource, day, events):
+    """The CLI as a user runs it: a subprocess of `ml_ops serve` over the
+    day directory and the events file, refresh every 8 flushes, metrics
+    and OpenMetrics files; its records, wall and exit code."""
+    out = os.path.join(tmp, f"serve_{dsource}")
+    for suffix in (".metrics.jsonl", ".openmetrics.txt"):
+        if os.path.exists(out + suffix):  # the metrics file appends
+            os.remove(out + suffix)
+    cmd = [sys.executable, "-m", "oni_ml_tpu_torch.runner.ml_ops", "serve",
+           "--day-dir", day, "--dsource", dsource, "--input", events,
+           "--refresh-every", str(SERVE_REFRESH_EVERY),
+           "--metrics", out + ".metrics.jsonl",
+           "--openmetrics", out + ".openmetrics.txt"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"serve {dsource} CLI exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    with open(out + ".metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    with open(out + ".openmetrics.txt") as f:
+        om = f.read()
+    if not om.endswith("# EOF\n") or "serve_latency_ms_bucket" not in om:
+        fail(f"serve {dsource} CLI: the OpenMetrics file is not a scrape")
+    return records, wall
+
+
+def member_launches(counts, steps, member, infer):
+    """Fail unless the kernels launched and ran (their own counters)
+    exactly `steps` times per kernel of the step's member and of the
+    inference pass's member."""
+    want = {name: 0 for name in counts[0]}
+    for m in (member, infer):
+        for name in ENGINE_KERNELS[m]:
+            want[name] += steps
+    if counts[0] != want or counts[1] != want:
+        fail(f"{member} / {infer} refresh: launched {counts[0]}, ran "
+             f"{counts[1]}, expected {want}")
+
+
+def serve_day(tmp, dsource, data, raw):
+    """One 2M day served: host parity, device parity, the calibrated
+    stream with refresh in process (its kernel launches), and the CLI."""
+    from oni_ml_tpu_torch.config import ServingConfig
+    from oni_ml_tpu_torch.plans.warmup import warmup_serving
+    from oni_ml_tpu_torch.scoring import dispatch_calibration
+
+    day = os.path.join(data, "20160122")
+    events, lines = serve_events(tmp, dsource, raw)
+    reg, featurizer, day_scores = serve_registry(day, dsource)
+    day_model = reg.active().model
+    n = len(lines)
+    # Refresh off, every flush on the host: the day's own scores, bit
+    # for bit (serving's featurization with the day's cuts builds the
+    # day's words).
+    m = SERVE_PARITY_EVENTS
+    host, _, host_wall, host_recs, _, _ = serve_stream_in_process(
+        dsource, reg, featurizer, lines[:m], None)
+    if not np.array_equal(host, day_scores[:m]):
+        bad = int(np.sum(host != day_scores[:m]))
+        fail(f"serve {dsource}: {bad} host-path scores differ from the "
+             "day's own scores")
+    # Refresh off, every flush on the card, after the warm-up that the
+    # CLI runs at --device-score-min 1 (every power-of-two size to
+    # max_batch).
+    warm = warmup_serving(day_model, ServingConfig.max_batch, 1,
+                          device="cuda")
+    dev, _, dev_wall, dev_recs, _, _ = serve_stream_in_process(
+        dsource, reg, featurizer, lines[:m], 1)
+    dev_rel = float(np.max(np.abs(dev - host) / np.abs(host)))
+    if dev_rel > RTOL_SERVE_DEVICE or not all(
+            r["scorer"] == "device" for r in dev_recs if "trigger" in r):
+        fail(f"serve {dsource}: device-path scores rel {dev_rel:.3e} "
+             f"(> {RTOL_SERVE_DEVICE}) or a flush off the card")
+    # The defaults: calibrated dispatch, refresh every 8 flushes; the
+    # kernels' counts zeroed just before and read just after.
+    cal = dispatch_calibration(device="cuda")
+    reset_kernel_counts()
+    scores, versions, wall, recs, refresh_s, scorer = \
+        serve_stream_in_process(dsource, reg, featurizer, lines, 0,
+                                SERVE_REFRESH_EVERY)
+    counts = (launch_counts(), executed_counts())
+    lat, flushes, errors = flush_stats(recs)
+    served = sorted(set(versions.tolist()))
+    if (errors or scorer.events_scored != n or len(scores) != n
+            or len(served) < 2 or not np.all(np.isfinite(scores))):
+        fail(f"serve {dsource}: events_scored {scorer.events_scored} of {n}, "
+             f"versions {served}, errors {errors[:3]}")
+    # The path's kernels: the refresh step's member (the dense kernel at
+    # dense_em auto) and the inference pass's per-batch kernel and
+    # scatter, once per refresh each.
+    steps = len(refresh_s)
+    member_launches(counts, steps, "dense", "per_batch:sparse")
+    # The CLI: exactly once across its hot-swaps.
+    cli_recs, cli_wall = serve_cli(tmp, dsource, day, events)
+    end = [r for r in cli_recs if r.get("event") == "stream_end"][0]
+    cli_lat, cli_flushes, cli_errors = flush_stats(cli_recs)
+    cli_versions = sorted({r["model_version"] for r in cli_flushes})
+    plans_rec = [r for r in cli_recs if r.get("event") == "plans"][0]
+    cli_refresh = [r["refresh_s"] for r in cli_recs
+                   if r.get("event") == "model_refresh"]
+    if (cli_errors or end["submitted"] != n or end["events_scored"] != n
+            or len(cli_versions) < 2):
+        fail(f"serve {dsource} CLI: {end}, versions {cli_versions}, errors "
+             f"{cli_errors[:3]}")
+    rec = {
+        "dsource": dsource, "events": n,
+        "model": {"ips": len(reg.active().model.ip_index),
+                  "vocab": len(reg.active().model.word_index)},
+        "parity_events": m, "host_bit_equal_to_day": True,
+        "device_max_rel": dev_rel, "calibration": cal,
+        "host_stream": {"wall_s": host_wall, "events_per_s": m / host_wall,
+                        "latency_ms": flush_stats(host_recs)[0]["host"]},
+        "device_stream": {"wall_s": dev_wall, "events_per_s": m / dev_wall,
+                          "latency_ms": flush_stats(dev_recs)[0]["device"],
+                          "warmup": warm},
+        "default_stream": {
+            "wall_s": wall, "events_per_s": n / wall, "latency_ms": lat,
+            "flushes": len(flushes), "versions_served": len(served),
+            "refreshes": steps, "refresh_s": refresh_s,
+            "exactly_once": True, "launches": counts[0]},
+        "cli": {"process_wall_s": cli_wall, "events_per_s": n / cli_wall,
+                "latency_ms": cli_lat, "flushes": len(cli_flushes),
+                "versions_served": cli_versions, "refreshes":
+                len(cli_refresh), "refresh_s": cli_refresh,
+                "calibration_source":
+                    plans_rec.get("dispatch_calibration", {}).get("source"),
+                "warmup": plans_rec["warmup"], "knobs": plans_rec["knobs"],
+                "exit": 0, "exactly_once": True},
+    }
+    log("serve " + json.dumps(rec))
+    return counts[0], featurizer, lines, day_model
+
+
+def serve_members(dsource, featurizer, lines, model):
+    """The per-batch refresh members on the served path: the day's model
+    served its first SERVE_MEMBER_EVENTS events at the defaults, the
+    refresh trainer at dense_em off (so the step takes the per-batch
+    E-step), once with the sparse kernel and once under
+    ONI_ML_TPU_ESTEP=pallas; the kernels' counts zeroed just before each
+    stream and read just after.  Returns the launches summed over both
+    streams."""
+    from oni_ml_tpu_torch.serving import ModelRegistry
+
+    total, out = {}, {}
+    evidence = lines[:SERVE_MEMBER_EVENTS]
+    for label, _, env, member, infer in REFRESH_MEMBERS[1:]:
+        reg = ModelRegistry()
+        reg.publish(model, "day")
+        if env:
+            os.environ["ONI_ML_TPU_ESTEP"] = env
+        try:
+            reset_kernel_counts()
+            scores, versions, wall, recs, refresh_s, scorer = \
+                serve_stream_in_process(dsource, reg, featurizer, evidence,
+                                        0, SERVE_REFRESH_EVERY, "off")
+            counts = (launch_counts(), executed_counts())
+        finally:
+            os.environ.pop("ONI_ML_TPU_ESTEP", None)
+        _, flushes, errors = flush_stats(recs)
+        served = sorted(set(versions.tolist()))
+        if (errors or scorer.events_scored != len(evidence)
+                or len(served) < 2 or not refresh_s
+                or not np.all(np.isfinite(scores))):
+            fail(f"serve {dsource} {label} refresh: events_scored "
+                 f"{scorer.events_scored} of {len(evidence)}, versions "
+                 f"{served}, refreshes {len(refresh_s)}, errors {errors[:3]}")
+        member_launches(counts, len(refresh_s), member, infer)
+        for name, c in counts[0].items():
+            total[name] = total.get(name, 0) + c
+        out[label] = {"wall_s": wall, "events_per_s": len(evidence) / wall,
+                      "flushes": len(flushes), "versions_served": len(served),
+                      "refresh_s": refresh_s, "launches": counts[0]}
+    log("serve_members " + json.dumps({
+        "dsource": dsource, "events": len(evidence), "members": out}))
+    return total
+
+
+def rel_errors(a, b):
+    """|a - b| / |b| over b's nonzero entries; inf where b is zero and a
+    is not."""
+    nz = b != 0
+    if np.any(a[~nz] != 0):
+        return np.array([np.inf])
+    return np.abs(a - b)[nz] / np.abs(b[nz])
+
+
+def refresh_card_vs_cpu(dsource, featurizer, lines, model):
+    """The same accumulated evidence (the stream's first
+    SERVE_REFRESH_EVERY flushes) through a RefreshLoop on the card and on
+    the CPU, once per member: the published p and theta within
+    RTOL_REFRESH of the CPU's on every nonzero entry, the card's p and
+    the theta rows of the evidence's IPs moved from the day's by more
+    than that on the median entry (p has entries near 1e-38, so its
+    largest move says nothing), and each card refresh's launches those
+    of its member."""
+    from oni_ml_tpu_torch.config import OnlineLDAConfig
+    from oni_ml_tpu_torch.serving import (ModelRegistry, RefreshLoop,
+                                          event_documents)
+
+    evidence = lines[:SERVE_REFRESH_EVERY * 4096]
+    feats = featurizer([featurizer.validate(line) for line in evidence])
+    ips, words = event_documents(feats, featurizer.dsource)
+    rows = sorted({model.ip_index[ip] for ip in ips if ip in model.ip_index})
+    out = {}
+    for label, dense_em, env, member, infer in REFRESH_MEMBERS:
+        if env:
+            os.environ["ONI_ML_TPU_ESTEP"] = env
+        try:
+            got = {}
+            for dev in ("cuda", "cpu"):
+                r = ModelRegistry()
+                snap = r.publish(model, "day")
+                loop = RefreshLoop(r, OnlineLDAConfig(
+                    num_topics=model.num_topics, dense_em=dense_em),
+                    every=1, device=dev)
+                if dev == "cuda":
+                    reset_kernel_counts()
+                new = loop.observe(snap, ips, words)
+                if dev == "cuda":
+                    counts = (launch_counts(), executed_counts())
+                got[dev] = (new.model, loop.last_refresh_s)
+        finally:
+            os.environ.pop("ONI_ML_TPU_ESTEP", None)
+        member_launches(counts, 1, member, infer)
+        card, cpu = got["cuda"][0], got["cpu"][0]
+        rel, moved = {}, {}
+        for name in ("p", "theta"):
+            a, b = getattr(card, name), getattr(cpu, name)
+            rel[name] = float(np.max(rel_errors(a, b)))
+            day = getattr(model, name)
+            if name == "theta":
+                a, day = a[rows], day[rows]
+            moved[name] = float(np.median(rel_errors(a, day)))
+            if not rel[name] <= RTOL_REFRESH:
+                fail(f"refresh {dsource} {label}: {name} card vs CPU rel "
+                     f"{rel[name]:.3e} > {RTOL_REFRESH}")
+            if not moved[name] > RTOL_REFRESH:
+                fail(f"refresh {dsource} {label}: {name} moved from the "
+                     f"day's by a median rel {moved[name]:.3e}, not past "
+                     f"{RTOL_REFRESH}")
+        out[label] = {"max_rel": rel, "moved_median_rel": moved,
+                      "card_refresh_s": got["cuda"][1],
+                      "cpu_refresh_s": got["cpu"][1], "launches": counts[0]}
+    log("serve_refresh " + json.dumps({
+        "dsource": dsource, "evidence_events": len(evidence),
+        "pairs": len(ips), "docs": len(set(ips)), "rtol": RTOL_REFRESH,
+        "members": out}))
+
+
+def serve_phase(tmp):
+    """`ml_ops serve` on the card over the two 2M days' models; the flow
+    day's per-batch refresh members served; the refresh card against CPU
+    per member on each day; `serve --dry-run`.  Returns the launches on
+    the served streams per kernel: the default streams' (both days) and
+    the per-batch members'."""
+    import contextlib
+    import io
+
+    from oni_ml_tpu_torch.runner import serve
+
+    t0 = time.perf_counter()
+    total = {}
+    days = []
+    for dsource, data, raw in (
+            ("flow", os.path.join(tmp, "data"),
+             os.path.join(tmp, "flow_day.csv")),
+            ("dns", os.path.join(tmp, "dns_data"),
+             os.path.join(tmp, "dns_day.csv"))):
+        counts, featurizer, lines, model = serve_day(tmp, dsource, data, raw)
+        if dsource == "flow":
+            for name, c in serve_members(dsource, featurizer, lines,
+                                         model).items():
+                counts[name] += c
+        for name, c in counts.items():
+            total[name] = total.get(name, 0) + c
+        days.append((dsource, featurizer, lines, model))
+    for day in days:
+        refresh_card_vs_cpu(*day)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--dry-run"])
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or summary.get("serve_dry_run") != "ok" or (
+            summary.get("device") != "cuda:0" and summary.get("device")
+            != "cuda"):
+        fail(f"serve --dry-run on cuda: rc {rc}, {summary}")
+    log("serve_dry_run " + json.dumps(summary))
+    if any(total[name] <= 0 for name in total):
+        fail(f"serve path: a kernel never launched: {total}")
+    log(f"serve phase: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def check_launches(engine, lda, counts, extra=None):
     """Each kernel of the family member `engine` launched once per batch
     per EM iteration enqueued (those after the device stop included) and
@@ -2173,6 +2619,7 @@ def main() -> int:
         dataplane(tmp, raws, {"flow": flow_engine, "dns": dns_engine})
         online_counts = online(tmp, corpus)
         evaluate(tmp, raws["flow"])
+        serve_counts = serve_phase(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     scatter_rec = profile_em(corpus)
@@ -2201,6 +2648,11 @@ def main() -> int:
             "online_launches": online_counts[
                 {"dense_estep": "dense", "fixed_point_estep":
                  "per_batch:pallas"}.get(kname, "per_batch:sparse")][kname],
+            # On the serve path: the two 2M days' default streams (their
+            # refreshes: the dense step, the inference pass's sparse
+            # kernel and scatter) and, for the fixed point, the refresh
+            # under ONI_ML_TPU_ESTEP=pallas.
+            "launches_serve": serve_counts[kname],
             "max_abs_err": max(errs), "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),

@@ -1,8 +1,8 @@
 """Typed configuration for the port: the fields of the JAX package's
 config that the flow, DNS and proxy days read, with the same defaults
 (oni_ml_tpu/config.py LDAConfig, OnlineLDAConfig, FeedbackConfig,
-ScoringConfig, TelemetryConfig, DataplaneConfig and the single-card part
-of PipelineConfig)."""
+ScoringConfig, TelemetryConfig, DataplaneConfig, the single-model
+fields of ServingConfig and the single-card part of PipelineConfig)."""
 
 from __future__ import annotations
 
@@ -169,6 +169,49 @@ class DataplaneConfig:
     # run_journal.jsonl), and a later `--stages` resume is refused,
     # naming the missing file.  Full-chain batch runs only.
     checkpoints: bool = True
+
+
+@dataclass(frozen=True)
+class ServingConfig:
+    """The streaming scoring service (serving/, `ml_ops serve`): a
+    completed day's model is loaded into a ModelRegistry and a
+    BatchScorer serves arriving events in micro-batches; none of these
+    knobs affect the day job's stages.  The JAX package's fleet and
+    residency fields wait for the fleet's slice."""
+
+    # Flush an accumulating micro-batch when it reaches this many
+    # events...
+    max_batch: int = 4096
+    # ...or when its oldest event has waited this long, whichever first.
+    max_wait_ms: float = 50.0
+    # Host-or-device scoring of a flush.  0 (the default) prices the
+    # choice from the measured dispatch calibration
+    # (scoring.dispatch_calibration): a flush scores on the card only at
+    # or past the measured break-even, and never where the card's
+    # per-event cost does not beat the host's.  A positive int is a hard
+    # threshold (flushes of at least that many events score on the
+    # card); None pins the host.  ONI_ML_TPU_SCORE_BREAK_EVEN pins the
+    # break-even.
+    device_score_min: "int | None" = 0
+    # Backpressure: submit() blocks once this many events are queued.
+    queue_max: int = 1 << 16
+    # Fold every N scored micro-batches into one online-LDA step and
+    # republish theta/p (serving/refresh.py); 0 disables refresh.
+    refresh_every: int = 0
+    # Population size D of the refresh trainer's suff-stats scaling; 0 =
+    # the loaded model's IP count.
+    refresh_total_docs: int = 0
+    # Events scoring under this are emitted as suspicious.
+    threshold: float = 1e-20
+    # Per-flush metrics JSON lines also append here ("" = stdout only).
+    metrics_path: str = ""
+    # OpenMetrics scrape endpoint (telemetry/exporter.MetricsServer,
+    # GET /metrics); 0 = none.  Loopback unless metrics_host says
+    # otherwise.
+    metrics_port: int = 0
+    metrics_host: str = "127.0.0.1"
+    # The same OpenMetrics text written here at stream end ("" = off).
+    openmetrics_path: str = ""
 
 
 @dataclass(frozen=True)

@@ -32,10 +32,13 @@ nothing and caches nothing per shape: each step calls the kernels'
 wrappers directly, whose launch geometry is a pure function of the
 shape.
 
-Left out here, each waiting for its ROADMAP item: the data-parallel mesh
-and the distributed step over ranks (multi-GPU EM) and
-`from_topic_probs` (the continuous service's seed).  A `compute_dtype`
-other than float32 raises (bf16 storage is its own ROADMAP item).
+`from_topic_probs` seeds the stream from a published model's
+p(word|topic) instead of the Gamma draw: the serving refresh loop's
+entry point (serving/refresh.py).
+
+Left out here, waiting for its ROADMAP item: the data-parallel mesh and
+the distributed step over ranks (multi-GPU EM).  A `compute_dtype` other
+than float32 raises (bf16 storage is its own ROADMAP item).
 """
 
 from __future__ import annotations
@@ -260,6 +263,47 @@ class OnlineLDATrainer:
         lam_hat = self.config.eta + (
             self.total_docs / batch_docs) * res.suff_stats.t()
         return (1.0 - rho) * lam + rho * lam_hat
+
+    @classmethod
+    def from_topic_probs(cls, config: OnlineLDAConfig, topic_probs,
+                         total_docs: int, pseudo_tokens: float = 1e4,
+                         num_terms: "int | None" = None,
+                         **kwargs) -> "OnlineLDATrainer":
+        """Seed the stream from an existing model: `topic_probs` is the
+        [V, K] p(word|topic) matrix of word_results.csv (each topic's
+        column sums to 1).  lambda[k, v] = eta + pseudo_tokens * p[v, k],
+        computed in float64 and cast to float32 (the JAX package's
+        lambda, bit for bit), so E_q[beta] ~ p for pseudo_tokens >>
+        eta * V and the first steps refine the day's topics instead of
+        washing them out.
+
+        `num_terms` > V seeds a grown vocabulary: the new words' rows
+        start at the prior eta alone.  Shrinking it is refused (first-
+        seen word ids are stable, so a smaller vocabulary is a mixed id
+        space).  A checkpoint found at `checkpoint_path` (in kwargs)
+        wins over the seed, as in the constructor; `device` and the
+        other kwargs go to the constructor."""
+        p = np.asarray(topic_probs, np.float64)
+        if p.ndim != 2 or p.shape[1] != config.num_topics:
+            raise ValueError(
+                f"topic_probs must be [V, {config.num_topics}], got "
+                f"{p.shape}")
+        if not np.isfinite(p).all() or (p < 0).any():
+            raise ValueError("topic_probs must be finite and nonnegative")
+        if num_terms is None:
+            num_terms = p.shape[0]
+        if num_terms < p.shape[0]:
+            raise ValueError(
+                f"num_terms={num_terms} would SHRINK the vocabulary "
+                f"(topic_probs covers {p.shape[0]} words): word ids are "
+                "first-seen-stable, so pass the grown vocab size or slice "
+                "topic_probs explicitly")
+        if num_terms > p.shape[0]:
+            p = np.concatenate([p, np.zeros((num_terms - p.shape[0],
+                                             config.num_topics))], axis=0)
+        lam = (config.eta + pseudo_tokens * p.T).astype(np.float32)
+        return cls(config, num_terms=num_terms, total_docs=total_docs,
+                   initial_lam=lam, **kwargs)
 
     @property
     def lam(self) -> torch.Tensor:

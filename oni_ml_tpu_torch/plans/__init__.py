@@ -1,8 +1,10 @@
 """Measured execution plans: the persisted plan cache that the engine
-crossover (ops/sparse_estep.engine_crossover) reads and writes (port of
-the store and the lookup/record half of oni_ml_tpu/plans; the JAX
+crossover (ops/sparse_estep.engine_crossover) and the serving dispatch
+calibration (scoring.score.dispatch_calibration) read and write (port
+of the store and the lookup/record half of oni_ml_tpu/plans; the JAX
 package's knob resolution, autotune harness and compilation-cache
-warm-up are not ported).
+warm-up are not ported, and plans/warmup.py holds only the serving
+warm-up).
 
 - `store.PlanStore` — a versioned JSONL store keyed by backend
   fingerprint + shape signature + schema version, at
@@ -10,7 +12,10 @@ warm-up are not ported).
   The port ships no seed plans: the JAX package's were measured on a
   TPU.
 - `lookup_value` / `record_value` — read and append one knob's entry
-  (knobs.KNOBS: only `estep_engine`).
+  (knobs.KNOBS: the engine crossover, the serving dispatch
+  calibration).
+- `note_sweep` / `counters_snapshot` — count the measurement passes
+  (the dispatch calibration's), which serve's `plans` record shows.
 - A value measured through the port's CUDA kernels (the engine
   crossover) is keyed by their build hashes too (`plan_backend`), so a
   plan written with other kernel sources misses and is measured again.
@@ -35,10 +40,25 @@ from .store import SCHEMA_VERSION, NullStore, PlanEntry, PlanStore, default_path
 
 __all__ = [
     "KNOBS", "Knob", "NullStore", "PlanEntry", "PlanStore", "SCHEMA_VERSION",
-    "current_store", "default_path", "default_store", "device_fingerprint",
-    "lookup_value", "plan_backend", "plans_enabled", "record_value",
-    "use_store",
+    "counters", "counters_snapshot", "current_store", "default_path",
+    "default_store", "device_fingerprint", "lookup_value", "note_sweep",
+    "plan_backend", "plans_enabled", "record_value", "use_store",
 ]
+
+
+# Process-wide count of measurement passes (the dispatch calibration's),
+# which the serving records surface.
+counters = {"autotune_sweeps": 0}
+
+
+def note_sweep(knob: str) -> None:
+    """Count one measurement pass of `knob`, so "a second run measures
+    nothing" is assertable from the records."""
+    counters["autotune_sweeps"] += 1
+
+
+def counters_snapshot() -> dict:
+    return dict(counters)
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,30 @@
 """The knob registry of the port's plan cache (the part of
-oni_ml_tpu/plans/knobs.py its trainer records): each knob's name and
-what a valid plan value is.  The only knob is the measured E-step
-engine crossover; the EM driver's chunk and sync and the sparse
-layout's tile length are read from config.py, since nothing in the
-port measures them."""
+oni_ml_tpu/plans/knobs.py the port records): each knob's name and what
+a valid plan value is.
+
+- `estep_engine`: the measured E-step engine crossover.
+- `dispatch_calibration`: the serving scorer's measured host-or-device
+  break-even (scoring.score.dispatch_calibration).
+
+The EM driver's chunk and sync, the sparse layout's tile length and the
+micro-batcher's flush triggers are read from config.py, since nothing in
+the port measures them."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable
+
+
+def _calibration_dict(v) -> bool:
+    if not isinstance(v, dict) or "break_even" not in v:
+        return False
+    be = v["break_even"]
+    # break_even is a number or None ("the card can never win"); a
+    # hand-edited "auto" is refused and the calibration measured again.
+    return be is None or (
+        isinstance(be, (int, float)) and not isinstance(be, bool)
+    )
 
 
 def _engine_dict(v) -> bool:
@@ -35,5 +51,9 @@ KNOBS = {
                  "(sparse_estep.engine_crossover record, minus its "
                  "source/shape fields), keyed by exact shape and by "
                  "density band"),
+        Knob("dispatch_calibration", valid=_calibration_dict,
+             doc="measured host-or-device scoring break-even "
+                 "(scoring.score.dispatch_calibration record, minus its "
+                 "source field)"),
     )
 }

@@ -10,6 +10,10 @@ ml_ops.sh YYYYMMDD flow|dns TOL:
         [--no-checkpoints] [--online [--eta E --tau0 T --kappa K]] \\
         [--eval-quality | --eval-holdout FRAC] [--publish DEST]
 
+    python -m oni_ml_tpu_torch.runner.ml_ops serve --day-dir DIR ...
+
+routes to the streaming scoring service (runner/serve.py).
+
 Stages, each writing the JAX runner's artifacts into <data-dir>/<fdate>
 (the source's hooks come from the registry, `sources.get(dsource)`):
 
@@ -99,6 +103,7 @@ import contextlib
 import json
 import os
 import pickle
+import sys
 import time
 from dataclasses import dataclass, field
 from enum import Enum
@@ -1229,6 +1234,16 @@ def _profiled(out_dir: "str | None", device: str, name: str):
 
 
 def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    # `ml_ops serve ...` is the streaming scoring service
+    # (runner/serve.py): a long-running process over a completed day's
+    # artifacts, not a fifth stage, so it routes before the YYYYMMDD
+    # parser.
+    if argv and argv[0] == "serve":
+        from . import serve
+
+        return serve.main(argv[1:])
     p = build_parser()
     args = p.parse_args(argv)
     if len(args.fdate) != 8 or not args.fdate.isdigit():

@@ -1,0 +1,508 @@
+"""`ml_ops serve`: the streaming scoring service over a completed day
+directory (port of oni_ml_tpu/runner/serve.py, the single-model mode).
+
+    python -m oni_ml_tpu_torch.runner.ml_ops serve \
+        --day-dir /data/days/20160122 --dsource flow \
+        --input - --refresh-every 8 [--device cuda|cpu]
+
+reads raw CSV events (one per line) from --input (a file, or stdin for
+'-'), scores them in micro-batches against the registry's active model,
+prints flagged events (score < threshold) as JSON lines and one
+{"stage": "serve", ...} metrics record per flush, and with
+--refresh-every folds the stream into online-LDA steps on the card whose
+models hot-swap in without a restart.  It runs on the card unless
+`--device cpu` asks for the CPU; without a card it raises.
+
+`--dry-run` runs the whole stack (registry -> micro-batches -> a
+mid-stream hot-swap -> refresh republish) on a small synthetic in-memory
+day and checks the exactly-once contract; it needs no day directory and
+finishes in seconds.
+
+Not ported, refused with the ROADMAP item that brings them: the fleet
+(`--fleet` and the residency flags, Queue 1 item 7) and the JAX
+package's persistent compilation cache (`--no-compilation-cache`, item
+4; PyTorch eager compiles nothing to cache).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import sys
+
+import numpy as np
+
+from ..config import OnlineLDAConfig, ScoringConfig, ServingConfig
+from ..serving import (
+    BatchScorer,
+    MetricsEmitter,
+    ModelRegistry,
+    RefreshLoop,
+    event_documents,
+    featurizer_from_features,
+)
+from ..sources import get as get_source
+from ..sources import names as source_names
+
+# Flags of the JAX package's serve that the port refuses, with the
+# ROADMAP item that brings each.
+_REFUSED = {
+    "fleet": ("--fleet", "ROADMAP Queue 1 item 7 (the serving fleet)"),
+    "hot_tenants": ("--hot-tenants", "ROADMAP Queue 1 item 7 (the serving "
+                    "fleet's tiered residency)"),
+    "warm_tenants": ("--warm-tenants", "ROADMAP Queue 1 item 7 (the serving "
+                     "fleet's tiered residency)"),
+    "residency_policy": ("--residency-policy", "ROADMAP Queue 1 item 7 (the "
+                         "serving fleet's tiered residency)"),
+    "residency_spill": ("--residency-spill", "ROADMAP Queue 1 item 7 (the "
+                        "serving fleet's tiered residency)"),
+    "stack_precision": ("--stack-precision", "ROADMAP Queue 1 item 7 (the "
+                        "serving fleet's stacked snapshots)"),
+    "no_compilation_cache": ("--no-compilation-cache", "ROADMAP Queue 1 "
+                             "item 4 (plans: PyTorch eager keeps no "
+                             "compilation cache to opt out of)"),
+}
+
+
+def build_serve_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ml_ops serve",
+        description="streaming scoring service over a completed day's "
+        "model (micro-batch serving with online-LDA hot-swap refresh)",
+    )
+    p.add_argument("--day-dir", default=None,
+                   help="completed day directory (doc_results.csv / "
+                   "word_results.csv / features.pkl)")
+    p.add_argument("--dsource", choices=list(source_names()),
+                   default="flow")
+    p.add_argument("--input", default="-", metavar="PATH",
+                   help="raw event CSV stream; '-' = stdin (default)")
+    p.add_argument("--threshold", type=float,
+                   default=ScoringConfig.threshold,
+                   help="emit events scoring under this as suspicious")
+    # None = not passed, so --dry-run rescales only what the operator
+    # left alone.
+    p.add_argument("--max-batch", type=int, default=None,
+                   help="micro-batch flush size (default: "
+                   f"{ServingConfig.max_batch})")
+    p.add_argument("--max-wait-ms", type=float, default=None,
+                   help="micro-batch latency trigger in ms (default: "
+                   f"{ServingConfig.max_wait_ms:g})")
+    p.add_argument("--device-score-min", type=int,
+                   default=ServingConfig.device_score_min,
+                   help="flushes of at least this many events score on "
+                   "the device, smaller ones on the host in float64; 0 = "
+                   "the break-even of the measured dispatch calibration "
+                   "(the default)")
+    p.add_argument("--refresh-every", type=int, default=0, metavar="N",
+                   help="fold every N scored batches into one online-LDA "
+                   "step and hot-swap the refreshed model in (0=off)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="device of device-path flushes and of the refresh "
+                   "trainer (default cuda; a machine without one raises "
+                   "unless --device cpu)")
+    p.add_argument("--metrics", default="", metavar="PATH",
+                   help="also append per-batch metrics JSON lines here")
+    p.add_argument("--metrics-port", type=int,
+                   default=ServingConfig.metrics_port, metavar="PORT",
+                   help="serve an OpenMetrics scrape endpoint (GET "
+                   "/metrics) on this port: live counters, fixed-"
+                   "boundary latency histograms with p50/p99/p999, and "
+                   "roofline gauges (0 = off)")
+    p.add_argument("--metrics-host", default=ServingConfig.metrics_host,
+                   metavar="ADDR",
+                   help="bind address for --metrics-port (default "
+                   "loopback; 0.0.0.0 lets remote collectors scrape)")
+    p.add_argument("--openmetrics", default=ServingConfig.openmetrics_path,
+                   metavar="PATH",
+                   help="write the same OpenMetrics text here at stream "
+                   "end (the headless file sink)")
+    p.add_argument("--journal", default="", metavar="PATH",
+                   help="append every serving record to a crash-safe "
+                   "telemetry journal (telemetry/journal.py JSONL)")
+    p.add_argument("--top-domains", default=None,
+                   help="top-1m.csv whitelist for DNS featurization")
+    p.add_argument("--no-plans", action="store_true",
+                   help="disable plan lookups and records (plans/): the "
+                   "dispatch calibration is measured afresh and not "
+                   "recorded")
+    p.add_argument("--dry-run", action="store_true",
+                   help="exercise the full serving stack on a synthetic "
+                   "in-memory day (no --day-dir needed) and exit")
+    # The JAX package's fleet, residency and compilation-cache flags:
+    # parsed so that a command written for it is refused by name.
+    p.add_argument("--fleet", default=None, metavar="MANIFEST",
+                   help="not ported (ROADMAP Queue 1 item 7)")
+    p.add_argument("--hot-tenants", type=int, default=None,
+                   help="not ported (ROADMAP Queue 1 item 7)")
+    p.add_argument("--warm-tenants", type=int, default=None,
+                   help="not ported (ROADMAP Queue 1 item 7)")
+    p.add_argument("--residency-policy", default=None,
+                   help="not ported (ROADMAP Queue 1 item 7)")
+    p.add_argument("--residency-spill", default=None,
+                   help="not ported (ROADMAP Queue 1 item 7)")
+    p.add_argument("--stack-precision", default=None,
+                   help="not ported (ROADMAP Queue 1 item 7)")
+    p.add_argument("--no-compilation-cache", action="store_const",
+                   const=True, default=None,
+                   help="not ported (ROADMAP Queue 1 item 4)")
+    return p
+
+
+def _serving_config(args) -> ServingConfig:
+    mb, mw = args.max_batch, args.max_wait_ms
+    return ServingConfig(
+        max_batch=mb if mb is not None else ServingConfig.max_batch,
+        max_wait_ms=mw if mw is not None else ServingConfig.max_wait_ms,
+        device_score_min=args.device_score_min,
+        refresh_every=args.refresh_every,
+        threshold=args.threshold,
+        metrics_path=args.metrics,
+        metrics_port=args.metrics_port,
+        metrics_host=args.metrics_host,
+        openmetrics_path=args.openmetrics,
+    )
+
+
+def _load_featurizer(day_dir: str, top_domains_path: "str | None"):
+    """The day's serving featurizer from its features.pkl (the port's
+    unpickler: a features.pkl another package wrote is refused)."""
+    from .ml_ops import _PortUnpickler
+
+    feats_path = os.path.join(day_dir, "features.pkl")
+    if not os.path.exists(feats_path):
+        raise FileNotFoundError(
+            f"{feats_path} missing — serving pins word identity to the "
+            "trained day's quantile cuts, which ride in features.pkl "
+            "(run the pre stage, or keep the day dir intact)")
+    with open(feats_path, "rb") as f:
+        features = _PortUnpickler(f).load()
+    top = frozenset()
+    if top_domains_path:
+        from ..features.dns import load_top_domains
+
+        top = load_top_domains(top_domains_path)
+    return featurizer_from_features(features, top_domains=top)
+
+
+def _looks_like_header(line: str, dsource: str) -> bool:
+    """True when a stream's first line is a column-name header: the
+    source's always-numeric probe column (flow `hour`, dns
+    `unix_tstamp`, proxy `duration`) does not parse.  Consulted for the
+    first line only, so mid-stream garbage rows keep the day job's
+    NaN-featurize-and-score semantics."""
+    parts = line.strip().split(",")
+    col = get_source(dsource).header_probe_col
+    if len(parts) <= col:
+        return False
+    try:
+        float(parts[col])
+        return False
+    except ValueError:
+        return True
+
+
+def _make_serve_roofline(metrics, journal, k: int):
+    """The serve roofline record, computed at scrape time and once at
+    stream end.  Device flushes: the `serve.micro_batch` cost counted
+    from the shapes (roofline.micro_batch_cost over the device flushes'
+    events, per dispatch) over their scoring wall (the
+    serve.device_score_ms histogram).  A session whose every flush
+    scored on the host gets a wall-only `serve.micro_batch.host` record
+    (no device work to price)."""
+    from ..telemetry import roofline
+
+    def _serve_roofline(emit_journal: bool = False):
+        rec = metrics.recorder
+        kw = {"journal": journal} if emit_journal else {}
+        hd = rec.histograms.get("serve.device_score_ms")
+        if hd is not None and hd.count:
+            dev_events = rec.counters["serve.device_events"].value
+            flops, nbytes = roofline.micro_batch_cost(dev_events / hd.count, k)
+            roofline.register_cost("serve.micro_batch", flops=flops,
+                                   nbytes=nbytes, shape=f"k{k}")
+            return roofline.emit(
+                "serve.micro_batch", hd.total / 1e3, dispatches=hd.count,
+                recorder=rec, path="device", events=dev_events, **kw)
+        h = rec.histograms.get("serve.score_ms")
+        if h is None or not h.count:
+            return None
+        return roofline.emit(
+            "serve.micro_batch", h.total / 1e3, dispatches=h.count,
+            recorder=rec, entry="serve.micro_batch.host", path="host", **kw)
+
+    return _serve_roofline
+
+
+def serve_stream(args) -> int:
+    from ..device import resolve_device
+    from ..plans import counters_snapshot
+    from ..plans.warmup import warmup_serving
+    from ..scoring import dispatch_calibration
+
+    if not args.day_dir:
+        raise SystemExit("serve needs --day-dir (or --dry-run)")
+    dev = resolve_device(args.device)
+    cfg = _serving_config(args)
+    fallback = get_source(args.dsource).fallback(ScoringConfig())
+    registry = ModelRegistry()
+    snap = registry.load_day(args.day_dir, fallback)
+    featurizer = _load_featurizer(args.day_dir, args.top_domains)
+    if featurizer.dsource != args.dsource:
+        raise SystemExit(
+            f"--dsource {args.dsource} but {args.day_dir} holds "
+            f"{featurizer.dsource} features")
+    journal = None
+    if args.journal:
+        from ..telemetry import Journal
+
+        journal = Journal(args.journal)
+    metrics = MetricsEmitter(path=cfg.metrics_path, journal=journal)
+    metrics.emit({
+        "stage": "serve", "event": "model_loaded",
+        "source": snap.source, "model_version": snap.version,
+        "ips": len(snap.model.ip_index),
+        "vocab": len(snap.model.word_index),
+    })
+    _serve_roofline = _make_serve_roofline(metrics, journal,
+                                           snap.model.num_topics)
+    mserver = None
+    if cfg.metrics_port:
+        from ..telemetry import MetricsServer
+
+        mserver = MetricsServer(metrics.recorder, port=cfg.metrics_port,
+                                host=cfg.metrics_host,
+                                refresh=_serve_roofline)
+        metrics.emit({"stage": "serve", "event": "metrics_endpoint",
+                      "port": mserver.port, "path": "/metrics"})
+    # One finally releases the HTTP endpoint, the metrics file and the
+    # journal: a mid-stream exception must not leave the port bound or
+    # the sinks open.
+    try:
+        refresh = (
+            RefreshLoop(registry,
+                        OnlineLDAConfig(num_topics=snap.model.num_topics),
+                        every=cfg.refresh_every,
+                        total_docs=cfg.refresh_total_docs, device=dev)
+            if cfg.refresh_every else None)
+
+        def on_batch(snapshot, feats, scores):
+            for i in np.where(scores < cfg.threshold)[0]:
+                print(json.dumps({
+                    "flagged": feats.featurized_row(int(i)),
+                    "score": float(scores[i]),
+                    "model_version": snapshot.version,
+                }), flush=True)
+            if refresh is not None:
+                ips, words = event_documents(feats, featurizer.dsource)
+                new = refresh.observe(snapshot, ips, words)
+                if new is not None:
+                    metrics.emit({
+                        "stage": "serve", "event": "model_refresh",
+                        "model_version": new.version, "source": new.source,
+                        "refresh_s": refresh.last_refresh_s,
+                    })
+
+        scorer = BatchScorer(registry, featurizer, cfg, metrics=metrics,
+                             on_batch=on_batch, device=dev)
+        # Warm the device path at the sizes the dispatch rule sends
+        # there, before the first event.  The record names each knob's
+        # source, the calibration the flushes dispatch on and the plan
+        # layer's counters.
+        warm = warmup_serving(snap.model, scorer.max_batch,
+                              cfg.device_score_min, device=dev)
+        plans_rec = {"stage": "serve", "event": "plans",
+                     "knobs": scorer.plan, "warmup": warm,
+                     "plan_counters": counters_snapshot()}
+        if cfg.device_score_min in (0, "auto"):
+            plans_rec["dispatch_calibration"] = dispatch_calibration(
+                device=dev)
+        metrics.emit(plans_rec)
+        stream = sys.stdin if args.input == "-" else open(args.input)
+        submitted = rejected = header_skipped = 0
+        header = None
+        first = True
+        try:
+            for line in stream:
+                if not line.strip():
+                    continue
+                # The day's pre stage drops the CSV header and its
+                # duplicates; serving matches it, or a piped raw day
+                # file scores one phantom event.  Mid-stream garbage
+                # rows still score, as in the day job.
+                if first:
+                    first = False
+                    if _looks_like_header(line, args.dsource):
+                        header = line
+                        header_skipped += 1
+                        continue
+                if header is not None and line == header:
+                    header_skipped += 1
+                    continue
+                try:
+                    scorer.submit(line)
+                    submitted += 1
+                except ValueError:
+                    rejected += 1
+        finally:
+            if stream is not sys.stdin:
+                stream.close()
+            scorer.close()
+        metrics.emit({
+            "stage": "serve", "event": "stream_end",
+            "submitted": submitted, "rejected": rejected,
+            "header_skipped": header_skipped,
+            "events_scored": scorer.events_scored,
+            "batches": scorer.batches_flushed,
+            "final_model_version": registry.version,
+        })
+        _serve_roofline(emit_journal=True)
+        if cfg.openmetrics_path:
+            from ..telemetry import write_openmetrics
+
+            write_openmetrics(cfg.openmetrics_path, metrics.recorder)
+        metrics.emit({"stage": "serve", "event": "registry_snapshot",
+                      **metrics.snapshot()})
+        return 0 if scorer.events_scored == submitted else 1
+    finally:
+        if mserver is not None:
+            mserver.close()
+        metrics.close()
+        if journal is not None:
+            journal.close()
+
+
+# ---------------------------------------------------------------------------
+# --dry-run: synthetic end-to-end smoke
+# ---------------------------------------------------------------------------
+
+
+def _synthetic_day(n_events: int = 96, n_clients: int = 8, n_doms: int = 6,
+                   seed: int = 42):
+    """A tiny deterministic DNS day: raw rows, a model "trained
+    yesterday" on them (Dirichlet-random theta/p over the day's IPs and
+    words) and the day's cuts — the JAX package's synthetic day, draw
+    for draw."""
+    from ..features.dns import featurize_dns
+    from ..scoring import ScoringModel
+
+    rng = np.random.default_rng(seed)
+    rows = [
+        [
+            "t", str(1454000000 + int(rng.integers(0, 86400))),
+            str(int(rng.integers(40, 1500))),
+            f"10.0.0.{i % n_clients}",
+            f"sub{int(rng.integers(0, 20))}.dom{int(rng.integers(0, n_doms))}.com",
+            "1", str(int(rng.integers(1, 17))), str(int(rng.integers(0, 4))),
+        ]
+        for i in range(n_events)
+    ]
+    feats = featurize_dns(rows)
+    ips = sorted({feats.client_ip(i) for i in range(feats.num_events)})
+    vocab = sorted(set(feats.word))
+    k = 5
+    theta = rng.dirichlet(np.ones(k), size=len(ips))
+    p = rng.dirichlet(np.ones(len(vocab)), size=k).T
+    model = ScoringModel.from_results(ips, theta, vocab, p, fallback=0.1)
+    cuts = (feats.time_cuts, feats.frame_length_cuts,
+            feats.subdomain_length_cuts, feats.entropy_cuts,
+            feats.numperiods_cuts)
+    return rows, model, cuts
+
+
+def dry_run(args) -> int:
+    """Load a synthetic model, score a stream of >= 3 micro-batches,
+    hot-swap to a refreshed model mid-stream and check that no event was
+    dropped or scored twice — the acceptance path, on args.device."""
+    from ..device import resolve_device
+    from ..serving import DnsEventFeaturizer
+
+    dev = resolve_device(args.device)
+    rows, model, cuts = _synthetic_day()
+    registry = ModelRegistry()
+    registry.publish(model, source="dry-run-synthetic")
+    # Flags carry through; values the operator did not pass rescale to
+    # the 96-event day (max_batch 4096 would make one batch and
+    # refresh_every 0 no swap).
+    cfg = ServingConfig(
+        max_batch=args.max_batch if args.max_batch is not None else 32,
+        max_wait_ms=(args.max_wait_ms if args.max_wait_ms is not None
+                     else ServingConfig.max_wait_ms),
+        refresh_every=args.refresh_every or 2,
+        threshold=args.threshold,
+        device_score_min=args.device_score_min,
+        metrics_path=args.metrics,
+    )
+    metrics = MetricsEmitter(path=cfg.metrics_path)
+    refresh = RefreshLoop(registry,
+                          OnlineLDAConfig(num_topics=model.num_topics),
+                          every=cfg.refresh_every, device=dev)
+    swaps = []
+
+    def on_batch(snapshot, feats, scores):
+        ips, words = event_documents(feats, "dns")
+        new = refresh.observe(snapshot, ips, words)
+        if new is not None:
+            swaps.append(new.version)
+
+    scorer = BatchScorer(registry, DnsEventFeaturizer(cuts), cfg,
+                         metrics=metrics, on_batch=on_batch, device=dev)
+    futures = [scorer.submit(r) for r in rows]
+    # Resolve before close, so the flushes exercise the live triggers,
+    # not the close drain.
+    results = [f.result(timeout=30.0) for f in futures]
+    scorer.close()
+    versions = sorted({v for _, v in results})
+    triggers: "dict[str, int]" = {}
+    for r in metrics.records:
+        if "trigger" in r:
+            triggers[r["trigger"]] = triggers.get(r["trigger"], 0) + 1
+    errors = [r for r in metrics.records
+              if "error" in r or "on_batch_error" in r]
+    ok = (
+        len(results) == len(rows)                   # none dropped
+        and all(f.done() for f in futures)          # every future resolved
+        and scorer.events_scored == len(rows)       # none scored twice
+        and scorer.batches_flushed >= 3
+        and len(swaps) >= 1                         # a hot-swap happened
+        and len(versions) >= 2                      # ...and served traffic
+        and not errors
+        and all(np.isfinite(s) for s, _ in results)
+    )
+    print(json.dumps({
+        "serve_dry_run": "ok" if ok else "FAILED",
+        "device": str(dev),
+        "events": len(rows),
+        "events_scored": scorer.events_scored,
+        "batches": scorer.batches_flushed,
+        "triggers": triggers,
+        "refresh_swaps": len(swaps),
+        "model_versions_served": versions,
+        "final_model_version": registry.version,
+    }), flush=True)
+    metrics.close()
+    return 0 if ok else 1
+
+
+def main(argv: "list[str] | None" = None) -> int:
+    args = build_serve_parser().parse_args(argv)
+    for attr, (flag, item) in _REFUSED.items():
+        if getattr(args, attr) is not None:
+            raise SystemExit(f"serve {flag} is not ported yet: {item}")
+    # --no-plans binds both paths here: the BatchScorer would otherwise
+    # read its dispatch calibration from, and record it into, the user's
+    # plan cache.
+    from ..plans import NullStore, use_store
+
+    ctx = (use_store(NullStore()) if args.no_plans
+           else contextlib.nullcontext())
+    with ctx:
+        if args.dry_run:
+            return dry_run(args)
+        return serve_stream(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

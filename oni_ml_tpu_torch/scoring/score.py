@@ -23,16 +23,25 @@ over fixed-size chunks on the card with double-buffered dispatch and
 survivors-only readback (opt in per call via engine="device", per run
 via ScoringConfig.engine, or process-wide via ONI_ML_TPU_SCORE=device).
 An engine name other than host or device raises.
+
+Serving scores small batches (micro-batches of up to a few thousand
+events), where the card's fixed per-dispatch cost can lose to the host:
+`batched_scores` picks the engine per batch through `use_device_path`,
+whose auto mode prices the choice from `dispatch_calibration`, this
+process's measured break-even on its device (or the plan entry an
+earlier process measured, or the ONI_ML_TPU_SCORE_BREAK_EVEN pin).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..features.container import index_rows as _index_rows
 from ..features.dns import DnsFeatures
 from ..features.flow import FlowFeatures
 from ..io import formats
@@ -93,6 +102,14 @@ class ScoringModel:
         word_topic = (shifted / shifted.sum(axis=1, keepdims=True)).T
         return cls.from_results(doc_names, doc_topic, vocab, word_topic,
                                 fallback)
+
+    def ip_rows(self, ips) -> np.ndarray:
+        """theta row per IP, int32; an unseen IP gets the fallback row."""
+        return _index_rows(self.ip_index, ips, len(self.ip_index))
+
+    def word_rows(self, words) -> np.ndarray:
+        """p row per word, int32; an unseen word gets the fallback row."""
+        return _index_rows(self.word_index, words, len(self.word_index))
 
 
 def _check_index_range(model: ScoringModel, ip_idx, word_idx) -> None:
@@ -184,6 +201,133 @@ def device_scores(model: ScoringModel, ip_idx, word_idx, *,
         model, ip_idx, word_idx,
         chunk=pipeline.DEFAULT_CHUNK if chunk is None else chunk,
         stats=stats, device=device)
+
+
+# device_score_min's auto mode: pick the engine from the measured
+# dispatch calibration instead of a size threshold.
+AUTO_DEVICE_MIN = 0
+
+# This process's calibration per device ("cuda", "cpu"): measured once,
+# or read from the plan or the env pin.
+_CALIBRATION: "dict[str, dict]" = {}
+
+
+def _best_of(fn, reps: int = 3) -> float:
+    t = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        t = min(t, time.perf_counter() - t0)
+    return t
+
+
+def dispatch_calibration(force: bool = False, device=None) -> dict:
+    """The measured break-even batch size of the host-or-device choice
+    for scoring on `device` (None: the card).
+
+    -> {"dispatch_s", "host_event_s", "device_event_s", "break_even",
+    "source"}.  dispatch_s is device_scores' time for one event (the
+    fixed cost of a dispatch: index staging, the gather-dot, the read
+    back), device_event_s its marginal cost per event over a 4,096-event
+    batch, host_event_s _batched_scores' cost per event over the same
+    batch; the break-even is dispatch_s / (host_event_s -
+    device_event_s), and None where the device's marginal cost does not
+    beat the host's, so the device path can never win and auto dispatch
+    pins the host.
+
+    Sources, in order: ONI_ML_TPU_SCORE_BREAK_EVEN pins the break-even
+    ("env"; <= 0 means never the device); the plan entry an earlier
+    process on this backend recorded ("plan"); else a measurement
+    ("measured") over a synthetic K=20 model on `device`, recorded to
+    the plan cache for the next process.  `force=True` measures again.
+    A failure of the device raises: the calibration never pins the host
+    to hide one."""
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    key = str(dev)
+    cached = _CALIBRATION.get(key)
+    if cached is not None and not force:
+        return cached
+    env = os.environ.get("ONI_ML_TPU_SCORE_BREAK_EVEN")
+    if env is not None:
+        be = int(env)
+        cal = _CALIBRATION[key] = {
+            "dispatch_s": None, "host_event_s": None,
+            "device_event_s": None,
+            "break_even": be if be > 0 else None, "source": "env",
+        }
+        return cal
+    if not force:
+        from ..plans import lookup_value
+
+        planned = lookup_value("dispatch_calibration", device=dev)
+        if planned is not None:
+            be = planned.get("break_even")
+            cal = _CALIBRATION[key] = {
+                "dispatch_s": planned.get("dispatch_s"),
+                "host_event_s": planned.get("host_event_s"),
+                "device_event_s": planned.get("device_event_s"),
+                "break_even": int(be) if be is not None else None,
+                "source": "plan",
+            }
+            return cal
+    rng = np.random.default_rng(0)
+    k, d, v, n = 20, 1024, 1024, 4096
+    model = ScoringModel(ip_index={}, theta=rng.random((d + 1, k)),
+                         word_index={}, p=rng.random((v + 1, k)))
+    ia = rng.integers(0, d, n).astype(np.int32)
+    ib = rng.integers(0, v, n).astype(np.int32)
+    host_event_s = _best_of(lambda: _batched_scores(model, ia, ib)) / n
+    # Warm both sizes before timing (the model's upload, the first
+    # launches and the pinned buffers' allocation).
+    device_scores(model, ia[:1], ib[:1], device=dev)
+    device_scores(model, ia, ib, device=dev)
+    dispatch_s = _best_of(
+        lambda: device_scores(model, ia[:1], ib[:1], device=dev))
+    t_n = _best_of(lambda: device_scores(model, ia, ib, device=dev))
+    device_event_s = max(0.0, (t_n - dispatch_s) / (n - 1))
+    if device_event_s >= host_event_s:
+        break_even = None            # the device can never win here
+    else:
+        break_even = int(np.ceil(dispatch_s / (host_event_s
+                                               - device_event_s)))
+    cal = _CALIBRATION[key] = {
+        "dispatch_s": dispatch_s, "host_event_s": host_event_s,
+        "device_event_s": device_event_s, "break_even": break_even,
+        "source": "measured",
+    }
+    from ..plans import note_sweep, record_value
+
+    note_sweep("dispatch_calibration")
+    record_value("dispatch_calibration",
+                 {k2: v2 for k2, v2 in cal.items() if k2 != "source"},
+                 source="autotune", device=dev)
+    return cal
+
+
+def use_device_path(n: int, device_min, device=None) -> bool:
+    """The one host-or-device decision, shared by batched_scores and the
+    serving records' `scorer` label so the two cannot drift: None pins
+    the host, AUTO_DEVICE_MIN (0) or "auto" consults
+    dispatch_calibration(device=device), a positive int is a hard
+    threshold."""
+    if device_min is None or n == 0:
+        return False
+    if device_min == "auto" or device_min == AUTO_DEVICE_MIN:
+        break_even = dispatch_calibration(device=device)["break_even"]
+        return break_even is not None and n >= break_even
+    return n >= device_min
+
+
+def batched_scores(model: ScoringModel, ip_idx, word_idx,
+                   device_min=None, device=None) -> np.ndarray:
+    """The serving scorer, float64 out: device_scores on `device` where
+    use_device_path says so, else the host's float64 _batched_scores
+    (device_min None, the default, pins the host)."""
+    if use_device_path(len(ip_idx), device_min, device):
+        return device_scores(model, ip_idx, word_idx, device=device)
+    return _batched_scores(model, ip_idx, word_idx)
 
 
 def _score_engine(engine: "str | None") -> str:

@@ -81,6 +81,33 @@ class FlowSource(SourceSpec):
     def matches_features(self, features) -> bool:
         return hasattr(features, "ibyt_cuts")
 
+    def cuts_of(self, features) -> tuple:
+        return (features.time_cuts, features.ibyt_cuts,
+                features.ipkt_cuts)
+
+    def event_featurizer(self, cuts, top_domains=frozenset()):
+        from ..serving.events import FlowEventFeaturizer
+
+        return FlowEventFeaturizer(cuts)
+
+    def event_pairs(self, feats):
+        from ..features.flow import FLOW_COLUMNS
+
+        n = feats.num_raw_events
+        # The Python container's rows, column-sliced (the instance dict:
+        # a native container's `rows` is a property that splits every
+        # row); else one lookup per event.
+        rows = feats.__dict__.get("rows")
+        if rows is not None:
+            s_col, d_col = FLOW_COLUMNS["sip"], FLOW_COLUMNS["dip"]
+            sips = [r[s_col] for r in rows[:n]]
+            dips = [r[d_col] for r in rows[:n]]
+        else:
+            sips = [feats.sip(i) for i in range(n)]
+            dips = [feats.dip(i) for i in range(n)]
+        return [(sips, list(feats.src_word[:n])),
+                (dips, list(feats.dest_word[:n]))]
+
     def score_csv(self, features, model, threshold, engine=None,
                   chunk=None, stats=None, device=None, prep=None):
         from ..scoring.score import score_flow_csv
@@ -173,6 +200,28 @@ class DnsSource(SourceSpec):
 
     def matches_features(self, features) -> bool:
         return hasattr(features, "entropy_cuts")
+
+    def cuts_of(self, features) -> tuple:
+        return (features.time_cuts, features.frame_length_cuts,
+                features.subdomain_length_cuts, features.entropy_cuts,
+                features.numperiods_cuts)
+
+    def event_featurizer(self, cuts, top_domains=frozenset()):
+        from ..serving.events import DnsEventFeaturizer
+
+        return DnsEventFeaturizer(cuts, top_domains=top_domains)
+
+    def event_pairs(self, feats):
+        from ..features.dns import DNS_COLUMNS
+
+        n = feats.num_raw_events
+        rows = feats.__dict__.get("rows")
+        if rows is not None:
+            col = DNS_COLUMNS["ip_dst"]
+            clients = [r[col] for r in rows[:n]]
+        else:
+            clients = [feats.client_ip(i) for i in range(n)]
+        return [(clients, list(feats.word[:n]))]
 
     def score_csv(self, features, model, threshold, engine=None,
                   chunk=None, stats=None, device=None, prep=None):

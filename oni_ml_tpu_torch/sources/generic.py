@@ -20,9 +20,10 @@ Field kinds:
   * ``length``  — len(column)
 
 Cut strategies are the reference's ECDF deciles/quintiles
-(features/quantiles.py).  Not ported yet: the serving featurizer
-(`GenericEventFeaturizer`, `event_featurizer`, `event_time_s`,
-`event_pairs`).
+(features/quantiles.py).  Serving featurizes a table source's
+micro-batches through `GenericEventFeaturizer`, pinned to the trained
+day's cuts.  Not ported yet (the continuous service calls it):
+`event_time_s`.
 """
 
 from __future__ import annotations
@@ -126,6 +127,28 @@ class GenericFeatures(PythonContainer):
         return self.rows[i] + [
             str(int(self.bins[name][i])) for name in sorted(self.bins)
         ] + [self.word[i]]
+
+
+class GenericEventFeaturizer:
+    """Serving-side featurizer for a TableSourceSpec, pinned to the
+    trained day's cuts (serving/events.py's rule: a micro-batch's own
+    ECDF would unmap every word from the model vocabulary)."""
+
+    def __init__(self, spec: "TableSourceSpec", cuts: tuple) -> None:
+        self.spec = spec
+        self.dsource = spec.name
+        self.cuts = tuple(np.asarray(c, np.float64) for c in cuts)
+
+    def validate(self, line: str) -> str:
+        if len(line.strip().split(",")) != self.spec.num_columns:
+            raise ValueError(
+                f"{self.spec.name} event needs {self.spec.num_columns} "
+                f"columns: {line!r}")
+        return line
+
+    def __call__(self, lines: Sequence[str]) -> GenericFeatures:
+        return self.spec.featurize(lines, skip_header=False,
+                                   precomputed_cuts=self.cuts)
 
 
 class TableSourceSpec(SourceSpec):
@@ -276,6 +299,17 @@ class TableSourceSpec(SourceSpec):
 
     def matches_features(self, features) -> bool:
         return getattr(features, "source_name", None) == self.name
+
+    def cuts_of(self, features) -> tuple:
+        return features.cuts
+
+    def event_featurizer(self, cuts, top_domains=frozenset()):
+        return GenericEventFeaturizer(self, cuts)
+
+    def event_pairs(self, feats):
+        n = feats.num_raw_events
+        c = feats.doc_col
+        return [([r[c] for r in feats.rows[:n]], list(feats.word[:n]))]
 
     def score_csv(self, features, model, threshold, engine=None,
                   chunk=None, stats=None, device=None, prep=None):

@@ -40,8 +40,12 @@ def names() -> "tuple[str, ...]":
     return tuple(_REGISTRY)
 
 
-def spec_for_features(features) -> SourceSpec:
-    """The spec owning a feature container (a loaded features.pkl)."""
+def spec_for_features(features,
+                      top_domains: frozenset = frozenset()) -> SourceSpec:
+    """The spec owning a feature container (a loaded features.pkl; each
+    spec recognizes its own containers, native or Python).
+    `top_domains` is accepted for the JAX package's signature and not
+    read: no spec's recognition depends on it."""
     for spec in _REGISTRY.values():
         if spec.matches_features(features):
             return spec

@@ -13,10 +13,10 @@ Two spec families implement it: `builtin.FlowSource` /
 features/dns.py, and `generic.TableSourceSpec`, a declarative spec
 (fields, cut strategies, word template); the proxy source is one.
 
-Not ported yet (the modules that call them are not in the port): the
-serving hooks (`event_featurizer`, `event_pairs`, `event_documents`,
-`event_time_s`, `event_indices`), continuous mode's `derive_cuts` and
-`cuts_of`, and flow's `qtiles_cuts` file reader (`--qtiles`).
+The serving hooks (`cuts_of`, `event_featurizer`, `event_pairs`,
+`event_documents`) let `ml_ops serve` featurize and score micro-batches
+with the trained day's cuts.  Not ported yet (the continuous service
+calls them): `event_time_s`, `event_indices` and `derive_cuts`.
 """
 
 from __future__ import annotations
@@ -70,6 +70,37 @@ class SourceSpec:
     def matches_features(self, features) -> bool:
         """Does this container belong to this source?"""
         return False
+
+    # -- serving ----------------------------------------------------------
+
+    def cuts_of(self, features) -> tuple:
+        """The quantile cuts a feature container was binned with (every
+        container, native or Python, carries them)."""
+        raise NotImplementedError
+
+    def event_featurizer(self, cuts: tuple,
+                         top_domains: frozenset = frozenset()):
+        """Serving-side featurizer (validate + __call__) pinned to the
+        trained day's cuts; carries ``dsource == self.name``."""
+        raise NotImplementedError
+
+    def event_pairs(self, feats) -> "list[tuple[list[str], list[str]]]":
+        """The (document keys, words) blocks of one featurized batch, one
+        lookup per raw event in each block; block scores min-combine
+        into the event's score."""
+        raise NotImplementedError
+
+    def event_documents(self, feats) -> "tuple[list[str], list[str]]":
+        """Every (ip, word) training pair a batch gives the online
+        refresh: the blocks of event_pairs, concatenated (the corpus
+        stage's mapping: flow feeds both endpoints' documents, src block
+        then dest block)."""
+        ips: "list[str]" = []
+        words: "list[str]" = []
+        for keys, ws in self.event_pairs(feats):
+            ips.extend(keys)
+            words.extend(ws)
+        return ips, words
 
     # -- scoring ----------------------------------------------------------
 

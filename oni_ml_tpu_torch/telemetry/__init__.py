@@ -12,10 +12,11 @@
     roofline.py   analytic FLOP and byte counts per entry point, against
                   the card's published peaks, journaled as
                   {"kind": "roofline"} records.
-    exporter.py   OpenMetrics text of the shared registry.
+    exporter.py   OpenMetrics text of the shared registry, its HTTP
+                  endpoint (MetricsServer) and file sink.
 """
 
-from .exporter import render_openmetrics
+from .exporter import MetricsServer, render_openmetrics, write_openmetrics
 from .heartbeat import BackendLost, HeartbeatMonitor
 from .journal import Journal, RunJournal
 from .spans import Recorder, current_recorder, maybe_span, use_recorder
@@ -24,10 +25,12 @@ __all__ = [
     "BackendLost",
     "HeartbeatMonitor",
     "Journal",
+    "MetricsServer",
     "Recorder",
     "RunJournal",
     "current_recorder",
     "maybe_span",
     "render_openmetrics",
     "use_recorder",
+    "write_openmetrics",
 ]

@@ -6,7 +6,8 @@ oni_ml_tpu/telemetry/roofline.py).
    FLOPs and bytes of one dispatch under an entry name
    (`register_cost`): the scorer's chunk loop (scoring/pipeline.py
    `loop_cost`), the EM loop per iteration (ops/sparse_estep.py
-   `em_iteration_cost`).  The JAX package reads these off XLA's cost
+   `em_iteration_cost`), a serving micro-batch (`micro_batch_cost`,
+   registered by runner/serve.py over its device flushes).  The JAX package reads these off XLA's cost
    analysis of the compiled program; the port counts them from the
    shapes instead, so a share counts the same work whichever
    implementation (kernel, plain ops, another engine) ran it.  Each
@@ -144,6 +145,14 @@ def register_cost(name: str, *, flops: float, nbytes: float,
     return dict(entry)
 
 
+def micro_batch_cost(events: float, k: int) -> "tuple[float, float]":
+    """(FLOPs, bytes) of scoring `events` serving events, counted from
+    the shapes: per event two int32 row indices read, the two K-wide
+    float32 rows they gather (theta's and p's), K multiply-adds and one
+    float32 score written (the `serve.micro_batch` entry)."""
+    return 2.0 * k * events, (2 * 4 + 2 * 4 * k + 4) * float(events)
+
+
 def cost_for(name: str) -> "dict | None":
     with _LOCK:
         return dict(_COSTS[name]) if name in _COSTS else None
@@ -235,16 +244,18 @@ def roofline_record(phase: str, wall_s: float, *, entry: "str | None" = None,
 
 def emit(phase: str, wall_s: float, *, entry: "str | None" = None,
          dispatches: int = 1, effective_flops: "float | None" = None,
-         **extra) -> dict:
-    """Build and publish one roofline record: append it to the active
-    Recorder's journal, set `roofline.<phase>.*` gauges on the Recorder,
-    and keep it in the process ledger (`emitted_records()`) for the
-    runner's metrics.json.  Never raises."""
+         recorder=None, journal=None, **extra) -> dict:
+    """Build and publish one roofline record: set `roofline.<phase>.*`
+    gauges on `recorder` (default: the active Recorder), append the
+    record to `journal` (a Journal or RunJournal; default: the
+    Recorder's journal), and keep it in the process ledger
+    (`emitted_records()`) for the runner's metrics.json.  Never
+    raises."""
     rec = roofline_record(phase, wall_s, entry=entry,
                           dispatches=dispatches,
                           effective_flops=effective_flops, **extra)
     try:
-        r = current_recorder()
+        r = recorder if recorder is not None else current_recorder()
         if r is not None:
             for key in ("flops_per_s", "bytes_per_s",
                         "effective_flops_per_s"):
@@ -252,6 +263,9 @@ def emit(phase: str, wall_s: float, *, entry: "str | None" = None,
                     r.gauge(f"roofline.{phase}.{key}", rec[key])
             for k, v in (rec.get("utilization") or {}).items():
                 r.gauge(f"roofline.{phase}.{k}", v)
+        if journal is not None:
+            journal.append(dict(rec))
+        elif r is not None:
             r.journal_record(rec)
         global _EMIT_COUNT
         with _LOCK:
