@@ -131,6 +131,25 @@ Phases (any failure exits non-zero before the result line):
              and theta within rel 1e-4 of the CPU's on every nonzero
              entry, their median entry moved from the day's by more,
              each member's launches.  `serve --dry-run` on cuda.
+   fleet     `serve --fleet` on the card: nine tenants (the 2M flow and
+             DNS days' models, three perturbed variants of each, and a
+             K=10 model trained here on the small flow day), 196,608 raw
+             events interleaved across them.  The defaults (device
+             featurize engine, calibrated dispatch), each tenant
+             refreshing every 8 of its flushes: every tenant's scores
+             bit-equal to its events scored alone on the model version
+             that served them, exactly once, >= 2 versions per tenant,
+             the refresh kernels' launches counted.  Every dispatch on
+             the card (rel 1e-6); the fused engine on single-tenant
+             K-groups (rel 1e-6, its call's ms beside the calibrated
+             dispatch); --hot-tenants 4 --warm-tenants 2 with a spill
+             dir, LRU then LFU (promotions, evictions, a tenant paged
+             cold and back, every score its own model's); a bf16 stack
+             (half the device bytes, within 2^-7 of the f32 stack's);
+             the per-batch refresh members (sparse, fixed point);
+             measure_break_even recorded in the run's plan cache; the
+             CLI over the two day dirs with 8 tenant names; `serve
+             --dry-run --fleet synthetic:4` on cuda.
 7. profile   20 EM iterations over the flow day's corpus four ways (sparse
              engine under the chunk driver, sparse under the stepwise
              driver, dense and per-batch pallas under the chunk driver):
@@ -145,8 +164,8 @@ Phases (any failure exits non-zero before the result line):
 
 Then it prints the kernels line (each kernel with its launches on its
 flow-day path, as `dns_launches` on the DNS day's, as
-`online_launches` on its online run's and as `launches_serve` on the
-served streams'), the card's name
+`online_launches` on its online run's, as `launches_serve` on the
+served streams' and as `launches_fleet` on the fleet's), the card's name
 and power limit, and last `{"ok": true, "device": {...}}`.  Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
 """
@@ -2111,6 +2130,513 @@ def serve_phase(tmp):
     return total
 
 
+# The fleet phase (serve --fleet on the card).  Tenants: the 2M flow and
+# DNS days' models and three _perturbed_model variants of each (other
+# seeds, so demux corruption cannot hide behind equal values), and one
+# K=10 tenant trained here on the small flow day, so the card runs two
+# pack groups.  The default stream gives each 2M-day tenant its day's
+# first FLEET_BIG_EVENTS raw events and the K=10 tenant its first
+# FLEET_SMALL_EVENTS: 196,608 events, interleaved round-robin.
+FLEET_BIG_EVENTS = 22_528
+FLEET_SMALL_EVENTS = 16_384
+FLEET_REFRESH_EVERY = 8
+FLEET_VARIANT_SEEDS = (101, 102, 103)
+# Residency runs: each tenant's first FLEET_RESIDENCY_EVENTS in two
+# visits (every tenant's first half, then every second half), so each
+# tenant pages in once a visit through 4 hot slots per K and 2 warm.
+FLEET_RESIDENCY_EVENTS = 8_192
+FLEET_HOT, FLEET_WARM = 4, 2
+# Their per-tenant admission bound: a visit's submitter blocks on its
+# tenant's queue until the pager has promoted the tenant, so the run
+# pages as the tenants arrive (not only at the close-time drain).
+FLEET_RESIDENCY_QUEUE = 1024
+# The per-batch refresh members' stream: two tenants, 9 flushes each.
+FLEET_MEMBER_EVENTS = 9 * 2048
+RTOL_FLEET_DEVICE = RTOL_SCORE
+# A bf16 stack against the f32 stack's device scores: bfloat16's 8
+# significand bits through a K-term float32 dot.
+RTOL_BF16 = 2.0 ** -7
+
+
+def first_lines(raw, dsource, n):
+    """A day input's first n raw events (past the flow day's first line,
+    which its pre stage drops as the header)."""
+    lines = []
+    with open(raw) as f:
+        if dsource == "flow":
+            f.readline()
+        for line in f:
+            lines.append(line)
+            if len(lines) == n:
+                break
+    return lines
+
+
+def fleet_tenants(tmp, raws):
+    """The fleet's tenants: name -> dsource, model, featurizer, raw
+    lines, day source (day dir and fallback, for the day's own model),
+    and each day's host features of its lines, featurized once: the
+    oracle every run is held to.  Trains the K=10 tenant (the small flow
+    day, 5 EM iterations)."""
+    from oni_ml_tpu_torch.config import ScoringConfig
+    from oni_ml_tpu_torch.runner.serve import (_load_featurizer,
+                                               _perturbed_model)
+    from oni_ml_tpu_torch.serving import ModelRegistry
+    from oni_ml_tpu_torch.sources import get
+
+    t0 = time.perf_counter()
+    k10 = run_day("flow", raws["flow"], os.path.join(tmp, "fleet_k10"),
+                  "cuda", None, 5, "--topics", "10")
+    train_s = time.perf_counter() - t0
+    days = {
+        "flow": (os.path.join(tmp, "data", "20160122"),
+                 os.path.join(tmp, "flow_day.csv"), FLEET_BIG_EVENTS),
+        "dns": (os.path.join(tmp, "dns_data", "20160122"),
+                os.path.join(tmp, "dns_day.csv"), FLEET_BIG_EVENTS),
+        "k10": (k10, raws["flow"], FLEET_SMALL_EVENTS),
+    }
+    tenants, day_feats = {}, {}
+    featurize_s = featurize_n = 0
+    for day, (day_dir, raw, n) in days.items():
+        dsource = "dns" if day == "dns" else "flow"
+        fallback = get(dsource).fallback(ScoringConfig())
+        model = ModelRegistry().load_day(day_dir, fallback).model
+        fz = _load_featurizer(day_dir, None)
+        lines = first_lines(raw, dsource, n)
+        t1 = time.perf_counter()
+        feats = fz([fz.validate(line) for line in lines])
+        featurize_s += time.perf_counter() - t1
+        featurize_n += len(lines)
+        day_feats[day] = get(dsource).event_pairs(feats)
+        names = (["k10"] if day == "k10" else
+                 [f"{day}{i}" for i in range(4)])
+        for i, name in enumerate(names):
+            tenants[name] = {
+                "day": day, "dsource": dsource, "featurizer": fz,
+                "lines": lines, "day_dir": day_dir,
+                "model": model if i == 0 else _perturbed_model(
+                    model, FLEET_VARIANT_SEEDS[i - 1]),
+                "day_source": (day_dir, fallback) if i == 0 else None}
+    for t in tenants.values():
+        t["expect"] = host_scores(t["model"], day_feats[t["day"]],
+                                  np.arange(len(t["lines"])))
+    return tenants, day_feats, {
+        "k10_train_s": train_s,
+        "host_featurize_us_per_event": 1e6 * featurize_s / featurize_n}
+
+
+def host_scores(model, pairs, idx):
+    """score_features on the host over events `idx` of a day's (keys,
+    words) blocks: min over the blocks of the float64 dot."""
+    from oni_ml_tpu_torch.scoring import batched_scores
+
+    out = None
+    for keys, words in pairs:
+        s = batched_scores(model, model.ip_rows([keys[i] for i in idx]),
+                           model.word_rows([words[i] for i in idx]), None)
+        out = s if out is None else np.minimum(out, s)
+    return out
+
+
+def interleaved(tenants, names, n=None):
+    """(tenant, line) round-robin over `names`, each its first n lines
+    (all of them for n None)."""
+    lists = {t: tenants[t]["lines"][:n] for t in names}
+    stream = []
+    for i in range(max(len(v) for v in lists.values())):
+        stream += [(t, lists[t][i]) for t in names if i < len(lists[t])]
+    return stream
+
+
+def fleet_run(label, tenants, stream, *, device_min=0, refresh_every=0,
+              engine="auto", precision="f32", hot=0, warm=0, policy="lru",
+              spill="", dense_em="auto", journal=None, queue_max=None):
+    """One stream through a FleetScorer on the card, submitted as fast
+    as it takes them: per tenant its scores and versions in submit
+    order, the models it was served by version, the wall, the records,
+    the refresh walls, the scorer's counts and the residency stats."""
+    from oni_ml_tpu_torch.config import OnlineLDAConfig, ServingConfig
+    from oni_ml_tpu_torch.serving import (FleetRegistry, FleetScorer,
+                                          MetricsEmitter, RefreshLoop,
+                                          ResidencyManager, TenantSpec,
+                                          event_documents)
+
+    names = list(dict.fromkeys(t for t, _ in stream))
+    cfg = ServingConfig(device_score_min=device_min,
+                        refresh_every=refresh_every, featurize_engine=engine,
+                        stack_precision=precision,
+                        tenant_queue_max=(queue_max or
+                                          ServingConfig.tenant_queue_max))
+    metrics = MetricsEmitter(to_stdout=False, keep_records=1 << 20,
+                             journal=journal)
+    fleet = FleetRegistry(journal=journal, recorder=metrics.recorder,
+                          capacity_tiers=hot > 0, stack_precision=precision)
+    mgr = (ResidencyManager(fleet, hot_capacity=hot, warm_capacity=warm,
+                            policy=policy, spill_dir=spill, journal=journal,
+                            recorder=metrics.recorder) if hot else None)
+    models, refreshes, refresh_s = {}, {}, []
+    for t in names:
+        fleet.add_tenant(TenantSpec(tenant=t, dsource=tenants[t]["dsource"]),
+                         hot=not hot)
+        snap = fleet.publish(t, tenants[t]["model"], f"smoke-{t}")
+        models[t] = {snap.version: snap.model}
+        if mgr is not None:
+            mgr.register(t, day_source=tenants[t]["day_source"])
+        if refresh_every:
+            refreshes[t] = RefreshLoop(
+                fleet.view(t), OnlineLDAConfig(
+                    num_topics=tenants[t]["model"].num_topics,
+                    dense_em=dense_em),
+                every=refresh_every, device="cuda")
+
+    def on_batch(tenant, snapshot, feats, scores):
+        models[tenant].setdefault(snapshot.version, snapshot.model)
+        loop = refreshes.get(tenant)
+        if loop is not None:
+            new = loop.observe(snapshot, *event_documents(
+                feats, tenants[tenant]["dsource"]))
+            if new is not None:
+                refresh_s.append(loop.last_refresh_s)
+
+    scorer = FleetScorer(fleet, {t: tenants[t]["featurizer"] for t in names},
+                         cfg, metrics=metrics, on_batch=on_batch,
+                         journal=journal, residency=mgr, device="cuda")
+    if mgr is not None:
+        mgr.set_pending_probe(lambda t: scorer.pending(t) > 0)
+    t0 = time.perf_counter()
+    futures = [(t, scorer.submit(t, line)) for t, line in stream]
+    scorer.close()
+    wall = time.perf_counter() - t0
+    stats = mgr.stats_snapshot() if mgr is not None else None
+    if mgr is not None:
+        mgr.close()
+    if not all(f.done() for _, f in futures):
+        fail(f"fleet {label}: a future never resolved")
+    out = {t: ([], []) for t in names}
+    for t, f in futures:
+        s, v = f.result(timeout=0)
+        out[t][0].append(s)
+        out[t][1].append(v)
+    recs = list(metrics.records)
+    errors = [r for r in recs if "error" in r or "on_batch_error" in r]
+    if (errors or scorer.counts["failures"] or scorer.events_scored
+            != len(stream)):
+        fail(f"fleet {label}: events_scored {scorer.events_scored} of "
+             f"{len(stream)}, failures {scorer.counts['failures']}, "
+             f"errors {errors[:3]}")
+    return {"scores": {t: np.array(v[0]) for t, v in out.items()},
+            "versions": {t: np.array(v[1]) for t, v in out.items()},
+            "models": models, "wall": wall, "records": recs,
+            "refresh_s": refresh_s, "counts": dict(scorer.counts),
+            "plan": scorer.plan, "residency": stats, "fleet": fleet,
+            "scorer": scorer, "metrics": metrics, "events": len(stream)}
+
+
+def fleet_summary(run):
+    """events/s, flush latency p50/p99 by scorer, dispatches per flush,
+    tenants per packed dispatch, featurize µs per event by engine,
+    refresh walls."""
+    agg = [r for r in run["records"] if "segments" in r and "tenant" not in r]
+    c = run["counts"]
+
+    def per_event(path):
+        n = c[f"featurize_{path}_events"]
+        return 1e6 * c[f"featurize_{path}_s"] / n if n else None
+
+    return {
+        "events": run["events"], "wall_s": run["wall"],
+        "events_per_s": run["events"] / run["wall"],
+        "flushes": len(agg),
+        "latency_ms": {path: quantiles([r["latency_ms"] for r in agg
+                                        if r["scorer"] == path])
+                       for path in ("host", "device")},
+        "dispatches_per_flush": float(np.mean([r["segments"] for r in agg])),
+        "tenants_per_dispatch": float(np.mean(
+            [r["tenants"] / r["segments"] for r in agg if r["segments"]])),
+        "featurize_us_per_event": {"device": per_event("device"),
+                                   "host": per_event("host")},
+        "counts": {k: v for k, v in c.items() if not k.endswith("_s")},
+        "refreshes": len(run["refresh_s"]), "refresh_s": run["refresh_s"],
+    }
+
+
+def check_fleet_scores(label, run, tenants, day_feats, ref=None, rtol=0.0):
+    """Every tenant's scores against the host oracle on the model version
+    that scored each event (bit for bit where every flush scored on the
+    host and rtol is 0, else within rtol), or against `ref` (scores per
+    tenant) within rtol.  -> the largest relative difference."""
+    on_card = any(r.get("scorer") == "device" for r in run["records"])
+    worst = 0.0
+    for t, got in run["scores"].items():
+        versions = run["versions"][t]
+        if ref is not None:
+            want = ref[t]
+        else:
+            want = np.empty(len(got))
+            for v in np.unique(versions):
+                idx = np.nonzero(versions == v)[0]
+                want[idx] = (tenants[t]["expect"][idx] if v == 1 else
+                             host_scores(run["models"][t][int(v)],
+                                         day_feats[tenants[t]["day"]], idx))
+        if not np.all(np.isfinite(got)):
+            fail(f"fleet {label}: tenant {t} has non-finite scores")
+        if ref is None and not on_card and rtol == 0.0:
+            if not np.array_equal(got, want):
+                fail(f"fleet {label}: tenant {t}: "
+                     f"{int(np.sum(got != want))} scores differ from its "
+                     "own model's alone")
+            continue
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        worst = max(worst, rel)
+        if not rel <= (rtol or RTOL_FLEET_DEVICE):
+            fail(f"fleet {label}: tenant {t} rel {rel:.3e} > "
+                 f"{rtol or RTOL_FLEET_DEVICE}")
+    return worst
+
+
+def stack_device_bytes(run, k):
+    """Bytes of the K-group stack's device copies (tensor nbytes)."""
+    from oni_ml_tpu_torch.scoring.score import _device_model
+
+    theta, p = _device_model(run["fleet"].stack(k).model, run["scorer"].device)
+    return {"dtype": str(theta.dtype), "bytes": int(theta.nbytes + p.nbytes),
+            "theta_rows": int(theta.shape[0]), "p_rows": int(p.shape[0])}
+
+
+def residency_runs(tmp, tenants, day_feats):
+    """--hot-tenants 4 --warm-tenants 2 with a spill dir, LRU then LFU:
+    promotions, evictions and cold reloads, every score the tenant's own
+    model's alone at version 1, a tenant paged cold and back among them;
+    the promotion stalls."""
+    from oni_ml_tpu_torch.telemetry import Journal
+
+    half = FLEET_RESIDENCY_EVENTS // 2
+    names = list(tenants)
+    stream = []
+    for lo in (0, half):
+        for t in names:
+            stream += [(t, line) for line in
+                       tenants[t]["lines"][lo:lo + half]]
+    out = {}
+    for policy in ("lru", "lfu"):
+        jpath = os.path.join(tmp, f"fleet_{policy}.jsonl")
+        journal = Journal(jpath)
+        run = fleet_run(f"residency_{policy}", tenants, stream,
+                        hot=FLEET_HOT, warm=FLEET_WARM, policy=policy,
+                        spill=os.path.join(tmp, f"spill_{policy}"),
+                        journal=journal, queue_max=FLEET_RESIDENCY_QUEUE)
+        journal.close()
+        check_fleet_scores(f"residency_{policy}", run, tenants, day_feats)
+        res = run["residency"]
+        versions = {int(v) for t in names for v in run["versions"][t]}
+        records = list(Journal.replay(jpath))
+        cold = {r["tenant"] for r in records
+                if r["kind"] == "residency_evict" and r.get("tier_to")
+                == "cold"}
+        back = {r["tenant"] for r in records
+                if r["kind"] == "residency_promote" and r.get("ok")
+                and r.get("tier_from") == "cold"}
+        stalls = [r["stall_s"] for r in records
+                  if r["kind"] == "residency_promote" and "stall_s" in r]
+        if (res["promotions"] <= 0 or res["evictions"] <= 0
+                or res["failures"] or versions != {1} or not cold & back):
+            fail(f"fleet residency {policy}: {res}, versions {versions}, "
+                 f"paged cold and back {sorted(cold & back)}")
+        out[policy] = {**fleet_summary(run), "residency": res,
+                       "paged_cold_and_back": sorted(cold & back),
+                       "promotion_stall_s": quantiles(stalls),
+                       "same_model_version": True}
+    return out
+
+
+def fleet_cli(tmp, tenants):
+    """`serve --fleet manifest.json --device cuda` as a subprocess: 8
+    tenant names over the two 2M day dirs, a tagged interleaved stream,
+    refresh every 8: exit 0, every event scored once, >= 2 versions per
+    tenant, no error record."""
+    names = [t for t in tenants if tenants[t]["day"] != "k10"]
+    manifest = os.path.join(tmp, "fleet.json")
+    with open(manifest, "w") as f:
+        json.dump({"tenants": [{"tenant": t, "day_dir": tenants[t]["day_dir"],
+                                "dsource": tenants[t]["dsource"]}
+                               for t in names]}, f)
+    events = os.path.join(tmp, "fleet_events.tsv")
+    n = 0
+    with open(events, "w") as f:
+        for t, line in interleaved(tenants, names):
+            f.write(f"{t}\t{line}")
+            n += 1
+    out = os.path.join(tmp, "fleet_cli")
+    cmd = [sys.executable, "-m", "oni_ml_tpu_torch.runner.ml_ops", "serve",
+           "--fleet", manifest, "--device", "cuda", "--input", events,
+           "--refresh-every", str(FLEET_REFRESH_EVERY),
+           "--metrics", out + ".metrics.jsonl",
+           "--openmetrics", out + ".openmetrics.txt"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"serve --fleet CLI exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    with open(out + ".metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    end = [r for r in recs if r.get("event") == "stream_end"][0]
+    agg = [r for r in recs if "segments" in r and "tenant" not in r]
+    errors = [r for r in recs if "error" in r or "on_batch_error" in r]
+    plans_rec = [r for r in recs if r.get("event") == "plans"][0]
+    if (errors or end["submitted"] != n or end["events_scored"] != n
+            or min(end["final_versions"].values()) < 2
+            or end["fleet_counts"]["failures"]):
+        fail(f"serve --fleet CLI: {end}, errors {errors[:3]}")
+    return {"tenants": len(names), "events": n, "process_wall_s": wall,
+            "events_per_s": n / wall, "flushes": len(agg),
+            "latency_ms": {path: quantiles([r["latency_ms"] for r in agg
+                                            if r["scorer"] == path])
+                           for path in ("host", "device")},
+            "final_versions": end["final_versions"],
+            "fleet_counts": end["fleet_counts"], "knobs": plans_rec["knobs"],
+            "warmup": plans_rec["warmup"],
+            "refresh_s": [r["refresh_s"] for r in recs
+                          if r.get("event") == "model_refresh"]}
+
+
+def fleet_phase(tmp, raws):
+    """`serve --fleet` on the card (see the module docstring).  Returns
+    the launches on the fleet's path per kernel: the default stream's
+    refreshes and the per-batch members' (fixed point included)."""
+    import contextlib
+    import io
+
+    from oni_ml_tpu_torch.runner import serve
+    from oni_ml_tpu_torch.scoring import dispatch_calibration
+    from oni_ml_tpu_torch.sources.device import measure_break_even
+    from oni_ml_tpu_torch.telemetry import roofline
+
+    t0 = time.perf_counter()
+    tenants, day_feats, setup = fleet_tenants(tmp, raws)
+    names = list(tenants)
+    stream = interleaved(tenants, names)
+    if len(stream) != 8 * FLEET_BIG_EVENTS + FLEET_SMALL_EVENTS:
+        fail(f"fleet stream holds {len(stream)} events")
+    cal = dispatch_calibration(device="cuda")
+    out = {"tenants": {t: {"dsource": v["dsource"], "k": v["model"]
+                           .num_topics, "events": len(v["lines"])}
+                       for t, v in tenants.items()},
+           "setup": setup, "calibration": cal}
+    # 1. The defaults (device featurize engine, calibrated dispatch),
+    # each tenant refreshing every 8 of its flushes; the kernels' counts
+    # zeroed just before and read just after.
+    reset_kernel_counts()
+    run1 = fleet_run("default", tenants, stream,
+                     refresh_every=FLEET_REFRESH_EVERY)
+    counts1 = (launch_counts(), executed_counts())
+    check_fleet_scores("default", run1, tenants, day_feats)
+    served = {t: len(run1["models"][t]) for t in names}
+    if min(served.values()) < 2:
+        fail(f"fleet default: versions served per tenant {served}")
+    member_launches(counts1, len(run1["refresh_s"]), "dense",
+                    "per_batch:sparse")
+    out["default"] = {**fleet_summary(run1), "versions_served": served,
+                      "launches": counts1[0], "exactly_once": True,
+                      "plan": run1["plan"]}
+    # 2. Every K-group dispatch on the card.
+    run2 = fleet_run("device", tenants, stream, device_min=1)
+    rel2 = check_fleet_scores("device", run2, tenants, day_feats,
+                              rtol=RTOL_FLEET_DEVICE)
+    if any(r["scorer"] != "device" for r in run2["records"]
+           if "segments" in r and "tenant" not in r):
+        fail("fleet device: a flush scored off the card")
+    out["device"] = {**fleet_summary(run2), "max_rel": rel2,
+                     "stack": stack_device_bytes(run2, 20)}
+    # 3. The fused engine: every K-group of one tenant, so each flush
+    # takes one fused call per group.
+    fused = {}
+    for group in (("flow0", "k10"), ("dns0",)):
+        run3 = fleet_run("fused", tenants, interleaved(tenants, group),
+                         engine="fused")
+        rel3 = check_fleet_scores("fused", run3, tenants, day_feats,
+                                  rtol=RTOL_FLEET_DEVICE)
+        hd = run3["metrics"].recorder.histograms["serve.device_score_ms"]
+        if run3["counts"]["fused_dispatches"] <= 0:
+            fail(f"fleet fused {group}: no fused call")
+        cost = roofline.cost_for("serve.featurize_fused")
+        fused["+".join(group)] = {
+            **fleet_summary(run3), "max_rel": rel3,
+            "fused_ms": {"mean": hd.total / hd.count,
+                         "p50": hd.quantile(0.5), "p99": hd.quantile(0.99),
+                         "calls": hd.count},
+            "roofline": roofline.emit("serve.featurize_fused",
+                                      hd.total / 1e3, dispatches=hd.count,
+                                      recorder=run3["metrics"].recorder),
+            "cost": cost}
+    fused["calibrated_dispatch_ms"] = (cal["dispatch_s"] * 1e3
+                                       if cal["dispatch_s"] else None)
+    out["fused"] = fused
+    # 4. Tiered residency.
+    out["residency"] = residency_runs(tmp, tenants, day_feats)
+    # 5. A bf16 stack against run 2's f32 stack.
+    run5 = fleet_run("bf16", tenants, stream, device_min=1, precision="bf16")
+    rel5 = check_fleet_scores("bf16", run5, tenants, day_feats,
+                              ref=run2["scores"], rtol=RTOL_BF16)
+    b32, b16 = out["device"]["stack"], stack_device_bytes(run5, 20)
+    if b16["bytes"] * 2 != b32["bytes"] or b16["dtype"] != "torch.bfloat16":
+        fail(f"fleet bf16: stack {b16} against f32 {b32}")
+    out["bf16"] = {**fleet_summary(run5), "max_rel_vs_f32": rel5,
+                   "stack": b16}
+    # The per-batch refresh members on the fleet's path: the step's
+    # dense_em off, once on the sparse kernel and once under
+    # ONI_ML_TPU_ESTEP=pallas (the fixed point).
+    members = {}
+    total = dict(counts1[0])
+    for label, _, env, member, infer in REFRESH_MEMBERS[1:]:
+        if env:
+            os.environ["ONI_ML_TPU_ESTEP"] = env
+        try:
+            reset_kernel_counts()
+            runm = fleet_run(label, tenants, interleaved(
+                tenants, ("flow1", "k10"), FLEET_MEMBER_EVENTS),
+                refresh_every=FLEET_REFRESH_EVERY, dense_em="off")
+            counts = (launch_counts(), executed_counts())
+        finally:
+            os.environ.pop("ONI_ML_TPU_ESTEP", None)
+        check_fleet_scores(label, runm, tenants, day_feats)
+        if not runm["refresh_s"]:
+            fail(f"fleet {label} refresh: no refresh")
+        member_launches(counts, len(runm["refresh_s"]), member, infer)
+        for name, c in counts[0].items():
+            total[name] += c
+        members[label] = {**fleet_summary(runm), "launches": counts[0]}
+    out["members"] = members
+    # measure_break_even on the card's host path, recorded in this run's
+    # plan cache; the CLI below reads it from there.
+    flow = tenants["flow0"]
+    rows = [line.strip().split(",") for line in flow["lines"][:512]]
+    be, samples = measure_break_even(flow["featurizer"], rows,
+                                     flow["lines"][:512], flow["model"],
+                                     device="cuda")
+    out["break_even"] = {"featurize_break_even": be, "samples": samples}
+    # 6. The CLI, and the fleet dry run on cuda.
+    out["cli"] = fleet_cli(tmp, tenants)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--dry-run", "--fleet", "synthetic:4"])
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or summary.get("serve_fleet_dry_run") != "ok" or \
+            not str(summary.get("device")).startswith("cuda"):
+        fail(f"serve --dry-run --fleet on cuda: rc {rc}, {summary}")
+    out["dry_run"] = {k: summary[k] for k in ("serve_fleet_dry_run",
+                                              "device", "tenants",
+                                              "events_scored")}
+    if any(total[name] <= 0 for name in total):
+        fail(f"fleet path: a kernel never launched: {total}")
+    out["launches_fleet"] = total
+    out["phase_s"] = time.perf_counter() - t0
+    log("fleet " + json.dumps(out, default=str))
+    log(f"fleet phase: {out['phase_s']:.1f} s")
+    return total
+
+
 def check_launches(engine, lda, counts, extra=None):
     """Each kernel of the family member `engine` launched once per batch
     per EM iteration enqueued (those after the device stop included) and
@@ -2620,6 +3146,7 @@ def main() -> int:
         online_counts = online(tmp, corpus)
         evaluate(tmp, raws["flow"])
         serve_counts = serve_phase(tmp)
+        fleet_counts = fleet_phase(tmp, raws)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     scatter_rec = profile_em(corpus)
@@ -2653,6 +3180,11 @@ def main() -> int:
             # kernel and scatter) and, for the fixed point, the refresh
             # under ONI_ML_TPU_ESTEP=pallas.
             "launches_serve": serve_counts[kname],
+            # On the fleet's path: the default fleet stream's per-tenant
+            # refreshes (the dense step, the inference pass's sparse
+            # kernel and scatter) and the per-batch members' (the sparse
+            # kernel, and the fixed point under ONI_ML_TPU_ESTEP=pallas).
+            "launches_fleet": fleet_counts[kname],
             "max_abs_err": max(errs), "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),

@@ -176,8 +176,10 @@ class ServingConfig:
     """The streaming scoring service (serving/, `ml_ops serve`): a
     completed day's model is loaded into a ModelRegistry and a
     BatchScorer serves arriving events in micro-batches; none of these
-    knobs affect the day job's stages.  The JAX package's fleet and
-    residency fields wait for the fleet's slice."""
+    knobs affect the day job's stages.  `serve --fleet` serves many
+    tenants' models through one FleetScorer (serving/fleet.py), with
+    tiered residency (serving/residency.py) and the featurize plane
+    (sources/device.py)."""
 
     # Flush an accumulating micro-batch when it reaches this many
     # events...
@@ -212,6 +214,62 @@ class ServingConfig:
     metrics_host: str = "127.0.0.1"
     # The same OpenMetrics text written here at stream end ("" = off).
     openmetrics_path: str = ""
+    # -- multi-tenant fleet (serving/fleet.py, `serve --fleet`) --
+    # Fleet manifest path: a JSON file of tenants (serving/tenants.py
+    # load_manifest); "" = single-model serving.
+    fleet_manifest: str = ""
+    # The FleetScorer's cross-tenant flush triggers: the fleet's
+    # max_batch / max_wait_ms, counted over every tenant's queue and
+    # timed from the globally oldest event.
+    fleet_max_batch: int = 4096
+    fleet_max_wait_ms: float = 50.0
+    # Per-tenant admission bound: a tenant with this many events pending
+    # blocks its own producers (admission "block", the stall priced as
+    # serve.<tenant>.admission_stall_s) or sheds them (admission
+    # "reject": AdmissionRejected, journaled as admission_reject).  A
+    # manifest entry's queue_max / admission override it per tenant.
+    tenant_queue_max: int = 8192
+    admission: str = "block"
+    # -- tiered residency (serving/residency.py) --
+    # At most this many tenants per topic count K sit in the stacked
+    # snapshot on the card (hot); the rest page between host RAM (warm)
+    # and checkpoints (cold) by an admission-driven LRU or LFU policy.
+    # 0 = unbounded: every published tenant is stacked.  With a
+    # capacity the stack pads to power-of-two tenant-capacity tiers, so
+    # paging within a tier keeps the stacked shape.
+    fleet_hot_tenants: int = 0
+    # At most this many non-hot tenants keep their model in host RAM;
+    # past it the policy's coldest spill to checkpoints (an atomic npz
+    # under residency_spill_dir, or a reload from the day dir).  0 =
+    # unbounded (no cold tier).
+    fleet_warm_tenants: int = 0
+    # Eviction victims: "lru" (least recently admitted) or "lfu"
+    # (fewest admissions, recency breaks ties); a tenant with events
+    # queued is never evicted while a quiet one is hot.
+    residency_policy: str = "lru"
+    # Spill directory of the cold tier ("" = a per-process temp dir).
+    residency_spill_dir: str = ""
+    # Device storage dtype of the stacked theta/p: "f32" or "bf16"
+    # (half the bytes on the card, float32 accumulation in the
+    # gather-dot; scores within 2^-7 relative of the f32 stack's).  The
+    # host's float64 matrices are untouched.
+    stack_precision: str = "f32"
+    # -- featurize plane (sources/device.py, ops/featurize_kernel.py) --
+    # Which engine builds a flush's word rows: "host" (the Python
+    # featurizers, the oracle), "device" (the compiled vocabulary
+    # tables: vectorized parse and a packed-code lookup, feeding the
+    # same score dispatch, so scores stay bit-equal to the host's) or
+    # "fused" (the lookup, both row gathers and the dot in one dispatch
+    # on the card per single-tenant K-group, float32: within rel 1e-6).
+    # "auto" = "device"; ONI_ML_TPU_FEATURIZE overrides.
+    featurize_engine: str = "auto"
+    # Power-of-two pad floor of the fused dispatch's batch dimension.
+    featurize_block: int = 2048
+    # Smallest tenant segment (events) the device featurize engine
+    # takes; smaller ones featurize on the host.  0 = the plan entry
+    # measure_break_even recorded for this device, else 1 (always);
+    # ONI_ML_TPU_FEATURIZE_BREAK_EVEN overrides.
+    featurize_break_even: int = 0
 
 
 @dataclass(frozen=True)

@@ -12,7 +12,11 @@ so a test can start both chunk runners from one state.  So does the
 online trainer's lambda (`lam_from_reference`): the JAX trainer draws
 its initial lambda as `jax.random.gamma(PRNGKey(seed), 100, (K, V)) /
 100`, the port from a torch.Generator, so a parity test passes the JAX
-draw as the port's `initial_lam`.
+draw as the port's `initial_lam`.  A serving model crosses too: the JAX
+package's `ScoringModel` and the fleet's `StackedSnapshot` are numpy
+arrays and index maps (`scoring_model_from_reference`,
+`stacked_snapshot_from_reference`), so a test gives both packages the
+same tenants.
 """
 
 from __future__ import annotations
@@ -77,3 +81,39 @@ def chunk_state_from_reference(log_beta, alpha, ll_prev, gammas,
 
     return ChunkState(t(log_beta), t(alpha), t(ll_prev),
                       tuple(t(g) for g in gammas))
+
+
+def scoring_model_from_reference(model):
+    """A JAX package ScoringModel (index maps, float64 theta [D+1, K]
+    and p [V+1, K]) -> the port's, copied; a bfloat16 storage marker
+    crosses with it."""
+    from ..scoring import ScoringModel
+
+    out = ScoringModel(ip_index=dict(model.ip_index),
+                       theta=np.array(model.theta, np.float64),
+                       word_index=dict(model.word_index),
+                       p=np.array(model.p, np.float64))
+    if getattr(model, "_device_dtype", None) == "bfloat16":
+        out._device_dtype = "bfloat16"
+    return out
+
+
+def stacked_snapshot_from_reference(stack):
+    """A JAX package StackedSnapshot -> the port's: the stacked model,
+    each member's snapshot (model, version, source, publish stamp), the
+    base offsets, the build counter, the capacity tier and the
+    precision."""
+    from ..serving.fleet import StackedSnapshot
+    from ..serving.registry import ModelSnapshot
+
+    members = {
+        t: ModelSnapshot(model=scoring_model_from_reference(s.model),
+                         version=s.version, source=s.source,
+                         published_at=s.published_at)
+        for t, s in stack.members.items()}
+    return StackedSnapshot(
+        k=int(stack.k), tenants=tuple(stack.tenants),
+        model=scoring_model_from_reference(stack.model), members=members,
+        ip_base=dict(stack.ip_base), word_base=dict(stack.word_base),
+        stack_version=int(stack.stack_version),
+        capacity=int(stack.capacity), precision=stack.precision)

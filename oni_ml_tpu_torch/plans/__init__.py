@@ -1,10 +1,9 @@
 """Measured execution plans: the persisted plan cache that the engine
 crossover (ops/sparse_estep.engine_crossover) and the serving dispatch
 calibration (scoring.score.dispatch_calibration) read and write (port
-of the store and the lookup/record half of oni_ml_tpu/plans; the JAX
-package's knob resolution, autotune harness and compilation-cache
-warm-up are not ported, and plans/warmup.py holds only the serving
-warm-up).
+of the store, the lookup/record half and `resolve` of oni_ml_tpu/plans;
+the JAX package's autotune harness and compilation-cache warm-up are not
+ported, and plans/warmup.py holds only the serving warm-up).
 
 - `store.PlanStore` — a versioned JSONL store keyed by backend
   fingerprint + shape signature + schema version, at
@@ -13,7 +12,9 @@ warm-up).
   TPU.
 - `lookup_value` / `record_value` — read and append one knob's entry
   (knobs.KNOBS: the engine crossover, the serving dispatch
-  calibration).
+  calibration, the fleet's featurize break-even).
+- `resolve` — the one precedence rule for a knob that also has a config
+  field: config > plan > default, with the source named.
 - `note_sweep` / `counters_snapshot` — count the measurement passes
   (the dispatch calibration's), which serve's `plans` record shows.
 - A value measured through the port's CUDA kernels (the engine
@@ -42,7 +43,7 @@ __all__ = [
     "KNOBS", "Knob", "NullStore", "PlanEntry", "PlanStore", "SCHEMA_VERSION",
     "counters", "counters_snapshot", "current_store", "default_path",
     "default_store", "device_fingerprint", "lookup_value", "note_sweep",
-    "plan_backend", "plans_enabled", "record_value", "use_store",
+    "plan_backend", "plans_enabled", "record_value", "resolve", "use_store",
 ]
 
 
@@ -187,3 +188,16 @@ def record_value(knob: str, value, *, shape: str = "*",
         return True
     except Exception:
         return False
+
+
+def resolve(knob: str, config_value, *, shape: str = "*", device=None):
+    """-> (value, source) for one knob: a config value wins ("config");
+    else this device's plan entry ("plan"); else None ("default", the
+    caller's own default applies).  `config_value=None` means the caller
+    has no config value and goes to the plan."""
+    if config_value is not None:
+        return config_value, "config"
+    value = lookup_value(knob, shape, device)
+    if value is not None:
+        return value, "plan"
+    return None, "default"

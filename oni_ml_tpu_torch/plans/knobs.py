@@ -5,10 +5,15 @@ a valid plan value is.
 - `estep_engine`: the measured E-step engine crossover.
 - `dispatch_calibration`: the serving scorer's measured host-or-device
   break-even (scoring.score.dispatch_calibration).
+- `featurize_break_even`: the smallest fleet segment at which the device
+  featurize path beats the host featurizer
+  (sources/device.measure_break_even records it; resolve_break_even
+  reads it through `plans.resolve`).
 
-The EM driver's chunk and sync, the sparse layout's tile length and the
-micro-batcher's flush triggers are read from config.py, since nothing in
-the port measures them."""
+The EM driver's chunk and sync, the sparse layout's tile length, the
+micro-batchers' flush triggers, the fleet's hot capacity and the
+featurize engine and block are read from config.py, since nothing in the
+port measures them."""
 
 from __future__ import annotations
 
@@ -25,6 +30,10 @@ def _calibration_dict(v) -> bool:
     return be is None or (
         isinstance(be, (int, float)) and not isinstance(be, bool)
     )
+
+
+def _pos_int(v) -> bool:
+    return isinstance(v, int) and not isinstance(v, bool) and v > 0
 
 
 def _engine_dict(v) -> bool:
@@ -55,5 +64,10 @@ KNOBS = {
              doc="measured host-or-device scoring break-even "
                  "(scoring.score.dispatch_calibration record, minus its "
                  "source field)"),
+        Knob("featurize_break_even", valid=_pos_int,
+             doc="smallest fleet segment (events) at which the device "
+                 "featurize path beats the host featurizer "
+                 "(sources/device.measure_break_even; 0 in ServingConfig "
+                 "= use this knob)"),
     )
 }

@@ -1,5 +1,5 @@
 """`ml_ops serve`: the streaming scoring service over a completed day
-directory (port of oni_ml_tpu/runner/serve.py, the single-model mode).
+directory, or over a fleet of them (port of oni_ml_tpu/runner/serve.py).
 
     python -m oni_ml_tpu_torch.runner.ml_ops serve \
         --day-dir /data/days/20160122 --dsource flow \
@@ -13,15 +13,24 @@ prints flagged events (score < threshold) as JSON lines and one
 models hot-swap in without a restart.  It runs on the card unless
 `--device cpu` asks for the CPU; without a card it raises.
 
+    python -m oni_ml_tpu_torch.runner.ml_ops serve --fleet manifest.json \
+        [--hot-tenants N --warm-tenants M --residency-policy lru|lfu \
+         --residency-spill DIR] [--stack-precision f32|bf16]
+
+serves every tenant of the manifest (serving/tenants.py) through one
+FleetScorer: stream lines are `<tenant>\t<raw csv line>`, each tenant
+refreshes on its own, and with --hot-tenants only N tenants per topic
+count stay stacked on the card (serving/residency.py).
+
 `--dry-run` runs the whole stack (registry -> micro-batches -> a
 mid-stream hot-swap -> refresh republish) on a small synthetic in-memory
-day and checks the exactly-once contract; it needs no day directory and
-finishes in seconds.
+day and checks the exactly-once contract; `--dry-run --fleet
+synthetic[:N]` does the same for N synthetic tenants.  Both need no day
+directory and finish in seconds.
 
-Not ported, refused with the ROADMAP item that brings them: the fleet
-(`--fleet` and the residency flags, Queue 1 item 7) and the JAX
-package's persistent compilation cache (`--no-compilation-cache`, item
-4; PyTorch eager compiles nothing to cache).
+Refused, naming the ROADMAP item that brings it: the JAX package's
+persistent compilation cache (`--no-compilation-cache`, item 4; PyTorch
+eager compiles nothing to cache).
 """
 
 from __future__ import annotations
@@ -49,17 +58,6 @@ from ..sources import names as source_names
 # Flags of the JAX package's serve that the port refuses, with the
 # ROADMAP item that brings each.
 _REFUSED = {
-    "fleet": ("--fleet", "ROADMAP Queue 1 item 7 (the serving fleet)"),
-    "hot_tenants": ("--hot-tenants", "ROADMAP Queue 1 item 7 (the serving "
-                    "fleet's tiered residency)"),
-    "warm_tenants": ("--warm-tenants", "ROADMAP Queue 1 item 7 (the serving "
-                     "fleet's tiered residency)"),
-    "residency_policy": ("--residency-policy", "ROADMAP Queue 1 item 7 (the "
-                         "serving fleet's tiered residency)"),
-    "residency_spill": ("--residency-spill", "ROADMAP Queue 1 item 7 (the "
-                        "serving fleet's tiered residency)"),
-    "stack_precision": ("--stack-precision", "ROADMAP Queue 1 item 7 (the "
-                        "serving fleet's stacked snapshots)"),
     "no_compilation_cache": ("--no-compilation-cache", "ROADMAP Queue 1 "
                              "item 4 (plans: PyTorch eager keeps no "
                              "compilation cache to opt out of)"),
@@ -131,20 +129,37 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--dry-run", action="store_true",
                    help="exercise the full serving stack on a synthetic "
                    "in-memory day (no --day-dir needed) and exit")
-    # The JAX package's fleet, residency and compilation-cache flags:
-    # parsed so that a command written for it is refused by name.
-    p.add_argument("--fleet", default=None, metavar="MANIFEST",
-                   help="not ported (ROADMAP Queue 1 item 7)")
-    p.add_argument("--hot-tenants", type=int, default=None,
-                   help="not ported (ROADMAP Queue 1 item 7)")
-    p.add_argument("--warm-tenants", type=int, default=None,
-                   help="not ported (ROADMAP Queue 1 item 7)")
-    p.add_argument("--residency-policy", default=None,
-                   help="not ported (ROADMAP Queue 1 item 7)")
-    p.add_argument("--residency-spill", default=None,
-                   help="not ported (ROADMAP Queue 1 item 7)")
-    p.add_argument("--stack-precision", default=None,
-                   help="not ported (ROADMAP Queue 1 item 7)")
+    p.add_argument("--fleet", default="", metavar="MANIFEST",
+                   help="multi-tenant mode: serve every tenant of this "
+                   "JSON manifest (serving/tenants.py) through one "
+                   "FleetScorer; stream lines are '<tenant>\\t<raw csv "
+                   "line>'.  With --dry-run, 'synthetic' or "
+                   "'synthetic:N' runs the fleet check on N in-memory "
+                   "tenants (default 2)")
+    p.add_argument("--hot-tenants", type=int,
+                   default=ServingConfig.fleet_hot_tenants, metavar="N",
+                   help="tiered residency: at most N tenants per topic "
+                   "count stay stacked on the card; the rest page to "
+                   "host RAM and checkpoints on demand (0 = unbounded)")
+    p.add_argument("--warm-tenants", type=int,
+                   default=ServingConfig.fleet_warm_tenants, metavar="N",
+                   help="at most N non-hot tenants keep their model in "
+                   "host RAM; the coldest past that spill to a "
+                   "checkpoint (0 = unbounded)")
+    p.add_argument("--residency-policy", choices=["lru", "lfu"],
+                   default=ServingConfig.residency_policy,
+                   help="eviction victims: least recently or least often "
+                   "admitted")
+    p.add_argument("--residency-spill",
+                   default=ServingConfig.residency_spill_dir, metavar="DIR",
+                   help="cold-tier spill directory for a model its day "
+                   "dir no longer holds (default: a per-process temp "
+                   "dir)")
+    p.add_argument("--stack-precision", choices=["f32", "bf16"],
+                   default=ServingConfig.stack_precision,
+                   help="device storage of the stacked models: bf16 "
+                   "halves their bytes on the card, float32 "
+                   "accumulation (scores within 2^-7 relative)")
     p.add_argument("--no-compilation-cache", action="store_const",
                    const=True, default=None,
                    help="not ported (ROADMAP Queue 1 item 4)")
@@ -152,10 +167,16 @@ def build_serve_parser() -> argparse.ArgumentParser:
 
 
 def _serving_config(args) -> ServingConfig:
+    # --max-batch / --max-wait-ms set whichever scorer the mode runs:
+    # the BatchScorer's triggers, or the FleetScorer's under --fleet.
     mb, mw = args.max_batch, args.max_wait_ms
     return ServingConfig(
         max_batch=mb if mb is not None else ServingConfig.max_batch,
         max_wait_ms=mw if mw is not None else ServingConfig.max_wait_ms,
+        fleet_max_batch=(mb if mb is not None
+                         else ServingConfig.fleet_max_batch),
+        fleet_max_wait_ms=(mw if mw is not None
+                           else ServingConfig.fleet_max_wait_ms),
         device_score_min=args.device_score_min,
         refresh_every=args.refresh_every,
         threshold=args.threshold,
@@ -163,6 +184,12 @@ def _serving_config(args) -> ServingConfig:
         metrics_port=args.metrics_port,
         metrics_host=args.metrics_host,
         openmetrics_path=args.openmetrics,
+        fleet_manifest=args.fleet,
+        fleet_hot_tenants=args.hot_tenants,
+        fleet_warm_tenants=args.warm_tenants,
+        residency_policy=args.residency_policy,
+        residency_spill_dir=args.residency_spill,
+        stack_precision=args.stack_precision,
     )
 
 
@@ -486,6 +513,374 @@ def dry_run(args) -> int:
     return 0 if ok else 1
 
 
+# ---------------------------------------------------------------------------
+# --fleet: multi-tenant serving
+# ---------------------------------------------------------------------------
+
+
+def serve_fleet_stream(args) -> int:
+    """Serve every tenant of a fleet manifest through one FleetScorer on
+    args.device: stacked models per topic count, per-tenant admission,
+    metrics and refresh.  Stream lines are ``<tenant>\\t<raw csv
+    line>`` (a one-tenant manifest also takes untagged lines)."""
+    from ..device import resolve_device
+    from ..plans import counters_snapshot
+    from ..plans.warmup import warmup_serving
+    from ..scoring import dispatch_calibration
+    from ..serving import (AdmissionRejected, FleetRegistry, FleetScorer,
+                           ResidencyManager, load_manifest,
+                           resolve_hot_capacity)
+
+    dev = resolve_device(args.device)
+    cfg = _serving_config(args)
+    specs = load_manifest(args.fleet)
+    journal = None
+    if args.journal:
+        from ..telemetry import Journal
+
+        journal = Journal(args.journal)
+    metrics = MetricsEmitter(path=cfg.metrics_path, journal=journal)
+    # Tiered residency: a hot capacity bounds the stacked members per K,
+    # and the stack pads to power-of-two capacity tiers.
+    hot_cap, hot_src = resolve_hot_capacity(cfg)
+    tiered = hot_cap > 0
+    fleet = FleetRegistry(journal=journal, recorder=metrics.recorder,
+                          capacity_tiers=tiered,
+                          stack_precision=cfg.stack_precision)
+    residency = None
+    if tiered:
+        residency = ResidencyManager(
+            fleet, hot_capacity=hot_cap,
+            warm_capacity=cfg.fleet_warm_tenants,
+            policy=cfg.residency_policy,
+            spill_dir=cfg.residency_spill_dir, journal=journal,
+            recorder=metrics.recorder, capacity_source=hot_src)
+    sc = ScoringConfig()
+    featurizers: dict = {}
+    mserver = None
+    # One finally releases the pager, the HTTP endpoint, the metrics
+    # file and the journal.
+    try:
+        for spec in specs:
+            if not spec.day_dir:
+                raise SystemExit(
+                    f"fleet manifest tenant {spec.tenant!r} has no day_dir")
+            # Under residency every tenant starts warm; the first
+            # admissions fill the hot tier.
+            fleet.add_tenant(spec, hot=not tiered)
+            fallback = get_source(spec.dsource).fallback(sc)
+            snap = fleet.load_day(spec.tenant, spec.day_dir, fallback)
+            if residency is not None:
+                residency.register(spec.tenant,
+                                   day_source=(spec.day_dir, fallback))
+            fz = _load_featurizer(spec.day_dir, args.top_domains)
+            if fz.dsource != spec.dsource:
+                raise SystemExit(
+                    f"tenant {spec.tenant!r} declares dsource "
+                    f"{spec.dsource} but {spec.day_dir} holds "
+                    f"{fz.dsource} features")
+            featurizers[spec.tenant] = fz
+            metrics.emit({
+                "stage": "serve", "event": "model_loaded",
+                "tenant": spec.tenant, "source": snap.source,
+                "model_version": snap.version,
+                "tier": (residency.tier_of(spec.tenant)
+                         if residency is not None else "hot"),
+                "ips": len(snap.model.ip_index),
+                "vocab": len(snap.model.word_index),
+            })
+        _serve_roofline = _make_serve_roofline(
+            metrics, journal,
+            max(fleet.tenant_k(s.tenant) for s in specs))
+        if cfg.metrics_port:
+            from ..telemetry import MetricsServer
+
+            mserver = MetricsServer(metrics.recorder, port=cfg.metrics_port,
+                                    host=cfg.metrics_host,
+                                    refresh=_serve_roofline)
+            metrics.emit({"stage": "serve", "event": "metrics_endpoint",
+                          "port": mserver.port, "path": "/metrics"})
+        refreshes: dict = {}
+        for spec in specs:
+            every = spec.refresh_every or cfg.refresh_every
+            if every:
+                refreshes[spec.tenant] = RefreshLoop(
+                    fleet.view(spec.tenant),
+                    OnlineLDAConfig(num_topics=fleet.tenant_k(spec.tenant)),
+                    every=every, total_docs=cfg.refresh_total_docs,
+                    device=dev)
+
+        def on_batch(tenant, snapshot, feats, scores):
+            # `scorer` binds at call time: the lane's threshold is the
+            # one resolution (spec, else config) its counts use too.
+            for i in np.where(scores < scorer.tenant_threshold(tenant))[0]:
+                print(json.dumps({
+                    "tenant": tenant,
+                    "flagged": feats.featurized_row(int(i)),
+                    "score": float(scores[i]),
+                    "model_version": snapshot.version,
+                }), flush=True)
+            refresh = refreshes.get(tenant)
+            if refresh is not None:
+                ips, words = event_documents(feats,
+                                             featurizers[tenant].dsource)
+                new = refresh.observe(snapshot, ips, words)
+                if new is not None:
+                    metrics.emit({
+                        "stage": "serve", "event": "model_refresh",
+                        "tenant": tenant, "model_version": new.version,
+                        "source": new.source,
+                        "refresh_s": refresh.last_refresh_s,
+                    })
+
+        scorer = FleetScorer(fleet, featurizers, cfg, metrics=metrics,
+                             on_batch=on_batch, journal=journal,
+                             residency=residency, device=dev)
+        if residency is not None:
+            residency.set_pending_probe(lambda t: scorer.pending(t) > 0)
+        # Warm the device path per K-group at the stacked shapes the
+        # dispatch rule sends there (a K-group's tenants share its
+        # stack).  Under residency the stacks form at the first
+        # promotions, so the head tenants are promoted first.  A failed
+        # warm-up raises: it never hides the card.
+        if residency is not None:
+            by_k: dict = {}
+            for s in specs:
+                by_k.setdefault(fleet.tenant_k(s.tenant), []).append(s.tenant)
+            for group in by_k.values():
+                for t in group[:max(1, hot_cap)]:
+                    residency.ensure_hot(t)
+        warm = []
+        for k in sorted({fleet.tenant_k(s.tenant) for s in specs}):
+            stack = fleet.stack(k)
+            mult = max(get_source(fleet.spec(t).dsource).pairs_per_event
+                       for t in stack.tenants)
+            warm.append({
+                "k": k, "tenants": len(stack.tenants),
+                "capacity": stack.capacity or None,
+                **warmup_serving(stack.model, scorer.max_batch * mult,
+                                 cfg.device_score_min, device=dev)})
+        plans_rec = {
+            "stage": "serve", "event": "plans",
+            "knobs": ({**scorer.plan, **residency.plan}
+                      if residency is not None else scorer.plan),
+            "warmup": warm, "plan_counters": counters_snapshot()}
+        if cfg.device_score_min in (0, "auto"):
+            plans_rec["dispatch_calibration"] = dispatch_calibration(
+                device=dev)
+        metrics.emit(plans_rec)
+        stream = sys.stdin if args.input == "-" else open(args.input)
+        submitted = rejected = header_skipped = 0
+        default_tenant = specs[0].tenant if len(specs) == 1 else None
+        first_seen: set = set()
+        headers: dict = {}
+        try:
+            for line in stream:
+                if not line.strip():
+                    continue
+                tenant, sep, payload = line.partition("\t")
+                if sep:
+                    tenant = tenant.strip()
+                elif default_tenant is not None:
+                    tenant, payload = default_tenant, line
+                else:
+                    rejected += 1      # untagged line, ambiguous tenant
+                    continue
+                if tenant not in featurizers:
+                    rejected += 1
+                    continue
+                # Each tenant's first line may be a CSV header, and its
+                # duplicates are dropped too (serve_stream's rule).
+                if tenant not in first_seen:
+                    first_seen.add(tenant)
+                    if _looks_like_header(payload,
+                                          featurizers[tenant].dsource):
+                        headers[tenant] = payload
+                        header_skipped += 1
+                        continue
+                if headers.get(tenant) == payload:
+                    header_skipped += 1
+                    continue
+                try:
+                    scorer.submit(tenant, payload)
+                    submitted += 1
+                except AdmissionRejected:
+                    rejected += 1      # journaled and counted per tenant
+                except ValueError:
+                    rejected += 1
+        finally:
+            if stream is not sys.stdin:
+                stream.close()
+            scorer.close()
+        metrics.emit({
+            "stage": "serve", "event": "stream_end",
+            "submitted": submitted, "rejected": rejected,
+            "header_skipped": header_skipped,
+            "events_scored": scorer.events_scored,
+            "batches": scorer.batches_flushed,
+            "tenant_stats": scorer.tenant_stats(),
+            "fleet_counts": dict(scorer.counts),
+            "residency": (residency.stats_snapshot()
+                          if residency is not None else None),
+            "final_versions": {s.tenant: fleet.version(s.tenant)
+                               for s in specs},
+        })
+        _serve_roofline(emit_journal=True)
+        if cfg.openmetrics_path:
+            from ..telemetry import write_openmetrics
+
+            write_openmetrics(cfg.openmetrics_path, metrics.recorder)
+        metrics.emit({"stage": "serve", "event": "registry_snapshot",
+                      **metrics.snapshot()})
+        if submitted == 0 and rejected > 0:
+            # A stream of rejects only means the framing is wrong
+            # (untagged lines into a multi-tenant fleet, or tags the
+            # manifest does not name): rc 0 would call zero scored
+            # events a success.
+            print(f"serve: all {rejected} stream lines rejected — check "
+                  "the '<tenant>\\t<line>' framing against the manifest "
+                  "tenant ids", file=sys.stderr)
+            return 1
+        return 0 if scorer.events_scored == submitted else 1
+    finally:
+        if residency is not None:
+            residency.close()
+        if mserver is not None:
+            mserver.close()
+        metrics.close()
+        if journal is not None:
+            journal.close()
+
+
+def _parse_synthetic_fleet(value: str) -> "int | None":
+    """'synthetic' / 'synthetic:N' -> N (default 2); any other value is
+    a manifest path -> None."""
+    if value == "synthetic":
+        return 2
+    if value.startswith("synthetic:"):
+        try:
+            n = int(value.split(":", 1)[1])
+        except ValueError:
+            raise SystemExit(
+                f"--fleet {value!r}: N in 'synthetic:N' must be an "
+                "integer") from None
+        if n < 2:
+            raise SystemExit("--fleet synthetic:N needs N >= 2 (the "
+                             "fleet acceptance path is cross-tenant)")
+        return n
+    return None
+
+
+def dry_run_fleet(args) -> int:
+    """The fleet check on synthetic in-memory tenants, on args.device:
+    distinct per-tenant models score a tagged, interleaved stream
+    through one FleetScorer, tenant 0 hot-swaps mid-stream, and the run
+    checks per-tenant exactly-once delivery, cross-tenant packing
+    (flushes spanning >= 2 tenants) and swap isolation (the other
+    tenants' versions untouched)."""
+    from ..device import resolve_device
+    from ..serving import (DnsEventFeaturizer, FleetRegistry, FleetScorer,
+                           TenantSpec)
+
+    n_tenants = _parse_synthetic_fleet(args.fleet)
+    if n_tenants is None:
+        # A real manifest under --dry-run must not be replaced by the
+        # synthetic fleet without a word.
+        raise SystemExit(
+            "--dry-run --fleet takes 'synthetic[:N]' (the dry run "
+            "builds in-memory tenants); to serve a real manifest, run "
+            "without --dry-run")
+    dev = resolve_device(args.device)
+    tenants = [f"t{i}" for i in range(n_tenants)]
+    days = {t: _synthetic_day(seed=42 + i) for i, t in enumerate(tenants)}
+    fleet = FleetRegistry()
+    featurizers = {}
+    for t in tenants:
+        rows, model, cuts = days[t]
+        fleet.add_tenant(TenantSpec(tenant=t, dsource="dns"))
+        fleet.publish(t, model, source=f"dry-run-{t}")
+        featurizers[t] = DnsEventFeaturizer(cuts)
+    cfg = ServingConfig(
+        fleet_max_batch=(args.max_batch if args.max_batch is not None
+                         else 32),
+        fleet_max_wait_ms=(args.max_wait_ms if args.max_wait_ms is not None
+                           else ServingConfig.fleet_max_wait_ms),
+        threshold=args.threshold,
+        device_score_min=args.device_score_min,
+        metrics_path=args.metrics,
+    )
+    metrics = MetricsEmitter(path=cfg.metrics_path)
+    scorer = FleetScorer(fleet, featurizers, cfg, metrics=metrics,
+                         device=dev)
+    futures: dict = {t: [] for t in tenants}
+    # The first half of every tenant's day, interleaved round-robin, so
+    # the packed flushes span tenants.
+    half = {t: len(days[t][0]) // 2 for t in tenants}
+    for i in range(max(half.values())):
+        for t in tenants:
+            if i < half[t]:
+                futures[t].append(scorer.submit(t, days[t][0][i]))
+    scorer.flush()
+    first_results = {t: [f.result(timeout=30.0) for f in futures[t]]
+                     for t in tenants}
+    # A mid-stream hot-swap of tenant 0 only, then the second half.
+    swapped = tenants[0]
+    fleet.publish(swapped, _perturbed_model(days[swapped][1]),
+                  source="dry-run-refresh")
+    for t in tenants:
+        for row in days[t][0][half[t]:]:
+            futures[t].append(scorer.submit(t, row))
+    scorer.flush()
+    results = {t: [f.result(timeout=30.0) for f in futures[t]]
+               for t in tenants}
+    scorer.close()
+    versions = {t: sorted({v for _, v in results[t]}) for t in tenants}
+    packed_flushes = sum(
+        1 for r in metrics.records
+        if isinstance(r.get("tenants"), int) and r["tenants"] >= 2)
+    errors = [r for r in metrics.records
+              if "error" in r or "on_batch_error" in r]
+    ok = (
+        all(len(results[t]) == len(days[t][0]) for t in tenants)
+        and scorer.events_scored == sum(len(days[t][0]) for t in tenants)
+        and packed_flushes >= 1                       # cross-tenant packing
+        and versions[swapped][-1] >= 2                # the swap served
+        and all(versions[t] == [1] for t in tenants[1:])  # isolation
+        and not errors
+        and all(np.isfinite(s) for t in tenants for s, _ in results[t])
+    )
+    print(json.dumps({
+        "serve_fleet_dry_run": "ok" if ok else "FAILED",
+        "device": str(dev),
+        "tenants": n_tenants,
+        "events": sum(len(days[t][0]) for t in tenants),
+        "events_scored": scorer.events_scored,
+        "batches": scorer.batches_flushed,
+        "packed_flushes": packed_flushes,
+        "versions_served": versions,
+        "first_flush_events": sum(len(v) for v in first_results.values()),
+        "tenant_stats": scorer.tenant_stats(),
+    }), flush=True)
+    metrics.close()
+    return 0 if ok else 1
+
+
+def _perturbed_model(model, seed: int = 7):
+    """A validly normalized variant of `model`, the dry run's stand-in
+    for a refreshed publish (same shapes, other values, so the stack
+    rebuilds at the same shape).  `seed` picks the variant: fleets of
+    one day's model use other seeds so tenants' scores differ."""
+    from ..scoring import ScoringModel
+
+    rng = np.random.default_rng(seed)
+    theta = model.theta * rng.uniform(0.5, 1.5, model.theta.shape)
+    theta[:-1] /= theta[:-1].sum(1, keepdims=True)
+    p = model.p * rng.uniform(0.5, 1.5, model.p.shape)
+    p[:-1] /= p[:-1].sum(0, keepdims=True)
+    return ScoringModel(ip_index=model.ip_index, theta=theta,
+                        word_index=model.word_index, p=p)
+
+
 def main(argv: "list[str] | None" = None) -> int:
     args = build_serve_parser().parse_args(argv)
     for attr, (flag, item) in _REFUSED.items():
@@ -500,7 +895,15 @@ def main(argv: "list[str] | None" = None) -> int:
            else contextlib.nullcontext())
     with ctx:
         if args.dry_run:
+            if args.fleet:
+                return dry_run_fleet(args)
             return dry_run(args)
+        if args.fleet:
+            if _parse_synthetic_fleet(args.fleet) is not None:
+                raise SystemExit(
+                    "--fleet synthetic is a --dry-run mode; a live serve "
+                    "needs a manifest file")
+            return serve_fleet_stream(args)
         return serve_stream(args)
 
 

@@ -1,7 +1,7 @@
 """Device scoring pipeline: the gather-dot-threshold programs driven by
 chunked, double-buffered dispatch with survivors-only readback (port of
-oni_ml_tpu/scoring/pipeline.py without its multi-device `mesh` path and
-the serving path's `fused_featurize_scores`).
+oni_ml_tpu/scoring/pipeline.py without its multi-device `mesh` path;
+`fused_featurize_scores` fronts the serving fleet's fused flush).
 
 What crosses the link:
 
@@ -466,3 +466,20 @@ def filtered_flow_scores(
     arrays = _index_arrays(model, [(sip_idx, sw_idx), (dip_idx, dw_idx)])
     return _filtered(model, arrays, threshold, chunk, stats, dev,
                      "score.device.filtered_flow")
+
+
+def fused_featurize_scores(model, dev, codes, ip_idx, word_base: int = 0,
+                           *, block: "int | None" = None, threshold=None,
+                           stats: "DispatchStats | None" = None,
+                           device=None):
+    """The fleet's fused flush: a compiled device featurizer's codes
+    (sources/device.py) -> word rows through its table, + `word_base`
+    (a stacked snapshot's offset), -> `score_dot_rows`, optionally with
+    the `score < threshold` mask, in one call on `device`.  The serving
+    callers' door to ops/featurize_kernel.fused_scores; float32 scores,
+    float64 on return."""
+    from ..ops.featurize_kernel import fused_scores
+
+    return fused_scores(model, dev, codes, ip_idx, word_base,
+                        block=block, threshold=threshold, stats=stats,
+                        device=device)

@@ -168,18 +168,32 @@ def _device_model(model: ScoringModel, device, stats=None):
     device, so a long-running scorer transfers each model once, not once
     per chunk: half the H2D bytes of the float64 host matrices, and at
     K=20 the float32 gather and accumulate agrees with the float64 host
-    oracle to ~1e-6 relative.  `stats` (pipeline.DispatchStats) records
-    the one transfer."""
+    oracle to ~1e-6 relative.
+
+    A model marked `_device_dtype = "bfloat16"` (the fleet's stacked
+    snapshots under ServingConfig.stack_precision "bf16") is stored in
+    bfloat16: half the bytes again.  The gather-dot
+    (pipeline.score_dot_rows) casts the gathered rows to float32 before
+    it accumulates, so only the storage is bf16; scores stay within
+    2^-7 relative of the float32 stack's.  `stats`
+    (pipeline.DispatchStats) records the one transfer."""
     cache = model.__dict__.setdefault("_device_cache", {})
     key = str(torch.device(device))
     cached = cache.get(key)
     if cached is None:
+        dtype = (torch.bfloat16
+                 if model.__dict__.get("_device_dtype") == "bfloat16"
+                 else torch.float32)
+        # float32 on the link, the storage dtype cast on the device.
         cached = cache[key] = (
-            torch.as_tensor(model.theta, dtype=torch.float32).to(device),
-            torch.as_tensor(model.p, dtype=torch.float32).to(device),
+            torch.as_tensor(model.theta, dtype=torch.float32).to(device)
+            .to(dtype),
+            torch.as_tensor(model.p, dtype=torch.float32).to(device)
+            .to(dtype),
         )
         if stats is not None:
-            stats.weight_h2d_bytes += 4 * (model.theta.size + model.p.size)
+            stats.weight_h2d_bytes += cached[0].element_size() * (
+                model.theta.size + model.p.size)
     return cached
 
 

@@ -41,6 +41,16 @@ class FlowEventFeaturizer:
                 f"flow event needs {NUM_FLOW_COLUMNS} columns: {line!r}")
         return line
 
+    def admit(self, line: str) -> "tuple[str, list[str]]":
+        """Validate and keep the split row, so a fleet flush never splits
+        the line again (the device featurizer consumes rows; the host
+        featurizer still takes the line)."""
+        row = line.strip().split(",")
+        if len(row) != NUM_FLOW_COLUMNS:
+            raise ValueError(
+                f"flow event needs {NUM_FLOW_COLUMNS} columns: {line!r}")
+        return line, row
+
     def __call__(self, lines: Sequence[str]):
         return featurize_flow(lines, skip_header=False,
                               precomputed_cuts=self.cuts)

@@ -1,5 +1,5 @@
 """Per-flush serving metrics as JSON lines, on the shared telemetry
-registry (port of oni_ml_tpu/serving/metrics.py, single-model records).
+registry (port of oni_ml_tpu/serving/metrics.py).
 
 The runner's convention (one json.dumps'd dict per line to stdout, the
 records kept for a file) extends to serving: a consumer tailing the
@@ -10,7 +10,10 @@ serve.events, serve.flagged, serve.errors) and its fixed-boundary
 histograms (latency, queue wait, score and demux time, queue depth),
 whose p50/p99/p999 the OpenMetrics endpoint and the shutdown snapshot
 report; with a journal attached every record is also a crash-safe
-{"kind": "serve", ...} line.
+{"kind": "serve", ...} line.  A record with a `tenant` field (the
+fleet's per-tenant segment records) feeds the tenant's own namespace,
+serve.<tenant>.*, so per-tenant and fleet-wide numbers never count each
+other.
 """
 
 from __future__ import annotations
@@ -36,6 +39,13 @@ _HIST_FIELDS = (
     ("demux_ms", "serve.demux_ms"),
     ("queue_depth", "serve.queue_depth"),
 )
+
+
+def _scoped(name: str, tenant: "str | None") -> str:
+    """serve.X -> serve.<tenant>.X for a tenant's record."""
+    if not tenant:
+        return name
+    return f"serve.{tenant}.{name[len('serve.'):]}"
 
 
 class MetricsEmitter:
@@ -75,23 +85,31 @@ class MetricsEmitter:
             self._journal.append({"kind": "serve", **record})
 
     def _count(self, record: dict) -> None:
-        """Fold one record into the Recorder's aggregates.  Device
-        flushes also feed serve.device_score_ms / serve.device_events,
-        which the serve roofline prices (host flushes observed there
-        would price host scoring as device dispatches)."""
+        """Fold one record into the Recorder's aggregates: a tenant's
+        record into serve.<tenant>.*, any other (single-model flushes,
+        the fleet's per-flush aggregate) into serve.*.  Flush-level
+        single-model device records also feed serve.device_score_ms /
+        serve.device_events, which the serve roofline prices; the fleet
+        feeds those per device dispatch itself (its per-tenant records
+        repeat the flush's score_ms, and its aggregate spans host and
+        device groups, so either would price host work as device
+        dispatches)."""
         rec = self.recorder
-        rec.counter("serve.emits").add(1)
+        tenant = record.get("tenant")
+        prefix = f"serve.{tenant}" if tenant else "serve"
+        rec.counter(f"{prefix}.emits").add(1)
         if "error" in record or "on_batch_error" in record:
-            rec.counter("serve.errors").add(1)
+            rec.counter(f"{prefix}.errors").add(1)
         for field, name in _COUNT_FIELDS:
             v = record.get(field)
             if isinstance(v, (int, float)):
-                rec.counter(name).add(int(v))
+                rec.counter(_scoped(name, tenant)).add(int(v))
         for field, name in _HIST_FIELDS:
             v = record.get(field)
             if isinstance(v, (int, float)):
-                rec.histogram(name).observe(float(v))
-        if record.get("scorer") == "device":
+                rec.histogram(_scoped(name, tenant)).observe(float(v))
+        if record.get("scorer") == "device" and not tenant \
+                and "segments" not in record:
             v = record.get("score_ms")
             if isinstance(v, (int, float)):
                 rec.histogram("serve.device_score_ms").observe(float(v))

@@ -1,6 +1,5 @@
 """ModelRegistry: validated ScoringModel snapshots with an atomic
-hot-swap (port of oni_ml_tpu/serving/registry.py, without the fleet's
-unload/restore).
+hot-swap (port of oni_ml_tpu/serving/registry.py).
 
 A day's model arrives as two CSVs (doc_results.csv / word_results.csv,
 the lda stage's); the registry turns them into the serving side's unit
@@ -113,6 +112,46 @@ class ModelRegistry:
                     "directory (run the lda stage first)")
         model = ScoringModel.from_files(doc_path, word_path, fallback)
         return self.publish(model, source=day_dir)
+
+    def unload(self) -> "ModelSnapshot | None":
+        """Drop the active and previous snapshots from host memory but
+        keep the version counter: the residency manager's warm -> cold
+        demotion (serving/residency.py).  Returns the snapshot that was
+        active, for the caller to checkpoint; `restore` reinstalls it at
+        the same version, so a tenant paged cold and back serves the
+        same (model, version)."""
+        with self._lock:
+            snap = self._active
+            self._active = None
+            self._previous = None
+            return snap
+
+    def restore(self, model: ScoringModel, source: str,
+                version: int) -> ModelSnapshot:
+        """Reinstall an unloaded snapshot without bumping the version,
+        the inverse of `unload`.  Validates like publish (a corrupt
+        checkpoint must not serve), and refuses to replace a live
+        snapshot or to rewind the version counter."""
+        validate_model(model)
+        with self._lock:
+            if self._active is not None:
+                raise RuntimeError(
+                    "restore() on a loaded registry — unload first "
+                    "(publish is the path that bumps versions)")
+            if version != self._version:
+                raise ValueError(
+                    f"restore version {version} != registry version "
+                    f"{self._version} — a cold reload must reinstall "
+                    "the exact snapshot that was unloaded")
+            snap = ModelSnapshot(model=model, version=version,
+                                 source=source, published_at=time.time())
+            self._active = snap
+        return snap
+
+    @property
+    def loaded(self) -> bool:
+        with self._lock:
+            return self._active is not None
 
     def active(self) -> ModelSnapshot:
         with self._lock:

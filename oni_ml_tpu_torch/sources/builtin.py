@@ -32,6 +32,7 @@ class FlowSource(SourceSpec):
 
     name = "flow"
     header_probe_col = 4       # hour: numeric on every data row
+    pairs_per_event = 2
 
     def __init__(self) -> None:
         from ..features.flow import NUM_FLOW_COLUMNS

@@ -146,6 +146,16 @@ class GenericEventFeaturizer:
                 f"columns: {line!r}")
         return line
 
+    def admit(self, line: str) -> "tuple[str, list[str]]":
+        """Validate and keep the split row (the fleet's device
+        featurizer consumes rows; the host featurizer the line)."""
+        row = line.strip().split(",")
+        if len(row) != self.spec.num_columns:
+            raise ValueError(
+                f"{self.spec.name} event needs {self.spec.num_columns} "
+                f"columns: {line!r}")
+        return line, row
+
     def __call__(self, lines: Sequence[str]) -> GenericFeatures:
         return self.spec.featurize(lines, skip_header=False,
                                    precomputed_cuts=self.cuts)

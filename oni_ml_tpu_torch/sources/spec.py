@@ -34,6 +34,9 @@ class SourceSpec:
     name: str = ""
     #: exact CSV column count a valid event must have.
     num_columns: int = 0
+    #: documents each event feeds: 2 = flow (both endpoints, scores
+    #: min-combined), 1 = client-keyed sources (dns, proxy).
+    pairs_per_event: int = 1
     #: an always-numeric column: probing it on the first line of a
     #: stream detects a header.
     header_probe_col: int = 0
