@@ -162,10 +162,40 @@ Phases (any failure exits non-zero before the result line):
              under each driver.  Then the sparse [V, K] scatter over the
              day's batches against index_add_.
 
+   continuous  `ml_ops continuous` on the card (runner/continuous.py):
+             (1) the small flow day's first 2 event hours in 300-s slices
+             at the ContinuousConfig defaults through ContinuousService
+             on the card and on the CPU, pinned to the sparse engine, the
+             dense engine (under the chunk driver, fused_em_chunk 16) and
+             ONI_ML_TPU_ESTEP=pallas: the same (mode, published, drifted,
+             version) sequence, held-out ll within rel 1e-4 at every
+             refresh, the same flagged events but for float32 ties at the
+             threshold, each pinned kernel launched on the card; (2) the
+             2M flow day's first 6 event hours at the defaults with the
+             fresh control and the quality gate, the engine from the
+             crossover: a warm refresh past the warm-up boundary, the
+             fresh control run, no build past the boundary, the sparse
+             kernel and scatter launched; (3) the 2M flow and DNS days'
+             first 2 event hours interleaved and paced at 240x event time
+             through the in-process fleet with and without the
+             co-scheduler; (4) the CLI as a
+             subprocesses at once (single tenant, two --stream tenants),
+             refusals of --replicated and --multihost (exit 2).  Every
+             run: exactly once (scored + rejected + unserved before the
+             first publish = ingested, scored = offered), no failed
+             future, no refresh error or refresh_abandon record.  Prints
+             events/s, refreshes, publishes, vetoes, quality checks,
+             warm and fresh fit walls and EM iterations, the fresh
+             control's speedup and ll delta, freshness (wall s, event
+             min), serve p99 idle against during refresh, coalesced
+             refreshes, vocab and tiers, retraces_after_warmup and each
+             refresh's engine.
+
 Then it prints the kernels line (each kernel with its launches on its
 flow-day path, as `dns_launches` on the DNS day's, as
 `online_launches` on its online run's, as `launches_serve` on the
-served streams' and as `launches_fleet` on the fleet's), the card's name
+served streams', as `launches_fleet` on the fleet's and as
+`launches_continuous` on the continuous service's), the card's name
 and power limit, and last `{"ok": true, "device": {...}}`.  Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
 """
@@ -2637,6 +2667,408 @@ def fleet_phase(tmp, raws):
     return total
 
 
+# The continuous standing service (runner/continuous.py) on the card.
+CONT_SLICE_S = 300.0
+# Cut to size (PERF.md §4), in the order the phase's sizing allows:
+# part 1's 6 event hours to 2 (its CPU runs took 80 of the first run's
+# 214 s), then part 2's 8 to 6 (the floor that still passes the 9
+# warm-up refreshes); part 3 keeps its 2 hours.
+CONT_SMALL_HOURS = 2
+CONT_FLOW_HOURS = 6
+CONT_FLEET_HOURS = 2
+# Part 3's replay pace (event seconds per wall second): unpaced, the
+# ingest ran through 2 event hours before the first refit published, so
+# nothing was scored and no serve slot met a refit.
+CONT_FLEET_SPEED = 240.0
+RTOL_CONT_LL = 1e-4
+# A flagged event that one run flags and the other does not must score
+# within this relative band below the threshold (float32 ties).
+RTOL_CONT_TIE = 1e-3
+# Part 1's pinned runs: (label, ONI_ML_TPU_ESTEP, ContinuousConfig
+# overrides, the kernels the card run must launch).  The dense kernel
+# runs under the chunk driver (the stepwise driver takes the dense
+# family per batch).
+CONT_ENGINES = (("sparse", "sparse", {}, ("sparse_estep", "sparse_scatter")),
+                ("dense", "dense", {"fused_em_chunk": 16},
+                 ("dense_estep",)),
+                ("pallas", "pallas", {}, ("fixed_point_estep",
+                                          "sparse_scatter")))
+
+
+_CONT_DAYS: dict = {}
+
+
+def cont_slices(raw, dsource, hours):
+    """The raw day's first `hours` event hours as 300-s slices (each day
+    is read and sliced once per run)."""
+    from oni_ml_tpu_torch.runner.continuous import slice_events
+
+    if (raw, dsource) not in _CONT_DAYS:
+        with open(raw) as f:
+            _CONT_DAYS[raw, dsource] = slice_events(f.readlines(), dsource,
+                                                    CONT_SLICE_S)
+    slices = _CONT_DAYS[raw, dsource]
+    end = slices[0].t0 + hours * 3600.0
+    return [slice_copy(s) for s in slices if s.t1 <= end]
+
+
+def cont_config(data, **cc):
+    from oni_ml_tpu_torch.config import ContinuousConfig, PipelineConfig
+
+    return PipelineConfig(data_dir=data, continuous=ContinuousConfig(**cc))
+
+
+def cont_check(label, svc, payload):
+    """Exactly once, no failed future, no abandoned refresh, no build
+    past the warm-up boundary."""
+    ledger = {"ingested": svc.events, "unserved": svc.events_unserved,
+              "offered": svc.events_offered, "scored": svc.events_scored,
+              "rejected": svc.events_rejected,
+              "failures": svc.score_failures}
+    if (svc.events_scored + svc.events_rejected + svc.events_unserved
+            != svc.events or svc.events_scored != svc.events_offered
+            or svc.score_failures):
+        fail(f"continuous {label}: not exactly once: {ledger}")
+    if (payload["retraces_after_warmup"] or 0) > 0:
+        fail(f"continuous {label}: {payload['retraces_after_warmup']} "
+             "builds after the warm-up boundary")
+    return ledger
+
+
+def cont_summary(payload, wall, events):
+    """The printed figures of one service run."""
+    keys = ("refreshes", "publishes", "vetoes", "quality_checks",
+            "quality_vetoes", "skipped_refreshes", "freshness_p50_s",
+            "freshness_p99_s", "freshness_event_p50_min",
+            "freshness_event_p99_min", "serve_idle_p99_ms",
+            "serve_refresh_p99_ms", "vocab", "vocab_capacity",
+            "tier_rebuilds", "retraces_after_warmup", "flagged", "warm",
+            "fresh")
+    out = {k: payload.get(k) for k in keys}
+    ctrl = payload.get("fresh_control") or {}
+    out.update(events=events, wall_s=wall, events_per_s=events / wall,
+               warm_start_speedup=ctrl.get("warm_start_speedup"),
+               held_out_ll_delta=ctrl.get("held_out_ll_delta"),
+               fresh_control=ctrl or None,
+               engines=[(r["refresh"], r["mode"], r["estep_engine"],
+                         r["estep_engine_source"], r["member"],
+                         r["em_iters"], r["train_wall_s"])
+                        for r in payload["refresh_records"]])
+    return out
+
+
+def cont_journal_abandons(path):
+    with open(path) as f:
+        return [r for r in map(json.loads, f)
+                if r.get("kind") == "refresh_abandon"]
+
+
+def cont_run(label, tmp, dsource, slices, dev, env=None, fresh=False,
+             **cc):
+    """One ContinuousService run over `slices` on `dev`, the kernels'
+    counts zeroed just before and read just after."""
+    from oni_ml_tpu_torch.runner.continuous import ContinuousService
+
+    data = os.path.join(tmp, f"cont_{label}_{dev}")
+    if env:
+        os.environ["ONI_ML_TPU_ESTEP"] = env
+    try:
+        svc = ContinuousService(cont_config(data, **cc), dsource,
+                                out_dir=os.path.join(data, "continuous"),
+                                fresh_control=fresh, device=dev)
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        payload = svc.run(slices)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        os.environ.pop("ONI_ML_TPU_ESTEP", None)
+    ledger = cont_check(f"{label} {dev}", svc, payload)
+    with open(os.path.join(data, "continuous",
+                           "flagged_events.jsonl")) as f:
+        flagged = [json.loads(line) for line in f]
+    return {"payload": payload, "wall": wall, "counts": counts,
+            "ledger": ledger, "flagged": flagged, "service": svc}
+
+
+def cont_flag_diff(card, cpu, threshold):
+    """Flagged events one run flags and the other does not; each must
+    lie in the float32 tie band under the threshold."""
+    def key(r):
+        return (tuple(r["flagged"]), r["model_version"])
+
+    a = {key(r): r["score"] for r in card}
+    b = {key(r): r["score"] for r in cpu}
+    only = [(k, s) for k, s in a.items() if k not in b] + \
+        [(k, s) for k, s in b.items() if k not in a]
+    far = [s for _, s in only if s < threshold * (1 - RTOL_CONT_TIE)]
+    return len(a), len(b), len(only), far
+
+
+def cont_card_vs_cpu(tmp, raw):
+    """Part 1: the small flow day's first hours on the card and on the
+    CPU under each pinned engine."""
+    from oni_ml_tpu_torch.config import ServingConfig
+
+    slices = cont_slices(raw, "flow", CONT_SMALL_HOURS)
+    out = {"slices": len(slices), "events": sum(s.events for s in slices)}
+    counts = {}
+    for label, env, cc, kernels in CONT_ENGINES:
+        runs = {dev: cont_run(f"small_{label}", tmp, "flow",
+                              [slice_copy(s) for s in slices], dev,
+                              env=env, **cc)
+                for dev in ("cuda", "cpu")}
+        seq = {dev: [(r["mode"], r["published"], r["drifted"], r["version"])
+                     for r in runs[dev]["payload"]["refresh_records"]]
+               for dev in runs}
+        if seq["cuda"] != seq["cpu"] or not seq["cuda"]:
+            fail(f"continuous card vs CPU {label}: {seq}")
+        ll = {dev: np.array([r["held_out_ll"] for r in
+                             runs[dev]["payload"]["refresh_records"]])
+              for dev in runs}
+        rel = float(np.max(np.abs(ll["cuda"] - ll["cpu"])
+                           / np.abs(ll["cpu"])))
+        if rel > RTOL_CONT_LL:
+            fail(f"continuous card vs CPU {label}: held-out ll rel {rel}")
+        n_card, n_cpu, n_diff, far = cont_flag_diff(
+            runs["cuda"]["flagged"], runs["cpu"]["flagged"],
+            ServingConfig.threshold)
+        if far:
+            fail(f"continuous card vs CPU {label}: {len(far)} flagged "
+                 f"events differ away from the threshold: {far[:5]}")
+        launched = runs["cuda"]["counts"]
+        if any(launched[k] <= 0 for k in kernels):
+            fail(f"continuous {label}: the card run launched {launched}")
+        counts[label] = launched
+        out[label] = {"refreshes": len(seq["cuda"]),
+                      "sequence": seq["cuda"], "max_rel_ll": rel,
+                      "flagged_card": n_card, "flagged_cpu": n_cpu,
+                      "flagged_tie_diff": n_diff, "launches": launched,
+                      "card": cont_summary(runs["cuda"]["payload"],
+                                           runs["cuda"]["wall"],
+                                           out["events"]),
+                      "cpu_wall_s": runs["cpu"]["wall"]}
+        log(f"continuous card_vs_cpu {label} "
+            + json.dumps(out[label], default=str))
+    return out, counts
+
+
+def slice_copy(sl, shift=0.0):
+    """A fresh IngestSlice of the same lines (the service stamps arrival
+    walls on the slices it consumes), its span moved by `shift`."""
+    from oni_ml_tpu_torch.runner.continuous import IngestSlice
+
+    return IngestSlice(lines=sl.lines, t0=sl.t0 - shift, t1=sl.t1 - shift,
+                       index=sl.index)
+
+
+def cont_flow_replay(tmp, raw):
+    """Part 2: the 2M flow day's first event hours at the ContinuousConfig
+    defaults, the fresh control and the quality gate on, the engine from
+    the crossover."""
+    slices = cont_slices(raw, "flow", CONT_FLOW_HOURS)
+    events = sum(s.events for s in slices)
+    run = cont_run("flow2m", tmp, "flow", slices, "cuda", fresh=True,
+                   quality_gate=True)
+    payload, svc = run["payload"], run["service"]
+    recs = payload["refresh_records"]
+    warm_after = [r for r in recs if r["refresh"] > svc.warmup_refreshes
+                  and r["mode"] == "warm"]
+    if not warm_after:
+        fail(f"continuous flow replay: no warm refresh past the warm-up "
+             f"boundary ({svc.warmup_refreshes}): "
+             f"{[(r['refresh'], r['mode']) for r in recs]}")
+    if payload["fresh_control"] is None:
+        fail("continuous flow replay: the fresh control did not run")
+    if payload["retraces_after_warmup"] != 0:
+        fail("continuous flow replay: retraces_after_warmup "
+             f"{payload['retraces_after_warmup']}")
+    # The engine resolves once per capacity tier; the crossover is
+    # measured at most there (the plan store serves it after).
+    resolved = [r for r in recs if r["estep_resolved"]]
+    measured = [r for r in resolved if r["estep_engine_source"]
+                == "measured"]
+    if len(resolved) != payload["tier_rebuilds"]:
+        fail(f"continuous flow replay: the engine resolved at refreshes "
+             f"{[r['refresh'] for r in resolved]} over "
+             f"{payload['tier_rebuilds']} tiers")
+    launched = run["counts"]
+    if launched["sparse_estep"] <= 0 or launched["sparse_scatter"] <= 0:
+        fail(f"continuous flow replay: launches {launched}")
+    out = cont_summary(payload, run["wall"], events)
+    out.update(slices=len(slices), ledger=run["ledger"], launches=launched,
+               warmup_refreshes=svc.warmup_refreshes,
+               crossover_measurements=len(measured))
+    log("continuous flow_replay " + json.dumps(out, default=str))
+    return out, launched
+
+
+def cont_fleet(tmp):
+    """Part 3: the 2M flow and DNS days' first event hours, each from its
+    own start, interleaved by event time and paced at CONT_FLEET_SPEED,
+    through the in-process fleet with and without the co-scheduler."""
+    from oni_ml_tpu_torch.runner.continuous import (FleetContinuousService,
+                                                    interleave_streams,
+                                                    paced_tagged)
+
+    per = {"flow": cont_slices(os.path.join(tmp, "flow_day.csv"), "flow",
+                               CONT_FLEET_HOURS),
+           "dns": cont_slices(os.path.join(tmp, "dns_day.csv"), "dns",
+                              CONT_FLEET_HOURS)}
+    events = sum(s.events for sl in per.values() for s in sl)
+    out = {"events": events}
+    total = {}
+    for cosched in (True, False):
+        label = "cosched" if cosched else "no_cosched"
+        data = os.path.join(tmp, f"cont_fleet_{label}")
+        fleet = FleetContinuousService(
+            cont_config(data), {t: t for t in per},
+            out_dir=os.path.join(data, "continuous_fleet"),
+            coscheduler=cosched, device="cuda")
+        # Each day from its own start: flow's clock is seconds of the
+        # day, DNS's the epoch, so the spans are taken relative to each
+        # day's first slice before they interleave.
+        tagged = paced_tagged(interleave_streams(
+            {t: [slice_copy(s, sl[0].t0) for s in sl]
+             for t, sl in per.items()}), CONT_FLEET_SPEED)
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        payload = fleet.run(tagged)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        abandons = cont_journal_abandons(os.path.join(
+            data, "continuous_fleet", "run_journal.jsonl"))
+        if payload["refresh_errors"] or abandons:
+            fail(f"continuous fleet {label}: refresh errors "
+                 f"{payload['refresh_errors']}, {abandons[:3]}")
+        if (payload["retraces_after_warmup"] or 0) > 0:
+            fail(f"continuous fleet {label}: retraces_after_warmup "
+                 f"{payload['retraces_after_warmup']}")
+        ledgers = {t: cont_check(f"fleet {label} {t}", svc,
+                                 payload["tenants"][t])
+                   for t, svc in fleet.services.items()}
+        if not all(led["scored"] for led in ledgers.values()):
+            fail(f"continuous fleet {label}: a tenant scored nothing: "
+                 f"{ledgers}")
+        for name, c in counts.items():
+            total[name] = total.get(name, 0) + c
+        out[label] = {
+            "wall_s": wall, "events_per_s": events / wall,
+            "refreshes": payload["refreshes"],
+            "publishes": payload["publishes"],
+            "coalesced_refreshes": payload["coalesced_refreshes"],
+            "retraces_after_warmup": payload["retraces_after_warmup"],
+            "freshness_event_p99_min": payload.get(
+                "freshness_event_p99_min"),
+            "cosched": payload["cosched"], "ledgers": ledgers,
+            "launches": counts,
+            "tenants": {t: {k: p.get(k) for k in (
+                "refreshes", "publishes", "serve_idle_p99_ms",
+                "serve_refresh_p99_ms", "freshness_p99_s",
+                "freshness_event_p99_min", "vocab", "vocab_capacity",
+                "tier_rebuilds", "warm", "fresh")}
+                for t, p in payload["tenants"].items()},
+            "engines": {t: [(r["refresh"], r["mode"], r["estep_engine"],
+                             r["estep_engine_source"], r["member"])
+                            for r in p["refresh_records"]]
+                        for t, p in payload["tenants"].items()},
+        }
+        log(f"continuous fleet {label} "
+            + json.dumps(out[label], default=str))
+    return out, total
+
+
+def cont_cli(tmp, raws):
+    """Part 4: `ml_ops continuous` on cuda as two subprocesses at once,
+    single tenant and two --stream tenants (their output to files);
+    --replicated and --multihost refused with exit 2 naming their
+    ROADMAP items."""
+    import contextlib
+    import io
+
+    from oni_ml_tpu_torch.runner import continuous
+
+    out = {}
+    runs = {"single": ["flow", "--flow-path", raws["flow"]],
+            "streams": ["--stream", f"acme=flow:{raws['flow']}",
+                        "--stream", f"globex=dns:{raws['dns']}"]}
+    # Both processes at once, each on the card.
+    procs = {}
+    t0 = time.perf_counter()
+    for label, args in runs.items():
+        data = os.path.join(tmp, f"cont_cli_{label}")
+        cmd = [sys.executable, "-m", "oni_ml_tpu_torch.runner.ml_ops",
+               "continuous", *args, "--no-sleep", "--device", "cuda",
+               "--data-dir", data]
+        with open(data + ".out", "w") as fo, open(data + ".err", "w") as fe:
+            procs[label] = (subprocess.Popen(
+                cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=fo, stderr=fe), data)
+    for label, (proc, data) in procs.items():
+        proc.wait(timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            with open(data + ".err") as f:
+                fail(f"ml_ops continuous {label} exited {proc.returncode}: "
+                     f"{f.read()[-2000:]}")
+        with open(data + ".out") as f:
+            payload = json.loads(f.read().strip().splitlines()[-1])
+        if (payload["publishes"] < 1
+                or (payload["retraces_after_warmup"] or 0) > 0
+                or payload.get("refresh_errors")):
+            fail(f"ml_ops continuous {label}: {payload}")
+        out[label] = {"process_wall_s": wall, "events": payload["events"],
+                      "refreshes": payload["refreshes"],
+                      "publishes": payload["publishes"],
+                      "coalesced_refreshes":
+                          payload.get("coalesced_refreshes")}
+    for flags, item in ((["--replicated", "2"], "Queue 1 item 7"),
+                        (["--multihost"], "Queue 1 item 6")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = continuous.main(["flow", "--flow-path", raws["flow"],
+                                  *flags])
+        if rc != 2 or item not in buf.getvalue():
+            fail(f"ml_ops continuous {flags[0]}: rc {rc}, "
+                 f"{buf.getvalue()!r}")
+        out[flags[0]] = {"rc": rc, "message": buf.getvalue().strip()}
+    return out
+
+
+def continuous_phase(tmp, raws):
+    """`ml_ops continuous` on the card (see the module docstring).
+    Returns the launches on the continuous path per kernel."""
+    t0 = time.perf_counter()
+    out = {}
+    total = {}
+    walls = {}
+    t1 = time.perf_counter()
+    part1, counts1 = cont_card_vs_cpu(tmp, raws["flow"])
+    out["card_vs_cpu"] = part1
+    walls["card_vs_cpu"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["flow_replay"], counts2 = cont_flow_replay(
+        tmp, os.path.join(tmp, "flow_day.csv"))
+    walls["flow_replay"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["fleet"], counts3 = cont_fleet(tmp)
+    walls["fleet"] = time.perf_counter() - t1
+    for counts in (*counts1.values(), counts2, counts3):
+        for name, c in counts.items():
+            total[name] = total.get(name, 0) + c
+    if any(total.get(name, 0) <= 0 for name in SOURCES):
+        fail(f"continuous path: a kernel never launched: {total}")
+    t1 = time.perf_counter()
+    out["cli"] = cont_cli(tmp, raws)
+    walls["cli"] = time.perf_counter() - t1
+    out["launches_continuous"] = total
+    out["part_walls_s"] = walls
+    out["phase_s"] = time.perf_counter() - t0
+    log("continuous " + json.dumps(out, default=str))
+    log(f"continuous phase: {out['phase_s']:.1f} s")
+    return total
+
+
 def check_launches(engine, lda, counts, extra=None):
     """Each kernel of the family member `engine` launched once per batch
     per EM iteration enqueued (those after the device stop included) and
@@ -3147,6 +3579,7 @@ def main() -> int:
         evaluate(tmp, raws["flow"])
         serve_counts = serve_phase(tmp)
         fleet_counts = fleet_phase(tmp, raws)
+        continuous_counts = continuous_phase(tmp, raws)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     scatter_rec = profile_em(corpus)
@@ -3185,6 +3618,11 @@ def main() -> int:
             # kernel and scatter) and the per-batch members' (the sparse
             # kernel, and the fixed point under ONI_ML_TPU_ESTEP=pallas).
             "launches_fleet": fleet_counts[kname],
+            # On the continuous path: part 1's card runs (the sparse,
+            # dense and pallas pinned replays), the 2M flow replay's
+            # refreshes (the crossover's engine, the fresh control, the
+            # held-out scatter) and the two fleet runs'.
+            "launches_continuous": continuous_counts[kname],
             "max_abs_err": max(errs), "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),

@@ -1,11 +1,13 @@
 """Typed configuration for the port: the fields of the JAX package's
 config that the flow, DNS and proxy days read, with the same defaults
 (oni_ml_tpu/config.py LDAConfig, OnlineLDAConfig, FeedbackConfig,
-ScoringConfig, TelemetryConfig, DataplaneConfig, the single-model
-fields of ServingConfig and the single-card part of PipelineConfig)."""
+ScoringConfig, TelemetryConfig, DataplaneConfig, the single-card fields
+of ServingConfig, ContinuousConfig and the single-card part of
+PipelineConfig)."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass, field
 
@@ -273,6 +275,69 @@ class ServingConfig:
 
 
 @dataclass(frozen=True)
+class ContinuousConfig:
+    """The continuous standing service (runner/continuous.py, `ml_ops
+    continuous`): raw events stream through featurization into a
+    ring-buffered CSR corpus window (dataplane/window.py), each refresh
+    warm-starts EM from the previous window's topics, and a held-out
+    likelihood drift detector (models/drift.py) gates every publish.
+    Time knobs are in event-time seconds (a day replayed at any speed
+    keeps the same window semantics)."""
+
+    # Window span: events older than this (by event time) retire from
+    # the training window at the next advance.  Default: 4 hours.
+    window_s: float = 4 * 3600.0
+    # Refresh cadence: advance + refit + drift check + gated publish
+    # every this much event time.  Default: 30 minutes.
+    refresh_every_s: float = 1800.0
+    # Hash-split fraction of window documents scored held-out per
+    # refresh (models/evaluate.py document completion): the drift
+    # detector's input and the warm-vs-fresh quality cross-check.
+    holdout_frac: float = 0.1
+    # Drift: a held-out per-token likelihood more than this many nats
+    # below the rolling-history baseline vetoes the publish.
+    drift_tol_nats: float = 0.5
+    # Rolling history depth (refreshes) the baseline medians over, and
+    # the checks required before drift can fire at all.
+    drift_history: int = 8
+    drift_min_history: int = 2
+    # A refresh whose window holds fewer live documents than this skips
+    # training (bootstrap guard).
+    min_refresh_docs: int = 32
+    # The window's vocabulary pads to power-of-two capacity tiers
+    # floored here: vocabulary growth inside a tier keeps the [K, V]
+    # beta shape, so one WindowTrainer (and its resolved E-step engine)
+    # serves the whole tier.
+    vocab_floor: int = 4096
+    # Docs per E-step batch for window refreshes; window batches pad to
+    # the full batch size, so every refresh runs the same (B, L) family.
+    batch_size: int = 256
+    # Length-bucket floor for window batches: the L family is {64, 128,
+    # 256, ...}.
+    min_bucket_len: int = 64
+    # EM dispatch chunk for window refreshes: 1 = the stepwise driver.
+    fused_em_chunk: int = 1
+    # Warm-start policy: "auto" seeds EM from the previous published
+    # topics except on the first fit or right after a drift veto;
+    # "always"/"never" force.
+    warm_start: str = "auto"
+    # Detection-quality publish gate (models/drift.QualityGate): every
+    # candidate is scored against a pinned labeled-injection suite
+    # (sources/inject.py), and a recall@k drop of more than quality_tol
+    # below the rolling baseline vetoes the publish.  Off by default.
+    quality_gate: bool = False
+    quality_tol: float = 0.25
+    quality_history: int = 8
+    quality_min_history: int = 2
+    # Injection-suite shape: benign events, attack events per scenario,
+    # RNG seed, and ranking depth (0 = k defaults to the attack count).
+    quality_events: int = 2000
+    quality_attack_events: int = 8
+    quality_seed: int = 7
+    quality_k: int = 0
+
+
+@dataclass(frozen=True)
 class PipelineConfig:
     """A single-card day's run configuration."""
 
@@ -295,6 +360,12 @@ class PipelineConfig:
     scoring: ScoringConfig = field(default_factory=ScoringConfig)
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     dataplane: DataplaneConfig = field(default_factory=DataplaneConfig)
+    # The continuous service's scorer and its window refreshes.
+    serving: ServingConfig = field(default_factory=ServingConfig)
+    continuous: ContinuousConfig = field(default_factory=ContinuousConfig)
 
     def day_dir(self, fdate: str) -> str:
         return os.path.join(self.data_dir, fdate)
+
+    def replace(self, **kw) -> "PipelineConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,6 +1,7 @@
-"""Streaming dataplane (port of oni_ml_tpu/dataplane/, without the
-continuous service's `window.py`): columnar inter-stage hand-offs,
-bounded-buffer overlap, and files demoted to background checkpoints.
+"""Streaming dataplane (port of oni_ml_tpu/dataplane/): columnar
+inter-stage hand-offs, bounded-buffer overlap, files demoted to
+background checkpoints, and the continuous service's ring-buffered
+corpus window (`window.py`).
 
 The serial day is a batch chain glued by on-disk contracts
 (word_counts.dat -> LDA-C corpus -> model artifacts -> scoring input);
@@ -32,6 +33,7 @@ from .corpus_builder import (
 from .plane import Dataplane
 from .scoreprep import ScoringPrep, build_scoring_prep
 from .sinks import CheckpointSinks, Task
+from .window import CorpusWindow, WindowSnapshot, pow2_capacity
 
 __all__ = [
     "Channel", "ChannelClosed", "ChannelError",
@@ -40,5 +42,6 @@ __all__ = [
     "StreamingCorpusBuilder", "consume_corpus", "stream_word_counts",
     "Dataplane", "ScoringPrep", "build_scoring_prep",
     "CheckpointSinks", "Task",
+    "CorpusWindow", "WindowSnapshot", "pow2_capacity",
     "atomic_write", "atomic_write_bytes",
 ]

@@ -44,6 +44,7 @@ One dense group of one batch takes the fast path
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -363,10 +364,15 @@ def make_chunk_runner(
     dense_wmajor: bool = False,
     warm_start: bool = False,
     alpha_max_iters: int = 100,
+    yield_hook: "Callable | None" = None,
 ):
     """Build `run_chunk(log_beta, alpha, ll_prev, groups, n_steps,
     gammas_in=None, have_prev=None) -> ChunkResult`, which enqueues
     min(chunk, n_steps) EM iterations and reads nothing on the host.
+
+    `yield_hook` (a context-manager factory, e.g.
+    serving.CoScheduler.train_chunk) makes each chunk dispatch
+    preemptible: the runner enqueues each dispatch inside one hook slot.
 
     `have_prev` says whether `gammas_in` holds a previous dispatch's
     posteriors (warm start across dispatches); pass a Python bool — a
@@ -515,15 +521,17 @@ def make_chunk_runner(
             LAST_CHUNK_PLAN, impl = "fast", run_chunk_impl_fast
         else:
             LAST_CHUNK_PLAN, impl = "generic", run_chunk_impl
+        slot = yield_hook() if yield_hook is not None else nullcontext()
         rec = current_recorder()
         if rec is None:
-            return impl(log_beta, alpha, ll_prev, groups, n_steps, gammas_in,
-                        have_prev)
+            with slot:
+                return impl(log_beta, alpha, ll_prev, groups, n_steps,
+                            gammas_in, have_prev)
         # Under a recorder: the dispatch's enqueue span (the device work
         # is asynchronous; the driver's em.host_sync span holds the wait)
         # and the em.chunk_dispatches counter.
-        with rec.span("em.run_chunk", chunk=chunk, n_steps=int(n_steps),
-                      plan=LAST_CHUNK_PLAN):
+        with slot, rec.span("em.run_chunk", chunk=chunk,
+                            n_steps=int(n_steps), plan=LAST_CHUNK_PLAN):
             out = impl(log_beta, alpha, ll_prev, groups, n_steps, gammas_in,
                        have_prev)
         rec.counter("em.chunk_dispatches").add(1)

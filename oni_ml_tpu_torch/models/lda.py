@@ -28,6 +28,13 @@ min(fused_em_chunk, host_sync_every) iterations, and the stepwise
 driver (fused_em_chunk <= 1), which reads it once per EM iteration and
 runs the dense family per batch.
 
+A `yield_hook` (a context-manager factory: serving/coscheduler.py's
+CoScheduler.yield_hook) makes a fit preemptible at its dispatch grain:
+the chunk driver enters one slot per chunk dispatch, the stepwise driver
+one per EM iteration (its launches and M-step).  `WindowTrainer` is the
+continuous service's refresh trainer: one per vocabulary capacity tier,
+warm-started from the last published topics (`warm_start_log_beta`).
+
 With a checkpoint path and `LDAConfig.checkpoint_every` > 0, a fit
 saves (beta, alpha, iteration, likelihoods) every that many EM
 iterations (the chunk driver caps each dispatch at the next checkpoint
@@ -41,6 +48,7 @@ from __future__ import annotations
 
 import math
 import os
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
 
@@ -241,6 +249,16 @@ def _resolve_engine(corpus: Corpus, config: LDAConfig,
     return cross["engine"], cross["source"], cross
 
 
+def _check_sparse_topics(engine: str, config: LDAConfig, device) -> None:
+    """The sparse kernel takes at most MAX_TOPICS topics on the card."""
+    if (engine == "sparse" and torch.device(device).type == "cuda"
+            and config.num_topics > sparse_estep.MAX_TOPICS):
+        raise ValueError(
+            f"sparse E-step engine selected but K={config.num_topics} "
+            f"exceeds the kernel's {sparse_estep.MAX_TOPICS} topics; "
+            "use the dense family for this corpus")
+
+
 def resolve_estep_engine(corpus: Corpus, config: LDAConfig,
                          device="cuda") -> "tuple[str, str]":
     """The E-step engine family of a training run on `device` and where
@@ -291,13 +309,26 @@ class _Run:
 
 
 class LDATrainer:
-    """Single-process EM over padded batches on one device."""
+    """Single-process EM over padded batches on one device.
+
+    `yield_hook` (a context-manager factory, e.g.
+    serving.CoScheduler.yield_hook) makes the fit preemptible: the chunk
+    driver enters one slot per chunk dispatch, the stepwise driver one
+    per EM iteration, so a scorer sharing the device wins the next slot
+    at every boundary.  A slot covers the enqueue of its launches, not
+    their execution on the card."""
 
     def __init__(self, config: LDAConfig, num_terms: int,
-                 device: "str | torch.device | None" = None):
+                 device: "str | torch.device | None" = None,
+                 yield_hook: "Callable | None" = None):
         self.config = config
         self.num_terms = num_terms
         self.device = resolve_device(device)
+        self.yield_hook = yield_hook
+
+    def _slot(self):
+        return self.yield_hook() if self.yield_hook is not None \
+            else nullcontext()
 
     def fit(
         self,
@@ -532,31 +563,37 @@ class LDATrainer:
         vi_counts: list = []
         t_loop0 = now_ns()
         for it in range(run.start_it + 1, cfg.em_max_iters + 1):
-            expb = sparse_estep.exp_beta_table(log_beta)
-            alpha_const = estep.alpha_constant(alpha, k)
-            total_ss = torch.zeros((v, k), dtype=torch.float32, device=dev)
-            total_ll = torch.zeros((), dtype=torch.float32, device=dev)
-            total_ass = torch.zeros((), dtype=torch.float32, device=dev)
-            prev_gammas = gammas if use_warm else []
-            gammas = []
-            batch_vis = []
-            for bi, (widx, cnts, mask, live) in enumerate(dev_batches):
-                warm = {}
-                if prev_gammas:
-                    warm = {"gamma_prev": prev_gammas[bi], "warm": warm_one}
-                res = e_fn(log_beta, alpha, widx, cnts, mask,
-                           cfg.var_max_iters, cfg.var_tol, expb_vk=expb,
-                           live=live, alpha_const=alpha_const, **warm)
-                if instrumented:
-                    batch_vis.append(torch.as_tensor(res.vi_iters))
-                total_ss = total_ss + res.suff_stats
-                total_ll = total_ll + res.likelihood
-                total_ass = total_ass + res.alpha_ss
-                gammas.append(res.gamma)
-            log_beta = estep.m_step(total_ss)
-            if cfg.estimate_alpha:
-                alpha = update_alpha(total_ass, alpha, num_docs, k,
-                                     max_iters=cfg.alpha_max_iters)
+            # One EM iteration is this driver's preemption grain: its
+            # launches, M-step and alpha Newton are enqueued inside one
+            # yield-hook slot; the host sync below is outside it.
+            with self._slot():
+                expb = sparse_estep.exp_beta_table(log_beta)
+                alpha_const = estep.alpha_constant(alpha, k)
+                total_ss = torch.zeros((v, k), dtype=torch.float32,
+                                       device=dev)
+                total_ll = torch.zeros((), dtype=torch.float32, device=dev)
+                total_ass = torch.zeros((), dtype=torch.float32, device=dev)
+                prev_gammas = gammas if use_warm else []
+                gammas = []
+                batch_vis = []
+                for bi, (widx, cnts, mask, live) in enumerate(dev_batches):
+                    warm = {}
+                    if prev_gammas:
+                        warm = {"gamma_prev": prev_gammas[bi],
+                                "warm": warm_one}
+                    res = e_fn(log_beta, alpha, widx, cnts, mask,
+                               cfg.var_max_iters, cfg.var_tol, expb_vk=expb,
+                               live=live, alpha_const=alpha_const, **warm)
+                    if instrumented:
+                        batch_vis.append(torch.as_tensor(res.vi_iters))
+                    total_ss = total_ss + res.suff_stats
+                    total_ll = total_ll + res.likelihood
+                    total_ass = total_ass + res.alpha_ss
+                    gammas.append(res.gamma)
+                log_beta = estep.m_step(total_ss)
+                if cfg.estimate_alpha:
+                    alpha = update_alpha(total_ass, alpha, num_docs, k,
+                                         max_iters=cfg.alpha_max_iters)
             # The stepwise driver's one host sync per EM iteration.
             with maybe_span("em.host_sync", it=it):
                 ll = float(total_ll)
@@ -634,7 +671,7 @@ class LDATrainer:
             var_tol=cfg.var_tol, em_tol=cfg.em_tol,
             estimate_alpha=cfg.estimate_alpha, e_step_fn=e_fn,
             dense_wmajor=wmajor, warm_start=cfg.warm_start_gamma,
-            alpha_max_iters=cfg.alpha_max_iters,
+            alpha_max_iters=cfg.alpha_max_iters, yield_hook=self.yield_hook,
         )
         ll_prev = run.ll_prev
         ll_prev_dev = torch.tensor(math.nan if ll_prev is None else ll_prev,
@@ -727,12 +764,8 @@ def train_corpus(
     `out_dir/checkpoint.npz`."""
     dev = resolve_device(device)
     engine, engine_src, crossover = _resolve_engine(corpus, config, dev)
+    _check_sparse_topics(engine, config, dev)
     if engine == "sparse":
-        if dev.type == "cuda" and config.num_topics > sparse_estep.MAX_TOPICS:
-            raise ValueError(
-                f"sparse E-step engine selected but K={config.num_topics} "
-                f"exceeds the kernel's {sparse_estep.MAX_TOPICS} topics; "
-                "use the dense family for this corpus")
         batches = list(corpus.bucketed_layout(
             min_len=config.sparse_min_bucket_len, batch_cap=config.batch_size,
             pad_multiple=sparse_estep.pad_multiple_for(),
@@ -758,3 +791,130 @@ def train_corpus(
     if out_dir and save_final:
         result.save(out_dir, num_terms=corpus.num_terms, include_likelihood=False)
     return result
+
+
+# ---------------------------------------------------------------------------
+# Window refreshes (the continuous service)
+# ---------------------------------------------------------------------------
+
+
+def warm_start_log_beta(topic_probs: np.ndarray,
+                        num_terms: int) -> np.ndarray:
+    """[V0, K] p(word|topic) from a previous fit -> a [K, num_terms]
+    float64 log-beta EM init padded for vocabulary growth.
+
+    A window holds words the previous one never saw; each gets one
+    symmetric-prior quantum of mass (1/num_terms) and every topic
+    renormalizes, so the previous topics carry over almost unchanged
+    while unseen words start at small but trainable mass rather than the
+    LOG_ZERO floor (a floored word could never grow back under the
+    multiplicative fixed point).  A shrinking vocabulary is refused:
+    window word ids are first-seen-stable, so a smaller V means the
+    caller mixed id spaces."""
+    p = np.asarray(topic_probs, np.float64)
+    if p.ndim != 2:
+        raise ValueError(f"topic_probs must be [V, K], got {p.shape}")
+    v0, k = p.shape
+    if num_terms < v0:
+        raise ValueError(
+            f"vocabulary cannot shrink: previous topics cover {v0} "
+            f"words, new corpus has {num_terms} — window word ids are "
+            "first-seen-stable, so a smaller V means mixed id spaces"
+        )
+    if not np.isfinite(p).all() or (p < 0).any():
+        raise ValueError("topic_probs must be finite and nonnegative")
+    prior = 1.0 / max(num_terms, 1)
+    full = np.concatenate(
+        [p, np.full((num_terms - v0, k), prior, np.float64)], axis=0
+    )
+    full = full / np.maximum(full.sum(axis=0, keepdims=True), 1e-300)
+    beta = full.T  # [K, num_terms]
+    return np.where(
+        beta > 0, np.log(np.maximum(beta, 1e-300)), estep.LOG_ZERO
+    )
+
+
+class WindowTrainer:
+    """Warm-startable EM for the continuous service's window refreshes
+    (port of the JAX package's single-process WindowTrainer), on
+    `device` (the card unless the caller asks for the CPU).
+
+    One instance lives for a vocabulary capacity tier and is reused
+    refresh after refresh.  Its E-step engine is resolved once, at the
+    first fit (resolve_estep_engine's rule: ONI_ML_TPU_ESTEP >
+    LDAConfig.estep_engine > on the card the crossover, which the plan
+    store serves after its one measurement), and kept for the tier.
+    Window batches pad to the full batch size (make_batches' default),
+    so every refresh runs the same (B, L) family whatever the document
+    count does.
+
+    `fit()` seeds EM from the previous refresh's topics when given them
+    (warm_start_log_beta pads for vocabulary growth, through
+    convert.from_reference into float32); the float64 convergence check
+    then stops after the few iterations the stream moved.  `yield_hook`
+    threads through to the EM driver (LDATrainer).  The distributed
+    refresh (`collective=`) is not ported: ROADMAP Queue 1 item 6."""
+
+    def __init__(self, config: LDAConfig, num_terms: int, *,
+                 device: "str | torch.device | None" = None,
+                 collective=None, yield_hook: "Callable | None" = None,
+                 ) -> None:
+        if collective is not None:
+            raise NotImplementedError(
+                "distributed window refreshes (collective=) are not ported "
+                "yet: ROADMAP Queue 1 item 6 (multi-GPU distributed EM)")
+        self.config = config
+        self.num_terms = num_terms
+        self.device = resolve_device(device)
+        self._trainer = LDATrainer(config, num_terms=num_terms,
+                                   device=self.device, yield_hook=yield_hook)
+        self.fits = 0
+        # (engine, source, crossover record) of the tier's first fit.
+        self.engine: "tuple | None" = None
+
+    def fit(
+        self,
+        corpus: Corpus,
+        *,
+        topic_probs: "np.ndarray | None" = None,
+        alpha: "float | None" = None,
+        progress: "Callable | None" = None,
+    ) -> LDAResult:
+        """One window refresh: corpus -> LDAResult.  With `topic_probs`
+        (the previous published [V_prev, K] matrix) EM warm-starts from
+        them and `alpha` seeds the Newton; without, the random init.
+        `result.plan` records `warm_start` and the tier's
+        `estep_engine` (with `resolved`: whether this fit resolved it)
+        and `estep_crossover` where the crossover decided."""
+        cfg = self.config
+        if corpus.num_terms != self.num_terms:
+            raise ValueError(
+                f"window corpus has V={corpus.num_terms} but this "
+                f"trainer's capacity tier is {self.num_terms} — "
+                "rebuild the trainer at the new tier (one trainer per "
+                "tier, by design)"
+            )
+        warm = topic_probs is not None
+        init_lb = (warm_start_log_beta(topic_probs, self.num_terms)
+                   if warm else None)
+        resolved = self.engine is None
+        if resolved:
+            self.engine = _resolve_engine(corpus, cfg, self.device)
+        engine, source, crossover = self.engine
+        _check_sparse_topics(engine, cfg, self.device)
+        batches = make_batches(corpus, batch_size=cfg.batch_size,
+                               min_bucket_len=cfg.min_bucket_len)
+        result = self._trainer.fit(
+            batches, corpus.num_docs, progress=progress,
+            initial_log_beta=init_lb,
+            initial_alpha=alpha if warm else None, engine=engine,
+        )
+        self.fits += 1
+        # `resolved`: this fit resolved the tier's engine (later fits
+        # of the tier reuse it).
+        result.plan["estep_engine"] = {"value": engine, "source": source,
+                                       "resolved": resolved}
+        if crossover is not None:
+            result.plan["estep_crossover"] = crossover
+        result.plan["warm_start"] = {"value": bool(warm), "source": "window"}
+        return result

@@ -49,6 +49,9 @@ SOURCES = {"flow": "flow_featurize.cpp", "dns": "dns_featurize.cpp",
            "ingest": "corpus_ingest.cpp", "emit": "row_emit.cpp"}
 # name -> {"seconds": build wall (0.0 when it was built already)}
 BUILD_INFO: "dict[str, dict]" = {}
+# Libraries this process compiled (a cached build adds nothing):
+# plans/warmup.compile_counts reads it.
+BUILDS = 0
 
 
 def enabled() -> bool:
@@ -113,6 +116,7 @@ def build(names) -> None:
     """Compile every library of `names` not built yet, one g++ each, all
     started together.  Raises RuntimeError naming each library whose
     build failed and the compiler's output."""
+    global BUILDS
     todo = {n: lib_path(n) for n in names}
     todo = {n: p for n, p in todo.items() if not os.path.exists(p)}
     for n in set(names) - set(todo):
@@ -156,6 +160,7 @@ def build(names) -> None:
                 continue
             os.replace(tmp, todo[n])
             BUILD_INFO[n] = {"seconds": time.perf_counter() - t0}
+            BUILDS += 1
         if failed:
             raise RuntimeError("\n".join(failed))
     finally:

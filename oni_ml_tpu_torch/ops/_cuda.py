@@ -36,6 +36,9 @@ NVCC_FLAGS = [
 _LOADED: "dict[str, ctypes.CDLL]" = {}
 # name -> {"seconds": build wall (0.0 when cached), "ptxas": compiler log}
 BUILD_INFO: "dict[str, dict]" = {}
+# Libraries this process compiled (a cached build adds nothing):
+# plans/warmup.compile_counts reads it.
+BUILDS = 0
 
 
 def nvcc_path() -> str:
@@ -69,6 +72,7 @@ def _lib_path(name: str) -> str:
 def build(names) -> None:
     """Compile every csrc/<name>.cu of `names` that is not built yet, one
     nvcc per source, all started together."""
+    global BUILDS
     todo = {}
     for name in names:
         lib = _lib_path(name)
@@ -96,6 +100,7 @@ def build(names) -> None:
             continue
         os.replace(f"{todo[name]}.{os.getpid()}.tmp", todo[name])
         BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "ptxas": out}
+        BUILDS += 1
     if failed:
         raise RuntimeError("\n".join(failed))
 

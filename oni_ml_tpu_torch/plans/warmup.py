@@ -1,5 +1,6 @@
-"""Serving warm-up (port of oni_ml_tpu/plans/warmup.py's
-`warmup_serving`).
+"""Serving warm-up and the build counters (port of
+oni_ml_tpu/plans/warmup.py's `warmup_serving`, `compile_counts` and
+`counts_delta`).
 
 The JAX package compiles the serving scorer's padded micro-batch
 programs ahead of the first event (one per power-of-two shape from the
@@ -10,6 +11,12 @@ the model's one upload (cached on the model) and the first launches,
 pinned staging buffers and allocator blocks of each size happen before
 the stream's first flush instead of inside it.  No CUDA-graph capture
 and no persistent cache (ROADMAP Queue 1 item 4).
+
+`compile_counts` counts what the port compiles at run time instead of
+the JAX package's traces: the CUDA kernel libraries (ops/_cuda.py, one
+nvcc each) and the C++ host libraries (native_build.py, one g++ each)
+this process built.  The continuous service's `retraces_after_warmup`
+is its delta past the warm-up boundary.
 """
 
 from __future__ import annotations
@@ -43,3 +50,22 @@ def warmup_serving(model, max_batch: int, device_min, device=None) -> dict:
         device_scores(model, idx, idx, device=device)
     return {"warmed": len(sizes), "sizes": sizes,
             "wall_s": round(time.perf_counter() - t0, 6)}
+
+
+def compile_counts() -> dict:
+    """Cumulative per-process build counters: `kernel_builds` (CUDA
+    libraries), `native_builds` (C++ host libraries) and `builds`, their
+    sum.  A library already built by an earlier process (its hash in the
+    build directory) counts nothing."""
+    from .. import native_build
+    from ..ops import _cuda
+
+    kernel, native = _cuda.BUILDS, native_build.BUILDS
+    return {"kernel_builds": kernel, "native_builds": native,
+            "builds": kernel + native}
+
+
+def counts_delta(before: dict) -> dict:
+    """compile_counts() now, less `before`, key by key."""
+    now = compile_counts()
+    return {k: now[k] - before.get(k, 0) for k in now}

@@ -11,8 +11,10 @@ ml_ops.sh YYYYMMDD flow|dns TOL:
         [--eval-quality | --eval-holdout FRAC] [--publish DEST]
 
     python -m oni_ml_tpu_torch.runner.ml_ops serve --day-dir DIR ...
+    python -m oni_ml_tpu_torch.runner.ml_ops continuous flow --flow-path F
 
-routes to the streaming scoring service (runner/serve.py).
+route to the streaming scoring service (runner/serve.py) and the
+continuous standing service (runner/continuous.py).
 
 Stages, each writing the JAX runner's artifacts into <data-dir>/<fdate>
 (the source's hooks come from the registry, `sources.get(dsource)`):
@@ -1244,6 +1246,13 @@ def main(argv=None) -> int:
         from . import serve
 
         return serve.main(argv[1:])
+    # `ml_ops continuous ...` is the standing service (runner/
+    # continuous.py): replayed or live slices, window refreshes and
+    # gated publishes, routed here for the same reason.
+    if argv and argv[0] == "continuous":
+        from . import continuous
+
+        return continuous.main(argv[1:])
     p = build_parser()
     args = p.parse_args(argv)
     if len(args.fdate) != 8 or not args.fdate.isdigit():

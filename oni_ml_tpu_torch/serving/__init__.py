@@ -25,11 +25,14 @@ The multi-tenant fleet scales it to N tenants on one card:
 
 `python -m oni_ml_tpu_torch.runner.ml_ops serve [--fleet MANIFEST]` is
 the CLI (runner/serve.py); config.ServingConfig holds the knobs.  The
-JAX package's replicas, router, wire and autoscaler wait for their
+continuous service (runner/continuous.py) scores through a FleetScorer
+and arbitrates its refresh fits against scoring with the CoScheduler.
+The JAX package's replicas, router, wire and autoscaler wait for their
 slice.
 """
 
 from .batcher import BatchScorer, ScoreFuture
+from .coscheduler import CoScheduler
 from .events import (
     DnsEventFeaturizer,
     FlowEventFeaturizer,
@@ -70,6 +73,7 @@ __all__ = [
     "TIER_WARM",
     "AdmissionRejected",
     "BatchScorer",
+    "CoScheduler",
     "DnsEventFeaturizer",
     "FleetRegistry",
     "FleetScorer",

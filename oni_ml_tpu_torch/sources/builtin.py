@@ -86,10 +86,20 @@ class FlowSource(SourceSpec):
         return (features.time_cuts, features.ibyt_cuts,
                 features.ipkt_cuts)
 
+    def _derive_cuts_uncached(self, lines, qtiles_path=""):
+        if qtiles_path:
+            from ..features.qtiles import read_flow_qtiles
+
+            return read_flow_qtiles(qtiles_path)
+        return self.cuts_of(self.featurize(lines))
+
     def event_featurizer(self, cuts, top_domains=frozenset()):
         from ..serving.events import FlowEventFeaturizer
 
         return FlowEventFeaturizer(cuts)
+
+    def event_time_s(self, line: str) -> float:
+        return _flow_time_s(line)
 
     def event_pairs(self, feats):
         from ..features.flow import FLOW_COLUMNS
@@ -211,6 +221,9 @@ class DnsSource(SourceSpec):
         from ..serving.events import DnsEventFeaturizer
 
         return DnsEventFeaturizer(cuts, top_domains=top_domains)
+
+    def event_time_s(self, line: str) -> float:
+        return float(line.split(",")[1])
 
     def event_pairs(self, feats):
         from ..features.dns import DNS_COLUMNS

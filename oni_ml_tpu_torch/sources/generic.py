@@ -186,7 +186,8 @@ class TableSourceSpec(SourceSpec):
                 f"source {name!r}: doc_column {doc_column!r} is not a "
                 "declared column"
             )
-        field_names = {f.name for f in self.fields}
+        by_name = {f.name: f for f in self.fields}
+        field_names = set(by_name)
         for cut in self.cuts_spec:
             if cut.field not in field_names:
                 raise ValueError(
@@ -198,6 +199,7 @@ class TableSourceSpec(SourceSpec):
                 f"source {name!r}: time_field {time_field!r} is not a "
                 "declared field"
             )
+        self._time_field = by_name[time_field]
 
     # -- declaration round-trip -------------------------------------------
 
@@ -316,6 +318,14 @@ class TableSourceSpec(SourceSpec):
     def event_featurizer(self, cuts, top_domains=frozenset()):
         return GenericEventFeaturizer(self, cuts)
 
+    def event_time_s(self, line: str) -> float:
+        row = line.split(",")
+        f = self._time_field
+        col = self._col[f.column]
+        if f.kind == "hms":
+            return _hms_seconds_strict(row[col])
+        return float(row[col])
+
     def event_pairs(self, feats):
         n = feats.num_raw_events
         c = feats.doc_col
@@ -348,10 +358,14 @@ def _hms_seconds(v: str) -> float:
     """'HH:MM:SS' -> seconds of day; NaN on garbage (the number-field
     rule: one malformed cell must not abort the day)."""
     try:
-        h, m, s = v.split(":")
-        return float(h) * 3600.0 + float(m) * 60.0 + float(s)
+        return _hms_seconds_strict(v)
     except (ValueError, IndexError):
         return float("nan")
+
+
+def _hms_seconds_strict(v: str) -> float:
+    h, m, s = v.split(":")
+    return float(h) * 3600.0 + float(m) * 60.0 + float(s)
 
 
 def _word_number(v: float) -> str:

@@ -14,9 +14,10 @@ features/dns.py, and `generic.TableSourceSpec`, a declarative spec
 (fields, cut strategies, word template); the proxy source is one.
 
 The serving hooks (`cuts_of`, `event_featurizer`, `event_pairs`,
-`event_documents`) let `ml_ops serve` featurize and score micro-batches
-with the trained day's cuts.  Not ported yet (the continuous service
-calls them): `event_time_s`, `event_indices` and `derive_cuts`.
+`event_documents`, `event_indices`) let `ml_ops serve` featurize and
+score micro-batches with the trained day's cuts; the continuous service
+(`ml_ops continuous`) also pins its stream's cuts with `derive_cuts`
+and orders raw lines into event-time slices with `event_time_s`.
 """
 
 from __future__ import annotations
@@ -81,10 +82,53 @@ class SourceSpec:
         container, native or Python, carries them)."""
         raise NotImplementedError
 
+    def derive_cuts(self, lines: Sequence[str],
+                    qtiles_path: str = "") -> tuple:
+        """Bootstrap cuts for the continuous service: from a qtiles file
+        when the source supports one, else the slice's own ECDF.
+
+        Memoized on the spec (registry specs are singletons): the ECDF
+        featurize pass runs once per distinct (line digest, qtiles
+        path), and repeat callers pay a hash.  The returned tuple is
+        shared and must be treated as immutable."""
+        lines = (lines if isinstance(lines, (list, tuple))
+                 else list(lines))
+        key = self._cuts_memo_key(lines, qtiles_path)
+        cache = self.__dict__.setdefault("_derived_cuts", {})
+        cuts = cache.get(key)
+        if cuts is None:
+            cuts = self._derive_cuts_uncached(lines, qtiles_path)
+            while len(cache) >= 8:   # a handful of live days, bounded
+                cache.pop(next(iter(cache)))
+            cache[key] = cuts
+        return cuts
+
+    def _cuts_memo_key(self, lines: Sequence, qtiles_path: str) -> str:
+        import hashlib
+
+        h = hashlib.blake2b(digest_size=16)
+        for ln in lines:
+            h.update(ln.encode() if isinstance(ln, str)
+                     else repr(ln).encode())
+            h.update(b"\n")
+        h.update(qtiles_path.encode())
+        return h.hexdigest()
+
+    def _derive_cuts_uncached(self, lines: Sequence[str],
+                              qtiles_path: str = "") -> tuple:
+        """One ECDF featurize pass over the slice (a qtiles path is
+        honoured by the sources that support a cut file: flow)."""
+        return self.cuts_of(self.featurize(lines, skip_header=False))
+
     def event_featurizer(self, cuts: tuple,
                          top_domains: frozenset = frozenset()):
         """Serving-side featurizer (validate + __call__) pinned to the
         trained day's cuts; carries ``dsource == self.name``."""
+        raise NotImplementedError
+
+    def event_time_s(self, line: str) -> float:
+        """Event time in seconds (of day, or epoch: only ordering and
+        deltas matter) for slice assignment.  Raises on garbage."""
         raise NotImplementedError
 
     def event_pairs(self, feats) -> "list[tuple[list[str], list[str]]]":
@@ -104,6 +148,14 @@ class SourceSpec:
             ips.extend(keys)
             words.extend(ws)
         return ips, words
+
+    def event_indices(self, features, ip_index: dict,
+                      word_index: dict) -> tuple:
+        """Model-row index arrays of every raw event, int32, for the
+        scoring core: ``2 * pairs_per_event`` arrays (key, word per
+        block); misses map to the fallback row ``len(index)``.  The
+        feature containers own the mapping (features/container.py)."""
+        return features.event_indices(ip_index, word_index)
 
     # -- scoring ----------------------------------------------------------
 
