@@ -190,12 +190,32 @@ Phases (any failure exits non-zero before the result line):
              min), serve p99 idle against during refresh, coalesced
              refreshes, vocab and tiers, retraces_after_warmup and each
              refresh's engine.
+   replicated  `ml_ops route` on the card (runner/route.py): six tenants
+             (three names over the 2M flow day's model, three over the
+             DNS day's), 60,000 of their raw events interleaved on stdin
+             of `route --replicas 3 --device cuda --device-score-min 1`
+             (every flush of the spawned replica processes on the card),
+             a rolling redeploy of all three halfway: exit 0, every
+             event resolved once, no error, each replica process on cuda
+             by its own stats reply (with its peak device memory).  Then
+             a FleetRouter over 3 in-process ReplicaServers on cuda: a
+             replica killed with half the stream in flight, its tenants
+             promoted to their shadows, zero failed futures; one tenant
+             refreshed on the card by RefreshLoop (dense step and sparse
+             inference, then the fixed point under
+             ONI_ML_TPU_ESTEP=pallas), each published through the router
+             to primary and shadow; the card's scores within rel 1e-6 of
+             the float64 host scorer's before and after each publish.
+             Prints events/s, route latency p50/p99, the failover gap,
+             the redeploy wall, each replica's peak device memory, the
+             refresh walls and the kernels' launches.
 
 Then it prints the kernels line (each kernel with its launches on its
 flow-day path, as `dns_launches` on the DNS day's, as
 `online_launches` on its online run's, as `launches_serve` on the
 served streams', as `launches_fleet` on the fleet's and as
-`launches_continuous` on the continuous service's), the card's name
+`launches_continuous` on the continuous service's and as
+`launches_replicated` on the replicated fleet's), the card's name
 and power limit, and last `{"ok": true, "device": {...}}`.  Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
 """
@@ -2672,10 +2692,14 @@ CONT_SLICE_S = 300.0
 # Cut to size (PERF.md §4), in the order the phase's sizing allows:
 # part 1's 6 event hours to 2 (its CPU runs took 80 of the first run's
 # 214 s), then part 2's 8 to 6 (the floor that still passes the 9
-# warm-up refreshes); part 3 keeps its 2 hours.
+# warm-up refreshes).  Part 3 runs 3 hours: both tenants' first refits
+# fall due 30 event minutes in and run one after the other on the one
+# refresh worker, and under the fleet's ingest the flow day's first fit
+# took 6.6-16.5 s where it takes 3.0 s alone, so at 2 hours (30 s paced)
+# its first publish landed 1.3-6.3 s before the stream's end, or after.
 CONT_SMALL_HOURS = 2
 CONT_FLOW_HOURS = 6
-CONT_FLEET_HOURS = 2
+CONT_FLEET_HOURS = 3
 # Part 3's replay pace (event seconds per wall second): unpaced, the
 # ingest ran through 2 event hours before the first refit published, so
 # nothing was scored and no serve slot met a refit.
@@ -3069,6 +3093,302 @@ def continuous_phase(tmp, raws):
     return total
 
 
+# The replicated phase (`ml_ops route` / `ml_ops replica` on the card).
+# Tenants: three names over the 2M flow day's model and three over the
+# 2M DNS day's, each its day's first REPL_TENANT_EVENTS raw events,
+# interleaved round-robin: 60,000 events through the CLI.  The in-process
+# part streams each tenant's first REPL_INPROC_EVENTS.
+REPL_TENANT_EVENTS = 10_000
+REPL_INPROC_EVENTS = 4_096
+REPL_REPLICAS = 3
+# The fleet's bound for card-scored events against the float64 host
+# scorer (RTOL_FLEET_DEVICE): float32 gathers and k-order multiply-adds.
+RTOL_REPL_DEVICE = RTOL_SCORE
+
+
+def repl_tenants(tmp):
+    """name -> dsource, day_dir, model, raw lines and the host scores of
+    those lines under the day's model (the oracle)."""
+    from oni_ml_tpu_torch.config import ScoringConfig
+    from oni_ml_tpu_torch.runner.serve import _load_featurizer
+    from oni_ml_tpu_torch.serving import ModelRegistry
+    from oni_ml_tpu_torch.sources import get
+
+    out = {}
+    for dsource, day_dir, raw in (
+            ("flow", os.path.join(tmp, "data", "20160122"),
+             os.path.join(tmp, "flow_day.csv")),
+            ("dns", os.path.join(tmp, "dns_data", "20160122"),
+             os.path.join(tmp, "dns_day.csv"))):
+        model = ModelRegistry().load_day(
+            day_dir, get(dsource).fallback(ScoringConfig())).model
+        fz = _load_featurizer(day_dir, None)
+        lines = first_lines(raw, dsource, REPL_TENANT_EVENTS)
+        pairs = get(dsource).event_pairs(
+            fz([fz.validate(line) for line in lines]))
+        expect = host_scores(model, pairs, np.arange(len(lines)))
+        for i in range(REPL_REPLICAS):
+            out[f"{dsource}{i}"] = {
+                "dsource": dsource, "day_dir": day_dir, "model": model,
+                "featurizer": fz, "lines": lines, "pairs": pairs,
+                "expect": expect}
+    return out
+
+
+def repl_cli(tmp, tenants, dev="cuda"):
+    """`ml_ops route --replicas 3` as a subprocess over the manifest: the
+    replicas spawned on `dev` with every flush on the card
+    (--device-score-min 1), the tagged stream on stdin, a rolling
+    redeploy of every replica halfway.  Exit 0, every routed event
+    resolved once, no error, three redeploys, and every replica process
+    (the three drained and their replacements) on `dev` by its own stats
+    reply.  The route process runs in its own session, killed with its
+    replicas if it outlives its limit."""
+    import signal
+
+    names = sorted(tenants)
+    manifest = os.path.join(tmp, "repl_fleet.json")
+    with open(manifest, "w") as f:
+        json.dump({"tenants": [{"tenant": t,
+                                "day_dir": tenants[t]["day_dir"],
+                                "dsource": tenants[t]["dsource"]}
+                               for t in names]}, f)
+    events = os.path.join(tmp, "repl_events.tsv")
+    n = 0
+    with open(events, "w") as f:
+        for t, line in interleaved(tenants, names):
+            f.write(f"{t}\t{line}")
+            n += 1
+    cmd = [sys.executable, "-m", "oni_ml_tpu_torch.runner.ml_ops", "route",
+           "--fleet", manifest, "--replicas", str(REPL_REPLICAS),
+           "--kv-dir", os.path.join(tmp, "repl_kv"), "--device", dev,
+           "--device-score-min", "1", "--redeploy-after", str(n // 2)]
+    t0 = time.perf_counter()
+    with open(events) as stdin:
+        proc = subprocess.Popen(
+            cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdin=stdin, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=400)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"route CLI exited {proc.returncode}: {err[-3000:]}")
+    summary = json.loads(err.strip().splitlines()[-1])
+    reps = summary["replica_stats"]
+    if (summary["routed"] != n or summary["resolved"] != n
+            or summary["errors"] or summary["redeploys"] != REPL_REPLICAS
+            or len(reps) != 2 * REPL_REPLICAS
+            or not all(str(s.get("device", "")).startswith(dev)
+                       for s in reps.values())):
+        fail(f"route CLI: routed {summary['routed']} resolved "
+             f"{summary['resolved']} of {n}, errors {summary['errors']}, "
+             f"redeploys {summary['redeploys']}, replicas "
+             f"{ {r: s.get('device') for r, s in reps.items()} }")
+    return {"tenants": len(names), "events": n, "process_wall_s": wall,
+            "stream_s": summary["stream_s"],
+            "events_per_s": n / summary["stream_s"],
+            # The stream's rate outside the redeploy, which the submit
+            # loop waits out (drains, joins, model pushes).
+            "events_per_s_outside_redeploy": n / (summary["stream_s"]
+                                                  - summary["redeploy_s"]),
+            "route_ms": {k: summary["hop_ms"][k] for k in ("p50", "p99")},
+            "redeploy_s": summary["redeploy_s"],
+            "flagged": summary["flagged"],
+            "replica_peak_cuda_bytes": {
+                r: s.get("cuda_peak_bytes") for r, s in reps.items()},
+            "replica_events_scored": {
+                r: s["events_scored"] for r, s in reps.items()},
+            "replica_batches": {
+                r: s["batches_flushed"] for r, s in reps.items()}}
+
+
+def repl_check(label, tenants, futs, models, idx):
+    """Every future resolved once; each tenant's scores within
+    RTOL_REPL_DEVICE of the host scorer's under `models[t]`."""
+    worst = 0.0
+    for t, fs in futs.items():
+        got = np.array([f.result(timeout=120.0)[0] for f in fs])
+        want = (tenants[t]["expect"][idx] if models[t] is None else
+                host_scores(models[t], tenants[t]["pairs"], idx))
+        rel = float(np.max(rel_errors(got, want)))
+        if not rel <= RTOL_REPL_DEVICE:
+            fail(f"replicated {label} {t}: card vs host max rel {rel:.3e}")
+        worst = max(worst, rel)
+    return worst
+
+
+def repl_in_process(tenants, dev="cuda"):
+    """A FleetRouter over 3 in-process ReplicaServers on `dev`, every
+    flush on the card: half of each tenant's stream, a replica killed
+    with those events in flight, the failover awaited, the other half;
+    then one tenant refreshed on the card by RefreshLoop (the dense
+    kernel's step and the sparse kernel's inference pass; then the fixed
+    point's step and inference under ONI_ML_TPU_ESTEP=pallas), each
+    result published through the router and scored again.  Checks:
+    every future resolved once, none failed; the dead replica's tenants
+    promoted to their shadows; primary and shadow on the published
+    version; card scores within RTOL_REPL_DEVICE of the host's before
+    and after each publish."""
+    from oni_ml_tpu_torch.config import OnlineLDAConfig, ServingConfig
+    from oni_ml_tpu_torch.serving import (FleetRouter, ModelRegistry,
+                                          RefreshLoop, ReplicaServer,
+                                          TenantSpec, event_documents)
+    from oni_ml_tpu_torch.telemetry.spans import Recorder
+
+    cfg = ServingConfig(device_score_min=1)
+    rec = Recorder()
+    router = FleetRouter(cfg, recorder=rec)
+    replicas = {}
+    names = sorted(tenants)
+    n = REPL_INPROC_EVENTS
+    half = n // 2
+    out = {}
+    try:
+        for i in range(REPL_REPLICAS):
+            rid = f"p{i}"
+            replicas[rid] = ReplicaServer(rid, cfg, device=dev)
+            router.connect_replica(rid, replicas[rid].host,
+                                   replicas[rid].port)
+        for t in names:
+            router.add_tenant(
+                TenantSpec(tenant=t, dsource=tenants[t]["dsource"]), (),
+                tenants[t]["model"], featurizer=tenants[t]["featurizer"])
+        router.start()
+        before = router.placement()
+        victim = before[names[0]].primary
+        models = {t: None for t in names}
+        t0 = time.perf_counter()
+        futs = {t: [] for t in names}
+        for lo, hi in ((0, half), (half, n)):
+            for i in range(lo, hi, 256):
+                for t in names:
+                    futs[t] += router.submit_many(
+                        t, tenants[t]["lines"][i:min(i + 256, hi)])
+            if lo == 0:
+                # The failover gap: the kill to the shadow's promotion
+                # (the route flips), and to the recovered record (the
+                # in-flight hops resent, the shadows refilled).
+                t_kill = time.perf_counter()
+                replicas[victim].kill()
+                deadline = time.monotonic() + 60.0
+                gap = None
+                while (not router.stats()["failovers"]
+                       and time.monotonic() < deadline):
+                    if gap is None and router.placement()[
+                            names[0]].primary != victim:
+                        gap = time.perf_counter() - t_kill
+                    time.sleep(0.0005)
+                recovered_gap = time.perf_counter() - t_kill
+                if gap is None:
+                    gap = recovered_gap
+        router.flush()
+        worst = repl_check("stream", tenants, futs, models, np.arange(n))
+        wall = time.perf_counter() - t0
+        stats = router.stats()
+        after = router.placement()
+        fos = stats["failovers"]
+        promoted_ok = all(after[t].primary == before[t].shadow
+                          for t in names if before[t].primary == victim)
+        if (len(fos) != 1 or fos[0]["resend_failures"] or not promoted_ok
+                or victim in stats["replicas"]):
+            fail(f"replicated kill of {victim}: failovers {fos}, "
+                 f"placement {before} -> {after}")
+        out.update({"events": n * len(names), "wall_s": wall,
+                    "events_per_s": n * len(names) / wall,
+                    "killed": victim, "failover_gap_s": gap,
+                    "failover_recovered_s": recovered_gap,
+                    "failover": fos[0], "max_rel_stream": worst})
+        # Refresh one tenant on the card, publish, score again.
+        t = names[-1]
+        fz = tenants[t]["featurizer"]
+        feats = fz([fz.validate(line) for line in tenants[t]["lines"][:n]])
+        ips, words = event_documents(feats, tenants[t]["dsource"])
+        refreshes = {}
+        model = tenants[t]["model"]
+        for label, dense_em, env, member, infer in (REFRESH_MEMBERS[0],
+                                                    REFRESH_MEMBERS[2]):
+            reg = ModelRegistry()
+            snap = reg.publish(model, "route")
+            if env:
+                os.environ["ONI_ML_TPU_ESTEP"] = env
+            try:
+                before_counts = (launch_counts(), executed_counts())
+                t1 = time.perf_counter()
+                loop = RefreshLoop(reg, OnlineLDAConfig(
+                    num_topics=model.num_topics, dense_em=dense_em),
+                    every=1, device=dev)
+                new = loop.observe(snap, ips, words)
+                refresh_s = time.perf_counter() - t1
+                after_counts = (launch_counts(), executed_counts())
+            finally:
+                os.environ.pop("ONI_ML_TPU_ESTEP", None)
+            member_launches(tuple({k: a[k] - b[k] for k in a}
+                                  for a, b in zip(after_counts,
+                                                  before_counts)),
+                            1, member, infer)
+            model = new.model
+            t1 = time.perf_counter()
+            version = router.publish(t, model, source=f"refresh-{label}")
+            publish_s = time.perf_counter() - t1
+            place = router.placement()[t]
+            held = {r: replicas[r]._router_versions.get(t)
+                    for r in (place.primary, place.shadow)}
+            if any(v != version for v in held.values()):
+                fail(f"replicated publish {label}: router version "
+                     f"{version}, replicas hold {held}")
+            models[t] = model
+            f2 = {t: router.submit_many(t, tenants[t]["lines"][:half])}
+            router.flush()
+            rel = repl_check(f"after publish {label}", tenants, f2, models,
+                             np.arange(half))
+            refreshes[label] = {"refresh_s": refresh_s,
+                                "publish_s": publish_s, "version": version,
+                                "replicas": held, "max_rel": rel}
+        out["refresh"] = refreshes
+        out["route_ms"] = {k: rec.histogram("route.hop_ms").summary()[k]
+                           for k in ("p50", "p99")}
+        out["replica_stats"] = {r: {"device": s["device"],
+                                    "cuda_peak_bytes": s.get(
+                                        "cuda_peak_bytes"),
+                                    "events_scored": s["events_scored"]}
+                                for r, s in router.replica_stats().items()}
+    finally:
+        router.close()
+        for rep in replicas.values():
+            rep.stop()
+    return out
+
+
+def replicated_phase(tmp, smi, dev="cuda"):
+    """`ml_ops route` / `ml_ops replica` on the card (see the module
+    docstring).  Returns the launches on the replicated path per kernel
+    (the in-process part's two card refreshes)."""
+    t0 = time.perf_counter()
+    reset_kernel_counts()
+    tenants = repl_tenants(tmp)
+    out = {"card": smi}
+    t1 = time.perf_counter()
+    out["cli"] = repl_cli(tmp, tenants, dev)
+    out["cli_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["in_process"] = repl_in_process(tenants, dev)
+    out["in_process_s"] = time.perf_counter() - t1
+    total = launch_counts()
+    out["launches_replicated"] = total
+    for name in ("sparse_estep", "dense_estep", "fixed_point_estep"):
+        if total.get(name, 0) <= 0:
+            fail(f"replicated path: {name} never launched: {total}")
+    out["phase_s"] = time.perf_counter() - t0
+    log("replicated " + json.dumps(out, default=str))
+    log(f"replicated phase: {out['phase_s']:.1f} s")
+    return total
+
+
 def check_launches(engine, lda, counts, extra=None):
     """Each kernel of the family member `engine` launched once per batch
     per EM iteration enqueued (those after the device stop included) and
@@ -3176,18 +3496,40 @@ def profile_times(prof):
     """(device-busy seconds, the top device kernels and the top host ops
     by self time, in microseconds) of a torch.profiler run.  Device-side
     events only count as busy (kernels, copies): an aten op's row
-    repeats the time of the kernels it launched."""
+    repeats the time of the kernels it launched.  Read from the
+    profiler's raw events: `key_averages()` builds an event tree, which
+    took ~7.7 s a run on the H100's host (123 s of profile_em's 171 s); a host op's
+    self time is its span less its children's on the same thread, as
+    that tree computes it."""
     from torch.autograd import DeviceType
 
-    dev, host = {}, {}
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        if e.device_type == DeviceType.CUDA and dev_us > 0:
-            dev[e.key] = dev.get(e.key, 0.0) + dev_us
-        elif e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0:
-            host[e.key] = host.get(e.key, 0.0) + e.self_cpu_time_total
+    dev, host, threads = {}, {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.is_hidden_event():
+            continue
+        if e.device_type() == DeviceType.CUDA:
+            if e.duration_ns() > 0:
+                dev[e.name()] = dev.get(e.name(), 0.0) + e.duration_ns() / 1e3
+        elif e.device_type() == DeviceType.CPU:
+            threads.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.end_ns(), e.name()))
+
+    def close(op):
+        if op[2] > 0:
+            host[op[1]] = host.get(op[1], 0.0) + op[2] / 1e3
+
+    for ops in threads.values():
+        ops.sort(key=lambda op: (op[0], -op[1]))
+        stack = []  # [end, name, self ns] of the open ops
+        for start, end, name in ops:
+            while stack and stack[-1][0] <= start:
+                close(stack.pop())
+            if stack:
+                stack[-1][2] -= end - start
+            stack.append([end, name, end - start])
+        while stack:
+            close(stack.pop())
+
     def top(d):
         return {k[:60]: v for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:8]}
     return sum(dev.values()) / 1e6, top(dev), top(host)
@@ -3561,28 +3903,43 @@ def main() -> int:
     if fixed_recs[4]["geometry"]["cluster"] <= 2:
         fail("fixed point cluster case: no cluster of more than 2 CTAs")
 
+    walls = {"build_and_parity": round(time.perf_counter() - t0, 1)}
+
+    def timed(name, fn, *args):
+        """fn(*args), its wall kept under `name` for the walls line."""
+        t1 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t1, 1)
+        return out
+
     tmp = tempfile.mkdtemp(prefix="oni_chip_smoke_")
     # This run's own plan cache: the crossover is measured here, not
     # read from an earlier run's cache.
     os.environ["ONI_ML_TPU_PLAN_CACHE"] = os.path.join(tmp, "plans.jsonl")
     try:
-        raws = small_days(tmp)
-        e2e_small(tmp, raws)
-        corpus, path_counts, flow_pre, flow_engine = pipeline(tmp)
-        dns_counts, dns_engine = pipeline_dns(tmp)
-        host_score = score_device(tmp, smi)
-        native_pre(tmp, raws, flow_pre, host_score, host)
-        resume(tmp, raws["flow"])
-        telemetry(tmp, raws["flow"])
-        dataplane(tmp, raws, {"flow": flow_engine, "dns": dns_engine})
-        online_counts = online(tmp, corpus)
-        evaluate(tmp, raws["flow"])
-        serve_counts = serve_phase(tmp)
-        fleet_counts = fleet_phase(tmp, raws)
-        continuous_counts = continuous_phase(tmp, raws)
+        raws = timed("small_days", small_days, tmp)
+        timed("e2e_small", e2e_small, tmp, raws)
+        corpus, path_counts, flow_pre, flow_engine = timed(
+            "pipeline", pipeline, tmp)
+        dns_counts, dns_engine = timed("pipeline_dns", pipeline_dns, tmp)
+        host_score = timed("score_device", score_device, tmp, smi)
+        timed("native_pre", native_pre, tmp, raws, flow_pre, host_score,
+              host)
+        timed("resume", resume, tmp, raws["flow"])
+        timed("telemetry", telemetry, tmp, raws["flow"])
+        timed("dataplane", dataplane, tmp, raws,
+              {"flow": flow_engine, "dns": dns_engine})
+        online_counts = timed("online", online, tmp, corpus)
+        timed("evaluate", evaluate, tmp, raws["flow"])
+        serve_counts = timed("serve", serve_phase, tmp)
+        fleet_counts = timed("fleet", fleet_phase, tmp, raws)
+        continuous_counts = timed("continuous", continuous_phase, tmp, raws)
+        replicated_counts = timed("replicated", replicated_phase, tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    scatter_rec = profile_em(corpus)
+    scatter_rec = timed("profile_em", profile_em, corpus)
+    walls["total"] = round(time.perf_counter() - t0, 1)
+    log("walls_s " + json.dumps(walls))
 
     entries = []
     for kname, member, rec, errs in (
@@ -3623,6 +3980,11 @@ def main() -> int:
             # refreshes (the crossover's engine, the fresh control, the
             # held-out scatter) and the two fleet runs'.
             "launches_continuous": continuous_counts[kname],
+            # On the replicated path: the in-process part's two card
+            # refreshes of one tenant (the dense step with the sparse
+            # inference pass, then the fixed point's step and inference
+            # under ONI_ML_TPU_ESTEP=pallas); the replicas only score.
+            "launches_replicated": replicated_counts[kname],
             "max_abs_err": max(errs), "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),

@@ -272,6 +272,24 @@ class ServingConfig:
     # measure_break_even recorded for this device, else 1 (always);
     # ONI_ML_TPU_FEATURIZE_BREAK_EVEN overrides.
     featurize_break_even: int = 0
+    # -- replicated serving (serving/router.py, replica.py, wire.py) --
+    # Each ReplicaServer publishes a KV heartbeat this often; the router
+    # declares a replica lost, promoting its tenants' shadows, after
+    # replica_heartbeat_miss intervals without one (connection EOF and
+    # the fail key short-circuit the wait).
+    replica_heartbeat_s: float = 0.25
+    replica_heartbeat_miss: int = 8
+    # Router control-op timeout (add_tenant/publish/drain/stats round
+    # trips; the per-event scoring path is asynchronous).
+    route_op_timeout_s: float = 30.0
+    # One priced {"kind": "route"} journal record per edge every this
+    # many forwarded events; 0 journals only the stream-end rollup.
+    route_journal_every: int = 1024
+    # Per-replica admission window: at most this many events in flight
+    # (submitted, response not yet demuxed) per replica edge; a submit
+    # beyond it blocks, and the stall is priced into the edge's stats.
+    # 0 = unbounded.
+    route_max_inflight: int = 1024
 
 
 @dataclass(frozen=True)

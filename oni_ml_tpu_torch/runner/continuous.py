@@ -36,8 +36,9 @@ dispatch boundary.  Everything runs on the card unless the caller asks
 for the CPU (`device=`, `--device cpu`); nothing falls back.
 
 Refused, naming the ROADMAP item that brings each: the replicated
-serving fleet (`--replicated N`, the JAX package's RouterBinding and
-spawned replicas; Queue 1 item 7) and distributed window refreshes
+serving fleet's binding (`--replicated N`, the JAX package's
+RouterBinding and spawned replicas; Queue 1 item 7, replicated (rest))
+and distributed window refreshes
 (`--multihost`, a collective; Queue 1 item 6).  The JAX package's
 compilation cache and compile-listener set-up have no counterpart:
 PyTorch eager compiles nothing, and `retraces_after_warmup` counts the
@@ -69,8 +70,8 @@ from ..sources import names as source_names
 
 _NOT_PORTED = {
     "replicated": ("--replicated", "ROADMAP Queue 1 item 7, replicated "
-                   "(the replicated serving fleet: replicas, router, "
-                   "wire)"),
+                   "(rest) (continuous --replicated: the router binding "
+                   "and the spawned fleet)"),
     "multihost": ("--multihost", "ROADMAP Queue 1 item 6 (multi-GPU "
                   "distributed EM: the collective)"),
 }
@@ -1219,7 +1220,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "tenants compose into one standing service sharing "
                    "the journal and the train/serve co-scheduler")
     p.add_argument("--replicated", type=int, default=None, metavar="N",
-                   help="not ported: ROADMAP Queue 1 item 7, replicated")
+                   help="not ported: ROADMAP Queue 1 item 7, replicated "
+                   "(rest)")
     p.add_argument("--multihost", action="store_true", default=None,
                    help="not ported: ROADMAP Queue 1 item 6")
     p.add_argument("--no-cosched", action="store_true",

@@ -12,9 +12,12 @@ ml_ops.sh YYYYMMDD flow|dns TOL:
 
     python -m oni_ml_tpu_torch.runner.ml_ops serve --day-dir DIR ...
     python -m oni_ml_tpu_torch.runner.ml_ops continuous flow --flow-path F
+    python -m oni_ml_tpu_torch.runner.ml_ops replica --id r0 ...
+    python -m oni_ml_tpu_torch.runner.ml_ops route --fleet M --replicas N
 
-route to the streaming scoring service (runner/serve.py) and the
-continuous standing service (runner/continuous.py).
+route to the streaming scoring service (runner/serve.py), the
+continuous standing service (runner/continuous.py) and the replicated
+serving fleet (runner/route.py).
 
 Stages, each writing the JAX runner's artifacts into <data-dir>/<fdate>
 (the source's hooks come from the registry, `sources.get(dsource)`):
@@ -1253,6 +1256,18 @@ def main(argv=None) -> int:
         from . import continuous
 
         return continuous.main(argv[1:])
+    # `ml_ops replica ...` / `ml_ops route ...` are the replicated
+    # serving fleet (runner/route.py): serve replica processes behind an
+    # async router with consistent-hash placement and shadow-promotion
+    # failover; long-running services, routed here like serve.
+    if argv and argv[0] == "replica":
+        from .route import replica_main
+
+        return replica_main(argv[1:])
+    if argv and argv[0] == "route":
+        from .route import route_main
+
+        return route_main(argv[1:])
     p = build_parser()
     args = p.parse_args(argv)
     if len(args.fdate) != 8 or not args.fdate.isdigit():

@@ -23,11 +23,22 @@ The multi-tenant fleet scales it to N tenants on one card:
         -> ResidencyManager   hot (stacked on the card) / warm (host) /
                               cold (checkpoint) paging, LRU or LFU
 
+The replicated fleet runs N such stacks as replica processes behind a
+router (runner/route.py, `ml_ops replica` / `ml_ops route`):
+
+        -> ReplicaServer      a dynamic FleetScorer behind the framed
+                              socket protocol, with KV heartbeats
+                              (parallel/membership.py)
+        -> FleetRouter        consistent-hash placement (primary +
+                              warm shadow per tenant), scatter/gather,
+                              shadow-promotion failover, rolling drain
+        -> wire               the columnar frame codec (no pickle)
+
 `python -m oni_ml_tpu_torch.runner.ml_ops serve [--fleet MANIFEST]` is
 the CLI (runner/serve.py); config.ServingConfig holds the knobs.  The
 continuous service (runner/continuous.py) scores through a FleetScorer
 and arbitrates its refresh fits against scoring with the CoScheduler.
-The JAX package's replicas, router, wire and autoscaler wait for their
+The JAX package's autoscaler and shared-memory rings wait for their
 slice.
 """
 
@@ -48,8 +59,16 @@ from .fleet import (
     tenant_pairs,
 )
 from .metrics import MetricsEmitter
+from .placement import (
+    Placement,
+    load_by_replica,
+    moved_primaries,
+    place,
+    shadow_for,
+)
 from .refresh import RefreshLoop, topic_probs_from_log_beta
 from .registry import ModelRegistry, ModelSnapshot, validate_model
+from .replica import ReplicaServer, featurizer_for
 from .residency import (
     TIER_COLD,
     TIER_HOT,
@@ -59,6 +78,7 @@ from .residency import (
     resolve_hot_capacity,
     spill_model,
 )
+from .router import FleetRouter, ReplicaLink
 from .tenants import (
     AdmissionRejected,
     TenantLane,
@@ -66,35 +86,47 @@ from .tenants import (
     load_manifest,
     parse_manifest,
 )
+from .wire import decode_payload, encode_payload
 
 __all__ = [
-    "TIER_COLD",
-    "TIER_HOT",
-    "TIER_WARM",
     "AdmissionRejected",
     "BatchScorer",
     "CoScheduler",
     "DnsEventFeaturizer",
     "FleetRegistry",
+    "FleetRouter",
     "FleetScorer",
     "FlowEventFeaturizer",
     "MetricsEmitter",
     "ModelRegistry",
     "ModelSnapshot",
+    "Placement",
     "RefreshLoop",
+    "ReplicaLink",
+    "ReplicaServer",
     "ResidencyManager",
     "ScoreFuture",
     "StackedSnapshot",
+    "TIER_COLD",
+    "TIER_HOT",
+    "TIER_WARM",
     "TenantLane",
     "TenantSpec",
+    "decode_payload",
     "demux_scores",
+    "encode_payload",
     "event_documents",
+    "featurizer_for",
     "featurizer_from_features",
+    "load_by_replica",
     "load_manifest",
     "load_spill",
+    "moved_primaries",
     "parse_manifest",
+    "place",
     "resolve_hot_capacity",
     "score_features",
+    "shadow_for",
     "spill_model",
     "tenant_pairs",
     "topic_probs_from_log_beta",

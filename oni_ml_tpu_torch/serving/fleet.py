@@ -471,13 +471,19 @@ class FleetScorer:
     block come from ServingConfig (labelled "config" where they differ
     from the default); the featurize break-even from
     sources/device.resolve_break_even (env, config, this device's plan
-    entry, default)."""
+    entry, default).
+
+    `dynamic=True` (a replica of the replicated fleet, serving/
+    replica.py) starts with however many tenants the registry knows,
+    possibly none, and grows lanes at run time through add_tenant() as
+    the router places tenants on the replica; the worker parks on "no
+    drainable lane" until the first lane appears."""
 
     def __init__(self, fleet: FleetRegistry, featurizers: dict,
                  config: "ServingConfig | None" = None,
                  metrics: "MetricsEmitter | None" = None,
                  on_batch=None, journal=None, residency=None,
-                 device=None) -> None:
+                 device=None, dynamic: bool = False) -> None:
         from ..device import resolve_device
         from ..plans import NullStore, current_store
         from ..telemetry.spans import current_recorder
@@ -496,13 +502,14 @@ class FleetScorer:
                          if journal is not None
                          else (metrics._journal if metrics is not None
                                else None))
+        self._dynamic = dynamic
         self._lanes: "dict[str, TenantLane]" = {}
         for tenant in fleet.tenants():
             fz = featurizers.get(tenant)
             if fz is None:
                 raise ValueError(f"no featurizer for tenant {tenant!r}")
             self._lanes[tenant] = self._make_lane(fleet.spec(tenant), fz)
-        if not self._lanes:
+        if not self._lanes and not dynamic:
             raise ValueError("FleetScorer needs at least one tenant")
         cfg = self.config
         self.max_batch = int(cfg.fleet_max_batch)
@@ -592,6 +599,26 @@ class FleetScorer:
             raise ValueError(
                 f"tenant {lane.spec.tenant!r} queue_max must be >= 1")
         return lane
+
+    def add_tenant(self, spec: TenantSpec, featurizer) -> None:
+        """Grow one admission lane at run time (dynamic fleets only: the
+        router places tenants on a running replica).  The tenant must
+        already be registered and published in the FleetRegistry; the
+        new lane is drainable on the next take."""
+        if not self._dynamic:
+            raise RuntimeError(
+                "add_tenant on a static FleetScorer — construct with "
+                "dynamic=True")
+        self.fleet.spec(spec.tenant)    # raise early on unknown tenant
+        lane = self._make_lane(spec, featurizer)
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("FleetScorer is closed")
+            if spec.tenant in self._lanes:
+                raise ValueError(
+                    f"tenant {spec.tenant!r} already has a lane")
+            self._lanes[spec.tenant] = lane
+            self._cond.notify_all()
 
     def _wake(self) -> None:
         with self._cond:

@@ -805,9 +805,27 @@ def test_fleet_live_stream_from_manifest(manifest, tmp_path, capsys):
     capsys.readouterr()
 
 
-def test_fleet_live_stream_with_residency(manifest, tmp_path, capsys):
+def test_fleet_live_stream_with_residency(manifest, tmp_path, capsys,
+                                          monkeypatch):
     """--hot-tenants 1 over two tenants: both page through the one hot
-    slot, every event scored once."""
+    slot, every event scored once.
+
+    The pager promotes off the scoring worker, and close() drains a lane
+    that is not hot yet through the solo fallback.  So a stream that
+    ends before the second tenant's queued promotion lands would score
+    that tenant without paging it in, and the promotion count would
+    depend on the pager's timing.  close() is held here until the worker
+    has taken every queued event, which it does only from hot lanes."""
+    orig_close = FleetScorer.close
+
+    def close_after_paging(self, timeout=None):
+        deadline = time.monotonic() + 60.0
+        while (any(self.pending(t) for t in list(self._lanes))
+               and time.monotonic() < deadline):
+            time.sleep(0.005)
+        return orig_close(self, timeout)
+
+    monkeypatch.setattr(FleetScorer, "close", close_after_paging)
     mpath, ipath, _ = manifest
     rc = ml_ops.main(["serve", "--fleet", mpath, "--input", ipath,
                       "--no-plans", "--device", "cpu", "--max-batch", "8",
