@@ -176,11 +176,11 @@ Phases (any failure exits non-zero before the result line):
              crossover: a warm refresh past the warm-up boundary, the
              fresh control run, no build past the boundary, the sparse
              kernel and scatter launched; (3) the 2M flow and DNS days'
-             first 2 event hours interleaved and paced at 240x event time
+             first 3 event hours interleaved and paced at 160x event time
              through the in-process fleet with and without the
              co-scheduler; (4) the CLI as a
              subprocesses at once (single tenant, two --stream tenants),
-             refusals of --replicated and --multihost (exit 2).  Every
+             the refusal of --multihost (exit 2).  Every
              run: exactly once (scored + rejected + unserved before the
              first publish = ingested, scored = offered), no failed
              future, no refresh error or refresh_abandon record.  Prints
@@ -192,11 +192,17 @@ Phases (any failure exits non-zero before the result line):
              refresh's engine.
    replicated  `ml_ops route` on the card (runner/route.py): six tenants
              (three names over the 2M flow day's model, three over the
-             DNS day's), 60,000 of their raw events interleaved on stdin
-             of `route --replicas 3 --device cuda --device-score-min 1`
-             (every flush of the spawned replica processes on the card),
-             a rolling redeploy of all three halfway: exit 0, every
-             event resolved once, no error, each replica process on cuda
+             DNS day's), 30,000 of their raw events interleaved on stdin
+             of `route --replicas 3 --device cuda --device-score-min 1
+             --kv-listen 127.0.0.1:0 --autoscale --max-inflight 64`
+             (every flush of the spawned replica processes on the card,
+             the replicas joined through the route process's TCP KV,
+             their links on shared-memory rings, the autoscaler at its
+             default band over windows of 64 events a replica, which
+             the flood fills), a rolling redeploy halfway: exit 0,
+             every event resolved once, no error, every link on rings,
+             an autoscale "up" and no "error" decision, an autoscaled
+             replica that scored events, each replica process on cuda
              by its own stats reply (with its peak device memory).  Then
              a FleetRouter over 3 in-process ReplicaServers on cuda: a
              replica killed with half the stream in flight, its tenants
@@ -206,9 +212,23 @@ Phases (any failure exits non-zero before the result line):
              ONI_ML_TPU_ESTEP=pallas), each published through the router
              to primary and shadow; the card's scores within rel 1e-6 of
              the float64 host scorer's before and after each publish.
-             Prints events/s, route latency p50/p99, the failover gap,
-             the redeploy wall, each replica's peak device memory, the
-             refresh walls and the kernels' launches.
+             Then `continuous --replicated 2` in this process
+             (FleetContinuousService(replicated=2) on cuda): the 2M flow
+             and DNS days' first 2 event hours paced as continuous part
+             3, two replica processes on cuda scoring every flush on the
+             card over rings, the flow tenant's primary SIGKILLed while
+             a refit is active: exactly once, zero failed futures, a
+             failover, both tenants scored, the binding's versions the
+             router's, no refresh error, the refits' kernels launched
+             here; and the first hour again over TCP (wire_shm off)
+             without the kill, its first refits against the ring run's.
+             Every ring segment the phase's links named is gone after
+             it (/dev/shm's other entries are only counted).  Prints events/s, route
+             latency p50/p99, the failover gap, the redeploy wall, the
+             autoscale decisions, each replica's peak device memory, the
+             refresh walls, the first refit walls with rings and over TCP, the
+             first publish's lead before the stream's end and the
+             kernels' launches.
 
 Then it prints the kernels line (each kernel with its launches on its
 flow-day path, as `dns_launches` on the DNS day's, as
@@ -2702,8 +2722,13 @@ CONT_FLOW_HOURS = 6
 CONT_FLEET_HOURS = 3
 # Part 3's replay pace (event seconds per wall second): unpaced, the
 # ingest ran through 2 event hours before the first refit published, so
-# nothing was scored and no serve slot met a refit.
-CONT_FLEET_SPEED = 240.0
+# nothing was scored and no serve slot met a refit.  At 240x one tenant's
+# in-process scoring kept the serve plane near saturation once its model
+# published (~5,500 events/s against ~6,600 scored a second), and the
+# co-scheduled fit of the other tenant, yielding to every slot, once
+# missed all 37 s left of the stream; at 160x the stream lasts 67.5 s and
+# one tenant's scoring holds the plane about half the time.
+CONT_FLEET_SPEED = 160.0
 RTOL_CONT_LL = 1e-4
 # A flagged event that one run flags and the other does not must score
 # within this relative band below the threshold (float32 ties).
@@ -3005,8 +3030,8 @@ def cont_fleet(tmp):
 def cont_cli(tmp, raws):
     """Part 4: `ml_ops continuous` on cuda as two subprocesses at once,
     single tenant and two --stream tenants (their output to files);
-    --replicated and --multihost refused with exit 2 naming their
-    ROADMAP items."""
+    --multihost refused with exit 2 naming its ROADMAP item
+    (`--replicated` runs in the replicated phase)."""
     import contextlib
     import io
 
@@ -3046,8 +3071,7 @@ def cont_cli(tmp, raws):
                       "publishes": payload["publishes"],
                       "coalesced_refreshes":
                           payload.get("coalesced_refreshes")}
-    for flags, item in ((["--replicated", "2"], "Queue 1 item 7"),
-                        (["--multihost"], "Queue 1 item 6")):
+    for flags, item in ((["--multihost"], "Queue 1 item 6"),):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = continuous.main(["flow", "--flow-path", raws["flow"],
@@ -3096,11 +3120,30 @@ def continuous_phase(tmp, raws):
 # The replicated phase (`ml_ops route` / `ml_ops replica` on the card).
 # Tenants: three names over the 2M flow day's model and three over the
 # 2M DNS day's, each its day's first REPL_TENANT_EVENTS raw events,
-# interleaved round-robin: 60,000 events through the CLI.  The in-process
-# part streams each tenant's first REPL_INPROC_EVENTS.
-REPL_TENANT_EVENTS = 10_000
+# interleaved round-robin: 30,000 events through the CLI (60,000 until
+# the phase grew by `continuous --replicated`).  The in-process part
+# streams each tenant's first REPL_INPROC_EVENTS.
+REPL_TENANT_EVENTS = 5_000
 REPL_INPROC_EVENTS = 4_096
 REPL_REPLICAS = 3
+# The CLI's admission window (`route --max-inflight`): the events each
+# replica may hold.  Its flushes wait up to fleet_max_wait_ms (50 ms)
+# for a batch, so a router that submits faster than REPL_REPLICAS * 64
+# events a 50 ms (3,840 events/s) keeps every window full: the
+# autoscaler's default band (high 0.75) then reads a load over it.
+REPL_MAX_INFLIGHT = 64
+# `continuous --replicated 2`: the 2M flow and DNS days' first event
+# hours through two spawned replicas on the card, paced as part 3 of the
+# continuous phase.  The kill run replays 2 hours (the binding scores
+# once both tenants have published: ~26 s before the end in the first
+# chip run); the control over TCP the first hour, whose first refits
+# both runs fit before any scoring, beside idle ring pollers or none.
+REPL_CONT_REPLICAS = 2
+REPL_CONT_HOURS = 2
+REPL_CONT_OFF_HOURS = 1
+# Its replay pace: the replicas score off this process, and the binding
+# scores only once both tenants have published.
+REPL_CONT_SPEED = 240.0
 # The fleet's bound for card-scored events against the float64 host
 # scorer (RTOL_FLEET_DEVICE): float32 gathers and k-order multiply-adds.
 RTOL_REPL_DEVICE = RTOL_SCORE
@@ -3138,12 +3181,17 @@ def repl_tenants(tmp):
 def repl_cli(tmp, tenants, dev="cuda"):
     """`ml_ops route --replicas 3` as a subprocess over the manifest: the
     replicas spawned on `dev` with every flush on the card
-    (--device-score-min 1), the tagged stream on stdin, a rolling
-    redeploy of every replica halfway.  Exit 0, every routed event
-    resolved once, no error, three redeploys, and every replica process
-    (the three drained and their replacements) on `dev` by its own stats
-    reply.  The route process runs in its own session, killed with its
-    replicas if it outlives its limit."""
+    (--device-score-min 1), joined through the TCP KV the route process
+    serves (--kv-listen 127.0.0.1:0, the replicas' --kv-connect), their
+    links on shared-memory rings, the autoscaler on at its default band
+    over admission windows of REPL_MAX_INFLIGHT, the tagged stream on
+    stdin, a rolling redeploy of the three replicas halfway.  Exit 0,
+    every routed event resolved once, no error, the redeploys, every
+    link on rings, an autoscale "up" and no "error" decision, an
+    autoscaled replica that scored events, and every replica process
+    (the drained ones, their replacements and the autoscaled ones) on
+    `dev` by its own stats reply.  The route process runs in its own
+    session, killed with its replicas if it outlives its limit."""
     import signal
 
     names = sorted(tenants)
@@ -3161,8 +3209,9 @@ def repl_cli(tmp, tenants, dev="cuda"):
             n += 1
     cmd = [sys.executable, "-m", "oni_ml_tpu_torch.runner.ml_ops", "route",
            "--fleet", manifest, "--replicas", str(REPL_REPLICAS),
-           "--kv-dir", os.path.join(tmp, "repl_kv"), "--device", dev,
-           "--device-score-min", "1", "--redeploy-after", str(n // 2)]
+           "--kv-listen", "127.0.0.1:0", "--autoscale",
+           "--max-inflight", str(REPL_MAX_INFLIGHT), "--device", dev, "--device-score-min", "1",
+           "--redeploy-after", str(n // 2)]
     t0 = time.perf_counter()
     with open(events) as stdin:
         proc = subprocess.Popen(
@@ -3182,13 +3231,23 @@ def repl_cli(tmp, tenants, dev="cuda"):
     reps = summary["replica_stats"]
     if (summary["routed"] != n or summary["resolved"] != n
             or summary["errors"] or summary["redeploys"] != REPL_REPLICAS
-            or len(reps) != 2 * REPL_REPLICAS
+            or len(reps) < 2 * REPL_REPLICAS
             or not all(str(s.get("device", "")).startswith(dev)
                        for s in reps.values())):
         fail(f"route CLI: routed {summary['routed']} resolved "
              f"{summary['resolved']} of {n}, errors {summary['errors']}, "
              f"redeploys {summary['redeploys']}, replicas "
              f"{ {r: s.get('device') for r, s in reps.items()} }")
+    links = summary["wire"]
+    if set(links) != set(reps) or not all(v["shm"] for v in links.values()):
+        fail(f"route CLI: a same-host link is not on rings: {links}")
+    decisions = summary["autoscale"]
+    scaled = {d["replica"]: reps.get(d["replica"], {}).get("events_scored")
+              for d in decisions if d["action"] == "up"}
+    if (any(d["action"] == "error" for d in decisions)
+            or not scaled or not any(v for v in scaled.values())):
+        fail(f"route CLI autoscale: decisions {decisions}, autoscaled "
+             f"replicas scored {scaled}")
     return {"tenants": len(names), "events": n, "process_wall_s": wall,
             "stream_s": summary["stream_s"],
             "events_per_s": n / summary["stream_s"],
@@ -3204,7 +3263,10 @@ def repl_cli(tmp, tenants, dev="cuda"):
             "replica_events_scored": {
                 r: s["events_scored"] for r, s in reps.items()},
             "replica_batches": {
-                r: s["batches_flushed"] for r, s in reps.items()}}
+                r: s["batches_flushed"] for r, s in reps.items()},
+            "replica_fleet_counts": {
+                r: reps[r].get("fleet_counts") for r in scaled if r in reps},
+            "wire": links, "autoscale": decisions}
 
 
 def repl_check(label, tenants, futs, models, idx):
@@ -3254,6 +3316,7 @@ def repl_in_process(tenants, dev="cuda"):
             replicas[rid] = ReplicaServer(rid, cfg, device=dev)
             router.connect_replica(rid, replicas[rid].host,
                                    replicas[rid].port)
+        out["wire"] = router.wire()
         for t in names:
             router.add_tenant(
                 TenantSpec(tenant=t, dsource=tenants[t]["dsource"]), (),
@@ -3364,25 +3427,211 @@ def repl_in_process(tenants, dev="cuda"):
     return out
 
 
+def shm_segments():
+    """This host's Python shared-memory segments (/dev/shm/psm_*).  Other
+    processes make and drop their own: only printed."""
+    try:
+        return {n for n in os.listdir("/dev/shm") if n.startswith("psm_")}
+    except FileNotFoundError:
+        return set()
+
+
+def ring_segments(*wires):
+    """The ring segments that `FleetRouter.wire()` listings name."""
+    return {n for w in wires for link in w.values()
+            for n in link.get("segments", ())}
+
+
+def present_segments(names):
+    """Those of the segments `names` that still exist in /dev/shm."""
+    return {n for n in names if os.path.exists(os.path.join("/dev/shm", n))}
+
+
+def repl_continuous(tmp, label, hours, wire_shm, kill, dev="cuda"):
+    """`continuous --replicated 2` in this process: the 2M flow and DNS
+    days' first `hours` event hours, each from its own start, paced at
+    REPL_CONT_SPEED through FleetContinuousService(replicated=2) on
+    `dev`, the replicas spawned with `--device` `dev` and every flush on
+    the card (device_score_min 1), their links on rings unless not
+    `wire_shm`.  With `kill`, the flow tenant's primary is SIGKILLed
+    (kill_replica) at the first slice after the binding is ready that
+    finds a refit active.  Checks: exactly once per tenant, no failed
+    future, no refresh error or refresh_abandon, the refits' kernels
+    launched; with `kill` both tenants scored, at least one failover and
+    the binding's versions equal to the router's.  Returns the printed
+    record and the launches (counted here, around the run)."""
+    import dataclasses
+
+    from oni_ml_tpu_torch.config import ServingConfig
+    from oni_ml_tpu_torch.runner.continuous import (FleetContinuousService,
+                                                    interleave_streams,
+                                                    paced_tagged)
+
+    per = {"flow": cont_slices(os.path.join(tmp, "flow_day.csv"), "flow",
+                               hours),
+           "dns": cont_slices(os.path.join(tmp, "dns_day.csv"), "dns",
+                              hours)}
+    events = sum(s.events for sl in per.values() for s in sl)
+    data = os.path.join(tmp, f"repl_cont_{label}")
+    config = dataclasses.replace(cont_config(data), serving=ServingConfig(
+        device_score_min=1, wire_shm=wire_shm))
+    before = launch_counts()
+    fleet = FleetContinuousService(
+        config, {t: t for t in per},
+        out_dir=os.path.join(data, "continuous_fleet"),
+        replicated=REPL_CONT_REPLICAS, device=dev)
+    links = fleet.router.wire()
+    state = {"ready_t": None, "killed": None, "replica_stats": None}
+
+    def tagged():
+        """The paced stream, watching for the binding's start and the
+        moment to kill."""
+        for t, sl in paced_tagged(interleave_streams(
+                {t: [slice_copy(s, sl[0].t0) for s in sl]
+                 for t, sl in per.items()}), REPL_CONT_SPEED):
+            if state["ready_t"] is None and fleet.binding.ready(t):
+                state["ready_t"] = time.perf_counter()
+            if (kill and state["killed"] is None
+                    and state["ready_t"] is not None
+                    and fleet.cosched.refresh_active):
+                victim = fleet.router.placement()["flow"].primary
+                fleet.kill_replica(victim)
+                state["killed"] = {"replica": victim, "slice": sl.index,
+                                   "at_s": time.perf_counter() - t0}
+            yield t, sl
+        state["end_t"] = time.perf_counter()
+        state["replica_stats"] = fleet.router.replica_stats()
+
+    t0 = time.perf_counter()
+    payload = fleet.run(tagged())
+    wall = time.perf_counter() - t0
+    after = launch_counts()
+    counts = {k: after[k] - before[k] for k in after}
+    abandons = cont_journal_abandons(os.path.join(
+        data, "continuous_fleet", "run_journal.jsonl"))
+    serving = payload["serving"]
+    ledgers = {t: cont_check(f"replicated {label} {t}", svc,
+                             payload["tenants"][t])
+               for t, svc in fleet.services.items()}
+    versions = {t: fleet.router._tenants[t]["version"] for t in per}
+    failovers = payload["router"]["failovers"]
+    members = {r["member"] for p in payload["tenants"].values()
+               for r in p["refresh_records"]}
+    if (serving["failed_futures"] or payload["refresh_errors"] or abandons
+            or (kill and not all(led["scored"] > 0
+                                 for led in ledgers.values()))):
+        fail(f"continuous --replicated {label}: failed futures "
+             f"{serving['failed_futures']}, refresh errors "
+             f"{payload['refresh_errors']} {abandons[:3]}, ledgers "
+             f"{ledgers}")
+    if (kill and (state["killed"] is None or not failovers
+                  or serving["versions"] != versions)):
+        fail(f"continuous --replicated {label}: kill {state['killed']}, "
+             f"failovers {failovers}, binding versions "
+             f"{serving['versions']} vs router {versions}")
+    if not all(v["shm"] is wire_shm for v in links.values()):
+        fail(f"continuous --replicated {label}: links {links}")
+    need = {"sparse_scatter", *(k for m in members
+                                for k in ENGINE_KERNELS[m])}
+    if any(counts[k] <= 0 for k in need):
+        fail(f"continuous --replicated {label}: the refits (members "
+             f"{members}) launched {counts}")
+    reps = state["replica_stats"] or {}
+    if not all(str(s.get("device", "")).startswith(dev)
+               for s in reps.values()):
+        fail(f"continuous --replicated {label}: replicas {reps}")
+    walls = {t: [(r["refresh"], r["mode"], r["member"],
+                  r["estep_engine_source"], r["train_wall_s"])
+                 for r in p["refresh_records"]]
+             for t, p in payload["tenants"].items()}
+    return {
+        "events": events, "wall_s": wall, "events_per_s": events / wall,
+        "links": links, "killed": state["killed"],
+        "failovers": failovers, "ledgers": ledgers,
+        "versions": serving["versions"],
+        "first_publish_lead_s": (state["end_t"] - state["ready_t"]
+                                 if state["ready_t"] else None),
+        "refit_walls": walls,
+        "serve_p99_ms": {k: serving.get(k) for k in (
+            "serve_idle_p99_ms", "serve_refresh_p99_ms")},
+        "coalesced_refreshes": payload["coalesced_refreshes"],
+        "replica_stats": {r: {k: s.get(k) for k in (
+            "device", "events_scored", "batches_flushed",
+            "cuda_peak_bytes")} for r, s in reps.items()},
+        "launches": counts,
+    }, counts
+
+
+def first_refit_walls(rings, tcp):
+    """Each tenant's first refit wall in both runs (fitted before the
+    binding scores, beside two idle ring pollers or none), and the
+    rings' sum over TCP's over the tenants whose first refit took its
+    engine from the same source in both runs (a crossover measured in
+    one run only adds its E-steps to that run's fit)."""
+    out = {}
+    for t in rings["refit_walls"]:
+        a = rings["refit_walls"][t][0]
+        b = tcp["refit_walls"][t][0] if tcp["refit_walls"].get(t) else None
+        out[t] = {"rings_s": a[4], "tcp_s": b[4] if b else None,
+                  "comparable": bool(b) and a[0] == b[0] == 1
+                  and a[3] == b[3]}
+    pairs = [(v["rings_s"], v["tcp_s"]) for v in out.values()
+             if v["comparable"]]
+    out["rings_over_tcp"] = (sum(a for a, _ in pairs)
+                             / sum(b for _, b in pairs) if pairs else None)
+    return out
+
+
 def replicated_phase(tmp, smi, dev="cuda"):
     """`ml_ops route` / `ml_ops replica` on the card (see the module
     docstring).  Returns the launches on the replicated path per kernel
     (the in-process part's two card refreshes)."""
     t0 = time.perf_counter()
+    segments = shm_segments()
     reset_kernel_counts()
     tenants = repl_tenants(tmp)
-    out = {"card": smi}
+    out = {"card": smi, "shm_psm_before": len(segments)}
     t1 = time.perf_counter()
     out["cli"] = repl_cli(tmp, tenants, dev)
     out["cli_s"] = time.perf_counter() - t1
     t1 = time.perf_counter()
     out["in_process"] = repl_in_process(tenants, dev)
     out["in_process_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cont = {}
+    cont["rings"], _ = repl_continuous(tmp, "rings", REPL_CONT_HOURS, True,
+                                       kill=True, dev=dev)
+    cont["tcp"], _ = repl_continuous(tmp, "tcp", REPL_CONT_OFF_HOURS, False,
+                                     kill=False, dev=dev)
+    cont["first_refit_walls"] = first_refit_walls(cont["rings"],
+                                                  cont["tcp"])
+    out["continuous"] = cont
+    out["continuous_s"] = time.perf_counter() - t1
+    log("replicated continuous " + json.dumps(cont, default=str))
     total = launch_counts()
     out["launches_replicated"] = total
-    for name in ("sparse_estep", "dense_estep", "fixed_point_estep"):
+    for name in ("sparse_estep", "dense_estep", "fixed_point_estep",
+                 "sparse_scatter"):
         if total.get(name, 0) <= 0:
             fail(f"replicated path: {name} never launched: {total}")
+    # Every ring segment the phase's links negotiated is gone: unlinked
+    # by its owner at close, or by a SIGKILLed replica's resource
+    # tracker.  Only those are checked; the rest of /dev/shm is printed.
+    names = ring_segments(out["cli"]["wire"], out["in_process"]["wire"],
+                          cont["rings"]["links"])
+    if not names:
+        fail("replicated phase: no link named a ring segment")
+    deadline = time.monotonic() + 30.0
+    while present_segments(names) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    leaked = sorted(present_segments(names))
+    out["ring_segments"] = len(names)
+    out["shm_psm_after"] = len(shm_segments())
+    log(f"replicated /dev/shm: the phase's links named {len(names)} ring "
+        f"segments, {len(leaked)} left {leaked}; psm_* entries "
+        f"{len(segments)} before, {out['shm_psm_after']} after")
+    if leaked:
+        fail(f"replicated phase leaked shared-memory segments: {leaked}")
     out["phase_s"] = time.perf_counter() - t0
     log("replicated " + json.dumps(out, default=str))
     log(f"replicated phase: {out['phase_s']:.1f} s")
@@ -3983,7 +4232,9 @@ def main() -> int:
             # On the replicated path: the in-process part's two card
             # refreshes of one tenant (the dense step with the sparse
             # inference pass, then the fixed point's step and inference
-            # under ONI_ML_TPU_ESTEP=pallas); the replicas only score.
+            # under ONI_ML_TPU_ESTEP=pallas) and the refits of the two
+            # `continuous --replicated` runs (the crossover's member and
+            # the held-out scatter); the replicas only score.
             "launches_replicated": replicated_counts[kname],
             "max_abs_err": max(errs), "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

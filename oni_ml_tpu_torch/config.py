@@ -273,6 +273,35 @@ class ServingConfig:
     # ONI_ML_TPU_FEATURIZE_BREAK_EVEN overrides.
     featurize_break_even: int = 0
     # -- replicated serving (serving/router.py, replica.py, wire.py) --
+    # Same-host shared-memory upgrade: when both ends opt in and the
+    # hello proves the peer shares this host, data frames move to a
+    # wire.ShmRing pair and the TCP data socket stays open as the
+    # liveness signal and the oversize-frame escape.  Off = every frame
+    # on TCP.
+    wire_shm: bool = True
+    # Bytes of each ring slab (two slabs a direction): the largest data
+    # frame a ring carries; a bigger frame goes over TCP.
+    wire_shm_slab_bytes: int = 1 << 20
+    # -- the autoscaler (serving/autoscale.py, `route --autoscale`) --
+    # Controller tick: each samples the router's admission-window
+    # occupancy and stall rates.
+    autoscale_interval_s: float = 0.5
+    # Hysteresis band on the EWMA'd per-replica window utilization:
+    # above `high` one replica joins, below `low` one drains, in between
+    # the fleet holds (the gap keeps an oscillating load from flapping
+    # it).
+    autoscale_high: float = 0.75
+    autoscale_low: float = 0.25
+    # The utilization EWMA's half-life: a sample this old weighs half
+    # the current one.
+    autoscale_halflife_s: float = 2.0
+    # Seconds between scaling actions either way: a join or drain must
+    # prove out before the next is considered.
+    autoscale_cooldown_s: float = 5.0
+    # Replica-count clamp of the controller's decisions; it only ever
+    # drains replicas it spawned itself.
+    autoscale_min_replicas: int = 1
+    autoscale_max_replicas: int = 8
     # Each ReplicaServer publishes a KV heartbeat this often; the router
     # declares a replica lost, promoting its tenants' shadows, after
     # replica_heartbeat_miss intervals without one (connection EOF and

@@ -1,6 +1,7 @@
 """KV-backed membership, heartbeats and the failure relay of the
 replicated serving fleet (port of oni_ml_tpu/parallel/membership.py:
-`FileKVClient`, `kv_list`, `MembershipClient` and `HeartbeatPublisher`).
+`FileKVClient`, `kv_list`, `KVServer`, `TcpKVClient`, `MembershipClient`
+and `HeartbeatPublisher`).
 
 ``FileKVClient``
     A same-host, cross-process KV store with the coordination-client
@@ -25,10 +26,17 @@ replicated serving fleet (port of oni_ml_tpu/parallel/membership.py:
     The replica-side daemon thread that publishes liveness every
     ``interval_s`` until ``stop()``.
 
+``KVServer`` / ``TcpKVClient``
+    The cross-host transport: a small TCP KV daemon speaking
+    length-prefixed JSON frames (the JAX package's frames and error
+    strings: either package's client talks to the other's server), and
+    a client with FileKVClient's surface.  ``ml_ops route --kv-listen``
+    runs the server next to one router; replicas and other routers
+    connect with ``--kv-connect host:port``.  The server binds
+    127.0.0.1 unless told otherwise and has no authentication.
+
 Records are JSON, base64-wrapped for the string-value KV convention:
-the membership plane carries no pickle.  The JAX package's TCP control
-plane (``KVServer``, ``TcpKVClient``) is not ported (ROADMAP Queue 1
-item 7, replicated (rest)).
+the membership plane carries no pickle.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ from __future__ import annotations
 import base64
 import json
 import os
+import socket
+import struct
 import threading
 import time
 
@@ -129,6 +139,210 @@ def kv_list(client, prefix: str) -> "dict[str, str]":
         "key_value_list nor key_value_dir_get — membership "
         "enumeration needs one"
     )
+
+
+_KVLEN = struct.Struct("!I")
+_KV_MAX_FRAME = 16 << 20  # a KV value is a roster record, not a payload
+
+
+def _kv_send(sock: socket.socket, obj, lock=None) -> None:
+    payload = json.dumps(obj, separators=(",", ":")).encode("utf-8")
+    data = _KVLEN.pack(len(payload)) + payload
+    if lock is not None:
+        with lock:
+            sock.sendall(data)
+    else:
+        sock.sendall(data)
+
+
+def _kv_recv(sock: socket.socket):
+    buf = b""
+    while len(buf) < _KVLEN.size:
+        chunk = sock.recv(_KVLEN.size - len(buf))
+        if not chunk:
+            raise ConnectionError("KV peer closed")
+        buf += chunk
+    (n,) = _KVLEN.unpack(buf)
+    if n > _KV_MAX_FRAME:
+        raise ConnectionError(f"oversized KV frame: {n} bytes")
+    parts, got = [], 0
+    while got < n:
+        chunk = sock.recv(min(65536, n - got))
+        if not chunk:
+            raise ConnectionError("KV peer closed mid-frame")
+        parts.append(chunk)
+        got += len(chunk)
+    return json.loads(b"".join(parts).decode("utf-8"))
+
+
+class KVServer:
+    """A TCP daemon exposing the coordination-client KV surface to the
+    whole fleet: the cross-host replacement for FileKVClient's shared
+    directory.  One in-memory dict under a lock; requests are
+    length-prefixed JSON frames (op/key/value), one response per
+    request, one thread per connection (control traffic is a few ops per
+    heartbeat interval).  Run it next to one router (``ml_ops route
+    --kv-listen``); everyone else connects a TcpKVClient.
+
+    It binds 127.0.0.1 unless the caller names a host.  The protocol has
+    no authentication: on any other address, whoever reaches the port
+    can read and rewrite the roster (register a replica, post a fail
+    key, claim a promotion).  Nothing in it is unpickled or executed."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0) -> None:
+        self._store: "dict[str, str]" = {}
+        self._lock = threading.Lock()
+        self._closed = threading.Event()
+        self._conns: "list[socket.socket]" = []
+        self._listener = socket.create_server((host, port))
+        self.host, self.port = self._listener.getsockname()[:2]
+        self._accept_thread = threading.Thread(
+            target=self._accept, name="oni-kv-server", daemon=True)
+        self._accept_thread.start()
+
+    def _accept(self) -> None:
+        while not self._closed.is_set():
+            try:
+                conn, _ = self._listener.accept()
+            except OSError:
+                return
+            with self._lock:
+                if self._closed.is_set():
+                    conn.close()
+                    return
+                self._conns.append(conn)
+            threading.Thread(target=self._serve, args=(conn,),
+                             name="oni-kv-conn", daemon=True).start()
+
+    def _serve(self, conn: socket.socket) -> None:
+        try:
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            while not self._closed.is_set():
+                req = _kv_recv(conn)
+                _kv_send(conn, self._apply(req))
+        except (ConnectionError, OSError, ValueError):
+            pass
+        finally:
+            with self._lock:
+                if conn in self._conns:
+                    self._conns.remove(conn)
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def _apply(self, req) -> dict:
+        if not isinstance(req, dict):
+            return {"ok": False, "err": "UNKNOWN_OP: None"}
+        op = req.get("op")
+        key = req.get("key", "")
+        with self._lock:
+            if op == "set":
+                if not req.get("overwrite") and key in self._store:
+                    return {"ok": False, "err": f"ALREADY_EXISTS: {key}"}
+                self._store[key] = req.get("value", "")
+                return {"ok": True}
+            if op == "get":
+                if key in self._store:
+                    return {"ok": True, "value": self._store[key]}
+                return {"ok": False, "err": f"NOT_FOUND: {key}"}
+            if op == "delete":
+                self._store.pop(key, None)
+                return {"ok": True}
+            if op == "list":
+                prefix = req.get("prefix", "")
+                return {"ok": True,
+                        "items": {k: v for k, v in self._store.items()
+                                  if k.startswith(prefix)}}
+        return {"ok": False, "err": f"UNKNOWN_OP: {op}"}
+
+    def close(self) -> None:
+        """Stop listening and end every open connection (its client's
+        next request raises ConnectionError).  Each socket is shut down
+        before it is closed: a bare close from this thread wakes neither
+        the accept() nor a recv() blocked on it."""
+        self._closed.set()
+        with self._lock:
+            conns, self._conns = self._conns, []
+        for sock in (self._listener, *conns):
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                sock.close()
+            except OSError:
+                pass
+        self._accept_thread.join(timeout=5.0)
+
+
+class TcpKVClient:
+    """FileKVClient's surface over one KVServer connection.  Blocking
+    gets poll client-side (same contract, same DEADLINE_EXCEEDED error),
+    so the server never parks a thread per waiter.  Thread-safe: one
+    socket, one lock around each request/response exchange."""
+
+    _POLL_S = 0.005
+
+    def __init__(self, host: str, port: int,
+                 connect_timeout_s: float = 5.0) -> None:
+        self._sock = socket.create_connection(
+            (host, port), timeout=connect_timeout_s)
+        self._sock.settimeout(30.0)
+        self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self._lock = threading.Lock()
+
+    def _call(self, req: dict) -> dict:
+        with self._lock:
+            _kv_send(self._sock, req)
+            return _kv_recv(self._sock)
+
+    def key_value_set(self, key: str, value: str,
+                      allow_overwrite: bool = False) -> None:
+        rsp = self._call({"op": "set", "key": key, "value": value,
+                          "overwrite": bool(allow_overwrite)})
+        if not rsp.get("ok"):
+            raise RuntimeError(rsp.get("err", "KV set failed"))
+
+    def blocking_key_value_get(self, key: str,
+                               timeout_in_ms: int) -> str:
+        deadline = time.monotonic() + timeout_in_ms / 1000.0
+        while True:
+            rsp = self._call({"op": "get", "key": key})
+            if rsp.get("ok"):
+                return rsp["value"]
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise RuntimeError(f"DEADLINE_EXCEEDED: {key}")
+            time.sleep(min(self._POLL_S, remaining))
+
+    def key_value_delete(self, key: str) -> None:
+        rsp = self._call({"op": "delete", "key": key})
+        if not rsp.get("ok"):
+            raise RuntimeError(rsp.get("err", "KV delete failed"))
+
+    def key_value_list(self, prefix: str) -> "dict[str, str]":
+        rsp = self._call({"op": "list", "prefix": prefix})
+        if not rsp.get("ok"):
+            raise RuntimeError(rsp.get("err", "KV list failed"))
+        return dict(rsp.get("items", {}))
+
+    def close(self) -> None:
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+
+def parse_hostport(spec: str, default_port: "int | None" = None):
+    """``[HOST][:PORT]`` -> (host, port): an empty host is 127.0.0.1; an
+    empty port is `default_port` (ValueError when that is None)."""
+    host, _, port = spec.partition(":")
+    if not port:
+        if default_port is None:
+            raise ValueError(f"{spec!r}: expected HOST:PORT")
+        return host or "127.0.0.1", default_port
+    return host or "127.0.0.1", int(port)
 
 
 def _enc(obj) -> str:

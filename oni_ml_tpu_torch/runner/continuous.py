@@ -28,18 +28,20 @@ This runner keeps one standing loop on one process and one card:
     python -m oni_ml_tpu_torch.runner.ml_ops continuous \\
         --stream acme=flow:a.csv --stream globex=dns:b.csv [--no-cosched]
 
-With `--stream` N tenants compose into one in-process service
+With `--stream` N tenants compose into one service
 (`FleetContinuousService`): ingest and scoring stay on the caller's
 thread, refresh fits run on one worker thread, and the CoScheduler
 (serving/coscheduler.py) makes each fit yield to scoring at every EM
-dispatch boundary.  Everything runs on the card unless the caller asks
-for the CPU (`device=`, `--device cpu`); nothing falls back.
+dispatch boundary.  With `--replicated N` (`replicated=`) the scoring
+moves to N spawned replica processes behind a FleetRouter
+(`RouterBinding`): each refit publishes through the router to the
+tenant's primary and shadow, and a killed replica costs a shadow
+promotion, not a score.  Everything runs on the card unless the caller
+asks for the CPU (`device=`, `--device cpu`; the replicas get the same
+`--device`); nothing falls back.
 
-Refused, naming the ROADMAP item that brings each: the replicated
-serving fleet's binding (`--replicated N`, the JAX package's
-RouterBinding and spawned replicas; Queue 1 item 7, replicated (rest))
-and distributed window refreshes
-(`--multihost`, a collective; Queue 1 item 6).  The JAX package's
+Refused, naming the ROADMAP item that brings it: distributed window
+refreshes (`--multihost`, a collective; Queue 1 item 6).  The JAX package's
 compilation cache and compile-listener set-up have no counterpart:
 PyTorch eager compiles nothing, and `retraces_after_warmup` counts the
 kernel and host-library builds past the warm-up boundary instead
@@ -69,9 +71,6 @@ from ..sources import get as get_source
 from ..sources import names as source_names
 
 _NOT_PORTED = {
-    "replicated": ("--replicated", "ROADMAP Queue 1 item 7, replicated "
-                   "(rest) (continuous --replicated: the router binding "
-                   "and the spawned fleet)"),
     "multihost": ("--multihost", "ROADMAP Queue 1 item 6 (multi-GPU "
                   "distributed EM: the collective)"),
 }
@@ -193,9 +192,11 @@ class ContinuousService:
     Exactly once: every ingested event is counted in one of
     `events_unserved` (it arrived before the first publish: ledger
     only), `events_rejected` (a malformed line, shed) or
-    `events_offered` (submitted to the scorer); after `close()`,
-    `events_scored` and `score_failures` are the scorer's counts, and
-    `events_scored == events_offered` when none failed."""
+    `events_offered` (submitted to the scorer, or to the router); after
+    `close()`, `events_scored` and `score_failures` are the scorer's (or
+    the router binding's) counts, and `events_scored == events_offered`
+    when none failed.  Through the router a malformed line is not shed
+    here: the replica refuses it and its future fails."""
 
     def __init__(
         self,
@@ -209,17 +210,20 @@ class ContinuousService:
         journal=None,
         recorder=None,
         coscheduler=None,
+        publisher=None,
         freshness_sink=None,
         device=None,
     ) -> None:
-        """Standalone by default; the in-process fleet injects shared
+        """Standalone by default; the fleet injects shared
         infrastructure: one `journal`/`recorder` for every tenant (the
         fleet owns their lifecycle, and this service then scopes its
         histogram names by tenant and never calls run_start/run_end), a
-        `coscheduler` (refresh fits yield to slice scoring), and a
-        `freshness_sink` (callable(wall_s, event_s) per covered slice).
-        The JAX package's `collective` (distributed refreshes) and
-        `publisher` (the replicated router) are not ported."""
+        `coscheduler` (refresh fits yield to slice scoring), a
+        `publisher` (a RouterBinding: publishes fan out through the
+        replicated router instead of the in-process registry, and slices
+        score on the router's replicas) and a `freshness_sink`
+        (callable(wall_s, event_s) per covered slice).  The JAX
+        package's `collective` (distributed refreshes) is not ported."""
         if dsource not in source_names():
             raise ValueError(
                 f"dsource must be one of {'|'.join(source_names())}, "
@@ -249,6 +253,7 @@ class ContinuousService:
         from ..telemetry import Journal, Recorder, RunJournal
 
         self.cosched = coscheduler
+        self.publisher = publisher
         self._freshness_sink = freshness_sink
         # Ingest (window growth, ledger append, scoring) and refresh
         # (advance/snapshot, ledger resolution) run on different threads
@@ -258,7 +263,8 @@ class ContinuousService:
         self._owns_journal = journal is None
         # Fleet composition (shared out_dir, maybe-shared recorder):
         # scope histogram names and the metrics filename by tenant.
-        self._shared = journal is not None or freshness_sink is not None
+        self._shared = (journal is not None or publisher is not None
+                        or freshness_sink is not None)
         self.journal = None
         self.recorder = None
         if journal is not None:
@@ -388,26 +394,38 @@ class ContinuousService:
         the slot wait, so a slice arriving while a fit held the device
         is a during-refresh sample.  Flagged events land through the
         scorer's on_batch sink (_start_scorer); a malformed event is
-        shed and counted, never allowed to stop the service."""
-        if self.scorer is None:
+        shed and counted, never allowed to stop the service.  Through
+        the router (the binding is ready once the census has published)
+        the slice goes out as one submit_many frame and the binding
+        resolves its futures off this thread."""
+        via_router = (self.publisher is not None
+                      and self.publisher.ready(self.tenant))
+        if not via_router and self.scorer is None:
             self.events_unserved += sl.events
             return               # nothing published yet: ledger only
         refresh_active = (self.cosched.refresh_active
                           if self.cosched is not None else False)
         # The in-process scorer shares the trainer's stream, so the slot
-        # waits out the chunk being enqueued.
-        slot = (self.cosched.serve_slot(wait=True)
+        # waits out the chunk being enqueued; router scoring is remote,
+        # so the slot registers pressure without waiting (the trainer
+        # defers its next chunk).
+        slot = (self.cosched.serve_slot(wait=not via_router)
                 if self.cosched is not None else nullcontext())
         t0 = time.perf_counter()
         with slot:
-            for ln in sl.lines:
-                try:
-                    self.scorer.submit(self.tenant, ln)
-                except ValueError:
-                    self.events_rejected += 1
-                else:
-                    self.events_offered += 1
-            self.scorer.flush()
+            if via_router:
+                self.publisher.submit_slice(
+                    self.tenant, sl, refresh_active=refresh_active)
+                self.events_offered += sl.events
+            else:
+                for ln in sl.lines:
+                    try:
+                        self.scorer.submit(self.tenant, ln)
+                    except ValueError:
+                        self.events_rejected += 1
+                    else:
+                        self.events_offered += 1
+                self.scorer.flush()
         wall_ms = (time.perf_counter() - t0) * 1e3
         (self._serve_refresh_ms if refresh_active
          else self._serve_idle_ms).observe(wall_ms)
@@ -605,14 +623,21 @@ class ContinuousService:
         )
 
     def _version(self) -> int:
+        if self.publisher is not None:
+            return self.publisher.version(self.tenant)
         return (
             self.fleet.version(self.tenant)
             if self.tenant in self.fleet.tenants() else 0
         )
 
     def _publish(self, model, snap) -> None:
-        self.fleet.publish(self.tenant, model,
-                           source=f"window@{round(snap.t1, 1)}")
+        source = f"window@{round(snap.t1, 1)}"
+        if self.publisher is not None:
+            # Through the replicated router: the model fans out to the
+            # tenant's primary and shadow, not the in-process registry.
+            self.publisher.publish(self, model, source)
+            return
+        self.fleet.publish(self.tenant, model, source=source)
         if self.scorer is None:
             self._start_scorer()
 
@@ -781,6 +806,11 @@ class ContinuousService:
             self.events_scored = self.scorer.events_scored
             self.score_failures = self.scorer.counts["failures"]
             self.scorer = None
+        elif self.publisher is not None:
+            # The fleet closes the binding first, so every future this
+            # tenant submitted has resolved or failed.
+            self.events_scored, self.score_failures = \
+                self.publisher.tenant_counts(self.tenant)
         if self._flagged_file is not None:
             self._flagged_file.close()
             self._flagged_file = None
@@ -905,13 +935,154 @@ def run_continuous(
 
 
 # ---------------------------------------------------------------------------
-# the in-process fleet: N tenants, one co-scheduler, one card
+# the fleet: N tenants, one co-scheduler, one card, and optionally the
+# replicated serving fleet
 # ---------------------------------------------------------------------------
+
+
+class RouterBinding:
+    """Publishing and scoring for N per-tenant services through one
+    replicated FleetRouter.
+
+    Bootstrap: the router computes placement once, at start(), over the
+    whole tenant census, so the binding holds each tenant's first
+    published model until every expected tenant has one, then
+    add_tenant()s the census and start()s the router.  Until then
+    `ready()` is False and the services only ledger their slices, as
+    before a first publish in process.  Later publishes fan out live
+    through router.publish (primary and shadow, with the drain/publish
+    convergence loop).
+
+    Scoring: submit_slice ships a slice as one submit_many frame and
+    hands the futures to a FIFO resolver thread, so ingest never waits
+    on a score's round trip; each event's submit-to-resolve latency
+    lands in the idle or the during-refresh histogram by the
+    refresh_active flag sampled at submit.  `failed` counts futures that
+    raised: a replica killed mid-stream leaves it at zero (the router
+    resends in-flight hops to the promoted shadow)."""
+
+    def __init__(self, router, tenants, *, journal=None,
+                 recorder=None) -> None:
+        from ..telemetry.spans import Recorder as _Recorder
+
+        self.router = router
+        self.expected = set(tenants)
+        self._journal = getattr(journal, "journal", journal)
+        rec = recorder if recorder is not None else _Recorder()
+        self._serve_idle_ms = rec.histogram("route.serve_idle_ms")
+        self._serve_refresh_ms = rec.histogram("route.serve_refresh_ms")
+        self._lock = threading.Lock()
+        self._started = False
+        self._pending: dict = {}    # tenant -> (service, model) pre-start
+        self._versions: dict = {}
+        self.resolved = 0
+        self.failed = 0
+        # tenant -> [resolved, failed]
+        self._per_tenant = {t: [0, 0] for t in self.expected}
+        self._cond = threading.Condition()
+        # (tenant, future, t_submit, refresh_active)
+        self._queue: deque = deque()
+        self._stopped = False
+        self._resolver = threading.Thread(
+            target=self._resolve_loop, name="oni-cont-resolver",
+            daemon=True)
+        self._resolver.start()
+
+    def ready(self, tenant: str) -> bool:
+        with self._lock:
+            return self._started
+
+    def version(self, tenant: str) -> int:
+        with self._lock:
+            return self._versions.get(tenant, 0)
+
+    def publish(self, service, model, source: str) -> int:
+        from ..serving import TenantSpec
+
+        tenant = service.tenant
+        with self._lock:
+            if not self._started:
+                self._pending[tenant] = (service, model)
+                self._versions[tenant] = self._versions.get(tenant, 0) + 1
+                if set(self._pending) == self.expected:
+                    for t, (svc, m) in sorted(self._pending.items()):
+                        self.router.add_tenant(
+                            TenantSpec(tenant=t, dsource=svc.dsource),
+                            svc.cuts, m)
+                    self._pending.clear()
+                    self.router.start()
+                    self._started = True
+                return self._versions[tenant]
+        v = self.router.publish(tenant, model, source=source)
+        with self._lock:
+            self._versions[tenant] = v
+            return v
+
+    def submit_slice(self, tenant: str, sl: "IngestSlice", *,
+                     refresh_active: bool = False) -> None:
+        futs = self.router.submit_many(tenant, list(sl.lines))
+        self.router.flush()
+        t0 = time.perf_counter()
+        with self._cond:
+            for f in futs:
+                self._queue.append((tenant, f, t0, refresh_active))
+            self._cond.notify_all()
+
+    def _resolve_loop(self) -> None:
+        while True:
+            with self._cond:
+                while not self._queue and not self._stopped:
+                    self._cond.wait()
+                if not self._queue:
+                    return      # stopped and drained: close() semantics
+                tenant, fut, t0, during = self._queue.popleft()
+            try:
+                fut.result(timeout=120.0)
+            except Exception:
+                with self._cond:
+                    self.failed += 1
+                    self._per_tenant[tenant][1] += 1
+                continue
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            (self._serve_refresh_ms if during
+             else self._serve_idle_ms).observe(wall_ms)
+            with self._cond:
+                self.resolved += 1
+                self._per_tenant[tenant][0] += 1
+
+    def tenant_counts(self, tenant: str) -> "tuple[int, int]":
+        """(resolved, failed) futures of one tenant so far."""
+        with self._cond:
+            resolved, failed = self._per_tenant[tenant]
+        return resolved, failed
+
+    def close(self, timeout_s: float = 300.0) -> None:
+        """Stop accepting and drain every queued future first: a clean
+        shutdown resolves, not drops, the scores in flight."""
+        with self._cond:
+            self._stopped = True
+            self._cond.notify_all()
+        self._resolver.join(timeout=timeout_s)
+
+    def stats(self) -> dict:
+        with self._lock:
+            out = {"started": self._started,
+                   "versions": dict(self._versions)}
+        with self._cond:
+            out["events_scored"] = self.resolved
+            out["failed_futures"] = self.failed
+            out["pending"] = len(self._queue)
+        for key, h in (("serve_idle_p99_ms", self._serve_idle_ms),
+                       ("serve_refresh_p99_ms", self._serve_refresh_ms)):
+            if h.count:
+                out[key] = round(h.quantile(0.99), 3)
+        return out
 
 
 class FleetContinuousService:
     """One standing service: N per-tenant ContinuousServices composed over
-    one journal/recorder and one train/serve co-scheduler, on `device`.
+    one journal/recorder and one train/serve co-scheduler, on `device`,
+    and, with `replicated`/`router`, the replicated serving fleet.
 
     Ingest and scoring stay on the caller's thread (high priority, serve
     slots); refresh fits run on one background worker thread (low
@@ -924,11 +1095,17 @@ class FleetContinuousService:
     is counted in `refresh_errors` and journaled as `refresh_abandon`,
     nothing is published, and the next boundary retries.
 
+    Scoring is in process, or with `replicated=N` on N replica
+    subprocesses this service spawns (`ml_ops replica --device` of
+    `device`, with the config's ServingConfig flush settings) behind a
+    router it owns, or on the replicas
+    behind a caller's `router`: a RouterBinding then publishes each
+    tenant's refits through the router and scores its slices there.
+
     Drive with `run(tagged)`, where tagged yields (tenant, IngestSlice)
     in event-time order (`interleave_streams` + `paced_tagged`), or
-    slice by slice via `ingest`.  The JAX package's replicated serving
-    fleet (`replicated`, `router`) and distributed refreshes
-    (`collective`) are not ported."""
+    slice by slice via `ingest`.  The JAX package's distributed
+    refreshes (`collective`) are not ported."""
 
     def __init__(
         self,
@@ -936,6 +1113,8 @@ class FleetContinuousService:
         streams: "dict[str, str]",
         *,
         out_dir: str,
+        replicated: int = 0,
+        router=None,
         coscheduler: bool = True,
         warmup_refreshes: "int | None" = None,
         device=None,
@@ -961,7 +1140,8 @@ class FleetContinuousService:
             )
             self.journal.run_start(
                 mode="continuous_fleet", tenants=sorted(self.streams),
-                replicated=0, cosched=bool(coscheduler),
+                replicated=int(replicated or (router is not None)),
+                cosched=bool(coscheduler),
                 window_s=config.continuous.window_s,
                 refresh_every_s=config.continuous.refresh_every_s,
                 device=str(self.device),
@@ -982,13 +1162,26 @@ class FleetContinuousService:
         self._fresh_wall = rec.histogram("fleet.freshness_s")
         self._fresh_event = rec.histogram("fleet.freshness_event_s")
 
+        self.router = router
+        self._owns_router = False
+        self.replica_procs: dict = {}
+        self._workdir = None
+        if self.router is None and replicated:
+            self._spawn_fleet(int(replicated))
+        self.binding = None
+        if self.router is not None:
+            self.binding = RouterBinding(
+                self.router, self.streams,
+                journal=self.journal, recorder=self.recorder,
+            )
+
         self.services: "dict[str, ContinuousService]" = {}
         for tenant, dsource in sorted(self.streams.items()):
             self.services[tenant] = ContinuousService(
                 config, dsource, out_dir=self.out_dir, tenant=tenant,
                 warmup_refreshes=warmup_refreshes,
                 journal=self.journal, recorder=self.recorder,
-                coscheduler=self.cosched,
+                coscheduler=self.cosched, publisher=self.binding,
                 freshness_sink=self._observe_freshness,
                 device=self.device,
             )
@@ -1012,6 +1205,68 @@ class FleetContinuousService:
             target=ctx.run, args=(self._refresh_loop,),
             name="oni-continuous-refresh", daemon=True)
         self._worker.start()
+
+    def _spawn_fleet(self, n: int) -> None:
+        """Start n replica subprocesses together on this service's device
+        with the config's flush settings, a file-KV membership directory
+        and a router over them, which this service owns and closes."""
+        import tempfile
+
+        from ..parallel import FileKVClient
+        from ..serving import FleetRouter
+        from .route import _spawn_replicas
+
+        scfg = self.config.serving
+        dmin = ("none" if scfg.device_score_min is None
+                else str(scfg.device_score_min))
+        flags = ["--device", self.device.type, "--device-score-min", dmin,
+                 "--fleet-max-batch", str(scfg.fleet_max_batch),
+                 "--fleet-max-wait-ms", str(scfg.fleet_max_wait_ms)]
+        workdir = tempfile.mkdtemp(prefix="oni_cont_fleet_")
+        with self._plock:
+            self._workdir = workdir
+        kv_dir = os.path.join(workdir, "kv")
+        router = FleetRouter(scfg, journal=self.journal,
+                             recorder=self.recorder,
+                             kv=FileKVClient(kv_dir))
+        try:
+            spawned = _spawn_replicas([f"r{i}" for i in range(n)], kv_dir,
+                                      workdir, flags)
+            for rid, (proc, _, _) in spawned.items():
+                self.replica_procs[rid] = proc
+            for rid, (_, host, port) in spawned.items():
+                router.connect_replica(rid, host, port)
+        except BaseException:
+            router.close()
+            self._stop_replicas()
+            raise
+        with self._plock:
+            self.router = router
+            self._owns_router = True
+
+    def kill_replica(self, rid: str) -> None:
+        """Chaos hook: SIGKILL a spawned replica subprocess, no drain,
+        no goodbye.  The recovery contract (zero failed score futures,
+        publishes converging through the promoted shadow) is what the
+        chip smoke and the chaos tests hold."""
+        proc = self.replica_procs[rid]
+        proc.kill()
+        proc.wait(timeout=30.0)
+
+    def _stop_replicas(self) -> None:
+        for proc in self.replica_procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in self.replica_procs.values():
+            try:
+                proc.wait(timeout=30.0)
+            except Exception:
+                proc.kill()
+                proc.wait(timeout=30.0)
+        if self._workdir is not None:
+            import shutil
+
+            shutil.rmtree(self._workdir, ignore_errors=True)
 
     def _observe_freshness(self, wall_s: float, event_s: float) -> None:
         self._fresh_wall.observe(wall_s)
@@ -1097,10 +1352,21 @@ class FleetContinuousService:
         self._rq.join()            # every queued refresh lands first
         self._rq.put(None)
         self._worker.join(timeout=600.0)
+        if self.binding is not None:
+            self.binding.close()   # resolve every future in flight
         tenants = {
             t: svc.close() for t, svc in sorted(self.services.items())
         }
         payload = self.summary(tenants)
+        if self._owns_router:
+            try:
+                self.router.close()
+            except Exception as e:
+                import sys
+
+                print(f"continuous fleet: router close failed: {e!r}",
+                      file=sys.stderr)
+            self._stop_replicas()
         with self._plock:
             journal, self.journal = self.journal, None
         if journal is not None:
@@ -1142,7 +1408,7 @@ class FleetContinuousService:
             from ..plans import warmup as plans_warmup
 
             retraces = plans_warmup.counts_delta(self._warm0)["builds"]
-        return {
+        out = {
             "tenants": tenants,
             "events": sum(t["events"] for t in tenants.values()),
             "slices": sum(t["slices"] for t in tenants.values()),
@@ -1154,6 +1420,11 @@ class FleetContinuousService:
             **fresh,
             "cosched": self.cosched.summary(),
         }
+        if self.binding is not None:
+            out["serving"] = self.binding.stats()
+        if self.router is not None:
+            out["router"] = self.router.stats()
+        return out
 
 
 def interleave_streams(per_tenant: "dict[str, list]") -> list:
@@ -1191,14 +1462,18 @@ def run_fleet_continuous(
     tagged,
     *,
     out_dir: str,
+    replicated: int = 0,
+    router=None,
     coscheduler: bool = True,
     warmup_refreshes: "int | None" = None,
     device=None,
 ) -> dict:
-    """Stand up the in-process fleet on `device` and drive the tagged
-    stream to exhaustion."""
+    """Stand up the fleet on `device` (scoring in process, on
+    `replicated` spawned replicas, or behind `router`) and drive the
+    tagged stream to exhaustion."""
     fleet = FleetContinuousService(
-        config, streams, out_dir=out_dir, coscheduler=coscheduler,
+        config, streams, out_dir=out_dir, replicated=replicated,
+        router=router, coscheduler=coscheduler,
         warmup_refreshes=warmup_refreshes, device=device,
     )
     return fleet.run(tagged)
@@ -1218,10 +1493,12 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="TENANT=DSOURCE:PATH",
                    help="fleet mode: one tenant stream (repeatable); N "
                    "tenants compose into one standing service sharing "
-                   "the journal and the train/serve co-scheduler")
-    p.add_argument("--replicated", type=int, default=None, metavar="N",
-                   help="not ported: ROADMAP Queue 1 item 7, replicated "
-                   "(rest)")
+                   "the journal, the train/serve co-scheduler and (with "
+                   "--replicated) the serving fleet")
+    p.add_argument("--replicated", type=int, default=0, metavar="N",
+                   help="with --stream: serve through the fleet router "
+                   "over N spawned replica subprocesses (ml_ops replica "
+                   "on --device) instead of the in-process scorer")
     p.add_argument("--multihost", action="store_true", default=None,
                    help="not ported: ROADMAP Queue 1 item 6")
     p.add_argument("--no-cosched", action="store_true",
@@ -1299,7 +1576,8 @@ def _main_fleet(args, config: PipelineConfig) -> int:
     payload = run_fleet_continuous(
         config, {t: ds for t, (ds, _) in streams.items()}, tagged,
         out_dir=os.path.join(config.data_dir, "continuous_fleet"),
-        coscheduler=not args.no_cosched, device=args.device,
+        replicated=args.replicated, coscheduler=not args.no_cosched,
+        device=args.device,
     )
     print(json.dumps(payload), flush=True)
     return 0

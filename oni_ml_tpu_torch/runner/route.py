@@ -4,7 +4,8 @@ oni_ml_tpu/runner/route.py).
 ``ml_ops replica --id r0`` runs one serve replica process
 (serving/replica.py): the FleetRegistry/FleetScorer stack behind the
 framed socket protocol, heartbeating into the shared file-KV membership
-directory.  ``ml_ops route`` runs the router in front
+directory (``--kv-dir``) or into a TCP KV server (``--kv-connect``).
+``ml_ops route`` runs the router in front
 (serving/router.py): it spawns (``--replicas N``) or attaches to
 (``--connect``) the replicas, places every manifest tenant on a primary
 and a shadow by the consistent-hash ring, and then reads the fleet
@@ -13,8 +14,27 @@ flagged events to stdout, like ``ml_ops serve --fleet``, except that the
 scoring happens N processes away and a dead replica costs a shadow
 promotion instead of the fleet.
 
+The control plane is the file KV (``--kv-dir``, a temp dir by default)
+or the TCP KV: ``--kv-listen [HOST][:PORT]`` runs a KVServer in the
+route process and points the spawned replicas at it, ``--kv-connect
+HOST:PORT`` joins another router's.  The TCP KV has no authentication:
+it binds 127.0.0.1 unless told otherwise, and on any other address
+whoever reaches the port can rewrite the roster.  A replica on this
+host moves its link's data frames onto shared-memory rings
+(``ServingConfig.wire_shm``, on by default).
+
+``--autoscale`` runs the Little's-law controller (serving/autoscale.py):
+it spawns replicas while the admission windows' EWMA'd occupancy is
+above the band and drains the ones it spawned below it, between
+``autoscale_min_replicas`` and ``autoscale_max_replicas``.  It stops
+when the input ends.  ``--max-inflight N`` sets the admission window
+(``route_max_inflight``: the events each replica may hold) that the
+occupancy is measured against.
+
 ``--redeploy-after N`` performs a rolling drain-one-join-one cycle over
-every spawned replica after N events.  ``--dry-run synthetic:TxR`` is
+the replicas `route` spawned at its start after N events; the
+autoscaler is held meanwhile and observes for a cooldown after it, and
+its own replicas stay its own.  ``--dry-run synthetic:TxR`` is
 the self-contained acceptance run (in-process replicas, synthetic tenant
 days): scoring parity, a mid-stream replica kill with zero dropped
 events and a rolling redeploy, reported as one JSON summary with rc 0/1.
@@ -27,15 +47,12 @@ from its ``--device-score-min`` on; the dry run on the card sends every
 flush there and holds it to the float64 host scorer within
 `DRY_RUN_CARD_RTOL`, while on the CPU it runs the host scorer and holds
 it bit for bit.
-
-Not ported yet, each refused with exit 2 naming ROADMAP Queue 1 item 7,
-replicated (rest): ``route --autoscale``, ``route --kv-listen``,
-``route --kv-connect`` and ``replica --kv-connect``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import signal
@@ -48,28 +65,12 @@ from collections import deque
 
 import numpy as np
 
-_REST = "ROADMAP Queue 1 item 7, replicated (rest)"
 # The card's float32 gather-dot against the float64 host scorer: the
 # fleet's bound (tests/test_torch_fleet_card.py).
 DRY_RUN_CARD_RTOL = 1e-6
-_NOT_PORTED_ROUTE = {
-    "autoscale": ("--autoscale", f"{_REST} (serving/autoscale.py)"),
-    "kv_listen": ("--kv-listen", f"{_REST} (the TCP KV control plane)"),
-    "kv_connect": ("--kv-connect", f"{_REST} (the TCP KV control plane)"),
-}
-_NOT_PORTED_REPLICA = {
-    "kv_connect": ("--kv-connect", f"{_REST} (the TCP KV control plane)"),
-}
-
-
-def _refuse(prog: str, args, table: dict) -> "int | None":
-    """Exit code 2 and one line naming the ROADMAP item for the first
-    flag of `table` that `args` sets, else None."""
-    for attr, (flag, item) in table.items():
-        if getattr(args, attr):
-            print(f"{prog} {flag} is not ported yet: {item}", flush=True)
-            return 2
-    return None
+_KV_EXPOSURE = ("the TCP KV has no authentication: on an address other "
+                "than 127.0.0.1 whoever reaches the port can rewrite the "
+                "fleet's roster")
 
 
 def _add_device_flag(p: argparse.ArgumentParser) -> None:
@@ -92,7 +93,9 @@ def build_replica_parser() -> argparse.ArgumentParser:
                    "(parallel/membership.FileKVClient); empty = no "
                    "membership/heartbeats")
     p.add_argument("--kv-connect", default="", metavar="HOST:PORT",
-                   help=f"not ported: {_REST}")
+                   help="TCP KV server to register membership with "
+                   "(parallel/membership.TcpKVClient), the cross-host "
+                   "alternative to --kv-dir")
     p.add_argument("--port-file", default="",
                    help="write 'host port' here once listening (the "
                    "spawn handshake)")
@@ -104,6 +107,19 @@ def build_replica_parser() -> argparse.ArgumentParser:
                    "scoring, or unset for the measured auto calibration")
     _add_device_flag(p)
     return p
+
+
+def _make_kv(kv_dir: str, kv_connect: str):
+    """The membership transport named by the flags: a TCP KV client, the
+    shared file-KV directory, or None (no membership)."""
+    from ..parallel.membership import (FileKVClient, TcpKVClient,
+                                       parse_hostport)
+
+    if kv_connect:
+        return TcpKVClient(*parse_hostport(kv_connect))
+    if kv_dir:
+        return FileKVClient(kv_dir)
+    return None
 
 
 def _parse_device_score_min(v):
@@ -121,9 +137,6 @@ def replica_main(argv: "list[str] | None" = None) -> int:
     from ..serving import ReplicaServer
 
     args = build_replica_parser().parse_args(argv)
-    refused = _refuse("replica", args, _NOT_PORTED_REPLICA)
-    if refused is not None:
-        return refused
     cfg = ServingConfig(
         device_score_min=_parse_device_score_min(args.device_score_min))
     if args.fleet_max_batch is not None:
@@ -131,11 +144,7 @@ def replica_main(argv: "list[str] | None" = None) -> int:
     if args.fleet_max_wait_ms is not None:
         cfg = dataclasses.replace(cfg,
                                   fleet_max_wait_ms=args.fleet_max_wait_ms)
-    kv = None
-    if args.kv_dir:
-        from ..parallel.membership import FileKVClient
-
-        kv = FileKVClient(args.kv_dir)
+    kv = _make_kv(args.kv_dir, args.kv_connect)
     server = ReplicaServer(args.id, cfg, host=args.host, port=args.port,
                            kv=kv, device=args.device)
     if args.port_file:
@@ -152,6 +161,8 @@ def replica_main(argv: "list[str] | None" = None) -> int:
     while not stop.is_set() and not server.stopped.wait(0.2):
         pass
     server.stop()
+    if hasattr(kv, "close"):
+        kv.close()
     return 0
 
 
@@ -179,11 +190,23 @@ def build_route_parser() -> argparse.ArgumentParser:
                    help="membership directory shared with the "
                    "replicas (default: a temp dir when spawning)")
     p.add_argument("--kv-listen", default="", metavar="[HOST][:PORT]",
-                   help=f"not ported: {_REST}")
+                   help="run the TCP KV membership server "
+                   "(parallel/membership.KVServer) here and point the "
+                   "spawned replicas at it, the cross-host control plane "
+                   "(empty HOST = 127.0.0.1, empty PORT = ephemeral); "
+                   + _KV_EXPOSURE)
     p.add_argument("--kv-connect", default="", metavar="HOST:PORT",
-                   help=f"not ported: {_REST}")
+                   help="join an existing TCP KV membership server "
+                   "(another router's --kv-listen)")
     p.add_argument("--autoscale", action="store_true",
-                   help=f"not ported: {_REST}")
+                   help="run the Little's-law autoscaler: spawn or drain "
+                   "replicas between autoscale_min_replicas and "
+                   "autoscale_max_replicas to hold the admission windows' "
+                   "occupancy inside the hysteresis band")
+    p.add_argument("--max-inflight", type=int, default=None, metavar="N",
+                   help="the admission window: at most N events "
+                   "outstanding per replica (default: ServingConfig."
+                   "route_max_inflight; 0 = unbounded)")
     p.add_argument("--threshold", type=float, default=None,
                    help="suspicion threshold for flagged output "
                    "(default: ServingConfig)")
@@ -205,7 +228,11 @@ def build_route_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _start_replica(rid: str, kv_dir: str, workdir: str,
+# How long a spawned replica may take to write its port file.
+_SPAWN_TIMEOUT_S = 120.0
+
+
+def _start_replica(rid: str, kv_flags: "str | list[str]", workdir: str,
                    extra: "list[str] | None" = None):
     """Exec one `ml_ops replica` subprocess (never a fork of a process
     that may hold a CUDA context) -> (proc, port_file)."""
@@ -214,9 +241,11 @@ def _start_replica(rid: str, kv_dir: str, workdir: str,
         os.remove(port_file)
     except FileNotFoundError:
         pass
+    if isinstance(kv_flags, str):
+        kv_flags = ["--kv-dir", kv_flags]
     cmd = [sys.executable, "-m", "oni_ml_tpu_torch.runner.ml_ops",
            "replica", "--id", rid, "--port-file", port_file,
-           "--kv-dir", kv_dir] + (extra or [])
+           *kv_flags, *(extra or [])]
     env = dict(os.environ)
     # The child must import this checkout's package wherever the router
     # was launched from (the repo is run in place, not installed).
@@ -255,14 +284,16 @@ def _await_replica(rid: str, proc, port_file: str, deadline: float):
     raise RuntimeError(f"replica {rid} never wrote {port_file}")
 
 
-def _spawn_replicas(rids: "list[str]", kv_dir: str, workdir: str,
-                    extra: "list[str] | None" = None,
-                    timeout_s: float = 120.0) -> dict:
+def _spawn_replicas(rids: "list[str]", kv_flags: "str | list[str]",
+                    workdir: str, extra: "list[str] | None" = None,
+                    timeout_s: float = _SPAWN_TIMEOUT_S) -> dict:
     """Start every replica at once, then wait for each handshake:
-    rid -> (proc, host, port).  Each process takes seconds to import
+    rid -> (proc, host, port).  `kv_flags` is the shared file-KV
+    directory or a flag list (["--kv-connect", "host:port"]), as the
+    JAX `_spawn_replica` takes.  Each process takes seconds to import
     torch and open its CUDA context, so N start in about the time of
     one.  On a failure every process started here is killed."""
-    started = {rid: _start_replica(rid, kv_dir, workdir, extra)
+    started = {rid: _start_replica(rid, kv_flags, workdir, extra)
                for rid in rids}
     deadline = time.monotonic() + timeout_s
     out = {}
@@ -279,12 +310,13 @@ def _spawn_replicas(rids: "list[str]", kv_dir: str, workdir: str,
     return out
 
 
-def _spawn_replica(rid: str, kv_dir: str, workdir: str,
+def _spawn_replica(rid: str, kv_flags: "str | list[str]", workdir: str,
                    extra: "list[str] | None" = None,
-                   timeout_s: float = 120.0):
+                   timeout_s: float = _SPAWN_TIMEOUT_S):
     """One `ml_ops replica` subprocess -> (proc, host, port) after the
     port-file handshake."""
-    return _spawn_replicas([rid], kv_dir, workdir, extra, timeout_s)[rid]
+    return _spawn_replicas([rid], kv_flags, workdir, extra,
+                           timeout_s)[rid]
 
 
 class _FlagCollector:
@@ -340,38 +372,70 @@ class _FlagCollector:
         self._thread.join(timeout=300.0)
 
 
-def _rolling_redeploy(router, procs: dict, kv_dir: str, workdir: str,
-                      extra: "list[str]") -> "list[dict]":
-    """Drain one, join its replacement, next, over every spawned
-    replica: the fleet keeps serving throughout (the router promotes
+def _retire(router, retired: dict, rid: str) -> dict:
+    """Drain `rid` out of the rotation, first keeping its own stats reply
+    (device, peak device memory, events scored) and its link's transport
+    in `retired[rid]`: the router forgets both at the drain, and the
+    summary reports every replica the run had."""
+    retired[rid] = {"stats": router.replica_stats().get(rid),
+                    "wire": router.wire().get(rid)}
+    return router.drain_replica(rid)
+
+
+def _rolling_redeploy(router, procs: dict, kv_flags, workdir: str,
+                      extra: "list[str]", olds: "list[str]",
+                      retired: dict) -> "list[dict]":
+    """Drain one, join its replacement, next, over the replicas `olds`
+    (each in `procs`): the fleet keeps serving throughout (the router promotes
     each drained replica's tenants to their warm shadows, and the
     placement pulls them back when the replacement joins).  The
     replacements start together before the first drain (the JAX package
     spawns each after its drain); none joins the rotation before its
-    predecessor has drained.  Each step keeps the drained replica's own
-    stats reply (device, peak device memory)."""
-    olds = sorted(procs)
-    spawned = _spawn_replicas([f"{rid}v2" for rid in olds], kv_dir,
+    predecessor has drained.  Each drain goes through `_retire`."""
+    spawned = _spawn_replicas([f"{rid}v2" for rid in olds], kv_flags,
                               workdir, extra)
     for rid, (proc, _, _) in spawned.items():
         procs[rid] = proc
     out = []
     for rid in olds:
-        stats = router.replica_stats().get(rid)
-        drained = router.drain_replica(rid)
+        drained = _retire(router, retired, rid)
         proc = procs.pop(rid)
         proc.terminate()
         proc.wait(timeout=60.0)
         _, host, port = spawned[f"{rid}v2"]
         joined = router.join_replica(f"{rid}v2", host, port)
-        out.append({"drained": drained, "joined": joined, "stats": stats})
+        out.append({"drained": drained, "joined": joined})
     return out
 
 
+def _control_plane(args, workdir: str):
+    """(kv client, the spawned replicas' KV flags, the KV server this
+    process runs or None) from --kv-listen / --kv-connect / --kv-dir."""
+    from ..parallel.membership import KVServer, TcpKVClient, parse_hostport
+
+    if args.kv_listen:
+        server = KVServer(*parse_hostport(args.kv_listen, default_port=0))
+        print(f"KV_LISTEN {server.host} {server.port}", file=sys.stderr,
+              flush=True)
+        try:
+            kv = TcpKVClient(server.host, server.port)
+        except OSError:
+            server.close()
+            raise
+        return kv, ["--kv-connect", f"{server.host}:{server.port}"], server
+    if args.kv_connect:
+        return (_make_kv("", args.kv_connect),
+                ["--kv-connect", args.kv_connect], None)
+    kv_dir = args.kv_dir or os.path.join(workdir, "kv")
+    return _make_kv(kv_dir, ""), ["--kv-dir", kv_dir], None
+
+
 def route_stream(args) -> int:
+    import dataclasses
+
     from ..config import ScoringConfig, ServingConfig
-    from ..parallel.membership import FileKVClient
-    from ..serving import FleetRouter, ModelRegistry, load_manifest
+    from ..serving import (AutoScaler, FleetRouter, ModelRegistry,
+                           load_manifest)
     from ..sources import get as get_source
     from ..telemetry.spans import Recorder
     from .serve import _load_featurizer
@@ -382,9 +446,9 @@ def route_stream(args) -> int:
         return 2
     specs = load_manifest(args.fleet)
     cfg = ServingConfig()
+    if args.max_inflight is not None:
+        cfg = dataclasses.replace(cfg, route_max_inflight=args.max_inflight)
     workdir = tempfile.mkdtemp(prefix="oni_route_")
-    kv_dir = args.kv_dir or os.path.join(workdir, "kv")
-    kv = FileKVClient(kv_dir)
     procs: dict = {}
     extra: "list[str]" = []
     if args.device:
@@ -392,11 +456,13 @@ def route_stream(args) -> int:
     if args.device_score_min is not None:
         extra += ["--device-score-min", str(args.device_score_min)]
     recorder = Recorder()
-    router = FleetRouter(cfg, kv=kv, recorder=recorder)
+    kv = kv_server = scaler = router = None
     try:
+        kv, kv_flags, kv_server = _control_plane(args, workdir)
+        router = FleetRouter(cfg, kv=kv, recorder=recorder)
         if args.replicas:
             spawned = _spawn_replicas(
-                [f"r{i}" for i in range(args.replicas)], kv_dir, workdir,
+                [f"r{i}" for i in range(args.replicas)], kv_flags, workdir,
                 extra)
             for rid, (proc, _, _) in spawned.items():
                 procs[rid] = proc
@@ -425,6 +491,30 @@ def route_stream(args) -> int:
                                        if spec.threshold is not None
                                        else sc_threshold)
         router.start()
+        autoscaled: "set[str]" = set()
+        retired: dict = {}
+        if args.autoscale:
+            spawn_seq = [len(procs)]
+
+            def _as_spawn():
+                rid = f"as{spawn_seq[0]}"
+                spawn_seq[0] += 1
+                proc, host, port = _spawn_replica(rid, kv_flags, workdir,
+                                                  extra)
+                procs[rid] = proc
+                autoscaled.add(rid)
+                return rid, host, port
+
+            def _as_stop(rid):
+                proc = procs.pop(rid, None)
+                if proc is not None:
+                    proc.terminate()
+                    proc.wait(timeout=60.0)
+
+            scaler = AutoScaler(
+                router, spawn=_as_spawn, stop=_as_stop, config=cfg,
+                drain=lambda rid: _retire(router, retired, rid))
+            scaler.start()
         collector = _FlagCollector(thresholds, sys.stdout)
         routed = skipped = 0
         redeploys: "list[dict]" = []
@@ -451,9 +541,17 @@ def route_stream(args) -> int:
             if (args.redeploy_after and procs
                     and routed == args.redeploy_after):
                 t_re = time.perf_counter()
-                redeploys = _rolling_redeploy(router, procs, kv_dir,
-                                              workdir, extra)
+                with (scaler.hold() if scaler is not None
+                      else contextlib.nullcontext()):
+                    redeploys = _rolling_redeploy(
+                        router, procs, kv_flags, workdir, extra,
+                        sorted(set(procs) - autoscaled), retired)
                 redeploy_s = time.perf_counter() - t_re
+        if scaler is not None:
+            # The input has ended: nothing is left to scale for, and the
+            # replicas the controller joined stay for the summary.  A
+            # spawn under way finishes (its replica then joins procs).
+            scaler.close(timeout_s=_SPAWN_TIMEOUT_S + 30.0)
         router.flush()
         collector.close()
         stream_s = time.perf_counter() - t0
@@ -467,19 +565,33 @@ def route_stream(args) -> int:
             "redeploys": len(redeploys),
             "stats": router.stats(),
             # What the JAX summary does not carry: the stream's wall and
-            # route latency, the redeploy's wall and each replica's own
-            # stats reply (device, peak device memory).
+            # route latency, the redeploy's wall, each replica's own
+            # stats reply (device, peak device memory) and each link's
+            # transport (shared-memory rings or TCP), the drained
+            # replicas' (the redeploy's and the autoscaler's) included.
             "stream_s": stream_s,
             "hop_ms": recorder.histogram("route.hop_ms").summary(),
             "redeploy_s": redeploy_s,
             "replica_stats": {
-                **{s["drained"]["replica"]: s["stats"] for s in redeploys},
+                **{r: v["stats"] for r, v in retired.items()},
                 **router.replica_stats()},
+            "wire": {**{r: v["wire"] for r, v in retired.items()},
+                     **router.wire()},
         }
+        if scaler is not None:
+            summary["autoscale"] = [d for d in scaler.decisions
+                                    if d["action"] != "hold"]
         print(json.dumps(summary), file=sys.stderr, flush=True)
         return 0 if collector.errors == 0 else 1
     finally:
-        router.close()
+        if scaler is not None:
+            scaler.close()
+        if router is not None:
+            router.close()
+        if hasattr(kv, "close"):
+            kv.close()
+        if kv_server is not None:
+            kv_server.close()
         for proc in procs.values():
             proc.terminate()
         for proc in procs.values():
@@ -584,6 +696,12 @@ def dry_run(args) -> int:
                 except Exception:
                     chaos_dropped += 1
         post_ok, dropped1 = replay(16)
+        # The failover journals its record after its resends and its
+        # model backfill, which can outlast the futures it resolved.
+        deadline = time.monotonic() + 60.0
+        while (not router.stats()["failovers"]
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
         failovers = router.stats()["failovers"]
         # Rolling redeploy over the survivors: join a fresh replica, then
         # drain one; the fleet serves throughout.
@@ -625,9 +743,6 @@ def dry_run(args) -> int:
 
 def route_main(argv: "list[str] | None" = None) -> int:
     args = build_route_parser().parse_args(argv)
-    refused = _refuse("route", args, _NOT_PORTED_ROUTE)
-    if refused is not None:
-        return refused
     if args.dry_run:
         return dry_run(args)
     return route_stream(args)

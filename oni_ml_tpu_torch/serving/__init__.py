@@ -32,16 +32,19 @@ router (runner/route.py, `ml_ops replica` / `ml_ops route`):
         -> FleetRouter        consistent-hash placement (primary +
                               warm shadow per tenant), scatter/gather,
                               shadow-promotion failover, rolling drain
-        -> wire               the columnar frame codec (no pickle)
+        -> wire               the columnar frame codec (no pickle) and
+                              the same-host shared-memory rings
+        -> AutoScaler         joins and drains replicas to hold the
+                              admission windows' occupancy in a band
 
 `python -m oni_ml_tpu_torch.runner.ml_ops serve [--fleet MANIFEST]` is
 the CLI (runner/serve.py); config.ServingConfig holds the knobs.  The
-continuous service (runner/continuous.py) scores through a FleetScorer
-and arbitrates its refresh fits against scoring with the CoScheduler.
-The JAX package's autoscaler and shared-memory rings wait for their
-slice.
+continuous service (runner/continuous.py) scores through a FleetScorer,
+or through the router with `replicated`, and arbitrates its refresh
+fits against scoring with the CoScheduler.
 """
 
+from .autoscale import AutoScaler
 from .batcher import BatchScorer, ScoreFuture
 from .coscheduler import CoScheduler
 from .events import (
@@ -86,10 +89,11 @@ from .tenants import (
     load_manifest,
     parse_manifest,
 )
-from .wire import decode_payload, encode_payload
+from .wire import ShmRing, decode_payload, encode_payload
 
 __all__ = [
     "AdmissionRejected",
+    "AutoScaler",
     "BatchScorer",
     "CoScheduler",
     "DnsEventFeaturizer",
@@ -106,6 +110,7 @@ __all__ = [
     "ReplicaServer",
     "ResidencyManager",
     "ScoreFuture",
+    "ShmRing",
     "StackedSnapshot",
     "TIER_COLD",
     "TIER_HOT",

@@ -1,5 +1,5 @@
 """One serve replica of the replicated fleet (port of
-oni_ml_tpu/serving/replica.py without its shared-memory rings).
+oni_ml_tpu/serving/replica.py).
 
 A replica is the unit of blast radius: a whole single-process serving
 stack (FleetRegistry -> dynamic FleetScorer) behind a small framed
@@ -12,11 +12,13 @@ fleet.
 Wire protocol (router <-> replica): length-prefixed columnar frames over
 TCP (serving/wire.py, which has no pickle codec).  Every request carries
 an ``id`` and every response echoes it.  A ``hello`` op confirms the
-columnar codec per link; it answers ``"shm": None`` always (the JAX
-replica's same-host ring upgrade is not ported, ROADMAP Queue 1 item 7,
-replicated (rest)).  Control ops (add_tenant / publish / warmup /
-stats / drain / shutdown / ping) answer synchronously from the
-connection's reader thread.  ``submit`` is asynchronous: the reader
+columnar codec per link and, for a same-host peer that asks, upgrades
+the data path to a pair of shared-memory rings (wire.ShmRing), so local
+hops skip the TCP stack; the socket stays open as the liveness/EOF
+signal, and the rings live and die with it.  Control ops (add_tenant /
+publish / warmup / stats / drain / shutdown / ping) answer
+synchronously from the connection's reader thread.  ``submit`` is
+asynchronous (on TCP or on the ring): the reader
 enqueues the event into the tenant's admission lane and a
 per-connection FIFO resolver thread streams ``{"id", "score",
 "version"}`` responses back as the micro-batch flushes resolve them.  A
@@ -192,6 +194,7 @@ class ReplicaServer:
         self.stopped = threading.Event()
         self._conns: "list[socket.socket]" = []
         self._resolvers: "list[_Resolver]" = []
+        self._rings: "list[wire.ShmRing]" = []
         self._router_versions: dict = {}
         self._srv = socket.create_server((host, port))
         self.host, self.port = self._srv.getsockname()[:2]
@@ -256,6 +259,9 @@ class ReplicaServer:
 
     def _serve_conn(self, conn: socket.socket) -> None:
         wlock = threading.Lock()
+        # The ring pair this connection's hello negotiated, if any: torn
+        # down with the connection in the finally below.
+        state = {"rings": []}
 
         def reply(obj) -> int:
             return wire.send_frame(conn, obj, wlock)
@@ -298,7 +304,7 @@ class ReplicaServer:
                             return
                     continue
                 try:
-                    rsp = {"id": rid, **self._handle(op, req)}
+                    rsp = {"id": rid, **self._handle(op, req, state)}
                 except Exception as e:
                     rsp = {"id": rid, "error": repr(e)[:300]}
                 try:
@@ -310,6 +316,11 @@ class ReplicaServer:
                     return
         finally:
             resolver.stop()
+            # Ring lifetime = connection lifetime: a killed or
+            # reconnecting router EOFs this socket, and the rings its
+            # hello negotiated close (and unlink) here instead of piling
+            # up segments and polling threads until the replica stops.
+            self._drop_rings(state["rings"])
             try:
                 conn.close()
             except OSError:
@@ -317,11 +328,12 @@ class ReplicaServer:
 
     # -- op handlers ---------------------------------------------------------
 
-    def _handle(self, op: str, req: dict) -> dict:
+    def _handle(self, op: str, req: dict,
+                state: "dict | None" = None) -> dict:
         if op == "ping":
             return {"ok": True, "replica": self.replica_id}
         if op == "hello":
-            return self._op_hello(req)
+            return self._op_hello(req, state)
         if op == "add_tenant":
             return self._op_add_tenant(req)
         if op == "publish":
@@ -346,16 +358,124 @@ class ReplicaServer:
             return {"ok": True}
         raise ValueError(f"unknown op {op!r}")
 
-    def _op_hello(self, req: dict) -> dict:
+    def _op_hello(self, req: dict, state: "dict | None" = None) -> dict:
         """The JAX replica's hello: this wire has the columnar codec
-        only, so a peer that does not offer it is refused, and the
-        answer carries no shared-memory upgrade (``shm`` is None)."""
+        only, so a peer that does not offer it is refused.  A peer on
+        this host that asks for ``shm`` (and a config with ``wire_shm``)
+        gets a ring pair: the answer names the segments, the router
+        attaches, and data frames leave the TCP socket.  A ring set-up
+        that fails answers ``shm`` None: the link stays on TCP."""
         offered = req.get("wire") or []
         if "columnar" not in offered:
             raise ValueError(
                 f"peer offered {offered!r}; this replica refuses any "
                 "codec but the columnar wire")
-        return {"ok": True, "wire": "columnar", "shm": None}
+        shm = None
+        if (req.get("shm") and self.config.wire_shm
+                and req.get("host") == socket.gethostname()):
+            try:
+                shm = self._make_rings(state)
+            except Exception:
+                shm = None    # ring set-up must never break the link
+        return {"ok": True, "wire": "columnar", "shm": shm}
+
+    def _make_rings(self, state: "dict | None" = None) -> dict:
+        # A repeated hello on one connection replaces its rings: the
+        # stale pair goes first, so a reconnect loop cannot pile up
+        # segments behind one socket.
+        if state is not None and state["rings"]:
+            self._drop_rings(state["rings"])
+            state["rings"] = []
+        slab = int(self.config.wire_shm_slab_bytes)
+        c2s = wire.ShmRing.create(slab)     # router -> replica submits
+        try:
+            s2c = wire.ShmRing.create(slab)     # replica -> router scores
+        except BaseException:
+            c2s.close()
+            raise
+        with self._lock:
+            if self._closed:
+                c2s.close()
+                s2c.close()
+                raise RuntimeError("replica closed")
+            self._rings += [c2s, s2c]
+        if state is not None:
+            state["rings"] = [c2s, s2c]
+        threading.Thread(
+            target=self._serve_ring, args=(c2s, s2c),
+            name=f"oni-replica-{self.replica_id}-ring", daemon=True,
+        ).start()
+        return {"c2s": c2s.name, "s2c": s2c.name, "slab": slab}
+
+    def _drop_rings(self, rings: list) -> None:
+        """Close a connection's rings and forget them: close() sets the
+        shared closed flag (the _serve_ring poller exits at its next
+        poll) and, on this owning side, unlinks the segments now."""
+        if not rings:
+            return
+        for r in rings:
+            r.close()
+        with self._lock:
+            self._rings = [r for r in self._rings if r not in rings]
+
+    def _serve_ring(self, c2s: "wire.ShmRing",
+                    s2c: "wire.ShmRing") -> None:
+        """The data path of _serve_conn over a ring pair: pop submit
+        frames, stream score batches back.  Control ops stay on the TCP
+        control connection; a ring frame carrying one is answered with
+        an error."""
+
+        def reply(obj) -> int:
+            payload = wire.encode_payload(obj)
+            if not s2c.push(payload,
+                            timeout_s=self.config.route_op_timeout_s):
+                raise BrokenPipeError("response ring closed")
+            return len(payload)
+
+        resolver = _Resolver(reply)
+        with self._lock:
+            self._resolvers.append(resolver)
+        try:
+            while True:
+                payload = c2s.pop(0.25)
+                if payload is None:
+                    if c2s.closed or self._closed:
+                        return
+                    continue
+                try:
+                    req = wire.decode_payload(payload)
+                except ConnectionError:
+                    return
+                op = req.get("op")
+                rid = req.get("id")
+                try:
+                    if op == "submit":
+                        fut = self.scorer.submit(req["tenant"], req["raw"])
+                        resolver.enqueue(rid, fut)
+                    elif op == "submit_many":
+                        tenant = req["tenant"]
+                        for eid, raw in zip(req["ids"], req["raws"]):
+                            try:
+                                fut = self.scorer.submit(tenant, raw)
+                                resolver.enqueue(eid, fut)
+                            except Exception as e:
+                                reply([{"id": eid,
+                                        "error": repr(e)[:300]}])
+                    else:
+                        reply({"id": rid,
+                               "error": f"op {op!r} is control-path "
+                                        "only; rings carry data frames"})
+                except OSError:
+                    return
+                except Exception as e:
+                    try:
+                        reply({"id": rid, "error": repr(e)[:300]})
+                    except OSError:
+                        return
+        finally:
+            resolver.stop()
+            c2s.close()
+            s2c.close()
 
     def _op_add_tenant(self, req: dict) -> dict:
         """Idempotent placement push: the first call registers the
@@ -475,6 +595,7 @@ class ReplicaServer:
             was_closed = self._closed
             self._closed = True
             conns = list(self._conns)
+            rings = list(self._rings)
         if was_closed:
             self.scorer.close(timeout=self.config.route_op_timeout_s)
             return
@@ -489,6 +610,8 @@ class ReplicaServer:
         self.scorer.close(timeout=self.config.route_op_timeout_s)
         for c in conns:
             _hard_close(c)
+        for r in rings:
+            r.close()
         self.stopped.set()
 
     def kill(self) -> None:
@@ -503,9 +626,12 @@ class ReplicaServer:
                 return
             self._closed = True
             conns = list(self._conns)
+            rings = list(self._rings)
         if self._heartbeat is not None:
             self._heartbeat.stop()
         _hard_close(self._srv)
         for c in conns:
             _hard_close(c)
+        for r in rings:
+            r.close()
         self.stopped.set()

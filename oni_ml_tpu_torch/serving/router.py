@@ -1,12 +1,15 @@
-"""Async fleet router (port of oni_ml_tpu/serving/router.py without its
-shared-memory rings): consistent-hash placement, scatter/gather over
-serve replicas, shadow-promotion failover, rolling drain.
+"""Async fleet router (port of oni_ml_tpu/serving/router.py):
+consistent-hash placement, scatter/gather over serve replicas,
+shadow-promotion failover, rolling drain.
 
 It speaks the submit()/future surface of BatchScorer/FleetScorer, but
 every event is forwarded to the replica that owns its tenant
 (serving/placement.py: primary + warm shadow per tenant) over a framed
 socket link (serving/replica.py), and the response demuxes back to the
-caller's ScoreFuture by correlation id.  Every edge journals
+caller's ScoreFuture by correlation id.  A replica on this host that
+offers a ring pair in the ``hello`` takes the link's data frames over
+shared memory (wire.ShmRing); the TCP data socket stays open for the
+liveness/EOF signal and any frame larger than a slab.  Every edge journals
 ``{"kind": "route"}`` records (events, bytes) and per-replica
 ``route.<replica>.hop_ms`` histograms ride the metrics plane.
 
@@ -71,10 +74,14 @@ class ReplicaLink:
     """Client side of one replica: a DATA connection for async submit
     frames and a CONTROL connection for synchronous ops, so a batch of
     in-flight submits never queues behind a slow add_tenant push (and a
-    blocked admission lane backpressures only the data path)."""
+    blocked admission lane backpressures only the data path).
+    `want_shm` asks a same-host replica for a ring pair in the hello;
+    a ring link's data frames leave through its sender thread, which
+    reports each frame's bytes to `on_bytes(replica_id, nbytes)`."""
 
     def __init__(self, replica_id: str, host: str, port: int, *,
-                 op_timeout_s: float, on_score, on_down) -> None:
+                 op_timeout_s: float, on_score, on_down,
+                 want_shm: bool = False, on_bytes=None) -> None:
         import socket
 
         self.replica_id = replica_id
@@ -82,6 +89,9 @@ class ReplicaLink:
         self._op_timeout_s = op_timeout_s
         self._on_score = on_score
         self._on_down = on_down
+        self._on_bytes = on_bytes
+        self.shm_tx: "wire.ShmRing | None" = None
+        self.shm_rx: "wire.ShmRing | None" = None
         self._data = socket.create_connection((host, port))
         self._ctrl = socket.create_connection((host, port))
         for s in (self._data, self._ctrl):
@@ -92,29 +102,93 @@ class ReplicaLink:
         self._call_seq = 0
         self._calls: "dict[int, list]" = {}
         self._closed = False
+        # A ring link's data frames not yet handed to the ring, and
+        # whether the sender holds a batch taken from them; apart, the
+        # events sent on the ring whose responses have not come back.
+        self._txq: "list[dict]" = []
+        self._tx_busy = False
+        self._tx_cv = threading.Condition()
+        self._ring_out = 0
+        self._rx_cv = threading.Condition()
         for sock, name in ((self._data, "data"), (self._ctrl, "ctrl")):
             threading.Thread(
                 target=self._reader, args=(sock, name == "data"),
                 name=f"oni-route-{replica_id}-{name}", daemon=True,
             ).start()
         try:
-            self._hello()
+            self._negotiate(want_shm)
         except (ConnectionError, RuntimeError, TimeoutError) as e:
             self.close()
             raise ConnectionError(
                 f"replica {replica_id} failed the hello: {e}") from e
 
-    def _hello(self) -> None:
+    def _negotiate(self, want_shm: bool) -> None:
         """The JAX package's hello handshake, offering the columnar
-        codec only and no shared-memory upgrade: a peer that answers
-        anything else is refused."""
+        codec only (a peer that answers anything else is refused), and
+        attaching the ring pair a same-host replica offers.  A ring that
+        does not attach leaves the link on TCP."""
+        import socket
+
         rsp = self.call({"op": "hello", "wire": ["columnar"],
-                         "shm": False})
+                         "shm": want_shm, "host": socket.gethostname()})
         if rsp.get("wire", "columnar") != "columnar":
             raise ConnectionError(
                 f"replica {self.replica_id} answered the hello with "
                 f"{rsp.get('wire')!r}; this router speaks only the "
                 "columnar wire")
+        shm = rsp.get("shm")
+        if not shm:
+            return
+        try:
+            tx = wire.ShmRing.attach(shm["c2s"], int(shm["slab"]))
+        except Exception:
+            return              # ring attach must never break the link
+        try:
+            rx = wire.ShmRing.attach(shm["s2c"], int(shm["slab"]))
+        except Exception:
+            tx.close()
+            return
+        # Set once, before the link is handed to any caller.
+        self.shm_tx, self.shm_rx = tx, rx
+        threading.Thread(
+            target=self._ring_reader, args=(rx,),
+            name=f"oni-route-{self.replica_id}-ring", daemon=True,
+        ).start()
+        threading.Thread(
+            target=self._ring_sender, args=(tx,),
+            name=f"oni-route-{self.replica_id}-tx", daemon=True,
+        ).start()
+
+    def _ring_reader(self, rx: "wire.ShmRing") -> None:
+        """The shared-memory twin of the data socket's reader: score
+        batches pop off the response ring.  Every response answers an
+        event this link sent on the ring, so the thread polls only while
+        such an event is out and otherwise waits on the sender's
+        condition: an idle link takes no GIL from the router's process
+        (the JAX reader polls its ring all the time).  Link death stays
+        the TCP reader's job; this thread drains and exits when the ring
+        closes."""
+        while True:
+            with self._rx_cv:
+                while (self._ring_out <= 0 and not self._closed
+                       and not rx.closed):
+                    self._rx_cv.wait(0.25)
+            payload = rx.pop(0.25)
+            if payload is None:
+                if rx.closed or self._closed:
+                    return
+                continue
+            try:
+                msg = wire.decode_payload(payload)
+            except ConnectionError:
+                return
+            with self._rx_cv:
+                self._ring_out -= len(msg) if isinstance(msg, list) else 1
+            if isinstance(msg, list):
+                for m in msg:
+                    self._on_score(self.replica_id, m)
+            else:
+                self._on_score(self.replica_id, msg)
 
     def _reader(self, sock, is_data: bool) -> None:
         while True:
@@ -190,16 +264,123 @@ class ReplicaLink:
              "raws": raws})
 
     def _send_data(self, msg: dict) -> int:
-        return wire.send_frame(self._data, msg, self._data_wlock)
+        """A link without rings writes the frame to its TCP socket and
+        returns its bytes.  A ring link queues it for `_ring_sender`
+        and returns 0 (the sender reports the bytes it sends); a closed
+        link raises the OSError the failover expects."""
+        if self.shm_tx is None:
+            return wire.send_frame(self._data, msg, self._data_wlock)
+        with self._tx_cv:
+            if self._closed:
+                raise ConnectionError(f"link to {self.replica_id} closed")
+            self._txq.append(msg)
+            if not self._tx_busy:
+                self._tx_cv.notify_all()
+        return 0
+
+    def _ring_sender(self, tx: "wire.ShmRing") -> None:
+        """Hands a ring link's queued data frames to the ring, oldest
+        first.  A ring holds two frames, so a caller pushing one event a
+        frame would wait on the replica's reader every other event; here
+        the caller only queues, and what queued while the ring was full
+        leaves as one frame a tenant (`_coalesce`), and the events it
+        sends wake the ring reader.  A frame larger than
+        a slab, or one the ring refuses (closed, or no slab freed within
+        the push's timeout), goes on the TCP socket, whose failure is
+        the link's death: the failover resends the link's events from
+        the router's admission journal."""
+        while True:
+            with self._tx_cv:
+                while not self._txq and not self._closed:
+                    self._tx_cv.wait()
+                if self._closed:
+                    self._txq.clear()
+                    self._tx_cv.notify_all()
+                    return
+                batch, self._txq = self._txq, []
+                self._tx_busy = True
+            try:
+                for msg in _coalesce(batch):
+                    try:
+                        payload = wire.encode_payload(msg)
+                    except (TypeError, ValueError) as e:
+                        for eid in msg.get("ids") or [msg["id"]]:
+                            self._on_score(self.replica_id, {
+                                "id": eid, "error": repr(e)[:300]})
+                        continue
+                    events = len(msg["ids"]) if "ids" in msg else 1
+                    with self._rx_cv:
+                        # Counted before the push: the response can
+                        # come back before push() returns.
+                        self._ring_out += events
+                        if self._ring_out == events:
+                            self._rx_cv.notify_all()
+                    if len(payload) <= tx.capacity() and tx.push(payload):
+                        nbytes = len(payload)
+                    else:
+                        with self._rx_cv:
+                            self._ring_out -= events
+                        nbytes = wire.send_frame(self._data, msg,
+                                                 self._data_wlock)
+                    if self._on_bytes is not None:
+                        self._on_bytes(self.replica_id, nbytes)
+            except OSError as e:
+                with self._tx_cv:
+                    closed = self._closed
+                    self._tx_busy = False
+                    self._tx_cv.notify_all()
+                if not closed:
+                    self._on_down(self.replica_id, f"send failed: {e!r}")
+                return
+            with self._tx_cv:
+                self._tx_busy = False
+                self._tx_cv.notify_all()
+
+    def wait_sent(self, timeout_s: float) -> None:
+        """Wait until the sender has handed over every queued frame, so
+        a flush op on the control connection does not pass the submits
+        it should flush."""
+        with self._tx_cv:
+            self._tx_cv.wait_for(
+                lambda: self._closed or not (self._txq or self._tx_busy),
+                timeout_s)
 
     def close(self) -> None:
         with self._call_lock:
             self._closed = True
+        for cv in (self._tx_cv, self._rx_cv):
+            with cv:
+                cv.notify_all()
+        for ring in (self.shm_tx, self.shm_rx):
+            if ring is not None:
+                ring.close()
         for s in (self._data, self._ctrl):
             try:
                 s.close()
             except OSError:
                 pass
+
+
+def _coalesce(batch: "list[dict]"):
+    """Queued submit and submit_many frames -> the frames to send: one a
+    tenant, in the order the tenants first appear, each tenant's events
+    in their order; a tenant's lone event stays a submit."""
+    groups: "dict[str, tuple[list, list]]" = {}
+    for msg in batch:
+        ids, raws = groups.setdefault(msg["tenant"], ([], []))
+        if msg["op"] == "submit":
+            ids.append(msg["id"])
+            raws.append(msg["raw"])
+        else:
+            ids.extend(msg["ids"])
+            raws.extend(msg["raws"])
+    for tenant, (ids, raws) in groups.items():
+        if len(ids) == 1:
+            yield {"op": "submit", "id": ids[0], "tenant": tenant,
+                   "raw": raws[0]}
+        else:
+            yield {"op": "submit_many", "ids": ids, "tenant": tenant,
+                   "raws": raws}
 
 
 class FleetRouter:
@@ -263,6 +444,8 @@ class FleetRouter:
             replica_id, host, port,
             op_timeout_s=self.config.route_op_timeout_s,
             on_score=self._on_score, on_down=self._on_link_down,
+            want_shm=self.config.wire_shm,
+            on_bytes=lambda r, nbytes: self._note_edge(r, nbytes, 0),
         )
         with self._cond:
             if replica_id in self._links:
@@ -274,7 +457,7 @@ class FleetRouter:
         self._journal_safe({
             "kind": "wire", "edge": replica_id,
             "router": self.router_id, "format": "columnar",
-            "shm": False,
+            "shm": link.shm_tx is not None,
         })
         if self._membership is not None:
             # A respawned replica under a previously-failed id must
@@ -563,6 +746,7 @@ class FleetRouter:
             links = list(self._links.values())
         for link in links:
             try:
+                link.wait_sent(self.config.route_op_timeout_s)
                 link.call({"op": "flush"})
             except Exception:
                 pass
@@ -1049,6 +1233,19 @@ class FleetRouter:
                 "failovers": list(self._failovers),
             }
 
+    def wire(self) -> "dict[str, dict]":
+        """Each live link's transport: the codec, whether its data
+        frames ride a shared-memory ring pair (what each link's `wire`
+        journal record says at connect), and the ring segments' names
+        (the replica owns and unlinks them)."""
+        with self._cond:
+            links = dict(self._links)
+        return {r: {"format": "columnar", "shm": link.shm_tx is not None,
+                    "segments": [ring.name for ring in
+                                 (link.shm_tx, link.shm_rx)
+                                 if ring is not None]}
+                for r, link in sorted(links.items())}
+
     def replica_stats(self) -> "dict[str, dict]":
         """stats op fanned out to every live replica (compile
         counters, scored totals — the zero-retrace proof reads off
@@ -1075,6 +1272,7 @@ class FleetRouter:
             self._monitor.join(timeout=5.0)
         for link in links.values():
             try:
+                link.wait_sent(timeout_s)
                 link.call({"op": "flush"})
             except Exception:
                 pass

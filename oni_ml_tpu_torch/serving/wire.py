@@ -1,5 +1,5 @@
-"""Columnar serving wire (port of oni_ml_tpu/serving/wire.py without its
-same-host shared-memory ring).
+"""Columnar serving wire and the same-host shared-memory ring (port of
+oni_ml_tpu/serving/wire.py).
 
 Router <-> replica frames carry typed arrays as raw buffers with
 dtype/shape descriptors and decode as zero-copy numpy views over the
@@ -45,9 +45,19 @@ Score batches (the replica resolver's coalesced responses) get a frame
 kind of their own: ids/scores/versions as three columns, so float64
 scores round-trip bit-identical.
 
-The JAX package's ``ShmRing`` (the same-host shared-memory data path
-that a ``hello`` with ``shm`` negotiates) is not ported: every frame
-here travels over TCP (ROADMAP Queue 1 item 7, replicated (rest)).
+``ShmRing``: a same-host router <-> replica pair whose ``hello``
+negotiated ``shm`` moves its data frames onto two of these rings (one a
+direction): two fixed shared-memory slabs (``multiprocessing.
+shared_memory``) double-buffered under a lock-free seqlock header.  The
+producer fills slab ``wseq % 2`` while the consumer drains the other;
+publication is a seqlock'd counter bump (the writer makes the guard odd,
+writes, makes it even; the reader rereads until it is stable), so
+neither side takes a lock the other can die holding, and a SIGKILL'd
+peer leaves nothing to clean but the segment.  The 64-byte header, its
+``OCWR`` magic and ``WIRE_VERSION`` byte and the slab layout are the JAX
+package's, so either package's ring attaches to the other's segment.
+The TCP connection stays open as the liveness/EOF signal and carries
+any frame larger than a slab.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ import json
 import socket
 import struct
 import threading
+import time
 
 import numpy as np
 
@@ -458,3 +469,269 @@ def _recv_exact(sock: socket.socket, n: int) -> bytes:
         parts.append(chunk)
         n -= len(chunk)
     return b"".join(parts)
+
+
+# ---------------------------------------------------------------------------
+# same-host shared-memory ring
+# ---------------------------------------------------------------------------
+
+_RING_MAGIC = b"OCWR"
+
+
+class _RingStuck(ConnectionError):
+    """The seqlock guard never stabilized: the peer died between its odd
+    and even guard writes (SIGKILL inside _locked_write).  push/pop turn
+    this into their closed-ring return values, so callers fall back to
+    the TCP path."""
+
+
+# Header: magic+ver (8) | pseq (8) | wseq (8) | len0 (8) | len1 (8)
+#         | cseq (8) | rseq (8) | closed (8)
+_RING_HDR = 64
+_Q = struct.Struct("<Q")
+_OFF_PSEQ, _OFF_WSEQ, _OFF_LEN0, _OFF_LEN1 = 8, 16, 24, 32
+_OFF_CSEQ, _OFF_RSEQ, _OFF_CLOSED = 40, 48, 56
+
+
+class ShmRing:
+    """Single-producer single-consumer frame ring over one shared-memory
+    segment: two fixed slabs, double-buffered, published through a
+    lock-free seqlock header.  The producer fills slab ``wseq % 2`` while
+    the consumer drains slab ``rseq % 2``; a slab is reused only after
+    the consumer's seqlock'd ``rseq`` bump acknowledges it, so frame
+    bytes are never overwritten while the peer may still read them.  No
+    locks, no fds, no syscalls on the hot path: a SIGKILL'd peer leaves
+    the ring consistent and the survivor's poll simply times out.  The
+    one inconsistent death, between the odd and even guard writes of a
+    publish, is bounded by ``_SEQLOCK_STUCK_S``: a guard that never
+    stabilizes marks the ring closed and the survivor degrades to TCP.
+
+    Both sides wait as the JAX ring does: 64 polls with ``sleep(0)``,
+    then sleeps that grow by 10 µs a poll to 1 ms."""
+
+    # How long a reader rereads an odd or unstable guard before declaring
+    # the writer dead mid-publish (a live writer holds it odd for a few
+    # header stores).
+    _SEQLOCK_STUCK_S = 2.0
+
+    def __init__(self, shm, slab_bytes: int, *, owner: bool) -> None:
+        self._shm = shm
+        self._buf = shm.buf
+        self._slab = slab_bytes
+        self._owner = owner
+        self._unlinked = False
+        self.name = shm.name
+
+    # -- construction ------------------------------------------------------
+
+    @classmethod
+    def create(cls, slab_bytes: int) -> "ShmRing":
+        from multiprocessing import shared_memory
+
+        shm = shared_memory.SharedMemory(
+            create=True, size=_RING_HDR + 2 * slab_bytes)
+        shm.buf[:_RING_HDR] = bytes(_RING_HDR)
+        shm.buf[:4] = _RING_MAGIC
+        shm.buf[4] = WIRE_VERSION
+        return cls(shm, slab_bytes, owner=True)
+
+    @classmethod
+    def attach(cls, name: str, slab_bytes: int) -> "ShmRing":
+        from multiprocessing import shared_memory
+
+        shm = shared_memory.SharedMemory(name=name)
+        # Before Python 3.13 the attaching side's resource_tracker would
+        # unlink the segment when this process exits, pulling it from
+        # the owner: unregister it here; the creating side owns cleanup.
+        try:
+            from multiprocessing import resource_tracker
+
+            resource_tracker.unregister(shm._name, "shared_memory")
+        except Exception:
+            pass
+        if bytes(shm.buf[:4]) != _RING_MAGIC:
+            shm.close()
+            raise ConnectionError(f"shm segment {name!r} is not a ring")
+        if shm.buf[4] != WIRE_VERSION:
+            ver = shm.buf[4]
+            shm.close()
+            raise ConnectionError(
+                f"ring version mismatch: segment v{ver}, this end "
+                f"speaks v{WIRE_VERSION}")
+        if shm.size < _RING_HDR + 2 * slab_bytes:
+            shm.close()
+            raise ConnectionError(
+                f"shm segment {name!r} holds {shm.size} bytes, too few "
+                f"for two {slab_bytes}-byte slabs")
+        return cls(shm, slab_bytes, owner=False)
+
+    # -- seqlock'd header fields ------------------------------------------
+
+    def _read_u64(self, off: int) -> int:
+        return _Q.unpack_from(self._buf, off)[0]
+
+    def _write_u64(self, off: int, value: int) -> None:
+        _Q.pack_into(self._buf, off, value)
+
+    def _locked_write(self, seq_off: int, field_writes) -> None:
+        """Writer side of the seqlock: guard odd -> fields -> guard even.
+        Each guard has one writer (pseq: the producer, cseq: the
+        consumer), so no compare-and-swap is needed."""
+        seq = self._read_u64(seq_off)
+        self._write_u64(seq_off, seq + 1)
+        for off, value in field_writes:
+            self._write_u64(off, value)
+        self._write_u64(seq_off, seq + 2)
+
+    def _stable_read(self, seq_off: int, field_offs) -> "list[int]":
+        """Reader side: retry until the guard is even and unchanged across
+        the field reads.  Bounded: a guard that stays odd or unstable
+        past ``_SEQLOCK_STUCK_S`` means the writer died between its guard
+        writes, so the ring is marked closed (for both ends) and
+        _RingStuck raised instead of spinning forever."""
+        deadline = None
+        spin = 0
+        while True:
+            s0 = self._read_u64(seq_off)
+            if not (s0 & 1):
+                vals = [self._read_u64(off) for off in field_offs]
+                if self._read_u64(seq_off) == s0:
+                    return vals
+            spin += 1
+            if spin <= 64:
+                continue    # real contention resolves in a few reads
+            if deadline is None:
+                deadline = time.monotonic() + self._SEQLOCK_STUCK_S
+            elif time.monotonic() > deadline:
+                try:
+                    self._buf[_OFF_CLOSED] = 1
+                except (TypeError, ValueError):
+                    pass    # this side's mapping is already released
+                raise _RingStuck(
+                    f"shm ring seqlock stuck for {self._SEQLOCK_STUCK_S}s: "
+                    "the peer died mid-write; ring closed")
+            time.sleep(1e-5)
+
+    # -- data path ---------------------------------------------------------
+
+    @property
+    def closed(self) -> bool:
+        try:
+            return bool(self._buf[_OFF_CLOSED])
+        except (TypeError, ValueError):
+            return True    # this side's mapping is already released
+
+    def capacity(self) -> int:
+        return self._slab
+
+    def push(self, payload, timeout_s: float = 5.0) -> bool:
+        """Producer: claim the free slab, copy `payload` in, publish.
+        False when the peer closed the ring or no slab freed within the
+        timeout (the caller falls back to TCP)."""
+        try:
+            return self._push(payload, timeout_s)
+        except _RingStuck:
+            return False        # the peer died mid-publish: ring dead
+        except (TypeError, ValueError) as e:
+            if "released" in str(e):
+                return False    # close() raced this push: ring gone
+            raise
+
+    def _push(self, payload, timeout_s: float) -> bool:
+        n = len(payload)
+        if n > self._slab:
+            raise ValueError(
+                f"frame of {n} bytes exceeds ring slab "
+                f"({self._slab} bytes)")
+        deadline = time.monotonic() + timeout_s
+        spin = 0
+        while True:
+            if self.closed:
+                return False
+            wseq = self._stable_read(_OFF_PSEQ, (_OFF_WSEQ,))[0]
+            rseq = self._stable_read(_OFF_CSEQ, (_OFF_RSEQ,))[0]
+            if wseq - rseq < 2:
+                break
+            spin += 1
+            if spin > 64:
+                if time.monotonic() > deadline:
+                    return False
+                time.sleep(min(1e-3, 1e-5 * spin))
+        slab = wseq % 2
+        start = _RING_HDR + slab * self._slab
+        self._buf[start:start + n] = payload
+        self._locked_write(_OFF_PSEQ, (
+            (_OFF_LEN0 if slab == 0 else _OFF_LEN1, n),
+            (_OFF_WSEQ, wseq + 1),
+        ))
+        return True
+
+    def pop(self, timeout_s: float = 0.25) -> "bytes | None":
+        """Consumer: copy the oldest published slab out and acknowledge
+        it.  None on timeout; `closed` tells quiescence from shutdown
+        (published slabs still drain after a close)."""
+        try:
+            return self._pop(timeout_s)
+        except ConnectionError:
+            return None         # a dead or corrupt writer: ring closed
+        except (TypeError, ValueError) as e:
+            if "released" in str(e):
+                return None     # close() raced this pop: ring gone
+            raise
+
+    def _pop(self, timeout_s: float) -> "bytes | None":
+        deadline = time.monotonic() + timeout_s
+        spin = 0
+        while True:
+            rseq = self._stable_read(_OFF_CSEQ, (_OFF_RSEQ,))[0]
+            wseq, len0, len1 = self._stable_read(
+                _OFF_PSEQ, (_OFF_WSEQ, _OFF_LEN0, _OFF_LEN1))
+            if wseq > rseq:
+                break
+            if self.closed or time.monotonic() > deadline:
+                return None
+            spin += 1
+            time.sleep(0 if spin < 64 else min(1e-3, 1e-5 * spin))
+        slab = rseq % 2
+        n = len0 if slab == 0 else len1
+        if n > self._slab:
+            self._buf[_OFF_CLOSED] = 1
+            raise ConnectionError(
+                f"ring slab announces {n} bytes, more than its "
+                f"{self._slab}; ring closed")
+        start = _RING_HDR + slab * self._slab
+        payload = bytes(self._buf[start:start + n])
+        self._locked_write(_OFF_CSEQ, ((_OFF_RSEQ, rseq + 1),))
+        return payload
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def close(self) -> None:
+        """Signal the peer and drop this side's mapping.  The owner also
+        unlinks the segment (once)."""
+        try:
+            self._buf[_OFF_CLOSED] = 1
+        except (TypeError, ValueError):
+            pass    # mapping already released
+        try:
+            self._shm.close()
+        except Exception:
+            pass
+        if self._owner and not self._unlinked:
+            self._unlinked = True
+            # With both ends in one process (in-process replicas) the
+            # attaching side's unregister removed the tracker's entry,
+            # and unlink() unregisters again, which the tracker logs as
+            # a KeyError.  Registering first keeps the owner's unlink
+            # clean in both layouts; the once-flag keeps a second close
+            # from registering a segment that is gone.
+            try:
+                from multiprocessing import resource_tracker
+
+                resource_tracker.register(self._shm._name, "shared_memory")
+            except Exception:
+                pass
+            try:
+                self._shm.unlink()
+            except Exception:
+                pass

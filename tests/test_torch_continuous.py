@@ -516,7 +516,6 @@ def test_cli_two_streams_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--replicated", "2"], "Queue 1 item 7"),
     (["--multihost"], "Queue 1 item 6"),
 ])
 def test_cli_refuses_unported_flags(tmp_path, capsys, flags, item):

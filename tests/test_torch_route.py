@@ -23,7 +23,6 @@ import sys
 import time
 
 import numpy as np
-import pytest
 
 from oni_ml_tpu.runner import ml_ops as jml_ops
 from oni_ml_tpu_torch.config import ScoringConfig, ServingConfig
@@ -70,20 +69,6 @@ def test_route_dry_run_matches_the_jax_cli(capsys):
     assert _shape(port) == _shape(jax)
     assert [set(r) for r in port["failovers"]] == \
         [set(r) for r in jax["failovers"]]
-
-
-@pytest.mark.parametrize("argv", [
-    ["route", "--autoscale", "--dry-run", "synthetic"],
-    ["route", "--kv-listen", ":0", "--fleet", "m.json"],
-    ["route", "--kv-connect", "127.0.0.1:1", "--fleet", "m.json"],
-    ["replica", "--id", "r0", "--kv-connect", "127.0.0.1:1"],
-    ["continuous", "--replicated", "2"],
-])
-def test_deferred_flags_exit_2_naming_the_roadmap(argv, capsys):
-    assert ml_ops.main(argv) == 2
-    out = capsys.readouterr().out
-    assert "not ported yet" in out
-    assert "item 7, replicated (rest)" in out
 
 
 def test_replica_subprocess_spawn_and_shutdown(tmp_path):
