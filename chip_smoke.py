@@ -111,7 +111,7 @@ Phases (any failure exits non-zero before the result line):
              per-token likelihoods within RTOL_E2E; the card's quality run
              with --publish DIR: DIR/<fdate> holds the day's bytes.
    serve     `ml_ops serve` over the 2M flow and DNS days' models, each
-             streamed 196,608 raw events of its own input: refresh off,
+             streamed 131,072 raw events of its own input: refresh off,
              the first 32,768 with every flush on the host (bit-equal to
              the day's own scores over features.pkl) and with every flush
              on the card (rel 1e-6); then all of them at the ServingConfig
@@ -133,7 +133,7 @@ Phases (any failure exits non-zero before the result line):
              each member's launches.  `serve --dry-run` on cuda.
    fleet     `serve --fleet` on the card: nine tenants (the 2M flow and
              DNS days' models, three perturbed variants of each, and a
-             K=10 model trained here on the small flow day), 196,608 raw
+             K=10 model trained here on the small flow day), 147,456 raw
              events interleaved across them.  The defaults (device
              featurize engine, calibrated dispatch), each tenant
              refreshing every 8 of its flushes: every tenant's scores
@@ -150,7 +150,7 @@ Phases (any failure exits non-zero before the result line):
              measure_break_even recorded in the run's plan cache; the
              CLI over the two day dirs with 8 tenant names; `serve
              --dry-run --fleet synthetic:4` on cuda.
-7. profile   20 EM iterations over the flow day's corpus four ways (sparse
+7. profile   10 EM iterations over the flow day's corpus four ways (sparse
              engine under the chunk driver, sparse under the stepwise
              driver, dense and per-batch pallas under the chunk driver):
              wall without the
@@ -163,7 +163,7 @@ Phases (any failure exits non-zero before the result line):
              day's batches against index_add_.
 
    continuous  `ml_ops continuous` on the card (runner/continuous.py):
-             (1) the small flow day's first 2 event hours in 300-s slices
+             (1) the small flow day's first event hour in 300-s slices
              at the ContinuousConfig defaults through ContinuousService
              on the card and on the CPU, pinned to the sparse engine, the
              dense engine (under the chunk driver, fused_em_chunk 16) and
@@ -176,11 +176,13 @@ Phases (any failure exits non-zero before the result line):
              crossover: a warm refresh past the warm-up boundary, the
              fresh control run, no build past the boundary, the sparse
              kernel and scatter launched; (3) the 2M flow and DNS days'
-             first 3 event hours interleaved and paced at 160x event time
+             first 3 event hours interleaved and paced at 240x event time
              through the in-process fleet with and without the
-             co-scheduler; (4) the CLI as a
+             co-scheduler, every tenant scoring in both (each tenant's
+             first fit: its wall, summed yield wait and where the
+             co-scheduler's first-fit bound acted); (4) the CLI as two
              subprocesses at once (single tenant, two --stream tenants),
-             the refusal of --multihost (exit 2).  Every
+             the refusal of --multihost with --stream (exit 2).  Every
              run: exactly once (scored + rejected + unserved before the
              first publish = ingested, scored = offered), no failed
              future, no refresh error or refresh_abandon record.  Prints
@@ -194,11 +196,11 @@ Phases (any failure exits non-zero before the result line):
              (three names over the 2M flow day's model, three over the
              DNS day's), 30,000 of their raw events interleaved on stdin
              of `route --replicas 3 --device cuda --device-score-min 1
-             --kv-listen 127.0.0.1:0 --autoscale --max-inflight 64`
+             --kv-listen 127.0.0.1:0 --autoscale --max-inflight 32`
              (every flush of the spawned replica processes on the card,
              the replicas joined through the route process's TCP KV,
              their links on shared-memory rings, the autoscaler at its
-             default band over windows of 64 events a replica, which
+             default band over windows of 32 events a replica, which
              the flood fills), a rolling redeploy halfway: exit 0,
              every event resolved once, no error, every link on rings,
              an autoscale "up" and no "error" decision, an autoscaled
@@ -229,13 +231,33 @@ Phases (any failure exits non-zero before the result line):
              refresh walls, the first refit walls with rings and over TCP, the
              first publish's lead before the stream's end and the
              kernels' launches.
+   multihost `ml_ops --multihost` (distributed EM over rank processes,
+             each its own CUDA context on the one card, torchrun's
+             variables): the 2M flow day at --em-shards 8 as one rank
+             (local transport), two ranks (kvring) and one rank with
+             the NCCL transport named (ONI_ML_TPU_ALLREDUCE=psum), one
+             world after the other: final.*, likelihood.dat and the
+             results CSVs the same bytes in all three, each world on
+             its own transport, the likelihood at the last EM iteration
+             both ran within rel 1e-4 of the serial pipeline run's.
+             Then at once: the small flow day --online on two ranks and
+             on one (per micro-batch within rel 1e-4), on two ranks
+             pinned to the dense kernel and to the fixed point, and
+             `continuous --multihost` on two ranks over the small day's
+             first 3 event hours (both ranks publish, the same model
+             digests refresh for refresh).  Every world's ranks agree
+             (the trainers check their models' bits); every kernel
+             launched in the rank processes (each counts its own).
+             Prints per rank the stage walls, EM iterations and wall,
+             launches, allreduce ops, bytes and wait.
 
 Then it prints the kernels line (each kernel with its launches on its
 flow-day path, as `dns_launches` on the DNS day's, as
 `online_launches` on its online run's, as `launches_serve` on the
 served streams', as `launches_fleet` on the fleet's and as
-`launches_continuous` on the continuous service's and as
-`launches_replicated` on the replicated fleet's), the card's name
+`launches_continuous` on the continuous service's, as
+`launches_replicated` on the replicated fleet's and as
+`launches_multihost` on the rank processes'), the card's name
 and power limit, and last `{"ok": true, "device": {...}}`.  Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
 """
@@ -245,6 +267,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -295,7 +318,7 @@ PIPELINE_EVENTS = 2_000_000
 DNS_EVENTS = 2_000_000
 # Host-clock walls vary between calls (the host's cores are shared):
 # each profiled wall is the median of this many runs.
-WALL_REPS = 3
+WALL_REPS = 2
 REPLACES = {
     "sparse_estep": "oni_ml_tpu/ops/sparse_estep.py:204",    # _sparse_kernel
     "sparse_scatter": "oni_ml_tpu/ops/sparse_estep.py:424",  # XLA segment_sum
@@ -791,6 +814,9 @@ def pipeline(tmp):
     if missing:
         fail(f"pipeline artifacts missing: {missing}")
     lda, corpus = recs["lda"], recs["corpus"]
+    _SERIAL_LDA["flow"] = lda
+    _SERIAL_LDA["flow_lls"] = formats.read_likelihood(
+        os.path.join(day, "likelihood.dat"))[:, 0]
     check_day(day, recs, corpus, lda)
     # The crossover's measurement ran E-steps of both engines inside the
     # pipeline (its warm-up and timed runs): their launches are the
@@ -1778,11 +1804,13 @@ def evaluate(tmp, raw):
 
 # Serving (`ml_ops serve`): the two 2M days' models, each streamed
 # SERVE_EVENTS raw events of its own input at the ServingConfig defaults.
-# 196,608 events = 48 flushes of max_batch, 6 refreshes.  Cut from
+# 131,072 events = 32 flushes of max_batch, 4 refreshes.  Cut from
 # 262,144 (64 flushes), whose phase took 97-104 s on the card and
-# brought the whole run to ~520 s; the parity streams (refresh off, host
-# pinned or every flush on the card) take the first 32,768 (8 flushes).
-SERVE_EVENTS = 196_608
+# brought the whole run to ~520 s, then from 196,608 (48 flushes,
+# 54.6-85.2 s) to make room for the multihost phase; the parity streams
+# (refresh off, host pinned or every flush on the card) take the first
+# 32,768 (8 flushes).
+SERVE_EVENTS = 131_072
 SERVE_REFRESH_EVERY = 8
 SERVE_PARITY_EVENTS = 32_768
 # The per-batch members' served streams: one refresh, then a flush on
@@ -2206,8 +2234,9 @@ def serve_phase(tmp):
 # K=10 tenant trained here on the small flow day, so the card runs two
 # pack groups.  The default stream gives each 2M-day tenant its day's
 # first FLEET_BIG_EVENTS raw events and the K=10 tenant its first
-# FLEET_SMALL_EVENTS: 196,608 events, interleaved round-robin.
-FLEET_BIG_EVENTS = 22_528
+# FLEET_SMALL_EVENTS: 147,456 events, interleaved round-robin (196,608,
+# 22,528 a 2M-day tenant, until the multihost phase needed the room).
+FLEET_BIG_EVENTS = 16_384
 FLEET_SMALL_EVENTS = 16_384
 FLEET_REFRESH_EVERY = 8
 FLEET_VARIANT_SEEDS = (101, 102, 103)
@@ -2711,24 +2740,26 @@ def fleet_phase(tmp, raws):
 CONT_SLICE_S = 300.0
 # Cut to size (PERF.md §4), in the order the phase's sizing allows:
 # part 1's 6 event hours to 2 (its CPU runs took 80 of the first run's
-# 214 s), then part 2's 8 to 6 (the floor that still passes the 9
-# warm-up refreshes).  Part 3 runs 3 hours: both tenants' first refits
+# 214 s), then to 1 (a fresh fit and a warm one per engine: the CPU runs
+# took 47 of its 49 s at 2), then part 2's 8 to 6 (the floor that still
+# passes the 9 warm-up refreshes).  Part 3 runs 3 hours: both tenants' first refits
 # fall due 30 event minutes in and run one after the other on the one
 # refresh worker, and under the fleet's ingest the flow day's first fit
 # took 6.6-16.5 s where it takes 3.0 s alone, so at 2 hours (30 s paced)
 # its first publish landed 1.3-6.3 s before the stream's end, or after.
-CONT_SMALL_HOURS = 2
+CONT_SMALL_HOURS = 1
 CONT_FLOW_HOURS = 6
 CONT_FLEET_HOURS = 3
 # Part 3's replay pace (event seconds per wall second): unpaced, the
 # ingest ran through 2 event hours before the first refit published, so
 # nothing was scored and no serve slot met a refit.  At 240x one tenant's
-# in-process scoring kept the serve plane near saturation once its model
+# in-process scoring keeps the serve plane near saturation once its model
 # published (~5,500 events/s against ~6,600 scored a second), and the
-# co-scheduled fit of the other tenant, yielding to every slot, once
-# missed all 37 s left of the stream; at 160x the stream lasts 67.5 s and
-# one tenant's scoring holds the plane about half the time.
-CONT_FLEET_SPEED = 160.0
+# co-scheduled first fit of the other tenant, yielding to every slot,
+# once missed all 37 s left of the stream; the co-scheduler now bounds a
+# first fit's summed yielding at starvation_s, and the phase checks
+# that every tenant scores.
+CONT_FLEET_SPEED = 240.0
 RTOL_CONT_LL = 1e-4
 # A flagged event that one run flags and the other does not must score
 # within this relative band below the threshold (float32 ties).
@@ -2952,6 +2983,25 @@ def cont_flow_replay(tmp, raw):
     return out, launched
 
 
+def cont_first_fits(path):
+    """The co-scheduler's fit records of first fits in a fleet journal:
+    tenant -> (wall_s, yield_wait_s, first_fit_bound_chunk)."""
+    out = {}
+    if not os.path.exists(path):
+        return out
+    with open(path) as f:
+        for line in f:
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if (rec.get("kind") == "cosched" and rec.get("event") == "fit"
+                    and rec.get("first_publish")):
+                out[rec["tenant"]] = (rec["wall_s"], rec["yield_wait_s"],
+                                      rec["first_fit_bound_chunk"])
+    return out
+
+
 def cont_fleet(tmp):
     """Part 3: the 2M flow and DNS days' first event hours, each from its
     own start, interleaved by event time and paced at CONT_FLEET_SPEED,
@@ -2999,6 +3049,8 @@ def cont_fleet(tmp):
         if not all(led["scored"] for led in ledgers.values()):
             fail(f"continuous fleet {label}: a tenant scored nothing: "
                  f"{ledgers}")
+        first_fits = cont_first_fits(os.path.join(
+            data, "continuous_fleet", "run_journal.jsonl"))
         for name, c in counts.items():
             total[name] = total.get(name, 0) + c
         out[label] = {
@@ -3021,6 +3073,10 @@ def cont_fleet(tmp):
                              r["estep_engine_source"], r["member"])
                             for r in p["refresh_records"]]
                         for t, p in payload["tenants"].items()},
+            # Each tenant's first fit: its wall, its summed yield wait
+            # and the chunk at which the co-scheduler's first-fit bound
+            # stopped the yielding (None: it never acted).
+            "first_fits": first_fits,
         }
         log(f"continuous fleet {label} "
             + json.dumps(out[label], default=str))
@@ -3030,8 +3086,9 @@ def cont_fleet(tmp):
 def cont_cli(tmp, raws):
     """Part 4: `ml_ops continuous` on cuda as two subprocesses at once,
     single tenant and two --stream tenants (their output to files);
-    --multihost refused with exit 2 naming its ROADMAP item
-    (`--replicated` runs in the replicated phase)."""
+    --multihost with --stream refused with exit 2 (the multihost phase
+    runs `continuous --multihost` on one stream; `--replicated` runs in
+    the replicated phase)."""
     import contextlib
     import io
 
@@ -3071,11 +3128,11 @@ def cont_cli(tmp, raws):
                       "publishes": payload["publishes"],
                       "coalesced_refreshes":
                           payload.get("coalesced_refreshes")}
-    for flags, item in ((["--multihost"], "Queue 1 item 6"),):
+    for flags, item in ((["--multihost", "--stream",
+                          f"acme=flow:{raws['flow']}"], "single-stream"),):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rc = continuous.main(["flow", "--flow-path", raws["flow"],
-                                  *flags])
+            rc = continuous.main(flags)
         if rc != 2 or item not in buf.getvalue():
             fail(f"ml_ops continuous {flags[0]}: rc {rc}, "
                  f"{buf.getvalue()!r}")
@@ -3128,10 +3185,12 @@ REPL_INPROC_EVENTS = 4_096
 REPL_REPLICAS = 3
 # The CLI's admission window (`route --max-inflight`): the events each
 # replica may hold.  Its flushes wait up to fleet_max_wait_ms (50 ms)
-# for a batch, so a router that submits faster than REPL_REPLICAS * 64
-# events a 50 ms (3,840 events/s) keeps every window full: the
-# autoscaler's default band (high 0.75) then reads a load over it.
-REPL_MAX_INFLIGHT = 64
+# for a batch, so a router that submits faster than REPL_REPLICAS * 32
+# events a 50 ms (1,920 events/s) keeps every window full: the
+# autoscaler's default band (high 0.75) then reads a load over it.  At
+# 64 (3,840 events/s) the router's ~3,100 events/s on rings held the
+# windows near the band, and one run made no autoscale decision at all.
+REPL_MAX_INFLIGHT = 32
 # `continuous --replicated 2`: the 2M flow and DNS days' first event
 # hours through two spawned replicas on the card, paced as part 3 of the
 # continuous phase.  The kill run replays 2 hours (the binding scores
@@ -3247,7 +3306,9 @@ def repl_cli(tmp, tenants, dev="cuda"):
     if (any(d["action"] == "error" for d in decisions)
             or not scaled or not any(v for v in scaled.values())):
         fail(f"route CLI autoscale: decisions {decisions}, autoscaled "
-             f"replicas scored {scaled}")
+             f"replicas scored {scaled}; stream {summary['stream_s']} s, "
+             f"redeploy {summary['redeploy_s']} s, replicas scored "
+             f"{ {r: s.get('events_scored') for r, s in reps.items()} }")
     return {"tenants": len(names), "events": n, "process_wall_s": wall,
             "stream_s": summary["stream_s"],
             "events_per_s": n / summary["stream_s"],
@@ -3638,6 +3699,281 @@ def replicated_phase(tmp, smi, dev="cuda"):
     return total
 
 
+# The multihost phase (`ml_ops --multihost`: distributed EM over rank
+# processes, each with its own CUDA context on the one card).  The 2M
+# flow day at --em-shards 8 as one rank (local transport), then two
+# ranks (kvring over the rendezvous store), each world alone on the card
+# (their walls are the ones compared); then, at once: the day as one
+# rank with the NCCL transport named (ONI_ML_TPU_ALLREDUCE=psum), the
+# small flow day --online on two ranks and on one, the small day on two
+# ranks pinned to the dense kernel and to the fixed point, and its first
+# MH_CONT_HOURS event hours through `continuous --multihost` on two
+# ranks.  (All one after the other took 111.4 s on the card.)
+MH_SHARDS = 8
+# The distributed day's likelihood against the serial pipeline run's at
+# the last EM iteration both ran: the same EM in another summation order
+# (each shard batched on its own, the fixed pairwise tree).  The last
+# common iteration, not each run's last: one run can stop an iteration
+# before the other, which alone moves the final likelihood by up to
+# em_tol (1e-4).  The gap between is printed, not bounded: mid-fit, as
+# topics rearrange, float32 order differences reach 6e-5 on a 30,000-
+# event CPU rehearsal, and both runs converge to the same optimum.
+RTOL_MH_LL = 1e-4
+MH_SMALL_EM_ITERS = 10
+MH_CONT_HOURS = 3
+MH_WORLD_TIMEOUT_S = 300
+_SERIAL_LDA: dict = {}
+
+
+def mh_start(tmp, label, nprocs, argv, env=None):
+    """One world: `nprocs` rank processes of `python -m
+    oni_ml_tpu_torch.runner.ml_ops *argv` ("{rank}" in an argument
+    replaced by the rank), with torchrun's variables (one MASTER_PORT;
+    RANK and LOCAL_RANK 0..n-1, which all land on cuda:0 of one card);
+    each rank's output to files under `tmp`."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for r in range(nprocs):
+        rank_env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                        MASTER_PORT=str(port), WORLD_SIZE=str(nprocs),
+                        RANK=str(r), LOCAL_RANK=str(r), **(env or {}))
+        base = os.path.join(tmp, f"mh_{label}_r{r}")
+        fo, fe = open(base + ".out", "w"), open(base + ".err", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "oni_ml_tpu_torch.runner.ml_ops",
+             *(a.replace("{rank}", str(r)) for a in argv)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=rank_env,
+            stdout=fo, stderr=fe), base, fo, fe))
+    return {"label": label, "procs": procs, "t0": time.perf_counter()}
+
+
+def mh_finish(world):
+    """Wait for every rank of a world (all killed past
+    MH_WORLD_TIMEOUT_S); fails unless each exited 0.  Returns each rank's
+    {"records": stage -> record, "last": its last JSON line} and the
+    world's wall."""
+    deadline = world["t0"] + MH_WORLD_TIMEOUT_S
+    try:
+        for proc, _, _, _ in world["procs"]:
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc, _, fo, fe in world["procs"]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            fo.close()
+            fe.close()
+    wall = time.perf_counter() - world["t0"]
+    ranks = []
+    for r, (proc, base, _, _) in enumerate(world["procs"]):
+        if proc.returncode != 0:
+            with open(base + ".err") as f:
+                fail(f"multihost {world['label']} rank {r} exited "
+                     f"{proc.returncode}: {f.read()[-2500:]}")
+        records, last = {}, None
+        with open(base + ".out") as f:
+            for line in f:
+                if not line.startswith("{"):
+                    continue
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                last = rec
+                if "stage" in rec:
+                    records[rec["stage"]] = rec
+        ranks.append({"records": records, "last": last})
+    return ranks, wall
+
+
+def mh_rank_summary(rank):
+    """One rank's numbers: stage walls, the fit's iterations and wall,
+    its kernels' launches, its allreduce ops, bytes and wait."""
+    recs = rank["records"]
+    lda = recs["lda"]
+    ar = lda.get("allreduce") or {}
+    iters = max(lda["em_iters"], 1)
+    return {
+        "walls_s": {k: v["wall_s"] for k, v in recs.items()
+                    if "wall_s" in v},
+        "em_iters": lda["em_iters"], "em_s": lda["em_s"],
+        "final_likelihood": lda["final_likelihood"],
+        "engine": lda["engine"], "member": lda["member"],
+        "launches": lda["kernel_launches"], "allreduce": ar,
+        "allreduce_bytes_per_iter": (ar.get("bytes_out", 0)
+                                     + ar.get("bytes_in", 0)) / iters,
+        "allreduce_wait_share": (ar.get("wall_s", 0.0) / lda["em_s"]
+                                 if lda["em_s"] else None),
+    }
+
+
+def mh_parity(label, ranks):
+    """Every rank of a world finished the fit with the same likelihood
+    and iteration count (the trainers check their models' bits)."""
+    seen = {(r["records"]["lda"]["final_likelihood"],
+             r["records"]["lda"]["em_iters"]) for r in ranks}
+    if len(seen) != 1:
+        fail(f"multihost {label}: the ranks disagree: {seen}")
+
+
+def mh_small_worlds(tmp, raws, dev):
+    """Start the small flow day's worlds, all at once: --online on two
+    ranks and on one, two ranks pinned to the dense kernel and to the
+    fixed point, and `continuous --multihost` on two ranks (each its own
+    data dir) over the day's first MH_CONT_HOURS event hours."""
+    small = raws["flow"]
+    cont_raw = os.path.join(tmp, "mh_cont_flow.csv")
+    with open(cont_raw, "w") as f:
+        for sl in cont_slices(small, "flow", MH_CONT_HOURS):
+            f.writelines(sl.lines)
+    day = ["20160122", "flow", "1.1", "--flow-path", small,
+           "--em-max-iters", str(MH_SMALL_EM_ITERS), "--multihost",
+           "--em-shards", str(MH_SHARDS)]
+    plan = {
+        "online_2": (2, [*day, "--online"], None),
+        "online_1": (1, [*day, "--online"], None),
+        "dense_2": (2, day, {"ONI_ML_TPU_ESTEP": "dense"}),
+        "pallas_2": (2, day, {"ONI_ML_TPU_ESTEP": "pallas"}),
+        "continuous_2": (2, ["continuous", "flow", "--flow-path", cont_raw,
+                             "--no-sleep", "--multihost"], None),
+    }
+    started = {}
+    for label, (nprocs, argv, env) in plan.items():
+        data = os.path.join(tmp, f"mh_{label}")
+        if label == "continuous_2":
+            data += "_r{rank}"
+        started[label] = mh_start(tmp, label, nprocs,
+                                  [*argv, "--data-dir", data, "--device",
+                                   dev], env)
+    return started
+
+
+def multihost_phase(tmp, raws, dev="cuda"):
+    """`ml_ops --multihost` on the card (see MH_SHARDS above).  The day's
+    three worlds: final.*, likelihood.dat and the results CSVs byte for
+    byte the same, each world's transport its own, the likelihood within
+    RTOL_MH_LL of the serial pipeline run's.  Online: two ranks against
+    one within RTOL_MH_LL per micro-batch.  Continuous: both ranks
+    published, the same model digests refresh for refresh.  Every
+    kernel launched in the phase's rank processes (each process counts
+    its own from 0: the lda records' `kernel_launches`).  Returns the
+    launches per kernel."""
+    t0 = time.perf_counter()
+    serial = _SERIAL_LDA["flow"]
+    out, total = {"day": {}}, {}
+    day_dirs = {}
+
+    def add(ranks):
+        for rank in ranks:
+            for name, n in rank["records"]["lda"]["kernel_launches"].items():
+                total[name] = total.get(name, 0) + n
+
+    def day_world(label, nprocs, env):
+        return mh_start(tmp, f"day_{label}", nprocs, [
+            "20160122", "flow", "1e-20", "--flow-path",
+            os.path.join(tmp, "flow_day.csv"), "--data-dir",
+            os.path.join(tmp, f"mh_day_{label}"), "--multihost",
+            "--em-shards", str(MH_SHARDS), "--device", dev], env)
+
+    def check_day_world(label, nprocs, world):
+        data = os.path.join(tmp, f"mh_day_{label}")
+        ranks, wall = mh_finish(world)
+        mh_parity(label, ranks)
+        lda = ranks[0]["records"]["lda"]
+        ar = lda["allreduce"]
+        if (ar["transport"] != label or ar["nprocs"] != nprocs
+                or lda["em_shards"]["value"] != MH_SHARDS
+                or lda["driver"] != "distributed"):
+            fail(f"multihost day {label}: transport {ar}, shards "
+                 f"{lda.get('em_shards')}, driver {lda['driver']}")
+        if label != "local" and ar["ops"] < lda["em_iters"]:
+            fail(f"multihost day {label}: {ar['ops']} allreduce ops for "
+                 f"{lda['em_iters']} EM iterations")
+        lls = formats.read_likelihood(os.path.join(
+            data, "20160122", "likelihood.dat"))[:, 0]
+        ref = _SERIAL_LDA["flow_lls"]
+        n = min(len(lls), len(ref))
+        gaps = np.abs(lls[:n] - ref[:n]) / np.abs(ref[:n])
+        rel = float(gaps[-1])
+        if rel > RTOL_MH_LL:
+            fail(f"multihost day {label}: likelihoods {lls.tolist()} "
+                 f"against the serial run's {ref.tolist()} (rel {rel:.3g})")
+        add(ranks)
+        day_dirs[label] = os.path.join(data, "20160122")
+        out["day"][label] = {
+            "wall_s": wall, "ll_rel_to_serial": rel,
+            "ll_rel_to_serial_max_over_iterations": float(gaps.max()),
+            "em_iters_vs_serial": [len(lls), len(ref)],
+            "serial": {k: serial[k] for k in ("em_iters", "em_s",
+                                              "final_likelihood",
+                                              "engine", "member")},
+            "ranks": [mh_rank_summary(r) for r in ranks]}
+
+    # One rank, then two, alone on the card: their walls are the ones
+    # compared.
+    check_day_world("local", 1, day_world("local", 1, None))
+    check_day_world("kvring", 2, day_world("kvring", 2, None))
+    # The small day's worlds and the NCCL world, at once.
+    psum = day_world("psum", 1, {"ONI_ML_TPU_ALLREDUCE": "psum"})
+    started = mh_small_worlds(tmp, raws, dev)
+    check_day_world("psum", 1, psum)
+    names = ("final.beta", "final.gamma", "final.other", "likelihood.dat",
+             "doc_results.csv", "word_results.csv", "flow_results.csv")
+    same = {w: same_files(day_dirs["local"], day_dirs[w], names)
+            for w in ("kvring", "psum")}
+    members = {w: v["ranks"][0]["member"] for w, v in out["day"].items()}
+    if not all(all(v.values()) for v in same.values()) or \
+            len(set(members.values())) != 1:
+        fail(f"multihost day: bytes against one rank {same}, members "
+             f"{members}")
+    out["day_bytes_equal"] = same
+    done = {label: mh_finish(w) for label, w in started.items()}
+    for label in ("online_2", "online_1", "dense_2", "pallas_2"):
+        ranks, wall = done[label]
+        mh_parity(label, ranks)
+        add(ranks)
+        out[label] = {"wall_s": wall,
+                      "ranks": [mh_rank_summary(r) for r in ranks]}
+    for label, member, kernel in (("dense_2", "dense", "dense_estep"),
+                                  ("pallas_2", "per_batch:pallas",
+                                   "fixed_point_estep")):
+        lda = done[label][0][0]["records"]["lda"]
+        if lda["member"] != member or lda["kernel_launches"][kernel] <= 0:
+            fail(f"multihost {label}: member {lda['member']}, launches "
+                 f"{lda['kernel_launches']}")
+    lls = {}
+    for label in ("online_2", "online_1"):
+        lls[label] = formats.read_likelihood(os.path.join(
+            tmp, f"mh_{label}", "20160122", "likelihood.dat"))[:, 0]
+    a, b = lls["online_2"], lls["online_1"]
+    if a.shape != b.shape or not np.allclose(a, b, rtol=RTOL_MH_LL, atol=0):
+        fail(f"multihost online: two ranks' likelihoods {a.tolist()} "
+             f"against one rank's {b.tolist()}")
+    out["online_max_rel"] = float(np.max(np.abs(a - b) / np.abs(b)))
+    ranks, wall = done["continuous_2"]
+    digests = [[(r["refresh"], r.get("model_sha256"), r["published"])
+                for r in rank["last"]["refresh_records"]] for rank in ranks]
+    pubs = [rank["last"]["publishes"] for rank in ranks]
+    if (digests[0] != digests[1] or min(pubs) < 1
+            or any(d[1] is None for d in digests[0])
+            or any(rank["last"].get("refresh_errors") for rank in ranks)):
+        fail(f"multihost continuous: digests {digests}, publishes {pubs}")
+    out["continuous_2"] = {"wall_s": wall, "publishes": pubs,
+                           "refreshes": len(digests[0]),
+                           "events": ranks[0]["last"]["events"]}
+    if any(total.get(name, 0) <= 0 for name in SOURCES):
+        fail(f"multihost path: a kernel never launched: {total}")
+    out["launches_multihost"] = total
+    out["phase_s"] = time.perf_counter() - t0
+    log("multihost " + json.dumps(out, default=str))
+    log(f"multihost phase: {out['phase_s']:.1f} s")
+    return total
+
+
 def check_launches(engine, lda, counts, extra=None):
     """Each kernel of the family member `engine` launched once per batch
     per EM iteration enqueued (those after the device stop included) and
@@ -3663,7 +3999,7 @@ def check_launches(engine, lda, counts, extra=None):
 
 
 def profile_em(corpus):
-    """Where the EM time goes: 20 warm EM iterations over the day's
+    """Where the EM time goes: 10 warm EM iterations over the day's
     corpus, four ways (the per-batch pallas path's whole fit only); then
     the scatter's timing record.  Each fit's
     set-up (stacking, copies, live-token plans, densifying) is in the
@@ -3673,7 +4009,7 @@ def profile_em(corpus):
     from oni_ml_tpu_torch.config import LDAConfig
     from oni_ml_tpu_torch.models.lda import LDATrainer
 
-    iters = 20
+    iters = 10
     sparse_batches = list(corpus.bucketed_layout(
         min_len=128, batch_cap=1024,
         pad_multiple=sparse_estep.pad_multiple_for("f32")).batches)
@@ -4155,10 +4491,12 @@ def main() -> int:
     walls = {"build_and_parity": round(time.perf_counter() - t0, 1)}
 
     def timed(name, fn, *args):
-        """fn(*args), its wall kept under `name` for the walls line."""
+        """fn(*args), its wall kept under `name` for the walls line (and
+        logged at once, so a run that fails later still shows it)."""
         t1 = time.perf_counter()
         out = fn(*args)
         walls[name] = round(time.perf_counter() - t1, 1)
+        log(f"wall {name}: {walls[name]} s")
         return out
 
     tmp = tempfile.mkdtemp(prefix="oni_chip_smoke_")
@@ -4184,6 +4522,7 @@ def main() -> int:
         fleet_counts = timed("fleet", fleet_phase, tmp, raws)
         continuous_counts = timed("continuous", continuous_phase, tmp, raws)
         replicated_counts = timed("replicated", replicated_phase, tmp, smi)
+        multihost_counts = timed("multihost", multihost_phase, tmp, raws)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     scatter_rec = timed("profile_em", profile_em, corpus)
@@ -4236,6 +4575,11 @@ def main() -> int:
             # `continuous --replicated` runs (the crossover's member and
             # the held-out scatter); the replicas only score.
             "launches_replicated": replicated_counts[kname],
+            # On the multihost path: the rank processes' own counts (the
+            # 2M day's three worlds on the crossover's engine, the small
+            # day's online worlds, and its worlds pinned to the dense
+            # kernel and to the fixed point).
+            "launches_multihost": multihost_counts[kname],
             "max_abs_err": max(errs), "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),

@@ -76,6 +76,20 @@ class LDAConfig:
     # <out_dir>/checkpoint.npz every this many EM iterations; a fit that
     # finds the file resumes from it (0 = off).
     checkpoint_every: int = 0
+    # Distributed EM's document shard count (parallel/shard_plan.py):
+    # 0 = auto, 8 grown to the next power of two covering the process
+    # count.  The shard plan, and with it the reduction tree, derives
+    # from the corpus and this number, never the process count, so runs
+    # at different rank counts with the same value write byte-identical
+    # files.  ONI_ML_TPU_EM_SHARDS overrides.
+    em_shards: int = 0
+    # Wire precision of the distributed suff-stats allreduce: "f32"
+    # (exact, the byte-identity default) or "bf16" (half the kvring
+    # bytes per EM iteration, f32 accumulation after the unpack; the
+    # reduced stats stay rank-identical but are not bit-equal to an f32
+    # wire's).  The gamma merge always ships exact.
+    # ONI_ML_TPU_ALLREDUCE_PRECISION overrides.
+    allreduce_precision: str = "f32"
 
 
 @dataclass(frozen=True)

@@ -263,9 +263,9 @@ class CorpusWindow:
     def reserve_capacity(self, capacity: int) -> int:
         """Raise the window's effective capacity floor to (at least)
         `capacity`, monotone, so the snapshot pads to that tier even
-        while the vocabulary sits in a lower one (the JAX package's
-        distributed refresh reserves the ranks' agreed tier this way;
-        ROADMAP Queue 1 item 6).  Returns the resulting capacity."""
+        while the vocabulary sits in a lower one (a distributed refresh
+        reserves the ranks' agreed tier this way: parallel/tiers.py).
+        Returns the resulting capacity."""
         cap = pow2_capacity(int(capacity), self.vocab_floor)
         self._reserved_capacity = max(self._reserved_capacity, cap)
         return self.vocab_capacity()

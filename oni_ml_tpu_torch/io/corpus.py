@@ -295,6 +295,21 @@ class Corpus:
         formats.atomic_write(path("model.dat"), lambda p: formats.write_model_dat(
             p, self.doc_ptr, self.word_idx, self.counts))
 
+    def shard(self, start: int, stop: int) -> "Corpus":
+        """The contiguous document slice [start, stop): distributed EM's
+        shard view (parallel/shard_plan.py).  The CSR arrays are numpy
+        views and the vocabulary is shared, so word ids stay global and
+        per-shard suff-stats land in one [V, K] layout.  Doc ids are
+        shard-local: callers that scatter into global buffers offset
+        `Batch.doc_index` by `start`."""
+        if not (0 <= start <= stop <= self.num_docs):
+            raise ValueError(f"shard [{start}, {stop}) out of range for "
+                             f"{self.num_docs} documents")
+        lo, hi = int(self.doc_ptr[start]), int(self.doc_ptr[stop])
+        return Corpus(self.doc_names[start:stop], self.vocab,
+                      self.doc_ptr[start:stop + 1] - self.doc_ptr[start],
+                      self.word_idx[lo:hi], self.counts[lo:hi])
+
     def select(self, doc_indices) -> "Corpus":
         """Sub-corpus of the given documents (shared vocabulary, same
         word ids, so a model trained on a subset scores the full

@@ -329,6 +329,20 @@ def make_em_accumulator(
     return accumulate
 
 
+def make_partial_runner(**kw):
+    """The distributed driver's per-shard E-step (port of the JAX
+    package's make_partial_runner): `run(log_beta, alpha, groups,
+    gammas_prev, warm) -> (suff_stats [V, K], likelihood, alpha_ss,
+    gammas, vi_max)` over one document shard's stacked groups, the full
+    E-step through the port's kernels (the member's: token groups
+    through the sparse engine or the per-batch dispatch, dense groups
+    through the dense kernel) and no M-step.  The distributed EM loop
+    (models/lda.py `_distributed_loop`) reduces the partials across
+    processes and runs the M-step on every rank from the reduced
+    statistics.  `kw` is make_em_accumulator's."""
+    return make_em_accumulator(**kw)
+
+
 def _add(res, total_ss, total_ll, total_ass, vis, outs):
     """One batch's E-step into the iteration's sums (in batch order),
     its iteration count and gamma into the lists."""

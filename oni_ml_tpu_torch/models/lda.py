@@ -35,6 +35,17 @@ one per EM iteration (its launches and M-step).  `WindowTrainer` is the
 continuous service's refresh trainer: one per vocabulary capacity tier,
 warm-started from the last published topics (`warm_start_log_beta`).
 
+Distributed EM (`train_corpus(distributed=True)`, `ml_ops --multihost`,
+`WindowTrainer(collective=)`): each rank process trains its own
+contiguous document shards (parallel/shard_plan.py) through the
+partial-stats runner (fused.make_partial_runner: the member's kernels,
+no M-step), the per-shard statistics cross processes through the
+collective (parallel/allreduce.py) between the E-step and the M-step,
+and every rank runs the same M-step, alpha Newton and float64
+convergence check from the reduced statistics (`_distributed_loop`).
+The reduction is a fixed pairwise tree over the shard plan, so the model
+is the same bytes on every rank and at every rank count.
+
 With a checkpoint path and `LDAConfig.checkpoint_every` > 0, a fit
 saves (beta, alpha, iteration, likelihoods) every that many EM
 iterations (the chunk driver caps each dispatch at the next checkpoint
@@ -59,6 +70,7 @@ from ..config import LDAConfig
 from ..device import resolve_device
 from ..io import Batch, Corpus, formats, make_batches
 from ..ops import dense_estep, estep, sparse_estep
+from ..parallel import mesh as _mesh
 from ..telemetry.spans import current_recorder, maybe_span, now_ns
 from . import convert, fused
 
@@ -215,10 +227,12 @@ def init_log_beta(generator: torch.Generator, k: int, v: int,
     return torch.log(noise / noise.sum(-1, keepdim=True)).to(device)
 
 
-def _resolve_engine(corpus: Corpus, config: LDAConfig,
-                    device) -> "tuple[str, str, dict | None]":
+def _resolve_engine(corpus: Corpus, config: LDAConfig, device,
+                    shard_plan=None) -> "tuple[str, str, dict | None]":
     """resolve_estep_engine's (engine, source) and the crossover's
-    record where the crossover decided."""
+    record where the crossover decided.  With a `shard_plan` (distributed
+    EM) the crossover keys on the shards' own bucket shapes, the shapes
+    the kernels see."""
     env = os.environ.get("ONI_ML_TPU_ESTEP", "")
     choice = config.estep_engine
     if choice not in ("auto", "dense", "sparse"):
@@ -238,9 +252,11 @@ def _resolve_engine(corpus: Corpus, config: LDAConfig,
         # CPU runs keep the dense family (its gates resolve per batch
         # through xla there); dense_em="on" pins the family.
         return "dense", "default", None
-    shapes = corpus.bucket_shapes(
+    pieces = ([corpus.shard(st, en) for st, en in shard_plan.bounds]
+              if shard_plan is not None else [corpus])
+    shapes = [shape for piece in pieces for shape in piece.bucket_shapes(
         min_len=config.sparse_min_bucket_len, batch_cap=config.batch_size,
-        pad_multiple=sparse_estep.pad_multiple_for())
+        pad_multiple=sparse_estep.pad_multiple_for())]
     if not shapes or config.num_topics > sparse_estep.MAX_TOPICS:
         return "dense", "default", None
     b_dom, l_dom, _ = max(shapes, key=lambda s: s[2])
@@ -316,15 +332,29 @@ class LDATrainer:
     driver enters one slot per chunk dispatch, the stepwise driver one
     per EM iteration, so a scorer sharing the device wins the next slot
     at every boundary.  A slot covers the enqueue of its launches, not
-    their execution on the card."""
+    their execution on the card.
+
+    `collective` with `shard_plan` and `shard_batches` (shard index ->
+    that shard's batches, doc_index global) switch fit() onto the
+    distributed driver (`_distributed_loop`), one slot per local E-step
+    round; only rank 0 writes likelihood.dat and the checkpoint."""
 
     def __init__(self, config: LDAConfig, num_terms: int,
                  device: "str | torch.device | None" = None,
-                 yield_hook: "Callable | None" = None):
+                 yield_hook: "Callable | None" = None,
+                 collective=None, shard_plan=None, shard_batches=None):
         self.config = config
         self.num_terms = num_terms
         self.device = resolve_device(device)
         self.yield_hook = yield_hook
+        self.collective = collective
+        self.shard_plan = shard_plan
+        self._shard_batches = shard_batches
+
+    @property
+    def _writer(self) -> bool:
+        """Whether this process writes the fit's files (rank 0)."""
+        return self.collective is None or self.collective.rank == 0
 
     def _slot(self):
         return self.yield_hook() if self.yield_hook is not None \
@@ -340,6 +370,7 @@ class LDATrainer:
         initial_alpha: "float | None" = None,
         engine: str = "sparse",
         checkpoint_path: "str | None" = None,
+        member: "str | None" = None,
     ) -> LDAResult:
         """Run EM to convergence over `batches` (the bucketed layout's
         for the sparse engine, make_batches' for the dense family), with
@@ -351,24 +382,30 @@ class LDATrainer:
         `config.checkpoint_every` EM iterations and, if the file exists,
         the fit resumes from it: at iteration min(its iteration,
         em_max_iters - 1), its likelihoods carried into likelihood.dat.
-        The file is removed when the fit completes."""
+        The file is removed when the fit completes.
+
+        A distributed fit (shard batches set) takes its family `member`
+        from the caller, decided once for every rank; the chunk and
+        host-sync knobs do not apply there (the reduce is the host
+        sync)."""
         cfg = self.config
         k, v, dev = cfg.num_topics, self.num_terms, self.device
         if cfg.compute_dtype != "float32":
             raise ValueError("the port trains in float32 only")
         if engine not in ("sparse", "dense"):
             raise ValueError(f"unknown E-step engine {engine!r}")
-        chunk, sync, plan = _resolve_em_plan(cfg)
+        distributed = self._shard_batches is not None
+        if distributed:
+            chunk, sync, plan = 0, 0, {}
+            if member is None:
+                raise ValueError("a distributed fit takes its member from "
+                                 "the caller (decided on rank 0)")
+            compact = None
+        else:
+            chunk, sync, plan = _resolve_em_plan(cfg)
+            member, compact = self.resolve_member(engine, batches,
+                                                  chunk > 1)
         e_fn = sparse_estep.e_step if engine == "sparse" else estep.e_step
-        member, compact = "sparse", None
-        if engine == "dense":
-            if chunk > 1 and self._use_dense(batches):
-                member = "dense"
-            else:
-                compact = self._plan_compact(batches) if chunk > 1 else None
-                member = "compact" if compact is not None else (
-                    "per_batch:" + estep.resolve_backend(
-                        "auto", *batches[0].word_idx.shape, k, dev))
         restored: list = []
         start_it = 0
         if checkpoint_path and os.path.exists(checkpoint_path):
@@ -398,14 +435,18 @@ class LDATrainer:
         )
         likelihoods: list = list(restored[:start_it])
         gamma_out = np.zeros((num_docs, k), dtype=np.float64)
-        ll_file = open(likelihood_file, "w") if likelihood_file else None
+        ll_file = (open(likelihood_file, "w")
+                   if likelihood_file and self._writer else None)
         if ll_file:
             for ll_r, conv_r in likelihoods:
                 formats.append_likelihood(ll_file, ll_r, conv_r)
         run = _Run(start_it, likelihoods[-1][0] if likelihoods else None,
                    likelihoods, ll_file, progress, checkpoint_path)
         try:
-            if chunk > 1:
+            if distributed:
+                log_beta, alpha, it, stats = self._distributed_loop(
+                    member, e_fn, log_beta, alpha, num_docs, run, gamma_out)
+            elif chunk > 1:
                 log_beta, alpha, it, stats = self._fused_loop(
                     batches, member, e_fn, compact, chunk, sync, log_beta,
                     alpha, num_docs, run, gamma_out)
@@ -416,7 +457,8 @@ class LDATrainer:
         finally:
             if ll_file:
                 ll_file.close()
-        if checkpoint_path and os.path.exists(checkpoint_path):
+        if (checkpoint_path and self._writer
+                and os.path.exists(checkpoint_path)):
             os.remove(checkpoint_path)  # the fit completed
         stats.update(member=member, batches=len(batches), batch_shapes=sorted(
             {tuple(int(n) for n in b.word_idx.shape) for b in batches}))
@@ -427,6 +469,24 @@ class LDATrainer:
                          stats=stats)
 
     # -- the dense family's gates ------------------------------------------
+
+    def resolve_member(self, engine: str, batches, chunked: bool = True
+                       ) -> "tuple[str, fused.CompactPlan | None]":
+        """The engine family's member over `batches` and the compact plan
+        where compact runs: "sparse"; for the dense family, "dense"
+        (_use_dense) or "compact" (_plan_compact) under the chunk or
+        distributed driver (`chunked`), else the per-batch dispatch as
+        "per_batch:<backend>"."""
+        if engine != "dense":
+            return "sparse", None
+        if chunked and self._use_dense(batches):
+            return "dense", None
+        compact = self._plan_compact(batches) if chunked else None
+        if compact is not None:
+            return "compact", compact
+        return "per_batch:" + estep.resolve_backend(
+            "auto", *batches[0].word_idx.shape, self.config.num_topics,
+            self.device), None
 
     def _use_dense(self, batches) -> bool:
         """Whether the chunk driver runs the full-V dense E-step
@@ -521,7 +581,8 @@ class LDATrainer:
 
     def _maybe_checkpoint(self, run: "_Run", log_beta, alpha, it) -> None:
         every = self.config.checkpoint_every
-        if run.checkpoint_path and every and it % every == 0:
+        if (run.checkpoint_path and every and it % every == 0
+                and self._writer):
             beta_host, alpha_f, _ = convert.to_reference(
                 convert.ModelState(log_beta, alpha))
             save_checkpoint(run.checkpoint_path, beta_host, alpha_f, it,
@@ -738,6 +799,160 @@ class LDATrainer:
             "host_syncs": dispatches, "skipped_iterations": skipped,
         }
 
+    def _shard_groups(self, member: str, batches):
+        """One shard's batches stacked on the device for `member`: token
+        groups (sparse, per_batch), densified full-V groups (dense) or
+        the shard's own compact plan (compact).  Returns (groups,
+        W-major).  A shard with no documents has no groups."""
+        wmajor = self.config.dense_wmajor
+        if not batches:
+            return fused.StackedGroups((), ()), wmajor
+        if member == "compact":
+            plan = fused.plan_compact(batches, self.config.num_topics,
+                                      wmajor=wmajor)
+            if plan is None:
+                raise ValueError("compact dense E-step chosen but K="
+                                 f"{self.config.num_topics} exceeds the "
+                                 "dense kernel's topics")
+            return (fused.compact_stack_batches(batches, self.device, plan),
+                    plan.wmajor)
+        groups = fused.stack_batches(batches, self.device)
+        if member == "dense":
+            groups = fused.densify_groups(groups, self.num_terms,
+                                          wmajor=wmajor)
+        return groups, wmajor
+
+    def _distributed_loop(self, member, e_fn, log_beta, alpha, num_docs,
+                          run, gamma_out):
+        """Distributed EM: the local E-step over each owned document shard
+        (fused.make_partial_runner: the member's kernels, no M-step), the
+        per-shard partials through parallel/allreduce.reduce_partials
+        (a fixed pairwise tree over the corpus-derived shard plan, so the
+        reduced bytes are the same on every rank and at every rank
+        count), then the same M-step, alpha Newton and float64
+        convergence check on every rank.  One host sync per shard and EM
+        iteration (its partials' transfer) and one reduce.  The final
+        gammas merge across ranks by owned row blocks (exact placement),
+        and rank parity of the model is checked, not assumed: each rank's
+        beta digest is gathered and compared."""
+        import hashlib
+
+        from ..parallel.allreduce import reduce_partials
+
+        cfg = self.config
+        k, v, dev = cfg.num_topics, self.num_terms, self.device
+        coll, plan = self.collective, self.shard_plan
+        owned = sorted(self._shard_batches)
+        shards = [self._shard_groups(member, self._shard_batches[s])
+                  for s in owned]
+        runners = {}
+        for _, wm in shards:
+            if wm not in runners:
+                runners[wm] = fused.make_partial_runner(
+                    num_topics=k, num_terms=v,
+                    var_max_iters=cfg.var_max_iters, var_tol=cfg.var_tol,
+                    e_step_fn=e_fn, dense_wmajor=wm)
+        gammas_prev = [fused.initial_gammas(g.arrays, k, dense_wmajor=wm)
+                       for g, wm in shards]
+        have_prev = False
+        # env > config; the gamma merge below always ships exact.
+        ar_precision = (os.environ.get("ONI_ML_TPU_ALLREDUCE_PRECISION", "")
+                        or cfg.allreduce_precision)
+        zero_ss = np.zeros((v, k), np.float32)
+        ar0 = dict(coll.stats)
+        ll_prev = run.ll_prev
+        it = run.start_it
+        n_reduce = 0
+        t_loop0 = now_ns()
+        for it in range(run.start_it + 1, cfg.em_max_iters + 1):
+            warm = int(cfg.warm_start_gamma and have_prev)
+            # The local E-step round is this driver's preemption grain;
+            # the transfers and the reduce that follow are outside it.
+            outs = []
+            with self._slot():
+                for (groups, wm), g_prev in zip(shards, gammas_prev):
+                    outs.append(runners[wm](log_beta, alpha, groups.arrays,
+                                            g_prev, warm)
+                                if groups.arrays else None)
+            shard_stats, new_gammas = {}, []
+            for si, out in zip(owned, outs):
+                if out is None:
+                    shard_stats[si] = {"suff_stats": zero_ss,
+                                       "likelihood": np.float32(0.0),
+                                       "alpha_ss": np.float32(0.0)}
+                    new_gammas.append(())
+                    continue
+                ss, ll_s, ass, gammas, _ = out
+                new_gammas.append(gammas)
+                # The partials' transfer: this driver's host sync, one
+                # per shard and EM iteration.
+                with maybe_span("em.host_sync", it=it, shard=si):
+                    shard_stats[si] = {
+                        "suff_stats": ss.cpu().numpy(),
+                        "likelihood": ll_s.cpu().numpy(),
+                        "alpha_ss": ass.cpu().numpy(),
+                    }
+            gammas_prev, have_prev = new_gammas, True
+            reduced = reduce_partials(coll, plan, shard_stats, f"em{it}",
+                                      precision=ar_precision)
+            n_reduce += 1
+            log_beta = estep.m_step(torch.from_numpy(
+                np.ascontiguousarray(reduced["suff_stats"],
+                                     np.float32)).to(dev))
+            if cfg.estimate_alpha:
+                alpha = update_alpha(
+                    torch.tensor(float(reduced["alpha_ss"]),
+                                 dtype=torch.float32, device=dev),
+                    alpha, num_docs, k, max_iters=cfg.alpha_max_iters)
+            ll = float(np.float32(reduced["likelihood"]))
+            conv = self._log_iteration(it, ll, ll_prev, run.likelihoods,
+                                       run.ll_file, run.progress)
+            self._maybe_checkpoint(run, log_beta, alpha, it)
+            if ll_prev is not None and conv < cfg.em_tol:
+                break
+            ll_prev = ll
+        if current_recorder() is not None and n_reduce:
+            # The comms side of the roofline: measured allreduce bytes
+            # and wall over the fit (interconnect traffic: no HBM share).
+            from ..telemetry import roofline
+
+            d = coll.stats
+            roofline.emit(
+                "em.allreduce", (now_ns() - t_loop0) / 1e9,
+                dispatches=n_reduce,
+                measured_bytes=float(d["bytes_out"] - ar0["bytes_out"]
+                                     + d["bytes_in"] - ar0["bytes_in"]),
+                transport=coll.transport, nprocs=coll.num_processes,
+                allreduce_wall_s=round(d["wall_s"] - ar0["wall_s"], 6))
+        # Owned shards' final posteriors to global doc ids, then merged
+        # across ranks: each rank ships only its owned row blocks, placed
+        # by shard bounds (no arithmetic, so exact and rank-identical).
+        for si, (groups, _), gms in zip(owned, shards, gammas_prev):
+            bs = self._shard_batches[si]
+            for g_arr, slots in zip(gms, groups.batch_slots):
+                g_host = g_arr.to("cpu", torch.float64).numpy()
+                self._scatter_gammas(gamma_out, bs, (
+                    (bi, g_host[j]) for j, bi in enumerate(slots)))
+        if coll.num_processes > 1:
+            payload = {str(s): gamma_out[plan.bounds[s][0]:plan.bounds[s][1]]
+                       for s in owned}
+            for g in coll.allgather_arrays(payload, "em_gamma",
+                                           precision="f32"):
+                for s, rows in g.items():
+                    st, en = plan.bounds[int(s)]
+                    gamma_out[st:en] = rows
+        beta_host = log_beta.cpu().numpy()
+        digest = hashlib.sha256(beta_host.tobytes()).hexdigest()
+        digests = coll.allgather_obj([digest, float(alpha), it],
+                                     "em_parity")
+        if any(d != digests[0] for d in digests):
+            raise RuntimeError(
+                f"distributed EM rank parity violated: {digests}")
+        return log_beta, alpha, it, {
+            "driver": "distributed", "host_syncs": n_reduce * len(owned),
+            "reduces": n_reduce, "shards": len(owned),
+        }
+
 
 def train_corpus(
     corpus: Corpus,
@@ -747,9 +962,19 @@ def train_corpus(
     save_final: bool = True,
     initial_log_beta: "np.ndarray | None" = None,
     device: "str | torch.device | None" = None,
+    distributed: "bool | None" = None,
+    collective=None,
 ) -> LDAResult:
     """Corpus -> batches -> EM -> (optionally) the reference's output
     files in `out_dir` (likelihood.dat streams during the fit).
+
+    `distributed` (None: whether this process joined a process group,
+    parallel.initialize_distributed) trains by distributed EM
+    (_train_corpus_distributed): every rank holds the same corpus and
+    trains its own document shards, the statistics crossing processes
+    through `collective` (default parallel.get_collective()).  Also
+    runnable in one process, where it writes the same bytes as at any
+    rank count.
 
     The sparse engine trains on `Corpus.bucketed_layout` (floored at
     `sparse_min_bucket_len`, at most `batch_size` docs per
@@ -762,6 +987,13 @@ def train_corpus(
     family member that ran.  With `config.checkpoint_every` and an
     `out_dir`, the fit checkpoints to and resumes from
     `out_dir/checkpoint.npz`."""
+    if distributed is None:
+        distributed = _mesh.joined()
+    if distributed:
+        return _train_corpus_distributed(
+            corpus, config, out_dir=out_dir, progress=progress,
+            save_final=save_final, initial_log_beta=initial_log_beta,
+            device=device, collective=collective)
     dev = resolve_device(device)
     engine, engine_src, crossover = _resolve_engine(corpus, config, dev)
     _check_sparse_topics(engine, config, dev)
@@ -790,6 +1022,153 @@ def train_corpus(
         result.plan["estep_crossover"] = crossover
     if out_dir and save_final:
         result.save(out_dir, num_terms=corpus.num_terms, include_likelihood=False)
+    return result
+
+
+def _shard_batches(corpus: Corpus, config: LDAConfig, plan, shards,
+                   engine: str, census_pow2: bool = False) -> dict:
+    """{shard: its batches, doc_index global} for the `shards` of `plan`:
+    each shard bucketed on its own (the sparse engine's bucketed layout,
+    the dense family's make_batches), so a shard's batches do not depend
+    on which rank trains it.  `census_pow2` is a window refresh's rule:
+    make_batches padded to the full batch size for every engine (as the
+    serial window refresh batches), each (B, L) group's count padded to
+    a power of two (pad_batch_census_pow2)."""
+    out = {}
+    for s in shards:
+        st, en = plan.bounds[s]
+        piece = corpus.shard(st, en)
+        if census_pow2:
+            made = make_batches(piece, batch_size=config.batch_size,
+                                min_bucket_len=config.min_bucket_len)
+        elif engine == "sparse":
+            made = list(piece.bucketed_layout(
+                min_len=config.sparse_min_bucket_len,
+                batch_cap=config.batch_size,
+                pad_multiple=sparse_estep.pad_multiple_for()).batches)
+        else:
+            made = make_batches(piece, batch_size=config.batch_size,
+                                min_bucket_len=config.min_bucket_len,
+                                pad_multiple=8)
+        made = [Batch(b.word_idx, b.counts, b.doc_index + st, b.doc_mask)
+                for b in made]
+        out[s] = pad_batch_census_pow2(made) if census_pow2 else made
+    return out
+
+
+def _decide_distributed(coll, corpus: Corpus, config: LDAConfig, dev,
+                        plan, census_pow2: bool = False) -> list:
+    """[engine, source, crossover record, member], decided on rank 0 and
+    broadcast: ranks timing the crossover on one card can disagree, and a
+    split choice would desync the reduce.  The member's gates read every
+    shard's batches (the plan's, not the owned ones), so the choice does
+    not depend on the rank count.  A failure on rank 0 is posted before
+    it raises, so the other ranks stop at the broadcast."""
+    decision = None
+    if coll.rank == 0:
+        try:
+            engine, source, crossover = _resolve_engine(
+                corpus, config, dev, shard_plan=plan)
+            _check_sparse_topics(engine, config, dev)
+            member = "sparse"
+            if engine == "dense":
+                every = _shard_batches(corpus, config, plan,
+                                       range(plan.num_shards), engine,
+                                       census_pow2)
+                flat = [b for s in sorted(every) for b in every[s]]
+                probe = LDATrainer(config, corpus.num_terms, device=dev)
+                member = (probe.resolve_member(engine, flat)[0] if flat
+                          else "per_batch:xla")
+            decision = [engine, source, crossover, member]
+        except BaseException as e:
+            coll.fail(f"estep engine resolution: {e!r}")
+            raise
+    return coll.broadcast_obj(decision, "estep_engine")
+
+
+def _train_corpus_distributed(
+    corpus: Corpus,
+    config: LDAConfig,
+    out_dir: "str | None" = None,
+    progress: "Callable[[int, float, float], None] | None" = None,
+    save_final: bool = True,
+    initial_log_beta: "np.ndarray | None" = None,
+    device: "str | torch.device | None" = None,
+    collective=None,
+) -> LDAResult:
+    """Distributed EM (port of the JAX package's): every rank holds the
+    same corpus and the same shard plan (parallel/shard_plan.py) and
+    trains its own contiguous document shards on its own device, each
+    shard bucketed on its own; the [V, K] statistics, the alpha
+    statistic and the likelihood cross processes through the collective,
+    and the M-step, alpha Newton, convergence check and likelihood file
+    run the same on every rank from the reduced statistics.  The result
+    is the same bytes on every rank and at every rank count for one
+    `em_shards`; rank 0 alone writes the files.  The engine and its
+    member are decided on rank 0 and broadcast (_decide_distributed).  A
+    rank's failure is posted for the others (PeerFailure there) before it
+    raises."""
+    from ..parallel.allreduce import PeerFailure, get_collective
+    from ..parallel.shard_plan import plan_shards, resolve_em_shards
+
+    coll = collective if collective is not None else get_collective()
+    dev = resolve_device(device)
+    plan = plan_shards(corpus.num_docs, coll.num_processes,
+                       resolve_em_shards(config.em_shards,
+                                         coll.num_processes))
+    engine, engine_src, crossover, member = _decide_distributed(
+        coll, corpus, config, dev, plan)
+    shard_batches = _shard_batches(corpus, config, plan,
+                                   plan.owned(coll.rank), engine)
+    trainer = LDATrainer(config, num_terms=corpus.num_terms, device=dev,
+                         collective=coll, shard_plan=plan,
+                         shard_batches=shard_batches)
+    rec = current_recorder()
+    if rec is not None:
+        # The shard plan this run trained under ({"kind": "shard_plan"}).
+        rec.journal_record(plan.record(coll.rank))
+    ar0 = dict(coll.stats)
+    flat = [b for s in sorted(shard_batches) for b in shard_batches[s]]
+    try:
+        result = trainer.fit(
+            flat, corpus.num_docs,
+            likelihood_file=(os.path.join(out_dir, "likelihood.dat")
+                             if out_dir else None),
+            progress=progress, initial_log_beta=initial_log_beta,
+            engine=engine, member=member,
+            checkpoint_path=(os.path.join(out_dir, "checkpoint.npz")
+                             if out_dir and config.checkpoint_every
+                             else None),
+        )
+    except PeerFailure:
+        raise          # relayed by the rank that failed
+    except BaseException as e:
+        # Peers blocked in the next reduce see the key within a slice.
+        coll.fail(f"distributed fit rank {coll.rank}: {e!r}")
+        raise
+    result.plan["estep_engine"] = {"value": engine, "source": engine_src}
+    if crossover is not None:
+        result.plan["estep_crossover"] = crossover
+    result.plan["em_shards"] = {
+        "value": plan.num_shards,
+        "source": ("env" if os.environ.get("ONI_ML_TPU_EM_SHARDS")
+                   else "config" if config.em_shards else "default"),
+    }
+    d = coll.stats
+    result.plan["allreduce"] = {
+        "transport": coll.transport,
+        "precision": coll.applied_precision(
+            os.environ.get("ONI_ML_TPU_ALLREDUCE_PRECISION", "")
+            or config.allreduce_precision),
+        "nprocs": coll.num_processes,
+        "ops": d["ops"] - ar0["ops"],
+        "bytes_out": d["bytes_out"] - ar0["bytes_out"],
+        "bytes_in": d["bytes_in"] - ar0["bytes_in"],
+        "wall_s": round(d["wall_s"] - ar0["wall_s"], 6),
+    }
+    if out_dir and save_final and coll.rank == 0:
+        result.save(out_dir, num_terms=corpus.num_terms,
+                    include_likelihood=False)
     return result
 
 
@@ -852,25 +1231,33 @@ class WindowTrainer:
     (warm_start_log_beta pads for vocabulary growth, through
     convert.from_reference into float32); the float64 convergence check
     then stops after the few iterations the stream moved.  `yield_hook`
-    threads through to the EM driver (LDATrainer).  The distributed
-    refresh (`collective=`) is not ported: ROADMAP Queue 1 item 6."""
+    threads through to the EM driver (LDATrainer).
+
+    With a `collective` (parallel/allreduce.py) the refresh trains
+    distributed: the warm-start seed is rank 0's, broadcast (only it
+    holds the gated publish history), the documents shard by the plan
+    (parallel/shard_plan.py), the local E-steps reduce through the
+    collective, and each shard's (B, L) group counts pad to powers of two
+    (`pad_batch_census_pow2`), so a wobbling document count keeps the
+    stacked shapes.  The tier's engine and member are decided on rank 0
+    at the tier's first fit and broadcast."""
 
     def __init__(self, config: LDAConfig, num_terms: int, *,
                  device: "str | torch.device | None" = None,
                  collective=None, yield_hook: "Callable | None" = None,
                  ) -> None:
-        if collective is not None:
-            raise NotImplementedError(
-                "distributed window refreshes (collective=) are not ported "
-                "yet: ROADMAP Queue 1 item 6 (multi-GPU distributed EM)")
         self.config = config
         self.num_terms = num_terms
         self.device = resolve_device(device)
+        self.collective = collective
         self._trainer = LDATrainer(config, num_terms=num_terms,
-                                   device=self.device, yield_hook=yield_hook)
+                                   device=self.device, yield_hook=yield_hook,
+                                   collective=collective)
         self.fits = 0
-        # (engine, source, crossover record) of the tier's first fit.
+        # (engine, source, crossover record) of the tier's first fit, and
+        # under a collective its member.
         self.engine: "tuple | None" = None
+        self.member: "str | None" = None
 
     def fit(
         self,
@@ -894,20 +1281,35 @@ class WindowTrainer:
                 "rebuild the trainer at the new tier (one trainer per "
                 "tier, by design)"
             )
+        coll = self.collective
+        if coll is not None:
+            # Rank 0's seed is the seed; the tag keys on the fit count,
+            # which advances in lockstep.
+            seed = {}
+            if coll.rank == 0 and topic_probs is not None:
+                seed = {"topic_probs": np.asarray(topic_probs, np.float64),
+                        "alpha": np.float64(alpha)}
+            seed = coll.broadcast_arrays(seed, f"window_seed{self.fits}")
+            topic_probs = seed.get("topic_probs")
+            alpha = float(seed["alpha"]) if "alpha" in seed else None
         warm = topic_probs is not None
         init_lb = (warm_start_log_beta(topic_probs, self.num_terms)
                    if warm else None)
         resolved = self.engine is None
-        if resolved:
-            self.engine = _resolve_engine(corpus, cfg, self.device)
+        if coll is not None:
+            batches, plan = self._shard_window(corpus, resolved)
+        else:
+            if resolved:
+                self.engine = _resolve_engine(corpus, cfg, self.device)
+            batches = make_batches(corpus, batch_size=cfg.batch_size,
+                                   min_bucket_len=cfg.min_bucket_len)
         engine, source, crossover = self.engine
         _check_sparse_topics(engine, cfg, self.device)
-        batches = make_batches(corpus, batch_size=cfg.batch_size,
-                               min_bucket_len=cfg.min_bucket_len)
         result = self._trainer.fit(
             batches, corpus.num_docs, progress=progress,
             initial_log_beta=init_lb,
             initial_alpha=alpha if warm else None, engine=engine,
+            member=self.member,
         )
         self.fits += 1
         # `resolved`: this fit resolved the tier's engine (later fits
@@ -917,4 +1319,65 @@ class WindowTrainer:
         if crossover is not None:
             result.plan["estep_crossover"] = crossover
         result.plan["warm_start"] = {"value": bool(warm), "source": "window"}
+        if coll is not None:
+            result.plan["em_shards"] = {"value": plan.num_shards,
+                                        "source": "window"}
+            result.plan["allreduce"] = {"transport": coll.transport,
+                                        "nprocs": coll.num_processes}
         return result
+
+    def _shard_window(self, corpus: Corpus, resolve: bool):
+        """This refresh's shard plan and owned batches for the distributed
+        driver (the plan follows the window's live document count; the
+        trainer is reused).  At the tier's first fit (`resolve`) the
+        engine and member are decided on rank 0 and broadcast.  Returns
+        (the owned batches in shard order, the plan)."""
+        from ..parallel.shard_plan import plan_shards, resolve_em_shards
+
+        cfg, coll = self.config, self.collective
+        plan = plan_shards(corpus.num_docs, coll.num_processes,
+                           resolve_em_shards(cfg.em_shards,
+                                             coll.num_processes))
+        if resolve:
+            engine, source, crossover, member = _decide_distributed(
+                coll, corpus, cfg, self.device, plan, census_pow2=True)
+            self.engine, self.member = (engine, source, crossover), member
+        shard_batches = _shard_batches(corpus, cfg, plan,
+                                       plan.owned(coll.rank),
+                                       self.engine[0], census_pow2=True)
+        self._trainer.shard_plan = plan
+        self._trainer._shard_batches = shard_batches
+        return ([b for s in sorted(shard_batches) for b in shard_batches[s]],
+                plan)
+
+
+def pad_batch_census_pow2(batches: "list[Batch]") -> "list[Batch]":
+    """Pad each (B, L) group's count to a power of two with fully masked
+    empty batches (port of the JAX package's).  A window refresh's
+    vocabulary pads to pow2 tiers and its batches to the full batch
+    size; the group count is the one shape left on the raw document
+    census, and census tiers close it.  A pad batch is inert: doc_mask 0
+    zeroes its statistics and likelihood, and the gamma scatter selects
+    none of its rows."""
+    groups: "dict[tuple, list[Batch]]" = {}
+    order: list = []
+    for b in batches:
+        key = b.word_idx.shape
+        if key not in groups:
+            groups[key] = []
+            order.append(key)
+        groups[key].append(b)
+    out: "list[Batch]" = []
+    for key in order:
+        grp = groups[key]
+        target = 1
+        while target < len(grp):
+            target *= 2
+        bb, ll = key
+        for _ in range(target - len(grp)):
+            grp.append(Batch(np.zeros((bb, ll), np.int32),
+                             np.zeros((bb, ll), np.float32),
+                             np.zeros((bb,), np.int32),
+                             np.zeros((bb,), np.float32)))
+        out.extend(grp)
+    return out

@@ -36,9 +36,18 @@ shape.
 p(word|topic) instead of the Gamma draw: the serving refresh loop's
 entry point (serving/refresh.py).
 
-Left out here, waiting for its ROADMAP item: the data-parallel mesh and
-the distributed step over ranks (multi-GPU EM).  A `compute_dtype` other
-than float32 raises (bf16 storage is its own ROADMAP item).
+Distributed streaming (`distributed=`/`collective=`, `ml_ops --online
+--multihost`): each rank runs the local step on its contiguous row slice
+of every micro-batch, the suff-stats and likelihood cross processes
+through the collective (parallel/allreduce.py, a fixed pairwise tree in
+rank order), and every rank blends lambda from the reduced statistics,
+so lambda is the same on every rank.  The step's `batch_docs` is the
+global real-document count, so the update equals the one-process step up
+to the reduction order.  Distributed streams take the per-step path.
+
+Left out here, waiting for its ROADMAP item: the data-parallel mesh.  A
+`compute_dtype` other than float32 raises (bf16 storage is its own
+ROADMAP item).
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from ..device import resolve_device
 from ..io import Batch, formats
 from ..ops import dense_estep, estep, sparse_estep
 from ..ops.estep import e_log_dirichlet as expected_log_beta
+from ..parallel import mesh as _mesh
 from . import convert
 from .lda import LDAResult
 
@@ -149,7 +159,13 @@ class OnlineLDATrainer:
 
     ``initial_lam`` [K, V]
     (convert.lam_from_reference) replaces the seeded Gamma draw (a
-    checkpoint found at ``checkpoint_path`` wins over both)."""
+    checkpoint found at ``checkpoint_path`` wins over both).
+
+    ``distributed`` (None: whether this process joined a process group,
+    parallel.initialize_distributed) row-splits every
+    micro-batch across the ranks of ``collective`` (default
+    parallel.get_collective()); only rank 0 writes the stream
+    checkpoint."""
 
     def __init__(
         self,
@@ -159,6 +175,8 @@ class OnlineLDATrainer:
         checkpoint_path: "str | None" = None,
         initial_lam=None,
         device: "str | torch.device | None" = None,
+        collective=None,
+        distributed: "bool | None" = None,
     ):
         if config.compute_dtype != "float32":
             raise ValueError(
@@ -177,6 +195,14 @@ class OnlineLDATrainer:
         self.device = resolve_device(device)
         self.step_count = 0
         self.history: "list[StreamStepInfo]" = []
+        if distributed is None:
+            distributed = _mesh.joined()
+        self._coll = None
+        if distributed:
+            from ..parallel.allreduce import get_collective
+
+            self._coll = (collective if collective is not None
+                          else get_collective())
         dev = self.device
         lam = (seeded_lam(config, num_terms) if initial_lam is None
                else convert.lam_from_reference(initial_lam))
@@ -259,9 +285,12 @@ class OnlineLDATrainer:
 
     def _blend(self, lam, rho, res, doc_mask):
         """The natural-gradient step: lambda toward eta + D/|S| * SS."""
-        batch_docs = torch.clamp_min(doc_mask.sum(), 1.0)
+        return self._blend_ss(lam, rho, res.suff_stats,
+                              torch.clamp_min(doc_mask.sum(), 1.0))
+
+    def _blend_ss(self, lam, rho, suff_stats, batch_docs):
         lam_hat = self.config.eta + (
-            self.total_docs / batch_docs) * res.suff_stats.t()
+            self.total_docs / batch_docs) * suff_stats.t()
         return (1.0 - rho) * lam + rho * lam_hat
 
     @classmethod
@@ -318,9 +347,61 @@ class OnlineLDATrainer:
                 torch.as_tensor(batch.doc_mask, dtype=torch.float32,
                                 device=dev))
 
+    @property
+    def _distributed(self) -> bool:
+        return self._coll is not None and self._coll.num_processes > 1
+
+    def _step_distributed(self, batch: Batch) -> StreamStepInfo:
+        """One update with the micro-batch row-split across the ranks and
+        the statistics crossing processes through the collective (always
+        an f32 wire: lambda must be the same bytes on every rank)."""
+        from ..parallel.allreduce import tree_combine
+
+        cfg = self.config
+        coll = self._coll
+        p, r = coll.num_processes, coll.rank
+        b = batch.word_idx.shape[0]
+        if b % p:
+            raise ValueError(
+                f"micro-batch of {b} docs not divisible by {p} processes "
+                "(make_batches pad_multiple must cover the process count)")
+        t = self.step_count
+        rho = float((cfg.tau0 + t) ** (-cfg.kappa))
+        lo, hi = r * b // p, (r + 1) * b // p
+        widx, cnts, mask = self._put_batch(Batch(
+            batch.word_idx[lo:hi], batch.counts[lo:hi],
+            batch.doc_index[lo:hi], batch.doc_mask[lo:hi]))
+        res = self._local_step(expected_log_beta(self._lam), widx, cnts,
+                               mask)
+        reduced = tree_combine(coll.allgather_arrays(
+            {"suff_stats": res.suff_stats.cpu().numpy(),
+             "likelihood": res.likelihood.cpu().numpy()},
+            f"svi{t}", precision="f32"))
+        dev = self.device
+        self._lam = self._blend_ss(
+            self._lam, torch.tensor(rho, dtype=torch.float32, device=dev),
+            torch.from_numpy(np.ascontiguousarray(
+                reduced["suff_stats"], np.float32)).to(dev),
+            torch.tensor(max(float(batch.doc_mask.sum()), 1.0),
+                         dtype=torch.float32, device=dev))
+        self.step_count += 1
+        info = StreamStepInfo(
+            step=self.step_count,
+            rho=rho,
+            batch_docs=int(batch.doc_mask.sum()),
+            likelihood=torch.tensor(float(reduced["likelihood"]),
+                                    dtype=torch.float32, device=dev),
+            tokens=int(batch.counts.sum()),
+        )
+        self.history.append(info)
+        self._maybe_stream_checkpoint(prev_count=self.step_count - 1)
+        return info
+
     def step(self, batch: Batch) -> StreamStepInfo:
         """One natural-gradient update from one micro-batch (rho in
         float64 on the host)."""
+        if self._distributed:
+            return self._step_distributed(batch)
         cfg = self.config
         t = self.step_count
         rho = float((cfg.tau0 + t) ** (-cfg.kappa))
@@ -349,6 +430,8 @@ class OnlineLDATrainer:
         every = self.config.checkpoint_every
         if not (self.checkpoint_path and every):
             return
+        if self._coll is not None and self._coll.rank != 0:
+            return      # rank 0 writes the shared day dir
         if (self.step_count // every) <= (prev_count // every):
             return
         save_stream_checkpoint(
@@ -402,8 +485,9 @@ class OnlineLDATrainer:
         7-batch run = 4 + 2 + one step()), as the JAX package splits its
         scans.  Numerically it is step() applied to each micro-batch in
         sequence, up to the rho schedule's float32 evaluation; only the
-        checkpoint timing coarsens."""
-        if chunk < 2:
+        checkpoint timing coarsens.  A distributed stream takes step()
+        per micro-batch."""
+        if chunk < 2 or self._distributed:
             return [self.step(b) for b in batches]
         infos: "list[StreamStepInfo]" = []
         i, n = 0, len(batches)
@@ -514,6 +598,8 @@ def train_corpus_online(
     progress: "Callable[[StreamStepInfo], None] | None" = None,
     initial_lam=None,
     device: "str | torch.device | None" = None,
+    collective=None,
+    distributed: "bool | None" = None,
 ) -> LDAResult:
     """Stream an in-memory corpus through the online trainer, micro-batch
     by micro-batch (each `make_batches` batch, padded to a multiple of
@@ -525,22 +611,31 @@ def train_corpus_online(
     a run resumed from `out_dir/checkpoint.npz` fast-forwards past the
     micro-batches it already took.  `result.stats` names the E-step the
     micro-batches took (`member`; the final inference pass runs the
-    per-batch E-step) and the micro-batch shapes."""
+    per-batch E-step) and the micro-batch shapes.
+
+    Distributed (`distributed`, None: parallel.initialize_distributed
+    ran):
+    every micro-batch row-splits across the ranks, so the batch axis
+    pads to a multiple of 8 times the process count; rank 0 alone
+    writes the files."""
     from ..io import make_batches
 
-    batches = make_batches(
-        corpus, batch_size=config.batch_size,
-        min_bucket_len=config.min_bucket_len, pad_multiple=8,
-    )
-    ckpt_path = (
-        os.path.join(out_dir, "checkpoint.npz")
-        if out_dir and config.checkpoint_every
-        else None
-    )
     trainer = OnlineLDATrainer(
         config, num_terms=corpus.num_terms, total_docs=corpus.num_docs,
-        checkpoint_path=ckpt_path, initial_lam=initial_lam, device=device,
+        checkpoint_path=(os.path.join(out_dir, "checkpoint.npz")
+                         if out_dir and config.checkpoint_every else None),
+        initial_lam=initial_lam, device=device, collective=collective,
+        distributed=distributed,
     )
+    nproc = trainer._coll.num_processes if trainer._coll is not None else 1
+    writer = trainer._coll is None or trainer._coll.rank == 0
+    ckpt_path = trainer.checkpoint_path
+    batches = make_batches(
+        corpus, batch_size=config.batch_size,
+        min_bucket_len=config.min_bucket_len, pad_multiple=8 * nproc,
+    )
+    coll = trainer._coll
+    ar0 = dict(coll.stats) if coll is not None else None
     done = trainer.step_count
     rng = np.random.default_rng(config.seed)
     for _ in range(epochs):
@@ -558,8 +653,23 @@ def train_corpus_online(
     result.stats = {"driver": "online", "batches": len(batches),
                     "batch_shapes": shapes,
                     "member": trainer.member(*shapes[0]) if shapes else None}
-    if ckpt_path and os.path.exists(ckpt_path):
+    if coll is not None:
+        if coll.num_processes > 1:
+            # Rank parity of lambda: checked, not assumed.
+            import hashlib
+
+            digest = hashlib.sha256(trainer.lam.cpu().numpy().tobytes())
+            digests = coll.allgather_obj(digest.hexdigest(), "svi_parity")
+            if any(d != digests[0] for d in digests):
+                raise RuntimeError(
+                    f"distributed online LDA rank parity violated: {digests}")
+        d = coll.stats
+        result.stats["allreduce"] = {
+            "transport": coll.transport, "nprocs": coll.num_processes,
+            **{k: d[k] - ar0[k] for k in ("ops", "bytes_out", "bytes_in")},
+            "wall_s": round(d["wall_s"] - ar0["wall_s"], 6)}
+    if ckpt_path and writer and os.path.exists(ckpt_path):
         os.remove(ckpt_path)
-    if out_dir:
+    if out_dir and writer:
         result.save(out_dir, num_terms=corpus.num_terms)
     return result

@@ -40,8 +40,17 @@ promotion, not a score.  Everything runs on the card unless the caller
 asks for the CPU (`device=`, `--device cpu`; the replicas get the same
 `--device`); nothing falls back.
 
-Refused, naming the ROADMAP item that brings it: distributed window
-refreshes (`--multihost`, a collective; Queue 1 item 6).  The JAX package's
+With `--multihost` (a collective, parallel/allreduce.py; the ranks
+started with torchrun's variables, parallel/mesh.py) every rank ingests
+the whole stream and the window refreshes train distributed: before
+each snapshot the ranks agree on one vocabulary capacity tier
+(parallel/tiers.py), the warm-start seed is rank 0's, and each rank's
+E-step covers its own document shards.  The published models are then
+the same bytes on every rank (each refresh record carries their
+`model_sha256`).  A multi-process world needs a refresh cadence that
+does not hang on the wall clock: the single-stream service (its
+refreshes run inline); a fleet's coalescing worker can let ranks
+disagree on which refreshes run.  The JAX package's
 compilation cache and compile-listener set-up have no counterpart:
 PyTorch eager compiles nothing, and `retraces_after_warmup` counts the
 kernel and host-library builds past the warm-up boundary instead
@@ -69,12 +78,6 @@ from ..device import resolve_device
 from ..io import formats
 from ..sources import get as get_source
 from ..sources import names as source_names
-
-_NOT_PORTED = {
-    "multihost": ("--multihost", "ROADMAP Queue 1 item 6 (multi-GPU "
-                  "distributed EM: the collective)"),
-}
-
 
 @dataclass
 class IngestSlice:
@@ -213,6 +216,7 @@ class ContinuousService:
         publisher=None,
         freshness_sink=None,
         device=None,
+        collective=None,
     ) -> None:
         """Standalone by default; the fleet injects shared
         infrastructure: one `journal`/`recorder` for every tenant (the
@@ -222,8 +226,11 @@ class ContinuousService:
         `publisher` (a RouterBinding: publishes fan out through the
         replicated router instead of the in-process registry, and slices
         score on the router's replicas) and a `freshness_sink`
-        (callable(wall_s, event_s) per covered slice).  The JAX
-        package's `collective` (distributed refreshes) is not ported."""
+        (callable(wall_s, event_s) per covered slice).  A `collective`
+        (parallel.Collective) trains the refreshes distributed: the
+        ranks' capacity tiers synchronized before each snapshot, the
+        warm-start seed broadcast from rank 0, each rank's E-step over
+        its own document shards."""
         if dsource not in source_names():
             raise ValueError(
                 f"dsource must be one of {'|'.join(source_names())}, "
@@ -253,6 +260,8 @@ class ContinuousService:
         from ..telemetry import Journal, Recorder, RunJournal
 
         self.cosched = coscheduler
+        self.collective = collective
+        self._tier_syncs = 0
         self.publisher = publisher
         self._freshness_sink = freshness_sink
         # Ingest (window growth, ledger append, scoring) and refresh
@@ -469,6 +478,19 @@ class ContinuousService:
         idx = self.refresh_count + self.skipped_refreshes + 1
         with self._lock:
             self.window.advance(now_sim)
+            if self.collective is not None:
+                # Each rank grew its vocabulary from the slices it took:
+                # agree on one pow2 tier (the largest) before the
+                # snapshot, so every rank trains and reduces one [K, V].
+                from ..parallel import sync_capacity_tier
+
+                self._tier_syncs += 1
+                agreed = sync_capacity_tier(
+                    self.collective, self.window.vocab_size,
+                    self.cc.vocab_floor,
+                    tag=f"{self.tenant}.tier{self._tier_syncs}",
+                    journal=self.journal)
+                self.window.reserve_capacity(agreed)
             snap = self.window.snapshot()
         corpus = snap.corpus
         if corpus.num_docs < self.cc.min_refresh_docs:
@@ -483,6 +505,7 @@ class ContinuousService:
             # boundary builds exactly one new trainer.
             self.trainer = WindowTrainer(
                 cfg, corpus.num_terms, device=self.device,
+                collective=self.collective,
                 yield_hook=(self.cosched.yield_hook
                             if self.cosched is not None else None),
             )
@@ -495,7 +518,10 @@ class ContinuousService:
         # The fit bracket marks this service refresh-active: scoring that
         # lands inside it is a during-refresh latency sample, and the
         # co-scheduler journals the fit's chunk/yield rollup at exit.
-        fit_ctx = (self.cosched.train_fit(self.tenant)
+        # A tenant with no published model yet is unserved until this
+        # fit publishes: its yielding is bounded (CoScheduler).
+        fit_ctx = (self.cosched.train_fit(
+            self.tenant, first_publish=self._prev_probs is None)
                    if self.cosched is not None else nullcontext())
         with fit_ctx:
             result = self.trainer.fit(
@@ -574,6 +600,15 @@ class ContinuousService:
             **quality_info,
             **fresh,
         }
+        if self.collective is not None:
+            # What the ranks must agree on bit for bit: the fit's model.
+            import hashlib
+
+            digest = hashlib.sha256()
+            for part in (result.log_beta, result.gamma,
+                         np.float64(result.alpha)):
+                digest.update(np.ascontiguousarray(part).tobytes())
+            record["model_sha256"] = digest.hexdigest()
         self.refresh_records.append(record)
         self.refresh_count += 1
         agg = self._fit_agg[mode == "warm"]
@@ -923,13 +958,15 @@ def run_continuous(
     fresh_control: bool = False,
     warmup_refreshes: "int | None" = None,
     device=None,
+    collective=None,
 ) -> dict:
-    """Stand up a ContinuousService on `device` and drive the slice
-    stream to exhaustion."""
+    """Stand up a ContinuousService on `device` (training distributed
+    over `collective` when given) and drive the slice stream to
+    exhaustion."""
     service = ContinuousService(
         config, dsource, out_dir=out_dir, tenant=tenant,
         fresh_control=fresh_control, warmup_refreshes=warmup_refreshes,
-        device=device,
+        device=device, collective=collective,
     )
     return service.run(slices)
 
@@ -1499,8 +1536,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --stream: serve through the fleet router "
                    "over N spawned replica subprocesses (ml_ops replica "
                    "on --device) instead of the in-process scorer")
-    p.add_argument("--multihost", action="store_true", default=None,
-                   help="not ported: ROADMAP Queue 1 item 6")
+    p.add_argument("--multihost", action="store_true",
+                   help="distributed window refreshes: one process per "
+                   "rank, started with torchrun's variables (MASTER_ADDR, "
+                   "MASTER_PORT, WORLD_SIZE, RANK; LOCAL_RANK picks the "
+                   "card), each ingesting the whole stream; "
+                   "rank-synchronized vocabulary tiers, the warm-start "
+                   "seed from rank 0, the suff-stats allreduce.  Give "
+                   "each rank its own --data-dir.  Single-stream mode "
+                   "(a fleet's coalescing refresh worker can let ranks "
+                   "disagree on which refreshes run)")
     p.add_argument("--no-cosched", action="store_true",
                    help="disable the train/serve co-scheduler (control "
                    "mode: refresh fits are never preempted)")
@@ -1587,11 +1632,11 @@ def main(argv: "list[str] | None" = None) -> int:
     import dataclasses
 
     args = build_parser().parse_args(argv)
-    for attr, (flag, item) in _NOT_PORTED.items():
-        if getattr(args, attr) is not None:
-            print(f"continuous {flag} is not ported yet: {item}",
-                  flush=True)
-            return 2
+    if args.multihost and args.stream:
+        print("continuous --multihost runs the single-stream service: a "
+              "fleet's coalescing refresh worker can let ranks disagree "
+              "on which refreshes run", flush=True)
+        return 2
     env = os.environ
     config = PipelineConfig(
         data_dir=args.data_dir or env.get("LPATH", "."),
@@ -1626,12 +1671,22 @@ def main(argv: "list[str] | None" = None) -> int:
         lines = f.readlines()
     slices = slice_events(lines, args.dsource, args.slice_s)
     speed = float("inf") if args.no_sleep else args.speed
-    payload = run_continuous(
-        config, args.dsource, paced_slices(slices, speed),
-        out_dir=os.path.join(config.data_dir, "continuous"),
-        tenant=args.tenant, fresh_control=args.fresh_control,
-        device=args.device,
-    )
+    collective = None
+    if args.multihost:
+        from ..parallel import get_collective, mesh
+
+        mesh.initialize_distributed(device=args.device or "cuda")
+        collective = get_collective()
+    try:
+        payload = run_continuous(
+            config, args.dsource, paced_slices(slices, speed),
+            out_dir=os.path.join(config.data_dir, "continuous"),
+            tenant=args.tenant, fresh_control=args.fresh_control,
+            device=args.device, collective=collective,
+        )
+    finally:
+        if args.multihost:
+            mesh.shutdown_distributed()
     print(json.dumps(payload), flush=True)
     return 0
 

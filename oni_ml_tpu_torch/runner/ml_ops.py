@@ -8,7 +8,8 @@ ml_ops.sh YYYYMMDD flow|dns TOL:
         [--checkpoint-every N] [--heartbeat SECS] [--profile DIR] \\
         [--pre-workers N] [--qtiles FILE] [--no-dataplane] \\
         [--no-checkpoints] [--online [--eta E --tau0 T --kappa K]] \\
-        [--eval-quality | --eval-holdout FRAC] [--publish DEST]
+        [--eval-quality | --eval-holdout FRAC] [--publish DEST] \\
+        [--multihost [--em-shards N]]
 
     python -m oni_ml_tpu_torch.runner.ml_ops serve --day-dir DIR ...
     python -m oni_ml_tpu_torch.runner.ml_ops continuous flow --flow-path F
@@ -99,6 +100,20 @@ the whole run (CPU and, on the card, CUDA activity) as Chrome trace
 JSON.  Neither changes a result.  `--publish DEST` copies the finished
 day directory (metrics.json included) to DEST, or to an scp-style
 host:path.
+
+Multi-process distributed EM (`--multihost`): N rank processes, started
+with torchrun's variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK,
+LOCAL_RANK; parallel/mesh.py), share one --data-dir.  Pre, corpus and
+score, and every file write, run on rank 0; the lda stage runs on every
+rank, each training its own document shards and reducing the
+statistics through the collective (models/lda.py distributed EM).
+Each stage's run-or-skip is decided on rank 0 and broadcast (which is
+also the barrier between stages), and after each stage every rank's
+outcome is gathered: a stage that failed on any rank fails every rank,
+the others exiting 3 with "failed on another rank".  `--em-shards N`
+fixes the shard plan, so runs at different rank counts write the same
+bytes.  On one card the ranks share it (each its own CUDA context) and
+the collective runs over the rendezvous store (kvring).
 """
 
 from __future__ import annotations
@@ -126,6 +141,7 @@ from ..dataplane import (Dataplane, atomic_write, atomic_write_bytes,
 from ..device import resolve_device
 from ..io import Corpus, formats, make_batches
 from ..models import LDAResult, train_corpus, train_corpus_online
+from ..parallel import mesh
 from ..ops import dense_estep, estep, pallas_estep, sparse_estep
 from ..scoring import DispatchStats, ScoringModel
 from ..scoring.score import _score_engine
@@ -235,16 +251,24 @@ def lda_record(result, counts0: tuple, dev) -> dict:
                 for name, n in executed_counts().items()}
     skipped = stats.get("skipped_iterations", 0)
     lls = [ll for ll, _ in result.likelihoods]
+    # The chunk driver's knobs; a distributed fit has none (its reduce is
+    # the host sync) and names its shard plan and allreduce instead.
+    knobs = {}
+    if "fused_em_chunk" in plan:
+        knobs = {"chunk": plan["fused_em_chunk"]["value"],
+                 "chunk_source": plan["fused_em_chunk"]["source"],
+                 "sync": plan["host_sync_every"]["value"],
+                 "sync_source": plan["host_sync_every"]["source"]}
+    for name in ("em_shards", "allreduce"):
+        if name in plan:
+            knobs[name] = plan[name]
     return {
         "device": str(dev), "engine": engine,
         "engine_source": plan["estep_engine"]["source"],
         "member": stats["member"],
         "crossover": plan.get("estep_crossover"),
         "driver": stats["driver"],
-        "chunk": plan["fused_em_chunk"]["value"],
-        "chunk_source": plan["fused_em_chunk"]["source"],
-        "sync": plan["host_sync_every"]["value"],
-        "sync_source": plan["host_sync_every"]["source"],
+        **knobs,
         "em_iters": result.em_iters,
         "final_likelihood": lls[-1] if lls else None,
         "alpha": result.alpha,
@@ -279,6 +303,8 @@ def online_record(result, counts0: tuple, dev, em_s: float,
                               for name, n in executed_counts().items()},
         "em_s": em_s, "micro_batches_per_s": result.em_iters / em_s,
         "docs_per_s": num_docs * epochs / em_s,
+        **({"allreduce": stats["allreduce"]} if "allreduce" in stats
+           else {}),
     }
 
 
@@ -655,14 +681,16 @@ def stage_lda(ctx: RunContext) -> dict:
     writes = _model_writes(corpus, result)
     if streamline:
         _demote_lda_artifacts(ctx, writes)
-    else:
+    elif mesh.is_coordinator():
+        # A multi-process run's model is the same on every rank; the
+        # shared day dir has one writer.
         for name, write in writes.items():
             # train_corpus_online wrote final.* (and likelihood.dat).
             if not (ctx.online and name.startswith("final.")):
                 atomic_write(ctx.path(name), write)
     ctx.corpus, ctx.result = corpus, result
     rec["corpus"] = corpus_src
-    if ctx.eval_quality:
+    if ctx.eval_quality and mesh.is_coordinator():
         rec.update(_completion_score(ctx, result.log_beta, result.alpha,
                                      corpus))
     rec.update(held)
@@ -882,9 +910,16 @@ def _run_stage(ctx: RunContext, stage: Stage, force: bool) -> None:
         stale.append(CHECKPOINT)
     if stage is Stage.PRE:
         stale.append(SPILL)
-    for name in stale:
-        if os.path.exists(ctx.path(name)):
-            os.unlink(ctx.path(name))
+    if mesh.is_coordinator():
+        for name in stale:
+            if os.path.exists(ctx.path(name)):
+                os.unlink(ctx.path(name))
+    if mesh.process_count() > 1 and stage is Stage.LDA:
+        # Every rank runs lda: none reads the day dir (an EM checkpoint)
+        # before rank 0 has cleared it.
+        from ..parallel.allreduce import get_collective
+
+        get_collective().barrier("stage_clean")
     if ctx.journal is not None:
         ctx.journal.stage_begin(stage.value)
     t0 = time.perf_counter()
@@ -904,12 +939,48 @@ def _run_stage(ctx: RunContext, stage: Stage, force: bool) -> None:
         ctx.journal.stage_end(stage.value, ok=True, wall_s=wall_s, **info)
 
 
+def _coord_decision(value: bool) -> bool:
+    """A per-stage decision made on rank 0 and broadcast, so ranks never
+    desync on the files they see (a rank skipping a stage the others run
+    would starve their reduce).  The broadcast is also the barrier
+    between stages: the other ranks wait here for rank 0's writes."""
+    if mesh.process_count() == 1:
+        return value
+    from ..parallel.allreduce import get_collective
+
+    return bool(get_collective().broadcast_obj(bool(value),
+                                               "stage_decision"))
+
+
+def _all_ranks_ok(ok: bool) -> bool:
+    """Every rank's outcome flag gathered: True only if every rank
+    succeeded.  The wait polls the failure key, so a rank that posted a
+    failure surfaces as PeerFailure here rather than a timeout."""
+    if mesh.process_count() == 1:
+        return ok
+    from ..parallel.allreduce import get_collective
+
+    return all(get_collective().allgather_obj(bool(ok), "stage_outcome"))
+
+
 def _run_stages(ctx: RunContext, wanted, force: bool) -> None:
+    """The stages in order.  In a multi-process run (--multihost) rank 0
+    decides each run-or-skip and broadcasts it; pre, corpus and score run
+    on rank 0 only, lda on every rank; then every rank's outcome is
+    gathered, and a failure anywhere fails every rank (the failing rank
+    posts it first, so ranks blocked inside the reduce see it too)."""
+    multiproc = mesh.process_count() > 1
+    is_coord = mesh.is_coordinator()
     for stage in STAGE_ORDER:
         if stage not in wanted:
             continue
-        done = _stage_done(ctx, stage)
-        if done and not force:
+        done = _stage_done(ctx, stage) if is_coord else None
+        skip = bool(done) and not force
+        if multiproc:
+            skip = _coord_decision(skip)
+        if skip:
+            if not is_coord:
+                continue
             record = {"stage": stage.value, "skipped": done}
             if stage is Stage.LDA and ctx.eval_quality:
                 # The score needs only the saved model: a resumed run
@@ -921,7 +992,29 @@ def _run_stages(ctx: RunContext, wanted, force: bool) -> None:
             if ctx.journal is not None:
                 ctx.journal.stage_skipped(stage.value, done)
             continue
-        _run_stage(ctx, stage, force)
+        err: "Exception | None" = None
+        if is_coord or stage is Stage.LDA:
+            try:
+                _run_stage(ctx, stage, force)
+            except Exception as e:   # relayed to the other ranks below
+                err = e
+        if multiproc:
+            from ..parallel.allreduce import PeerFailure, get_collective
+
+            if err is not None and not isinstance(err, PeerFailure):
+                get_collective().fail(f"stage {stage.value}: {err!r}")
+            try:
+                ok = _all_ranks_ok(err is None)
+            except Exception as barrier_err:
+                # The local error is the root cause: do not mask it.
+                if err is not None:
+                    raise err from barrier_err
+                raise
+            if not ok and err is None:
+                raise PeerFailure(f"stage {stage.value} failed on another "
+                                  "rank; aborting this rank")
+        if err is not None:
+            raise err
 
 
 def _check_modes(dp: DataplaneConfig, stages, online: bool,
@@ -983,11 +1076,24 @@ def run_pipeline(
     to that destination (publish_day).  config.dataplane runs the
     streaming dataplane (the default) or the serial path; a background
     write that failed fails the run (RuntimeError naming it) after every
-    other write has been joined."""
+    other write has been joined.
+
+    In a multi-process world (parallel.initialize_distributed) every rank
+    calls this on one shared day dir: rank 0 runs pre, corpus and score
+    and writes every file, the journal and metrics.json; the lda stage
+    trains distributed on every rank (`_run_stages`).  The dataplane is a
+    one-process plane: the ranks run the serial path."""
     if dsource not in sources.names():
         raise ValueError(f"dsource must be one of "
                          f"{'|'.join(sources.names())}, got {dsource!r}")
     dp = config.dataplane
+    multiproc = mesh.process_count() > 1
+    is_coord = mesh.is_coordinator()
+    if multiproc and not dp.checkpoints:
+        # The ranks meet through the files between stages.
+        raise ValueError(
+            "--no-checkpoints requires a single-process run: multi-host "
+            "ranks coordinate through the inter-stage file contract")
     _check_modes(dp, stages, online, eval_quality, eval_holdout)
     dev = resolve_device(device)
     ctx = RunContext(config, fdate, dsource,
@@ -997,7 +1103,7 @@ def run_pipeline(
     wanted = stages or STAGE_ORDER
     ctx.wanted = list(wanted)
     tel = config.telemetry
-    if tel.journal:
+    if tel.journal and is_coord:
         jpath = ctx.path("run_journal.jsonl")
         replayed = Journal.replay(jpath)
         prior_done = RunJournal.completed_stages(replayed)
@@ -1017,7 +1123,7 @@ def run_pipeline(
             interval_s=tel.heartbeat_s, journal=ctx.journal,
             probe=lambda t: device_add_probe(t, device=dev),
             recorder=ctx.recorder).start()
-    if dp.enabled:
+    if dp.enabled and not multiproc:
         ctx.plane = Dataplane(
             dp, recorder=ctx.recorder,
             journal=ctx.journal.journal if ctx.journal is not None else None)
@@ -1072,6 +1178,8 @@ def run_pipeline(
         with open(ctx.path("metrics.json"), "w") as f:
             json.dump(ctx.metrics, f, indent=1)
 
+    if not is_coord:
+        return DayRun(ctx.metrics, ctx.features, ctx.corpus, ctx.result)
     # metrics.json lands before the publish, so the delivered day carries
     # it and a failed delivery cannot lose it.
     dump_metrics()
@@ -1209,6 +1317,28 @@ def build_parser() -> argparse.ArgumentParser:
                    "every stage writes its artifacts inline.  Artifacts are "
                    "byte-identical either way; the dataplane only changes "
                    "when files land and what the stages read")
+    p.add_argument("--multihost", action="store_true",
+                   help="distributed EM over rank processes (the "
+                   "reference's mpiexec fan-out, minus MPI): start one "
+                   "process per rank with torchrun's variables "
+                   "(MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK; "
+                   "LOCAL_RANK picks cuda:(LOCAL_RANK mod the cards), "
+                   "so on one card every rank shares it), e.g. "
+                   "`torchrun --nproc-per-node 2 -m "
+                   "oni_ml_tpu_torch.runner.ml_ops ... --multihost`.  "
+                   "Each rank trains its own document shards on its own "
+                   "device and the beta/alpha sufficient statistics "
+                   "cross processes through an explicit allreduce (a ring "
+                   "over the rendezvous store).  Needs --data-dir on a "
+                   "filesystem every rank sees: rank 0 is the one writer, "
+                   "the others read its stage outputs and join the reduce")
+    p.add_argument("--em-shards", type=int, default=0, metavar="N",
+                   help="distributed EM's document shard count (0 = auto: "
+                   "8, grown to cover the process count).  The shard plan "
+                   "and the reduction tree derive from the corpus and N, "
+                   "not the rank count, so runs at different rank counts "
+                   "with the same N write byte-identical files "
+                   "(ONI_ML_TPU_EM_SHARDS overrides)")
     p.add_argument("--no-checkpoints", action="store_true",
                    help="skip the inter-stage checkpoint files entirely "
                    "(features.pkl, word_counts.dat, words/doc/model.dat, "
@@ -1291,6 +1421,7 @@ def main(argv=None) -> int:
             em_max_iters=args.em_max_iters, batch_size=args.batch_size,
             seed=args.seed, warm_start_gamma=args.warm_start,
             checkpoint_every=args.checkpoint_every,
+            em_shards=args.em_shards,
         ),
         online_lda=OnlineLDAConfig(
             num_topics=args.topics, alpha=args.alpha, eta=args.eta,
@@ -1307,6 +1438,8 @@ def main(argv=None) -> int:
         dataplane=DataplaneConfig(enabled=not args.no_dataplane,
                                   checkpoints=not args.no_checkpoints),
     )
+    if args.multihost:
+        mesh.initialize_distributed(device=args.device)
     try:
         with _profiled(args.profile, args.device,
                        f"{args.fdate}.{args.dsource}.trace.json"):
@@ -1318,7 +1451,8 @@ def main(argv=None) -> int:
                          eval_holdout=args.eval_holdout)
     except BackendLost as e:
         # The heartbeat's point: a dead device exits as a structured,
-        # journaled failure, not a hang.
+        # journaled failure, not a hang.  So does a distributed run that
+        # failed on another rank (PeerFailure).
         print(json.dumps({"fdate": args.fdate, "dsource": args.dsource,
                           "error": "backend_lost", "detail": str(e)}),
               flush=True)
@@ -1328,6 +1462,9 @@ def main(argv=None) -> int:
                           "error": "missing_artifact", "detail": str(e)}),
               flush=True)
         return 2
+    finally:
+        if args.multihost:
+            mesh.shutdown_distributed()
     return 0
 
 

@@ -27,6 +27,14 @@ plus a `{"kind": "cosched"}` journal record per contended wait; an
 uncontended entry costs two lock acquisitions and writes nothing.
 `CoScheduler(enabled=False)` is the uncoordinated control (`--no-cosched`):
 the same counters and refresh-active tagging, no waits.
+
+One departure from the JAX package: a tenant's first fit (no model
+published yet: `train_fit(first_publish=True)`) stops yielding once its
+summed yield wait reaches `starvation_s`.
+The per-wait cap alone bounds each wait but not their sum, so under a
+scoring plane that never drains a first fit could yield for a whole
+stream and its tenant never be served.  Later fits keep the per-wait
+cap only.
 """
 
 from __future__ import annotations
@@ -42,7 +50,9 @@ class CoScheduler:
     `starvation_s` bounds trainer livelock under a saturated serve
     plane: a chunk entry that has waited longer than this proceeds
     anyway (journaled with `capped: true`).  Scoring still wins every
-    slot the trainer is not actively holding.
+    slot the trainer is not actively holding.  It also bounds the summed
+    yield wait of a first fit (`train_fit(first_publish=True)`); past it
+    the fit's chunks enter without waiting.
 
     `enabled=False` is the observe-only mode of the uncoordinated
     control: every bracket still counts chunks and slots and
@@ -72,6 +82,8 @@ class CoScheduler:
         self._fit_yield_wait_s = 0.0
         self._fit_chunks = 0
         self._fit_capped = 0
+        self._fit_first = False      # the fit in flight is a first fit
+        self._fit_bound_chunk = None  # its chunk where the bound acted
 
     # -- introspection ----------------------------------------------------
 
@@ -94,11 +106,15 @@ class CoScheduler:
     # -- train side -------------------------------------------------------
 
     @contextmanager
-    def train_fit(self, tenant: str = ""):
+    def train_fit(self, tenant: str = "", first_publish: bool = False):
         """Brackets one whole refresh fit.  Flips `refresh_active` and
         aggregates the fit's chunk/yield tallies into one journal
         record at exit (the per-wait records stay individually
-        journaled; this is the fit-level rollup)."""
+        journaled; this is the fit-level rollup).  `first_publish`: the
+        tenant has no published model yet, so the fit's summed yield
+        wait is bounded by `starvation_s`; its record then adds
+        `first_publish` and `first_fit_bound_chunk`, the fit's chunk at
+        which the bound stopped the yielding (None: it never acted)."""
         t0 = time.perf_counter()
         with self._cond:
             self._fit_active += 1
@@ -106,6 +122,8 @@ class CoScheduler:
             self._fit_yield_wait_s = 0.0
             self._fit_chunks = 0
             self._fit_capped = 0
+            self._fit_first = bool(first_publish)
+            self._fit_bound_chunk = None
         try:
             yield self
         finally:
@@ -116,25 +134,42 @@ class CoScheduler:
                 yields = self._fit_yields
                 ywait = self._fit_yield_wait_s
                 capped = self._fit_capped
+                bound_chunk = self._fit_bound_chunk
+                self._fit_first = False
                 self._cond.notify_all()
-            self._journal_safe({
+            record = {
                 "kind": "cosched", "event": "fit", "tenant": tenant,
                 "wall_s": round(wall, 6), "chunks": chunks,
                 "yields": yields, "yield_wait_s": round(ywait, 6),
                 "capped": capped,
-            })
+            }
+            if first_publish:
+                record.update(first_publish=True,
+                              first_fit_bound_chunk=bound_chunk)
+            self._journal_safe(record)
 
     @contextmanager
     def train_chunk(self):
         """One preemptible chunk dispatch.  Entry is the yield point:
         wait while any scoring flush is pending or running (bounded by
-        `starvation_s`), then hold the slot for the dispatch."""
+        `starvation_s`, and in a first fit by what is left of the fit's
+        `starvation_s` of summed waits), then hold the slot for the
+        dispatch."""
         t0 = time.perf_counter()
         deadline = t0 + self.starvation_s
         capped = False
         with self._cond:
             contended = self.enabled and (
                 self._serve_waiting > 0 or self._serve_busy > 0)
+            if contended and self._fit_first:
+                left = self.starvation_s - self._fit_yield_wait_s
+                if left <= 0:
+                    # The bound has acted: this first fit yields no more.
+                    contended = False
+                    if self._fit_bound_chunk is None:
+                        self._fit_bound_chunk = self._fit_chunks + 1
+                elif left < self.starvation_s:
+                    deadline = t0 + left
             while contended and (
                     self._serve_waiting > 0 or self._serve_busy > 0):
                 remain = deadline - time.perf_counter()
@@ -152,6 +187,10 @@ class CoScheduler:
                 self._fit_yields += 1
                 self._fit_yield_wait_s += wait
                 self._fit_capped += capped
+                if (self._fit_first and self._fit_bound_chunk is None
+                        and self._fit_yield_wait_s
+                        >= self.starvation_s):
+                    self._fit_bound_chunk = self._fit_chunks
         if contended:
             if self._recorder is not None:
                 self._recorder.histogram(

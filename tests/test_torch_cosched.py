@@ -173,3 +173,57 @@ def test_cosched_disabled_never_waits():
         assert entered.wait(5.0)
     th.join(timeout=5.0)
     assert cs.summary()["yields"] == 0
+
+
+def test_cosched_first_fit_bound_under_saturated_serve_plane():
+    """A serve plane held near saturation (a slot re-entered as soon as
+    it is left): a tenant's first fit (no model published yet) stops
+    yielding once its summed yield wait reaches starvation_s, so all
+    its chunks run within about that bound, and its fit record says at
+    which chunk the bound acted; a later fit of the same tenant still
+    yields at every chunk, each wait capped at starvation_s.  Bounds are
+    wall-clock, as in the tests above: the bound 0.2 s, its fit's summed
+    wait under 0.6 s where 20 capped waits would take 4 s."""
+    records = []
+
+    class _J:
+        def append(self, rec, sync=False):
+            records.append(rec)
+
+    cs = CoScheduler(recorder=Recorder(), journal=_J(), starvation_s=0.2)
+    stop = threading.Event()
+    serving = threading.Event()
+
+    def serve_plane():
+        while not stop.is_set():
+            with cs.serve_slot():
+                serving.set()
+                time.sleep(0.01)
+
+    th = threading.Thread(target=serve_plane)
+    th.start()
+    try:
+        assert serving.wait(5.0)
+        t0 = time.perf_counter()
+        with cs.train_fit("acme", first_publish=True):
+            for _ in range(20):
+                with cs.train_chunk():
+                    pass
+        first_wall = time.perf_counter() - t0
+        with cs.train_fit("acme"):
+            for _ in range(3):
+                with cs.train_chunk():
+                    pass
+    finally:
+        stop.set()
+        th.join(timeout=5.0)
+    fits = [r for r in records if r.get("event") == "fit"]
+    first, later = fits
+    assert first["first_publish"] is True and first["chunks"] == 20
+    assert 0.15 <= first["yield_wait_s"] < 0.6, first
+    assert first["first_fit_bound_chunk"] is not None
+    assert 1 <= first["first_fit_bound_chunk"] <= 20
+    assert first_wall < 2.0, first_wall
+    assert "first_publish" not in later
+    assert later["yields"] == 3 and later["capped"] == 3
+    assert later["yield_wait_s"] >= 0.45, later

@@ -782,11 +782,15 @@ def _last_json(out: str) -> dict:
 
 
 def test_dry_run_cli_on_cpu_matches_jax(capsys):
+    """Both dry runs at one --max-batch and a --max-wait-ms far past the
+    run: only size and close trigger a flush, so `batches` and
+    `triggers` do not hang on the wall clock."""
+    flush = ["--max-batch", "32", "--max-wait-ms", "600000"]
     assert ml_ops.main(["serve", "--dry-run", "--device", "cpu",
-                        "--device-score-min", "1000000"]) == 0
+                        "--device-score-min", "1000000", *flush]) == 0
     port = _last_json(capsys.readouterr().out)
     assert jml_ops.main(["serve", "--dry-run", "--no-compilation-cache",
-                         "--device-score-min", "1000000"]) == 0
+                         "--device-score-min", "1000000", *flush]) == 0
     ref = _last_json(capsys.readouterr().out)
     assert port["serve_dry_run"] == "ok" and port["device"] == "cpu"
     for key in ("events", "events_scored", "batches", "triggers",

@@ -317,15 +317,39 @@ def test_window_trainer_warm_start_grown_vocab_matches_jax():
     _assert_fits_close(got, ref)
 
 
-def test_window_trainer_rejects_wrong_tier_and_collective():
-    cfg, _ = _cfgs()
-    tr = WindowTrainer(cfg, 64, device=CPU)
+def test_window_trainer_rejects_wrong_tier_and_collective(monkeypatch):
+    """A corpus outside the trainer's tier is refused, with a collective
+    too; and a collective (one rank) no longer is: the refresh trains
+    distributed over the shard plan, as the JAX WindowTrainer with its
+    one-rank collective does, fresh and warm."""
+    from oni_ml_tpu.parallel.allreduce import Collective as JCollective
+    from oni_ml_tpu_torch.parallel import Collective
+
+    cfg, jcfg = _cfgs()
     corpus = Corpus.from_word_counts(
         _structured_triples(np.random.default_rng(4), docs=10, v=32))
-    with pytest.raises(ValueError, match="capacity tier"):
-        tr.fit(corpus)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        WindowTrainer(cfg, 64, device=CPU, collective=object())
+    for coll in (None, Collective(rank=0, nprocs=1)):
+        with pytest.raises(ValueError, match="capacity tier"):
+            WindowTrainer(cfg, 64, device=CPU, collective=coll).fit(corpus)
+    trips = _structured_triples(np.random.default_rng(3))
+    corpus, jcorpus = Corpus.from_word_counts(trips), \
+        JCorpus.from_word_counts(trips)
+    _jax_init(monkeypatch, cfg, corpus.num_terms)
+    tr = WindowTrainer(cfg, corpus.num_terms, device=CPU,
+                       collective=Collective(rank=0, nprocs=1))
+    jtr = jlda.WindowTrainer(jcfg, jcorpus.num_terms,
+                             collective=JCollective(rank=0, nprocs=1))
+    fresh, jfresh = tr.fit(corpus), jtr.fit(jcorpus)
+    _assert_fits_close(fresh, jfresh)
+    probs = np.exp(np.asarray(jfresh.log_beta)).T
+    warm = tr.fit(corpus, topic_probs=probs, alpha=jfresh.alpha)
+    jwarm = jtr.fit(jcorpus, topic_probs=probs, alpha=jfresh.alpha)
+    _assert_fits_close(warm, jwarm)
+    assert warm.em_iters < fresh.em_iters / 2
+    for res, jres in ((fresh, jfresh), (warm, jwarm)):
+        assert res.stats["driver"] == "distributed"
+        assert res.plan["em_shards"] == jres.plan["em_shards"]
+        assert res.plan["allreduce"] == jres.plan["allreduce"]
 
 
 @pytest.mark.parametrize("chunk", [1, 4])
