@@ -111,7 +111,7 @@ Phases (any failure exits non-zero before the result line):
              per-token likelihoods within RTOL_E2E; the card's quality run
              with --publish DIR: DIR/<fdate> holds the day's bytes.
    serve     `ml_ops serve` over the 2M flow and DNS days' models, each
-             streamed 131,072 raw events of its own input: refresh off,
+             streamed 98,304 raw events of its own input: refresh off,
              the first 32,768 with every flush on the host (bit-equal to
              the day's own scores over features.pkl) and with every flush
              on the card (rel 1e-6); then all of them at the ServingConfig
@@ -250,14 +250,34 @@ Phases (any failure exits non-zero before the result line):
              launched in the rank processes (each counts its own).
              Prints per rank the stage walls, EM iterations and wall,
              launches, allreduce ops, bytes and wait.
+   mesh      the single-process device mesh (`--mesh DATA,MODEL`,
+             parallel/mesh.py, sharded.py), its slots all on the one
+             card (devices=[cuda:0] * N): on the 2M flow day's corpus,
+             5 EM iterations, each member pinned (the per-batch sparse
+             kernel with dense_em off, full-V dense with dense_em on,
+             ONI_ML_TPU_ESTEP=pallas): one E-step at 1x1 against the
+             unmeshed one (the JAX package's 1x1 bounds), the fit at
+             1x1 against no mesh and at (2, 1) and (4, 1) against 1x1
+             (likelihood rel 1e-4, beta atol 1e-4, gamma 1e-3, alpha
+             rel 1e-4), two (4, 1) runs the same bytes, each member's
+             kernels on every slot; the 2M DNS day (V 31,434)
+             vocab-sharded at (2, 4), the sparse and the dense plan,
+             against their 1x1 runs; the device scorer at (4, 1)
+             bit-equal to the unmeshed scorer on the flow day's model,
+             theta and p sent once; online SVI at (4, 1) against one
+             slot (lambda 2e-4); `ml_ops ... --mesh 1,1` on the small
+             flow day, `--mesh 2,2` refused with exit 2 and the JAX
+             message, and two `--multihost --mesh 1,1` ranks against one
+             at --em-shards 8, the same bytes.  Prints `wall mesh:`.
 
 Then it prints the kernels line (each kernel with its launches on its
 flow-day path, as `dns_launches` on the DNS day's, as
 `online_launches` on its online run's, as `launches_serve` on the
 served streams', as `launches_fleet` on the fleet's and as
 `launches_continuous` on the continuous service's, as
-`launches_replicated` on the replicated fleet's and as
-`launches_multihost` on the rank processes'), the card's name
+`launches_replicated` on the replicated fleet's, as
+`launches_multihost` on the rank processes' and as `launches_mesh` on
+the mesh phase's), the card's name
 and power limit, and last `{"ok": true, "device": {...}}`.  Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
 """
@@ -1020,6 +1040,7 @@ def pipeline_dns(tmp):
     dns_corpus = Corpus.from_model_dat(os.path.join(day, "model.dat"),
                                        os.path.join(day, "words.dat"),
                                        os.path.join(day, "doc.dat"))
+    _MESH_INPUTS["dns_corpus"] = dns_corpus
     if lda["engine"] == "sparse":
         batches = list(dns_corpus.bucketed_layout(
             min_len=128, batch_cap=1024,
@@ -1352,29 +1373,69 @@ def ml_ops_day(dsource, tol, raw, data, *extra, python=False):
         return day, {r["stage"]: r for r in json.load(f)}
 
 
-def native_pre(tmp, raws, flow_pre, host_score, host):
+def native_pre_start(tmp):
+    """Start the 2M-event flow day's `--stages pre,corpus` on the Python
+    path (ONI_ML_TPU_NO_NATIVE=1) in a process of its own, so its
+    single-threaded parse runs beside the phases that follow `pipeline`
+    until native_pre joins it (it ran inline there until the mesh phase
+    needed the room).
+    Returns the process and its output files."""
+    base = os.path.join(tmp, "native_pre_py")
+    fo, fe = open(base + ".out", "w"), open(base + ".err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "oni_ml_tpu_torch.runner.ml_ops", "20160122",
+         "flow", repr(1e-20), "--flow-path",
+         os.path.join(tmp, "flow_day.csv"), "--data-dir", base, "--stages",
+         "pre,corpus", "--device", "cuda"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, ONI_ML_TPU_NO_NATIVE="1"), stdout=fo,
+        stderr=fe)
+    return {"proc": proc, "files": (fo, fe), "base": base}
+
+
+def native_pre_join(started):
+    """Wait for native_pre_start's run (killed past 600 s); fails unless
+    it exited 0.  Returns its day dir and stage records."""
+    proc = started["proc"]
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    for f in started["files"]:
+        f.close()
+    if proc.returncode != 0:
+        with open(started["base"] + ".err") as f:
+            fail(f"native_pre: the Python pre run exited {proc.returncode}: "
+                 f"{f.read()[-2500:]}")
+    day = os.path.join(started["base"], "20160122")
+    with open(os.path.join(day, "metrics.json")) as f:
+        return day, {r["stage"]: r for r in json.load(f)}
+
+
+def native_pre(tmp, raws, flow_pre, host_score, host, py_started):
     """The native pre path against the Python one (ONI_ML_TPU_NO_NATIVE=1)
     on the card's host.  The 2M-event flow day: `--stages pre,corpus` in
-    Python and natively at --pre-workers 1 must write the word counts and
-    the corpus triplet of the pipeline's run (native, workers auto); the
-    Python day's score stage, resumed at score_device's threshold over
-    the pipeline's model, must write the native day's results.  The
-    small flow and DNS days (sparse engine pinned, so both runs train
-    alike): every file of the day alike, results CSVs included."""
+    Python (started earlier, native_pre_start) and natively at
+    --pre-workers 1 must write the word counts and the corpus triplet of
+    the pipeline's run (native, workers auto); the Python day's score
+    stage, resumed at score_device's threshold over the pipeline's
+    model, must write the native day's results.  The small flow and DNS
+    days (sparse engine pinned, so both runs train alike): every file of
+    the day alike, results CSVs included."""
     flow_day = os.path.join(tmp, "data", "20160122")
     raw = os.path.join(tmp, "flow_day.csv")
     tol, native_score_s = host_score["flow"]
-    py_day, py = ml_ops_day("flow", 1e-20, raw,
-                            os.path.join(tmp, "native_pre_py"), "--stages",
-                            "pre,corpus", python=True)
     w1_day, w1 = ml_ops_day("flow", 1e-20, raw,
                             os.path.join(tmp, "native_pre_w1"), "--stages",
                             "pre,corpus", "--pre-workers", "1")
-    if py["pre"]["pre_engine"] != "python" or (
-            w1["pre"]["pre_engine"] != "native"
+    if (w1["pre"]["pre_engine"] != "native"
             or w1["pre"]["pre_workers"] != 1):
-        fail(f"native_pre: the runs took {py['pre']} and {w1['pre']}")
+        fail(f"native_pre: the native run took {w1['pre']}")
     files = ["word_counts.dat", "words.dat", "doc.dat", "model.dat"]
+    py_day, py = native_pre_join(py_started)
+    if py["pre"]["pre_engine"] != "python":
+        fail(f"native_pre: the Python run took {py['pre']}")
     equal = {"python": same_files(flow_day, py_day, files),
              "native_workers_1": same_files(flow_day, w1_day, files)}
     for name in ("doc_results.csv", "word_results.csv"):
@@ -1434,7 +1495,11 @@ def telemetry(tmp, raw):
     process as a user starts one (`python -m
     oni_ml_tpu_torch.runner.ml_ops`): in this process an earlier phase
     has started the profiler already, and there the profiler starts
-    cold; their final.* must be the same bytes too."""
+    cold; their final.* must be the same bytes too.  The recorded run
+    alone goes to a fresh process (the plain one went too until the mesh
+    phase needed the room: a fresh process's plain run is the
+    in-process one's bytes, which the recorded fresh run shows as
+    well)."""
     from collections import Counter
 
     from oni_ml_tpu_torch.runner import ml_ops
@@ -1445,7 +1510,6 @@ def telemetry(tmp, raw):
     for label, extra in (("plain", []),
                          ("recorded", ["--heartbeat", "1", "--profile",
                                        prof]),
-                         ("fresh_plain", []),
                          ("fresh_recorded", ["--heartbeat", "1", "--profile",
                                              prof + "_fresh"])):
         data = os.path.join(tmp, f"telemetry_{label}")
@@ -1481,7 +1545,7 @@ def telemetry(tmp, raw):
                  "likelihood.dat", "flow_results.csv"):
         with open(os.path.join(plain, name), "rb") as f:
             want = f.read()
-        for label in ("recorded", "fresh_plain", "fresh_recorded"):
+        for label in ("recorded", "fresh_recorded"):
             with open(os.path.join(days[label][0], name), "rb") as f:
                 same[f"{label}:{name}"] = f.read() == want
     records = Journal.replay(os.path.join(rec_day, "run_journal.jsonl"))
@@ -1804,13 +1868,15 @@ def evaluate(tmp, raw):
 
 # Serving (`ml_ops serve`): the two 2M days' models, each streamed
 # SERVE_EVENTS raw events of its own input at the ServingConfig defaults.
-# 131,072 events = 32 flushes of max_batch, 4 refreshes.  Cut from
+# 98,304 events = 24 flushes of max_batch, 3 refreshes.  Cut from
 # 262,144 (64 flushes), whose phase took 97-104 s on the card and
 # brought the whole run to ~520 s, then from 196,608 (48 flushes,
-# 54.6-85.2 s) to make room for the multihost phase; the parity streams
-# (refresh off, host pinned or every flush on the card) take the first
-# 32,768 (8 flushes).
-SERVE_EVENTS = 131_072
+# 54.6-85.2 s) to make room for the multihost phase, then from 131,072
+# (32 flushes, 68.1-77.2 s) after the whole smoke took 1,110 s of its
+# 1,200 on a slow host with the mesh phase; the parity streams (refresh
+# off, host pinned or every flush on the card) take the first 32,768
+# (8 flushes).
+SERVE_EVENTS = 98_304
 SERVE_REFRESH_EVERY = 8
 SERVE_PARITY_EVENTS = 32_768
 # The per-batch members' served streams: one refresh, then a flush on
@@ -3974,6 +4040,458 @@ def multihost_phase(tmp, raws, dev="cuda"):
     return total
 
 
+# ---------------------------------------------------------------------------
+# The single-process device mesh (`--mesh DATA,MODEL`, parallel/sharded.py)
+# ---------------------------------------------------------------------------
+
+# EM iterations of every mesh fit (a 5-iteration trajectory, as the JAX
+# package's mesh tests run).
+MESH_EM_ITERS = 5
+# A mesh fit against the 1x1 run: the JAX package's own bounds for its
+# sharded fits against its single device (tests/test_sharded.py:109-122):
+# likelihood rel 1e-4 at every iteration, beta (probabilities) atol 1e-4,
+# gamma rtol 1e-3 / atol 1e-3, alpha rtol 1e-4.
+RTOL_MESH_LL, ATOL_MESH_BETA, TOL_MESH_GAMMA, RTOL_MESH_ALPHA = (
+    1e-4, 1e-4, 1e-3, 1e-4)
+# One E-step at 1x1 against the unmeshed one: tests/test_sharded.py:
+# 265-272's bounds (gamma rtol/atol 1e-6, suff-stats rtol 1e-5 / atol
+# 1e-6, likelihood rtol 1e-6).
+MESH_ESTEP_TOL = {"gamma": (1e-6, 1e-6), "suff_stats": (1e-5, 1e-6),
+                  "likelihood": (1e-6, 0.0)}
+# Online at (4, 1) against one slot: tests/test_online_lda.py:148-168.
+TOL_MESH_LAM = 2e-4
+# The members a mesh runs, each pinned as the dense family's gates allow:
+# (label, LDAConfig fields, ONI_ML_TPU_ESTEP, member, its kernels).
+MESH_MEMBERS = (
+    ("sparse", {"estep_engine": "dense", "dense_em": "off"}, None,
+     "per_batch:sparse", ("sparse_estep", "sparse_scatter")),
+    ("dense", {"estep_engine": "dense", "dense_em": "on"}, None, "dense",
+     ("dense_estep",)),
+    ("pallas", {"estep_engine": "dense"}, "pallas", "per_batch:pallas",
+     ("fixed_point_estep", "sparse_scatter")),
+)
+# Set by the earlier phases: the DNS day's corpus (pipeline_dns).
+_MESH_INPUTS: dict = {}
+
+
+def mesh_close(a, b):
+    """The largest gaps of a fit against its 1x1 run, and whether each is
+    inside its bound."""
+    la = np.array([l for l, _ in a.likelihoods])
+    lb = np.array([l for l, _ in b.likelihoods])
+    if la.shape != lb.shape:
+        return {"em_iters": [len(la), len(lb)]}, False
+    gaps = {
+        "ll_rel": float(np.max(np.abs(la - lb) / np.abs(lb))),
+        "beta_abs": float(np.max(np.abs(np.exp(a.log_beta)
+                                        - np.exp(b.log_beta)))),
+        "gamma_excess": float(np.max(np.abs(a.gamma - b.gamma)
+                                     - TOL_MESH_GAMMA * np.abs(b.gamma))),
+        "alpha_rel": abs(a.alpha - b.alpha) / abs(b.alpha),
+    }
+    ok = (gaps["ll_rel"] <= RTOL_MESH_LL and gaps["beta_abs"] <= ATOL_MESH_BETA
+          and gaps["gamma_excess"] <= TOL_MESH_GAMMA
+          and gaps["alpha_rel"] <= RTOL_MESH_ALPHA)
+    return gaps, ok
+
+
+def mesh_every_slot(label, mesh, kernels):
+    """Each of `kernels` launched on every slot of `mesh` (its own
+    per-slot counts, parallel/sharded.py)."""
+    per = {k: list(mesh.launches.get(k, [])) for k in kernels}
+    n = mesh.devices.size
+    if any(len(v) != n or min(v) <= 0 for v in per.values()):
+        fail(f"mesh {label}: a slot launched no {kernels}: {per}")
+    return per
+
+
+def mesh_estep_1x1(label, member, corpus, env):
+    """One E-step of the member on the day's first batch, under a 1x1
+    mesh and without one, within MESH_ESTEP_TOL; also whether the bytes
+    matched."""
+    from oni_ml_tpu_torch.models.lda import init_log_beta
+    from oni_ml_tpu_torch.ops import estep
+    from oni_ml_tpu_torch.parallel import (make_data_parallel_dense_e_step,
+                                           make_data_parallel_e_step,
+                                           make_mesh)
+
+    b = make_batches(corpus, 1024, 16, pad_multiple=8)[0]
+    dev = torch.device("cuda")
+    lb = init_log_beta(torch.Generator().manual_seed(0), K, corpus.num_terms,
+                       device=dev)
+    alpha = torch.tensor(2.5, device=dev)
+    w = torch.as_tensor(b.word_idx, device=dev)
+    c = torch.as_tensor(b.counts, dtype=torch.float32, device=dev)
+    m = torch.as_tensor(b.doc_mask, dtype=torch.float32, device=dev)
+    mesh = make_mesh(1, 1, devices=[dev])
+    if env:
+        os.environ["ONI_ML_TPU_ESTEP"] = env
+    try:
+        if member == "dense":
+            dense = dense_estep.densify(w, c, corpus.num_terms).t().contiguous()
+            plain = dense_estep.e_step_dense(lb, alpha, dense, m, 20, 1e-6,
+                                             wmajor=True, cells=w.shape[1])
+            got = make_data_parallel_dense_e_step(mesh, wmajor=True)(
+                lb, alpha, dense, m, None, None, 20, 1e-6, cells=w.shape[1])
+        else:
+            live = sparse_estep.live_tokens(w, c)
+            plain = estep.e_step(lb, alpha, w, c, m, 20, 1e-6, live=live)
+            got = make_data_parallel_e_step(mesh)(
+                lb, alpha, w, c, m, 20, 1e-6, live=(live,))
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("ONI_ML_TPU_ESTEP", None)
+    gaps, same = {}, True
+    for field, (rtol, atol) in MESH_ESTEP_TOL.items():
+        x = getattr(got, field).double().cpu()
+        y = getattr(plain, field).double().cpu()
+        same = same and torch.equal(getattr(got, field).cpu(),
+                                    getattr(plain, field).cpu())
+        excess = float(((x - y).abs() - rtol * y.abs() - atol).max())
+        gaps[field] = excess
+        if excess > 0:
+            fail(f"mesh {label}: a 1x1 E-step's {field} differs from the "
+                 f"unmeshed one by {excess:.3g} over rtol {rtol} atol {atol}")
+    mesh_every_slot(f"{label} 1x1 E-step", mesh,
+                    ENGINE_KERNELS[member])
+    return {"excess_over_bound": gaps, "bytes_equal": same}
+
+
+def mesh_fits(corpus, out):
+    """(a) and (b): each member's 5-iteration fit on the 2M flow day's
+    corpus unmeshed, at 1x1, at (2, 1) and at (4, 1) over one card
+    repeated, each through train_corpus(mesh=); the (4, 1) sparse fit
+    twice (the same bytes)."""
+    from dataclasses import replace
+
+    from oni_ml_tpu_torch.config import LDAConfig
+    from oni_ml_tpu_torch.models.lda import train_corpus
+    from oni_ml_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda")
+    base = LDAConfig(em_max_iters=MESH_EM_ITERS, em_tol=0.0)
+    for label, cfg_kw, env, member, kernels in MESH_MEMBERS:
+        cfg = replace(base, **cfg_kw)
+        rec = {"member": member, "estep_1x1": mesh_estep_1x1(
+            label, member, corpus, env)}
+        if env:
+            os.environ["ONI_ML_TPU_ESTEP"] = env
+        try:
+            fits, walls = {}, {}
+            shapes = [("none", None), ("1x1", (1, 1)), ("2x1", (2, 1)),
+                      ("4x1", (4, 1))]
+            if label == "sparse":
+                shapes.append(("4x1_again", (4, 1)))
+            meshes = {}
+            for name, shape in shapes:
+                mesh = (make_mesh(*shape, devices=[dev] * (shape[0]
+                                                           * shape[1]))
+                        if shape else None)
+                meshes[name] = mesh
+                t0 = time.perf_counter()
+                fits[name] = train_corpus(
+                    corpus, cfg, device="cuda", mesh=mesh)
+                walls[name] = time.perf_counter() - t0
+                if fits[name].stats["member"] != member:
+                    fail(f"mesh {label} {name}: trained "
+                         f"{fits[name].stats['member']}, not {member}")
+                if mesh is not None:
+                    rec[f"slot_launches_{name}"] = mesh_every_slot(
+                        f"{label} {name}", mesh, kernels)
+        finally:
+            os.environ.pop("ONI_ML_TPU_ESTEP", None)
+        one = fits["1x1"]
+        for name in ("none", "2x1", "4x1"):
+            gaps, ok = mesh_close(fits[name], one)
+            rec[f"{name}_vs_1x1"] = gaps
+            if not ok:
+                fail(f"mesh {label}: the {name} fit against the 1x1 fit "
+                     f"{gaps}")
+        rec["1x1_bytes_equal_unmeshed"] = bool(
+            np.array_equal(one.log_beta, fits["none"].log_beta)
+            and np.array_equal(one.gamma, fits["none"].gamma))
+        rec["batch_shapes"] = {n: fits[n].stats["batch_shapes"][:3]
+                               for n in ("none", "1x1")}
+        if "4x1_again" in fits:
+            a, b = fits["4x1"], fits["4x1_again"]
+            same = (np.array_equal(a.log_beta, b.log_beta)
+                    and np.array_equal(a.gamma, b.gamma)
+                    and a.likelihoods == b.likelihoods and a.alpha == b.alpha)
+            rec["4x1_two_runs_bytes_equal"] = same
+            if not same:
+                fail(f"mesh {label}: two (4, 1) fits differ")
+        rec["walls_s"] = walls
+        rec["final_likelihood"] = one.likelihoods[-1][0]
+        out[label] = rec
+        _MESH_INPUTS.setdefault("fits_1x1", {})[label] = (one, cfg, env)
+
+
+def mesh_vocab(out):
+    """(c): the 2M DNS day's corpus (V 31,434) vocab-sharded at (2, 4) over
+    one card repeated, the sparse plan and the dense plan (dense_em on),
+    each against its 1x1 vocab-sharded run, trimmed back to V."""
+    from dataclasses import replace
+
+    from oni_ml_tpu_torch.config import LDAConfig
+    from oni_ml_tpu_torch.models.lda import train_corpus
+    from oni_ml_tpu_torch.parallel import make_mesh
+
+    corpus = _MESH_INPUTS["dns_corpus"]
+    dev = torch.device("cuda")
+    base = LDAConfig(em_max_iters=MESH_EM_ITERS, em_tol=0.0)
+    for label, cfg, member in (
+            ("vocab_sparse", replace(base, dense_em="off"), "vocab_sparse"),
+            ("vocab_dense", replace(base, dense_em="on"), "vocab_dense")):
+        fits, walls, meshes = {}, {}, {}
+        for name, (d, m) in (("1x1", (1, 1)), ("2x4", (2, 4))):
+            meshes[name] = make_mesh(d, m, devices=[dev] * (d * m))
+            t0 = time.perf_counter()
+            fits[name] = train_corpus(corpus, cfg, device="cuda",
+                                      mesh=meshes[name], vocab_sharded=True)
+            walls[name] = time.perf_counter() - t0
+            res = fits[name]
+            if (res.stats["member"] != member
+                    or res.log_beta.shape != (K, corpus.num_terms)):
+                fail(f"mesh {label} {name}: member {res.stats['member']}, "
+                     f"beta {res.log_beta.shape}")
+        gaps, ok = mesh_close(fits["2x4"], fits["1x1"])
+        if not ok:
+            fail(f"mesh {label}: the (2, 4) fit against the 1x1 fit {gaps}")
+        rec = {"member": member, "vocab": corpus.num_terms,
+               "docs": corpus.num_docs, "2x4_vs_1x1": gaps, "walls_s": walls,
+               "final_likelihood": fits["1x1"].likelihoods[-1][0]}
+        if member == "vocab_sparse":
+            rec["slot_launches_2x4"] = mesh_every_slot(
+                f"{label} 2x4", meshes["2x4"], ("sparse_scatter",))
+        out[label] = rec
+
+
+def mesh_scorer(tmp, out):
+    """(d): the device scorer's mesh path at (4, 1) on the 2M flow day's
+    model, over 2M events drawn from its rows: every score and the
+    survivors bit-equal to the scorer with no mesh; theta and p cross the
+    link once."""
+    from oni_ml_tpu_torch.config import ScoringConfig
+    from oni_ml_tpu_torch.parallel import make_mesh
+    from oni_ml_tpu_torch.scoring import (DispatchStats, chunked_scores,
+                                          filtered_flow_scores)
+    from oni_ml_tpu_torch.scoring.score import ScoringModel
+    from oni_ml_tpu_torch.sources import get
+
+    day = os.path.join(tmp, "data", "20160122")
+    model = ScoringModel.from_files(
+        os.path.join(day, "doc_results.csv"),
+        os.path.join(day, "word_results.csv"),
+        get("flow").fallback(ScoringConfig()))
+    rng = np.random.default_rng(17)
+    n = PIPELINE_EVENTS
+    idx = [rng.integers(0, model.theta.shape[0], n).astype(np.int32),
+           rng.integers(0, model.p.shape[0], n).astype(np.int32),
+           rng.integers(0, model.theta.shape[0], n).astype(np.int32),
+           rng.integers(0, model.p.shape[0], n).astype(np.int32)]
+    mesh = make_mesh(4, 1, devices=[torch.device("cuda")] * 4)
+    t0 = time.perf_counter()
+    plain = chunked_scores(model, idx[0], idx[1], device="cuda")
+    t_plain = time.perf_counter() - t0
+    stats = DispatchStats()
+    t0 = time.perf_counter()
+    sharded = chunked_scores(model, idx[0], idx[1], mesh=mesh, stats=stats)
+    t_mesh = time.perf_counter() - t0
+    key = np.minimum(plain, chunked_scores(model, idx[2], idx[3],
+                                           device="cuda"))
+    threshold = gap_threshold(key, 0.001)
+    f_plain = filtered_flow_scores(model, *idx, threshold, device="cuda")
+    f_mesh = filtered_flow_scores(model, *idx, threshold, mesh=mesh,
+                                  stats=stats)
+    once = 4 * (model.theta.size + model.p.size)
+    same = (np.array_equal(plain, sharded)
+            and all(np.array_equal(a, b) for a, b in zip(f_plain, f_mesh)))
+    if not same or stats.weight_h2d_bytes != once or len(f_mesh[0]) == 0:
+        fail(f"mesh scorer: bit-equal {same}, weight bytes "
+             f"{stats.weight_h2d_bytes} (once: {once}), survivors "
+             f"{len(f_mesh[0])}")
+    out["scorer"] = {"events": n, "chunk": stats.chunk,
+                     "survivors": int(len(f_mesh[0])), "bit_equal": same,
+                     "weight_h2d_bytes": stats.weight_h2d_bytes,
+                     "wall_s": {"plain": t_plain, "4x1": t_mesh}}
+
+
+def mesh_online(tmp, out):
+    """(e): online SVI at (4, 1) on the small flow day's corpus against one
+    slot: lambda within TOL_MESH_LAM; the per-batch kernels on every
+    slot."""
+    from oni_ml_tpu_torch.config import OnlineLDAConfig
+    from oni_ml_tpu_torch.models.online_lda import OnlineLDATrainer
+    from oni_ml_tpu_torch.parallel import make_mesh
+
+    day = os.path.join(tmp, "small_flow_sparse_cuda", "20160122")
+    corpus = Corpus.from_model_dat(os.path.join(day, "model.dat"),
+                                   os.path.join(day, "words.dat"),
+                                   os.path.join(day, "doc.dat"))
+    cfg = OnlineLDAConfig(batch_size=256, dense_em="off")
+    batches = make_batches(corpus, cfg.batch_size, cfg.min_bucket_len,
+                           pad_multiple=8)
+    mesh = make_mesh(4, 1, devices=[torch.device("cuda")] * 4)
+    one = OnlineLDATrainer(cfg, corpus.num_terms, corpus.num_docs,
+                           device="cuda")
+    four = OnlineLDATrainer(cfg, corpus.num_terms, corpus.num_docs,
+                            mesh=mesh)
+    one.step_many(batches)
+    four.step_many(batches)
+    a, b = four.lam.cpu().numpy(), one.lam.cpu().numpy()
+    excess = float(np.max(np.abs(a - b) - TOL_MESH_LAM * np.abs(b)))
+    if excess > TOL_MESH_LAM:
+        fail(f"mesh online: lambda at (4, 1) off one slot's by {excess:.3g}")
+    out["online"] = {"micro_batches": len(batches), "docs": corpus.num_docs,
+                     "member": four.member(*batches[0].word_idx.shape),
+                     "lam_excess_over_bound": excess,
+                     "slot_launches": mesh_every_slot(
+                         "online 4x1", mesh,
+                         ENGINE_KERNELS[four.member(
+                             *batches[0].word_idx.shape)])}
+
+
+def mesh_cli(tmp, raws, out):
+    """(f): `ml_ops ... --mesh 1,1` on the small flow day runs and names its
+    mesh; `--mesh 2,2` on a card that cannot fill it exits 2 with the JAX
+    runner's message."""
+    import contextlib
+    import io
+
+    from oni_ml_tpu_torch.runner import ml_ops
+
+    day = run_day("flow", raws["flow"], os.path.join(tmp, "mesh_cli"),
+                  "cuda", None, MESH_EM_ITERS, "--mesh", "1,1")
+    with open(os.path.join(day, "metrics.json")) as f:
+        lda = {r["stage"]: r for r in json.load(f)}["lda"]
+    if lda.get("mesh", {}).get("shape") != [1, 1]:
+        fail(f"mesh cli: the lda record names no 1x1 mesh: {lda.get('mesh')}")
+    n = torch.cuda.device_count()
+    spec, (dd, mm) = ("2,2", (2, 2)) if n < 4 else (f"{n + 1},1", (n + 1, 1))
+    err = io.StringIO()
+    code = None
+    with contextlib.redirect_stderr(err):
+        try:
+            ml_ops.main(["20160122", "flow", "1.1", "--flow-path",
+                         raws["flow"], "--data-dir",
+                         os.path.join(tmp, "mesh_cli_refused"),
+                         "--mesh", spec])
+        except SystemExit as e:
+            code = e.code
+    want = f"mesh {dd}x{mm} needs {dd * mm} devices, have {n}"
+    if code != 2 or want not in err.getvalue():
+        fail(f"mesh cli: --mesh {spec} on {n} card(s) exited {code}: "
+             f"{err.getvalue()[-500:]}")
+    out["cli"] = {"mesh_1x1_member": lda["member"],
+                  "mesh_1x1_slot_launches": lda["mesh"]["slot_launches"],
+                  "refused": {"spec": spec, "exit": code, "message": want}}
+
+
+def mesh_distinct(out):
+    """On a machine with more than one card: the sparse and dense members
+    at (2, 1) over two distinct cards against their 1x1 fits (the (b)
+    bounds), each slot's kernels on its own card; the scorer at (2, 1)
+    over them bit-equal to the unmeshed scorer."""
+    from oni_ml_tpu_torch.models.lda import train_corpus
+    from oni_ml_tpu_torch.parallel import make_mesh
+    from oni_ml_tpu_torch.scoring import chunked_scores
+    from oni_ml_tpu_torch.scoring.score import ScoringModel
+
+    devs = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    rec = {"devices": [str(d) for d in devs]}
+    for label, _, _, member, kernels in MESH_MEMBERS[:2]:
+        one, cfg, env = _MESH_INPUTS["fits_1x1"][label]
+        mesh = make_mesh(2, 1, devices=devs)
+        t0 = time.perf_counter()
+        res = train_corpus(_MESH_INPUTS["flow_corpus"], cfg, device="cuda",
+                           mesh=mesh)
+        wall = time.perf_counter() - t0
+        gaps, ok = mesh_close(res, one)
+        if not ok or res.stats["member"] != member:
+            fail(f"mesh {label} on two cards: {res.stats['member']}, {gaps}")
+        rec[label] = {"vs_1x1": gaps, "wall_s": wall,
+                      "slot_launches": mesh_every_slot(
+                          f"{label} two cards", mesh, kernels)}
+    rng = np.random.default_rng(19)
+    model = ScoringModel(ip_index={}, theta=rng.random((3001, K)),
+                         word_index={}, p=rng.random((2001, K)))
+    ia = rng.integers(0, 3001, 200_000).astype(np.int32)
+    ib = rng.integers(0, 2001, 200_000).astype(np.int32)
+    same = np.array_equal(
+        chunked_scores(model, ia, ib, device="cuda"),
+        chunked_scores(model, ia, ib, mesh=make_mesh(2, 1, devices=devs)))
+    if not same:
+        fail("mesh scorer on two cards: the scores differ")
+    rec["scorer_bit_equal"] = same
+    out["two_cards"] = rec
+
+
+def mesh_phase(tmp, raws):
+    """The single-process device mesh on the card (`--mesh`,
+    parallel/mesh.py and sharded.py), its slots all on cuda:0 where the
+    machine has one card (devices=[cuda:0] * N, the counterpart of the
+    JAX suite's virtual devices):
+    (a) each member at 1x1 against no mesh (an E-step within
+        MESH_ESTEP_TOL, the 5-iteration fit within the (b) bounds);
+    (b) (2, 1) and (4, 1) against 1x1 (RTOL_MESH_LL etc.), two (4, 1)
+        runs the same bytes, each member's kernels on every slot;
+    (c) the DNS day vocab-sharded at (2, 4), the sparse and dense plans;
+    (d) the scorer at (4, 1) bit-equal; (e) online at (4, 1);
+    (f) the CLI, and `--multihost --mesh 1,1` on two ranks against one
+        at --em-shards 8 (the same bytes: a rank's local mesh on one card
+        holds one slot);
+    and where the machine has more than one card, (2, 1) over two
+    distinct cards (mesh_distinct).  Returns each kernel's launches in
+    the phase."""
+    t0 = time.perf_counter()
+    out = {}
+    day = ["20160122", "flow", "1.1", "--flow-path", raws["flow"],
+           "--em-max-iters", str(MH_SMALL_EM_ITERS), "--multihost",
+           "--em-shards", str(MH_SHARDS), "--mesh", "1,1", "--device",
+           "cuda"]
+    worlds = {n: mh_start(tmp, f"mesh_{n}", n, [
+        *day, "--data-dir", os.path.join(tmp, f"mh_mesh_{n}")])
+        for n in (1, 2)}
+    reset_kernel_counts()
+    walls = {}
+    for part, fn, args in (
+            ("fits", mesh_fits, (_MESH_INPUTS["flow_corpus"], out)),
+            ("vocab", mesh_vocab, (out,)),
+            ("scorer", mesh_scorer, (tmp, out)),
+            ("online", mesh_online, (tmp, out)),
+            ("cli", mesh_cli, (tmp, raws, out)),
+            *((("two_cards", mesh_distinct, (out,)),)
+              if torch.cuda.device_count() > 1 else ())):
+        t1 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        walls[part] = time.perf_counter() - t1
+        log(f"mesh {part}: {walls[part]:.1f} s")
+    out["walls_s"] = walls
+    launches = launch_counts()
+    done = {n: mh_finish(w) for n, w in worlds.items()}
+    for n, (ranks, wall) in done.items():
+        mh_parity(f"mesh_{n}", ranks)
+        lda = ranks[0]["records"]["lda"]
+        if lda.get("mesh", {}).get("shape") != [1, 1] or \
+                lda["driver"] != "distributed":
+            fail(f"multihost mesh {n}: {lda.get('mesh')}, {lda['driver']}")
+    names = ("final.beta", "final.gamma", "final.other", "likelihood.dat",
+             "doc_results.csv", "word_results.csv", "flow_results.csv")
+    same = same_files(os.path.join(tmp, "mh_mesh_1", "20160122"),
+                      os.path.join(tmp, "mh_mesh_2", "20160122"), names)
+    if not all(same.values()):
+        fail(f"multihost mesh: two ranks against one {same}")
+    out["multihost"] = {"bytes_equal": same,
+                        "walls_s": {n: w for n, (_, w) in done.items()}}
+    if any(launches[k] <= 0 for k in SOURCES):
+        fail(f"mesh path: a kernel never launched: {launches}")
+    out["launches_mesh"] = launches
+    out["phase_s"] = time.perf_counter() - t0
+    log("mesh " + json.dumps(out, default=str))
+    return launches
+
+
 def check_launches(engine, lda, counts, extra=None):
     """Each kernel of the family member `engine` launched once per batch
     per EM iteration enqueued (those after the device stop included) and
@@ -4000,8 +4518,10 @@ def check_launches(engine, lda, counts, extra=None):
 
 def profile_em(corpus):
     """Where the EM time goes: 10 warm EM iterations over the day's
-    corpus, four ways (the per-batch pallas path's whole fit only); then
-    the scatter's timing record.  Each fit's
+    corpus, three ways (the per-batch pallas path's whole fit only); then
+    the scatter's timing record.  The stepwise driver's profile went to
+    pay for the mesh phase: fit_drivers times that driver against the
+    chunk driver on the same batches.  Each fit's
     set-up (stacking, copies, live-token plans, densifying) is in the
     window but small beside the iterations.  Timed without the profiler, then under torch.profiler
     for device-busy time and the kernels that take it.  The idle share
@@ -4016,7 +4536,6 @@ def profile_em(corpus):
     dense_batches = make_batches(corpus, 1024, 16, pad_multiple=8)
     for label, engine, chunk, batches, env in (
         ("sparse_chunk", "sparse", 128, sparse_batches, None),
-        ("sparse_stepwise", "sparse", 1, sparse_batches, None),
         ("dense_chunk", "dense", 128, dense_batches, None),
         ("pallas_chunk", "dense", 128, dense_batches, "pallas"),
     ):
@@ -4283,8 +4802,8 @@ def fit_drivers(batches, num_docs, num_terms):
     """The sparse engine's whole fit at the pipeline's settings under
     each driver: the chunk driver (the iterations enqueued after the
     device stop included) against the stepwise one (a host sync per EM
-    iteration, nothing enqueued past the stop); the median of WALL_REPS
-    walls, in turns, after a warm-up fit each."""
+    iteration, nothing enqueued past the stop); one wall each, after a
+    warm-up fit each."""
     from oni_ml_tpu_torch.config import LDAConfig
     from oni_ml_tpu_torch.models.lda import LDATrainer
 
@@ -4294,8 +4813,9 @@ def fit_drivers(batches, num_docs, num_terms):
     results = {name: t.fit(batches, num_docs) for name, t in trainers.items()}
     fns = {name: (lambda t=t: t.fit(batches, num_docs))
            for name, t in trainers.items()}
-    order = ["chunk", "stepwise", "stepwise", "chunk"] * WALL_REPS
-    wall, walls = median_walls(fns, order[:2 * WALL_REPS])
+    # One timed fit each after the warm-up (two each until the mesh
+    # phase needed the room).
+    wall, walls = median_walls(fns, ["chunk", "stepwise"])
     rec = {
         "case": "sparse_fit_drivers", "walls_s": walls,
         **{f"{name}_{key}": value for name, res in results.items()
@@ -4503,15 +5023,18 @@ def main() -> int:
     # This run's own plan cache: the crossover is measured here, not
     # read from an earlier run's cache.
     os.environ["ONI_ML_TPU_PLAN_CACHE"] = os.path.join(tmp, "plans.jsonl")
+    py_pre = None
     try:
         raws = timed("small_days", small_days, tmp)
         timed("e2e_small", e2e_small, tmp, raws)
         corpus, path_counts, flow_pre, flow_engine = timed(
             "pipeline", pipeline, tmp)
+        _MESH_INPUTS["flow_corpus"] = corpus
+        py_pre = native_pre_start(tmp)
         dns_counts, dns_engine = timed("pipeline_dns", pipeline_dns, tmp)
         host_score = timed("score_device", score_device, tmp, smi)
         timed("native_pre", native_pre, tmp, raws, flow_pre, host_score,
-              host)
+              host, py_pre)
         timed("resume", resume, tmp, raws["flow"])
         timed("telemetry", telemetry, tmp, raws["flow"])
         timed("dataplane", dataplane, tmp, raws,
@@ -4523,7 +5046,11 @@ def main() -> int:
         continuous_counts = timed("continuous", continuous_phase, tmp, raws)
         replicated_counts = timed("replicated", replicated_phase, tmp, smi)
         multihost_counts = timed("multihost", multihost_phase, tmp, raws)
+        mesh_counts = timed("mesh", mesh_phase, tmp, raws)
     finally:
+        if py_pre is not None and py_pre["proc"].poll() is None:
+            py_pre["proc"].kill()     # a phase before native_pre failed
+            py_pre["proc"].wait()
         shutil.rmtree(tmp, ignore_errors=True)
     scatter_rec = timed("profile_em", profile_em, corpus)
     walls["total"] = round(time.perf_counter() - t0, 1)
@@ -4580,6 +5107,11 @@ def main() -> int:
             # day's online worlds, and its worlds pinned to the dense
             # kernel and to the fixed point).
             "launches_multihost": multihost_counts[kname],
+            # On the mesh path: the phase's fits (each member unmeshed, at
+            # 1x1, (2, 1) and (4, 1) on the 2M flow day; the DNS day's
+            # (2, 4) sparse plan's local scatter), its online run and the
+            # CLI's 1x1 day, in the smoke's process.
+            "launches_mesh": mesh_counts[kname],
             "max_abs_err": max(errs), "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),

@@ -76,36 +76,97 @@ class StackedGroups(NamedTuple):
 
 
 def stack_batches(batches: Sequence[Batch],
-                  device: "str | torch.device") -> StackedGroups:
+                  device: "str | torch.device", mesh=None,
+                  e_step_fn=None, num_terms: int = 0) -> StackedGroups:
     """Group batches by (B, L), stack each group on `device`, and build
-    each batch's live-token plan once (sparse_estep.live_tokens)."""
+    each batch's live-token plan once (sparse_estep.live_tokens).
+
+    With a `mesh` (parallel/mesh.py) each stacked array is placed once
+    for the fit, its documents (axis 1) split over the mesh's `data` axis
+    (mesh.stacked_batch_sharding), and each batch's plan is the mesh
+    E-step's own (`e_step_fn.make_plan`: per-slot live tokens, or the
+    vocab-sharded plan, which needs `num_terms`)."""
     groups: dict[tuple, list[int]] = {}
     for i, b in enumerate(batches):
         groups.setdefault(b.word_idx.shape, []).append(i)
     arrays, slots = [], []
     for shape in sorted(groups):
         idxs = groups[shape]
-        w = torch.as_tensor(np.stack([batches[i].word_idx for i in idxs]),
-                            dtype=torch.int32).to(device)
-        c = torch.as_tensor(np.stack([batches[i].counts for i in idxs]),
-                            dtype=torch.float32).to(device)
-        m = torch.as_tensor(np.stack([batches[i].doc_mask for i in idxs]),
-                            dtype=torch.float32).to(device)
-        lives = tuple(sparse_estep.live_tokens(w[j], c[j])
-                      for j in range(len(idxs)))
+        stacks = (
+            torch.as_tensor(np.stack([batches[i].word_idx for i in idxs]),
+                            dtype=torch.int32),
+            torch.as_tensor(np.stack([batches[i].counts for i in idxs]),
+                            dtype=torch.float32),
+            torch.as_tensor(np.stack([batches[i].doc_mask for i in idxs]),
+                            dtype=torch.float32))
+        if mesh is not None:
+            from ..parallel.mesh import stacked_batch_sharding
+
+            sh = stacked_batch_sharding(mesh)
+            w, c, m = (sh.put(t) for t in stacks)
+            lives = tuple(e_step_fn.make_plan(wj, cj, num_terms)
+                          for wj, cj in zip(w.unbind(0), c.unbind(0)))
+        else:
+            w, c, m = (t.to(device) for t in stacks)
+            lives = tuple(sparse_estep.live_tokens(w[j], c[j])
+                          for j in range(len(idxs)))
         arrays.append((w, c, m, lives))
         slots.append(tuple(idxs))
     return StackedGroups(tuple(arrays), tuple(slots))
 
 
+def _densify_mesh(w, c, num_terms: int, wmajor: bool, vocab: bool):
+    """One stacked group densified slot by slot (each data slot's
+    documents on its own device, never the whole corpus on one): full-V
+    groups [NB, B, W] split over `data` (W-major [NB, W, B]); with
+    `vocab` the width is `num_terms` (the model-divisible padded vocab)
+    and slot (i, j) keeps its [NB, B/d, W/m] columns."""
+    from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, Sharded
+
+    mesh = w.mesh
+    d, msz = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+    width = num_terms if vocab else dense_estep.padded_width(num_terms)
+    blocks = []
+    for i in range(d):
+        wi, ci = w.block(i), c.block(i)
+        nb, bl, _ = wi.shape
+        full = torch.empty((nb, width, bl) if wmajor else (nb, bl, width),
+                           dtype=torch.float32, device=wi.device)
+        for j in range(nb):
+            dj = dense_estep.densify(wi[j], ci[j], num_terms, width=width)
+            full[j] = dj.t() if wmajor else dj
+        if not vocab:
+            blocks.append([full] * msz)
+            continue
+        per = width // msz
+        blocks.append([full[:, :, j * per:(j + 1) * per].contiguous()
+                       .to(mesh.device(i, j)) for j in range(msz)])
+    nb, b = w.shape[0], w.shape[1]
+    if vocab:
+        return Sharded(mesh, (None, DATA_AXIS, MODEL_AXIS), blocks,
+                       (nb, b, width), torch.float32)
+    spec = (None, None, DATA_AXIS) if wmajor else (None, DATA_AXIS, None)
+    shape = (nb, width, b) if wmajor else (nb, b, width)
+    return Sharded(mesh, spec, blocks, shape, torch.float32)
+
+
 def densify_groups(groups: StackedGroups, num_terms: int,
-                   wmajor: bool = False) -> StackedGroups:
+                   wmajor: bool = False, vocab: bool = False
+                   ) -> StackedGroups:
     """Stacked sparse groups -> full-V dense groups (C [NB, B, W], or
     [NB, W, B] with `wmajor`, the mask and L), densified once for the run
-    (dense_estep.densify)."""
+    (dense_estep.densify).  Groups placed over a mesh densify on their
+    slots (`_densify_mesh`); `vocab` is the vocab-sharded plan's layout,
+    C split over `data` and `model`."""
+    from ..parallel.mesh import Sharded
+
     width = dense_estep.padded_width(num_terms)
     arrays = []
     for w, c, m, _ in groups.arrays:
+        if isinstance(w, Sharded):
+            arrays.append((_densify_mesh(w, c, num_terms, wmajor, vocab),
+                           m, w.shape[2]))
+            continue
         nb, b, l = w.shape
         shape = (nb, width, b) if wmajor else (nb, b, width)
         dense = torch.empty(shape, dtype=torch.float32, device=w.device)
@@ -243,23 +304,35 @@ def make_em_accumulator(
     var_tol: float,
     e_step_fn: "Callable | None" = None,
     dense_wmajor: bool = False,
+    dense_e_step_fn: "Callable | None" = None,
 ):
     """Build `accumulate(log_beta, alpha, groups, gammas_prev, warm,
     stop=None) -> (suff_stats [V, K], likelihood, alpha_ss, gammas,
     vi_max)`: one EM iteration's E-step over stacked groups, without the
     M-step.  Token groups run through `e_step_fn` (default
     estep.e_step, the per-batch dispatch), warm-started only when it is
-    marked `_oni_warm_capable`; the port's own E-steps also take the
-    iteration's shared exp(log beta)^T table, the batch's live-token
-    plan, the stop flag and the alpha-prior constant.  The tables are
-    built once per call; suff-stats add in batch order."""
+    marked `_oni_warm_capable`; the port's own E-steps (and its mesh
+    wrappers, parallel/sharded.py) also take the iteration's shared
+    exp(log beta)^T table, the batch's live-token plan, the stop flag
+    and the alpha-prior constant.  Full-V dense groups run through
+    `dense_e_step_fn` where given (the mesh's dense plans), else the
+    dense kernel.  The tables are built once per call; suff-stats add in
+    batch order."""
     e_fn = e_step_fn or estep.e_step
     e_warm = getattr(e_fn, "_oni_warm_capable", False)
-    own = e_fn in (estep.e_step, sparse_estep.e_step)
+    own = (e_fn in (estep.e_step, sparse_estep.e_step)
+           or getattr(e_fn, "_oni_data_parallel", False)
+           or getattr(e_fn, "_oni_vocab_sharded", False))
+    vocab_dense = getattr(dense_e_step_fn, "_oni_vocab_sharded", False)
     k, v = num_topics, num_terms
 
     def dense_batch(log_beta, alpha, dense, mask, g, warm, stop, alpha_const,
                     cells, exp_beta=None):
+        if dense_e_step_fn is not None:
+            return dense_e_step_fn(
+                log_beta, alpha, dense, mask, g, warm, var_max_iters,
+                var_tol, stop=stop, alpha_const=alpha_const, cells=cells,
+                exp_beta=exp_beta)
         return dense_estep.e_step_dense(
             log_beta, alpha, dense, mask, var_max_iters, var_tol,
             wmajor=dense_wmajor, gamma_prev=g, warm=warm, exp_beta=exp_beta,
@@ -283,7 +356,7 @@ def make_em_accumulator(
             if _is_dense(group) and len(group) == 3:     # full-V dense
                 dense_views, mask_views = (t.unbind(0) for t in group[:2])
                 for dense, mask, g in zip(dense_views, mask_views, g_views):
-                    if exp_beta is None:
+                    if exp_beta is None and not vocab_dense:
                         w = dense.shape[0] if dense_wmajor else dense.shape[1]
                         exp_beta = dense_estep.padded_exp_beta(log_beta, w)
                     res = dense_batch(log_beta, alpha, dense, mask, g, warm,
@@ -379,6 +452,7 @@ def make_chunk_runner(
     warm_start: bool = False,
     alpha_max_iters: int = 100,
     yield_hook: "Callable | None" = None,
+    dense_e_step_fn: "Callable | None" = None,
 ):
     """Build `run_chunk(log_beta, alpha, ll_prev, groups, n_steps,
     gammas_in=None, have_prev=None) -> ChunkResult`, which enqueues
@@ -392,7 +466,8 @@ def make_chunk_runner(
     posteriors (warm start across dispatches); pass a Python bool — a
     device tensor costs a host read.  A custom `m_step_fn` keeps every
     dispatch on the generic impl, as in the JAX package.  `e_step_fn`
-    runs the token groups (make_em_accumulator)."""
+    runs the token groups and `dense_e_step_fn` (a mesh's dense plan)
+    the full-V dense groups (make_em_accumulator)."""
     from .lda import update_alpha  # lda.py imports this module
 
     m_fn = m_step_fn or estep.m_step
@@ -400,7 +475,7 @@ def make_chunk_runner(
     accumulate = make_em_accumulator(
         num_topics=num_topics, num_terms=num_terms,
         var_max_iters=var_max_iters, var_tol=var_tol, e_step_fn=e_step_fn,
-        dense_wmajor=dense_wmajor,
+        dense_wmajor=dense_wmajor, dense_e_step_fn=dense_e_step_fn,
     )
 
     def new_alpha_of(alpha_ss, alpha):
@@ -485,7 +560,7 @@ def make_chunk_runner(
     # back to LOG_ZERO exactly.  Quotients below the normal range
     # (< 1.2e-38) map to LOG_ZERO too, where m_step would write their log
     # (about -88 to -103): the JAX fast path floors them the same way.
-    dense_fast_ok = m_fn is estep.m_step
+    dense_fast_ok = m_fn is estep.m_step and dense_e_step_fn is None
 
     def _is_single_dense(groups) -> bool:
         return (dense_fast_ok and len(groups) == 1

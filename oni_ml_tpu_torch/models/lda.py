@@ -46,6 +46,18 @@ convergence check from the reduced statistics (`_distributed_loop`).
 The reduction is a fixed pairwise tree over the shard plan, so the model
 is the same bytes on every rank and at every rank count.
 
+The single-process device mesh (`train_corpus(mesh=, vocab_sharded=)`,
+`ml_ops --mesh DATA,MODEL`, parallel/mesh.py): the dense family's
+members run data-parallel over the mesh's `data` slots
+(parallel/sharded.py: the per-batch dispatch and the dense kernel per
+slot, the statistics psummed over `data`), and with `vocab_sharded` beta
+and the suff-stats shard their vocabulary over `model` (the sparse plan,
+or the dense plan where `_use_dense_vocab_sharded` admits it; the
+vocabulary pads to the model axis with LOG_ZERO beta columns and is
+trimmed back on the way out).  A fit's batches are placed over the mesh
+once, before EM starts.  Under --multihost the mesh is each rank's own
+(`local_mesh`), composed with the collective across ranks.
+
 With a checkpoint path and `LDAConfig.checkpoint_every` > 0, a fit
 saves (beta, alpha, iteration, likelihoods) every that many EM
 iterations (the chunk driver caps each dispatch at the next checkpoint
@@ -59,6 +71,7 @@ from __future__ import annotations
 
 import math
 import os
+import warnings
 from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
@@ -228,7 +241,8 @@ def init_log_beta(generator: torch.Generator, k: int, v: int,
 
 
 def _resolve_engine(corpus: Corpus, config: LDAConfig, device,
-                    shard_plan=None) -> "tuple[str, str, dict | None]":
+                    shard_plan=None, mesh=None, vocab_sharded: bool = False,
+                    ) -> "tuple[str, str, dict | None]":
     """resolve_estep_engine's (engine, source) and the crossover's
     record where the crossover decided.  With a `shard_plan` (distributed
     EM) the crossover keys on the shards' own bucket shapes, the shapes
@@ -239,6 +253,17 @@ def _resolve_engine(corpus: Corpus, config: LDAConfig, device,
         raise ValueError(f"LDAConfig.estep_engine={choice!r}: expected "
                          "'auto', 'dense' or 'sparse'")
     forced_sparse = env == "sparse" or (not env and choice == "sparse")
+    if mesh is not None or vocab_sharded:
+        if forced_sparse:
+            raise ValueError(
+                "the sparse bucketed E-step engine is single-process; "
+                "meshes keep the sharded dense/sparse plans "
+                "(unset ONI_ML_TPU_ESTEP=sparse / estep_engine='sparse'"
+                + (" or drop the local mesh — distributed EM runs the "
+                   "sparse engine host-locally without one)"
+                   if shard_plan is not None else ")")
+            )
+        return "dense", "default", None
     if forced_sparse and config.dense_em == "on":
         raise ValueError("estep_engine='sparse' conflicts with "
                          "dense_em='on': pin one engine family, not both")
@@ -276,7 +301,8 @@ def _check_sparse_topics(engine: str, config: LDAConfig, device) -> None:
 
 
 def resolve_estep_engine(corpus: Corpus, config: LDAConfig,
-                         device="cuda") -> "tuple[str, str]":
+                         device="cuda", mesh=None,
+                         vocab_sharded: bool = False) -> "tuple[str, str]":
     """The E-step engine family of a training run on `device` and where
     the choice came from: ("sparse" | "dense", source).  ONI_ML_TPU_ESTEP
     ("env": "sparse" picks the sparse engine, any other value the dense
@@ -288,8 +314,13 @@ def resolve_estep_engine(corpus: Corpus, config: LDAConfig,
     ("default"), as in the JAX package off the TPU.  The sparse kernel
     takes any bucket shape at K <= 64; above that the dense family is
     the default, and on the card its fit raises unless ONI_ML_TPU_ESTEP
-    names "xla" (no kernel takes K; estep.resolve_backend)."""
-    engine, source, _ = _resolve_engine(corpus, config, device)
+    names "xla" (no kernel takes K; estep.resolve_backend).
+
+    A `mesh` (or `vocab_sharded`) keeps the dense family, whose members
+    run over the mesh (parallel/sharded.py); the sparse engine is
+    single-process, so forcing it there raises."""
+    engine, source, _ = _resolve_engine(corpus, config, device, mesh=mesh,
+                                        vocab_sharded=vocab_sharded)
     return engine, source
 
 
@@ -337,19 +368,39 @@ class LDATrainer:
     `collective` with `shard_plan` and `shard_batches` (shard index ->
     that shard's batches, doc_index global) switch fit() onto the
     distributed driver (`_distributed_loop`), one slot per local E-step
-    round; only rank 0 writes likelihood.dat and the checkpoint."""
+    round; only rank 0 writes likelihood.dat and the checkpoint.
+
+    With a `mesh` (parallel/mesh.py) the dense family's members run over
+    it (parallel/sharded.py): every batch's documents must divide by the
+    `data` axis, the batches are placed once per fit, and the model
+    state lives on the mesh's primary device.  `vocab_sharded` shards
+    the vocabulary over `model` (`num_terms` then divides by it)."""
 
     def __init__(self, config: LDAConfig, num_terms: int,
                  device: "str | torch.device | None" = None,
                  yield_hook: "Callable | None" = None,
-                 collective=None, shard_plan=None, shard_batches=None):
+                 collective=None, shard_plan=None, shard_batches=None,
+                 mesh=None, vocab_sharded: bool = False):
         self.config = config
         self.num_terms = num_terms
-        self.device = resolve_device(device)
+        self.device = _mesh.mesh_device(mesh, device)
         self.yield_hook = yield_hook
         self.collective = collective
         self.shard_plan = shard_plan
         self._shard_batches = shard_batches
+        if vocab_sharded and mesh is None:
+            raise ValueError("vocab_sharded=True requires a mesh")
+        self.mesh = mesh
+        self.vocab_sharded = vocab_sharded
+        self._mesh_e = self._mesh_m = None
+        if mesh is not None:
+            from ..parallel import sharded
+
+            if vocab_sharded:
+                self._mesh_e, self._mesh_m = sharded.make_vocab_sharded_fns(
+                    mesh)
+            else:
+                self._mesh_e = sharded.make_data_parallel_e_step(mesh)
 
     @property
     def _writer(self) -> bool:
@@ -394,6 +445,17 @@ class LDATrainer:
             raise ValueError("the port trains in float32 only")
         if engine not in ("sparse", "dense"):
             raise ValueError(f"unknown E-step engine {engine!r}")
+        if self.mesh is not None:
+            if engine == "sparse":
+                raise ValueError("the sparse bucketed E-step engine is "
+                                 "single-process; a mesh trains the dense "
+                                 "family")
+            d = self.mesh.shape[_mesh.DATA_AXIS]
+            for b in batches:
+                if b.word_idx.shape[0] % d:
+                    raise ValueError(
+                        f"batch of {b.word_idx.shape[0]} docs not divisible "
+                        f"by data axis {d}")
         distributed = self._shard_batches is not None
         if distributed:
             chunk, sync, plan = 0, 0, {}
@@ -405,7 +467,9 @@ class LDATrainer:
             chunk, sync, plan = _resolve_em_plan(cfg)
             member, compact = self.resolve_member(engine, batches,
                                                   chunk > 1)
-        e_fn = sparse_estep.e_step if engine == "sparse" else estep.e_step
+        e_fn = (self._mesh_e if self.mesh is not None
+                else sparse_estep.e_step if engine == "sparse"
+                else estep.e_step)
         restored: list = []
         start_it = 0
         if checkpoint_path and os.path.exists(checkpoint_path):
@@ -462,6 +526,12 @@ class LDATrainer:
             os.remove(checkpoint_path)  # the fit completed
         stats.update(member=member, batches=len(batches), batch_shapes=sorted(
             {tuple(int(n) for n in b.word_idx.shape) for b in batches}))
+        if self.mesh is not None:
+            stats["mesh"] = {
+                "shape": [self.mesh.shape[_mesh.DATA_AXIS],
+                          self.mesh.shape[_mesh.MODEL_AXIS]],
+                "vocab_sharded": self.vocab_sharded,
+                "devices": [str(d) for d in self.mesh.devices.flat]}
         log_beta_np, alpha_f, _ = convert.to_reference(
             convert.ModelState(log_beta, alpha))
         return LDAResult(log_beta=log_beta_np, gamma=gamma_out, alpha=alpha_f,
@@ -476,17 +546,29 @@ class LDATrainer:
         where compact runs: "sparse"; for the dense family, "dense"
         (_use_dense) or "compact" (_plan_compact) under the chunk or
         distributed driver (`chunked`), else the per-batch dispatch as
-        "per_batch:<backend>"."""
+        "per_batch:<backend>".  A vocab-sharded mesh's members are
+        "vocab_dense" (_use_dense_vocab_sharded, under the chunk or
+        distributed driver) and "vocab_sparse"; a data mesh's backend is
+        the one each data slot's slice resolves to."""
         if engine != "dense":
             return "sparse", None
+        if self.vocab_sharded:
+            if chunked and self._use_dense(batches):
+                return "vocab_dense", None
+            return "vocab_sparse", None
         if chunked and self._use_dense(batches):
             return "dense", None
         compact = self._plan_compact(batches) if chunked else None
         if compact is not None:
             return "compact", compact
+        b0, l0 = batches[0].word_idx.shape
         return "per_batch:" + estep.resolve_backend(
-            "auto", *batches[0].word_idx.shape, self.config.num_topics,
+            "auto", b0 // self._data_size, l0, self.config.num_topics,
             self.device), None
+
+    @property
+    def _data_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape[_mesh.DATA_AXIS]
 
     def _use_dense(self, batches) -> bool:
         """Whether the chunk driver runs the full-V dense E-step
@@ -505,6 +587,8 @@ class LDATrainer:
                              "'auto', 'on', or 'off'")
         if mode == "off":
             return False
+        if self.vocab_sharded:
+            return self._use_dense_vocab_sharded(batches, mode)
         # The card's kernel takes any V and block, so only K bounds it
         # (the JAX package's VMEM model does not apply); its scratch
         # counts against the budget below.
@@ -519,12 +603,44 @@ class LDATrainer:
             return True
         if not (feasible and self.device.type == "cuda"):
             return False
-        sparse_bytes = sum(b.word_idx.size * 8 for b in batches)
+        # The budget is per device: a data mesh splits the documents, so
+        # each slot holds 1/d of the corpus and runs the local batch.
+        d = self._data_size
+        sparse_bytes = sum(b.word_idx.size * 8 for b in batches) // d
         width = dense_estep.padded_width(self.num_terms)
         scratch = fused.dense_scratch_bytes(
-            {(b.word_idx.shape, width) for b in batches}, cfg.num_topics)
-        return (fused.dense_groups_bytes(batches, self.num_terms)
+            {((b.word_idx.shape[0] // d, b.word_idx.shape[1]), width)
+             for b in batches}, cfg.num_topics)
+        return (fused.dense_groups_bytes(batches, self.num_terms) // d
                 + sparse_bytes + scratch <= cfg.dense_hbm_budget)
+
+    def _use_dense_vocab_sharded(self, batches, mode: str) -> bool:
+        """The gate of the vocab-sharded dense plan
+        (parallel.make_vocab_sharded_dense_e_step): torch.matmul fixed
+        point with C and beta split over `model`, config 4's dense path.
+        No kernel bound applies; the auto gate is device memory: each
+        data slot densifies its [B/d, W] transient before the model axis
+        splits it, and each slot keeps a resident [docs/d, W/m] corpus
+        slice."""
+        d = self.mesh.shape[_mesh.DATA_AXIS]
+        m = self.mesh.shape[_mesh.MODEL_AXIS]
+        if self.num_terms % m:
+            if mode == "on":
+                raise ValueError(
+                    f"dense E-step forced but padded vocab "
+                    f"{self.num_terms} not divisible by model axis {m}")
+            return False
+        if mode == "on":
+            return True
+        if self.device.type != "cuda":
+            return False
+        total_docs = sum(b.word_idx.shape[0] for b in batches)
+        sparse_bytes = sum(b.word_idx.size * 8 for b in batches) // d
+        transient = (max(b.word_idx.shape[0] for b in batches) // d
+                     * self.num_terms * 4)
+        resident = total_docs // d * (self.num_terms // m) * 4
+        return (transient + resident + sparse_bytes
+                <= self.config.dense_hbm_budget)
 
     def _plan_compact(self, batches) -> "fused.CompactPlan | None":
         """The compact-vocab dense plan (fused.plan_compact) when the
@@ -539,6 +655,13 @@ class LDATrainer:
         if env and env != "compact":
             return None
         mode = "on" if env == "compact" else cfg.dense_em
+        if self.mesh is not None:
+            if env == "compact":
+                raise ValueError(
+                    "compact dense E-step forced but a mesh is active (the "
+                    "multi-chip huge-V story is the vocab-sharded dense "
+                    "plan)")
+            return None
         if mode == "off" or (mode != "on" and self.device.type != "cuda"):
             return None
         plan = fused.plan_compact(batches, cfg.num_topics,
@@ -604,11 +727,20 @@ class LDATrainer:
         float64 convergence check."""
         cfg = self.config
         k, v, dev = cfg.num_topics, self.num_terms, self.device
+        m_fn = self._mesh_m or estep.m_step
         dev_batches = []
         for b in batches:
-            widx = torch.as_tensor(b.word_idx, dtype=torch.int32).to(dev)
-            cnts = torch.as_tensor(b.counts, dtype=torch.float32).to(dev)
-            mask = torch.as_tensor(b.doc_mask, dtype=torch.float32).to(dev)
+            widx = torch.as_tensor(b.word_idx, dtype=torch.int32)
+            cnts = torch.as_tensor(b.counts, dtype=torch.float32)
+            mask = torch.as_tensor(b.doc_mask, dtype=torch.float32)
+            if self.mesh is not None:
+                # Placed over the mesh once, for the whole fit.
+                sh = _mesh.batch_sharding(self.mesh)
+                widx, cnts, mask = (sh.put(t) for t in (widx, cnts, mask))
+                dev_batches.append((widx, cnts, mask,
+                                    e_fn.make_plan(widx, cnts, v)))
+                continue
+            widx, cnts, mask = (t.to(dev) for t in (widx, cnts, mask))
             dev_batches.append((widx, cnts, mask,
                                 sparse_estep.live_tokens(widx, cnts)))
         use_warm = cfg.warm_start_gamma and getattr(
@@ -651,7 +783,7 @@ class LDATrainer:
                     total_ll = total_ll + res.likelihood
                     total_ass = total_ass + res.alpha_ss
                     gammas.append(res.gamma)
-                log_beta = estep.m_step(total_ss)
+                log_beta = m_fn(total_ss)
                 if cfg.estimate_alpha:
                     alpha = update_alpha(total_ass, alpha, num_docs, k,
                                          max_iters=cfg.alpha_max_iters)
@@ -722,17 +854,16 @@ class LDATrainer:
             wmajor = compact.wmajor
             groups = fused.compact_stack_batches(batches, self.device, compact)
         else:
-            groups = fused.stack_batches(batches, self.device)
-            if member == "dense":
-                groups = fused.densify_groups(groups, self.num_terms,
-                                              wmajor=wmajor)
+            groups, wmajor = self._stack_member(member, batches, e_fn)
         run_chunk = fused.make_chunk_runner(
             num_docs=num_docs, num_topics=k, num_terms=self.num_terms,
             chunk=chunk, var_max_iters=cfg.var_max_iters,
             var_tol=cfg.var_tol, em_tol=cfg.em_tol,
             estimate_alpha=cfg.estimate_alpha, e_step_fn=e_fn,
+            m_step_fn=self._mesh_m,
             dense_wmajor=wmajor, warm_start=cfg.warm_start_gamma,
             alpha_max_iters=cfg.alpha_max_iters, yield_hook=self.yield_hook,
+            dense_e_step_fn=self._mesh_dense_fn(member, wmajor),
         )
         ll_prev = run.ll_prev
         ll_prev_dev = torch.tensor(math.nan if ll_prev is None else ll_prev,
@@ -799,7 +930,38 @@ class LDATrainer:
             "host_syncs": dispatches, "skipped_iterations": skipped,
         }
 
-    def _shard_groups(self, member: str, batches):
+    def _stack_member(self, member: str, batches, e_fn):
+        """The batches stacked for `member` (not compact): token groups,
+        or densified full-V groups ("dense", and "vocab_dense" on a
+        vocab-sharded mesh, whose width is the padded vocabulary, always
+        row-major).  Under a mesh they are placed over it once, here.
+        Returns (groups, W-major)."""
+        wmajor = self.config.dense_wmajor
+        groups = fused.stack_batches(batches, self.device, mesh=self.mesh,
+                                     e_step_fn=e_fn,
+                                     num_terms=self.num_terms)
+        if member == "dense":
+            groups = fused.densify_groups(groups, self.num_terms,
+                                          wmajor=wmajor)
+        elif member == "vocab_dense":
+            wmajor = False
+            groups = fused.densify_groups(groups, self.num_terms,
+                                          vocab=True)
+        return groups, wmajor
+
+    def _mesh_dense_fn(self, member: str, wmajor: bool):
+        """The mesh's dense plan for `member` (None off a mesh: the dense
+        kernel runs directly)."""
+        if self.mesh is None or member not in ("dense", "vocab_dense"):
+            return None
+        from ..parallel import sharded
+
+        if member == "vocab_dense":
+            return sharded.make_vocab_sharded_dense_e_step(self.mesh)
+        return sharded.make_data_parallel_dense_e_step(self.mesh,
+                                                       wmajor=wmajor)
+
+    def _shard_groups(self, member: str, batches, e_fn):
         """One shard's batches stacked on the device for `member`: token
         groups (sparse, per_batch), densified full-V groups (dense) or
         the shard's own compact plan (compact).  Returns (groups,
@@ -816,11 +978,7 @@ class LDATrainer:
                                  "dense kernel's topics")
             return (fused.compact_stack_batches(batches, self.device, plan),
                     plan.wmajor)
-        groups = fused.stack_batches(batches, self.device)
-        if member == "dense":
-            groups = fused.densify_groups(groups, self.num_terms,
-                                          wmajor=wmajor)
-        return groups, wmajor
+        return self._stack_member(member, batches, e_fn)
 
     def _distributed_loop(self, member, e_fn, log_beta, alpha, num_docs,
                           run, gamma_out):
@@ -843,15 +1001,17 @@ class LDATrainer:
         k, v, dev = cfg.num_topics, self.num_terms, self.device
         coll, plan = self.collective, self.shard_plan
         owned = sorted(self._shard_batches)
-        shards = [self._shard_groups(member, self._shard_batches[s])
+        shards = [self._shard_groups(member, self._shard_batches[s], e_fn)
                   for s in owned]
+        m_fn = self._mesh_m or estep.m_step
         runners = {}
         for _, wm in shards:
             if wm not in runners:
                 runners[wm] = fused.make_partial_runner(
                     num_topics=k, num_terms=v,
                     var_max_iters=cfg.var_max_iters, var_tol=cfg.var_tol,
-                    e_step_fn=e_fn, dense_wmajor=wm)
+                    e_step_fn=e_fn, dense_wmajor=wm,
+                    dense_e_step_fn=self._mesh_dense_fn(member, wm))
         gammas_prev = [fused.initial_gammas(g.arrays, k, dense_wmajor=wm)
                        for g, wm in shards]
         have_prev = False
@@ -896,7 +1056,7 @@ class LDATrainer:
             reduced = reduce_partials(coll, plan, shard_stats, f"em{it}",
                                       precision=ar_precision)
             n_reduce += 1
-            log_beta = estep.m_step(torch.from_numpy(
+            log_beta = m_fn(torch.from_numpy(
                 np.ascontiguousarray(reduced["suff_stats"],
                                      np.float32)).to(dev))
             if cfg.estimate_alpha:
@@ -964,9 +1124,21 @@ def train_corpus(
     device: "str | torch.device | None" = None,
     distributed: "bool | None" = None,
     collective=None,
+    mesh=None,
+    vocab_sharded: bool = False,
 ) -> LDAResult:
     """Corpus -> batches -> EM -> (optionally) the reference's output
     files in `out_dir` (likelihood.dat streams during the fit).
+
+    With `mesh` (parallel.make_mesh / local_mesh), documents shard over
+    the mesh's `data` axis (the suff-stats psum: the reference's
+    MPI_Reduce, SURVEY §2.8) and the run is on the mesh's devices (a
+    `device` of another kind raises); with `vocab_sharded` additionally,
+    beta and the suff-stats shard their vocabulary over `model`
+    (BASELINE.json config 4), the vocabulary padded to the model axis
+    for the fit and trimmed back to `corpus.num_terms` on the way out.
+    A mesh keeps the dense family; its batches pad to a multiple of the
+    data axis, not 8.
 
     `distributed` (None: whether this process joined a process group,
     parallel.initialize_distributed) trains by distributed EM
@@ -993,10 +1165,18 @@ def train_corpus(
         return _train_corpus_distributed(
             corpus, config, out_dir=out_dir, progress=progress,
             save_final=save_final, initial_log_beta=initial_log_beta,
-            device=device, collective=collective)
-    dev = resolve_device(device)
-    engine, engine_src, crossover = _resolve_engine(corpus, config, dev)
+            device=device, collective=collective, mesh=mesh,
+            vocab_sharded=vocab_sharded)
+    if vocab_sharded and mesh is None:
+        raise ValueError("vocab_sharded=True requires a mesh")
+    dev = _mesh.mesh_device(mesh, device)
+    engine, engine_src, crossover = _resolve_engine(
+        corpus, config, dev, mesh=mesh, vocab_sharded=vocab_sharded)
     _check_sparse_topics(engine, config, dev)
+    num_terms, data_size = corpus.num_terms, 8
+    if mesh is not None:
+        num_terms, initial_log_beta, data_size = _mesh_trainer_setup(
+            corpus, config, mesh, vocab_sharded, initial_log_beta)
     if engine == "sparse":
         batches = list(corpus.bucketed_layout(
             min_len=config.sparse_min_bucket_len, batch_cap=config.batch_size,
@@ -1005,8 +1185,9 @@ def train_corpus(
     else:
         batches = make_batches(corpus, batch_size=config.batch_size,
                                min_bucket_len=config.min_bucket_len,
-                               pad_multiple=8)
-    trainer = LDATrainer(config, num_terms=corpus.num_terms, device=dev)
+                               pad_multiple=data_size)
+    trainer = LDATrainer(config, num_terms=num_terms, device=dev, mesh=mesh,
+                         vocab_sharded=vocab_sharded)
     result = trainer.fit(
         batches, corpus.num_docs,
         likelihood_file=(os.path.join(out_dir, "likelihood.dat")
@@ -1020,13 +1201,66 @@ def train_corpus(
     result.plan["estep_engine"] = {"value": engine, "source": engine_src}
     if crossover is not None:
         result.plan["estep_crossover"] = crossover
+    if num_terms != corpus.num_terms:
+        result.log_beta = result.log_beta[:, :corpus.num_terms]
     if out_dir and save_final:
         result.save(out_dir, num_terms=corpus.num_terms, include_likelihood=False)
     return result
 
 
+def _mesh_trainer_setup(corpus: Corpus, config: LDAConfig, mesh,
+                        vocab_sharded: bool, initial_log_beta=None):
+    """The mesh path's set-up for train_corpus and the distributed
+    variant (one copy of the divisibility check, the idle-model-axis
+    warning and the vocabulary padding): (num_terms, initial_log_beta,
+    data_size)."""
+    d = mesh.shape[_mesh.DATA_AXIS]
+    m = mesh.shape[_mesh.MODEL_AXIS]
+    if config.batch_size % d:
+        # fit() re-checks per batch; failing here gives the clearer
+        # message before any batching work happens.
+        raise ValueError(
+            f"batch_size {config.batch_size} not divisible by data axis "
+            f"{d}"
+        )
+    if not vocab_sharded and m > 1:
+        warnings.warn(
+            f"mesh has model axis {m} but vocab_sharded=False: those "
+            "devices will replicate work",
+            stacklevel=3,
+        )
+    num_terms = corpus.num_terms
+    if vocab_sharded:
+        num_terms, initial_log_beta = _vocab_sharded_setup(
+            corpus, config, mesh, initial_log_beta)
+    return num_terms, initial_log_beta, d
+
+
+def _vocab_sharded_setup(corpus: Corpus, config: LDAConfig, mesh,
+                         initial_log_beta=None):
+    """(padded num_terms, initial_log_beta) of a vocab-sharded trainer:
+    the vocabulary padded to the mesh's model axis, the init (the
+    seeded draw at the corpus' V, or the caller's) padded with LOG_ZERO
+    columns, so padded words carry no mass and single- and multi-slot
+    runs agree."""
+    from ..parallel.sharded import pad_vocab
+
+    v = corpus.num_terms
+    num_terms = pad_vocab(v, mesh.shape[_mesh.MODEL_AXIS])
+    if num_terms == v:
+        return num_terms, initial_log_beta
+    if initial_log_beta is None:
+        initial_log_beta = init_log_beta(
+            torch.Generator().manual_seed(config.seed), config.num_topics,
+            v).numpy()
+    base = np.asarray(initial_log_beta, np.float64)
+    return num_terms, np.pad(base, ((0, 0), (0, num_terms - v)),
+                             constant_values=estep.LOG_ZERO)
+
+
 def _shard_batches(corpus: Corpus, config: LDAConfig, plan, shards,
-                   engine: str, census_pow2: bool = False) -> dict:
+                   engine: str, census_pow2: bool = False,
+                   pad_multiple: int = 8) -> dict:
     """{shard: its batches, doc_index global} for the `shards` of `plan`:
     each shard bucketed on its own (the sparse engine's bucketed layout,
     the dense family's make_batches), so a shard's batches do not depend
@@ -1049,7 +1283,7 @@ def _shard_batches(corpus: Corpus, config: LDAConfig, plan, shards,
         else:
             made = make_batches(piece, batch_size=config.batch_size,
                                 min_bucket_len=config.min_bucket_len,
-                                pad_multiple=8)
+                                pad_multiple=pad_multiple)
         made = [Batch(b.word_idx, b.counts, b.doc_index + st, b.doc_mask)
                 for b in made]
         out[s] = pad_batch_census_pow2(made) if census_pow2 else made
@@ -1057,7 +1291,9 @@ def _shard_batches(corpus: Corpus, config: LDAConfig, plan, shards,
 
 
 def _decide_distributed(coll, corpus: Corpus, config: LDAConfig, dev,
-                        plan, census_pow2: bool = False) -> list:
+                        plan, census_pow2: bool = False, mesh=None,
+                        vocab_sharded: bool = False,
+                        num_terms: "int | None" = None) -> list:
     """[engine, source, crossover record, member], decided on rank 0 and
     broadcast: ranks timing the crossover on one card can disagree, and a
     split choice would desync the reduce.  The member's gates read every
@@ -1068,15 +1304,19 @@ def _decide_distributed(coll, corpus: Corpus, config: LDAConfig, dev,
     if coll.rank == 0:
         try:
             engine, source, crossover = _resolve_engine(
-                corpus, config, dev, shard_plan=plan)
+                corpus, config, dev, shard_plan=plan, mesh=mesh,
+                vocab_sharded=vocab_sharded)
             _check_sparse_topics(engine, config, dev)
             member = "sparse"
             if engine == "dense":
+                pad = 8 if mesh is None else mesh.shape[_mesh.DATA_AXIS]
                 every = _shard_batches(corpus, config, plan,
                                        range(plan.num_shards), engine,
-                                       census_pow2)
+                                       census_pow2, pad_multiple=pad)
                 flat = [b for s in sorted(every) for b in every[s]]
-                probe = LDATrainer(config, corpus.num_terms, device=dev)
+                probe = LDATrainer(config, num_terms or corpus.num_terms,
+                                   device=dev, mesh=mesh,
+                                   vocab_sharded=vocab_sharded)
                 member = (probe.resolve_member(engine, flat)[0] if flat
                           else "per_batch:xla")
             decision = [engine, source, crossover, member]
@@ -1095,6 +1335,8 @@ def _train_corpus_distributed(
     initial_log_beta: "np.ndarray | None" = None,
     device: "str | torch.device | None" = None,
     collective=None,
+    mesh=None,
+    vocab_sharded: bool = False,
 ) -> LDAResult:
     """Distributed EM (port of the JAX package's): every rank holds the
     same corpus and the same shard plan (parallel/shard_plan.py) and
@@ -1107,22 +1349,43 @@ def _train_corpus_distributed(
     `em_shards`; rank 0 alone writes the files.  The engine and its
     member are decided on rank 0 and broadcast (_decide_distributed).  A
     rank's failure is posted for the others (PeerFailure there) before it
-    raises."""
+    raises.
+
+    A `mesh` is this rank's own (parallel.local_mesh): each rank runs its
+    shards' E-steps over its local mesh (the data-parallel or
+    vocab-sharded plans) and the collective crosses the processes; a
+    mesh spanning other processes' devices is refused."""
     from ..parallel.allreduce import PeerFailure, get_collective
     from ..parallel.shard_plan import plan_shards, resolve_em_shards
 
     coll = collective if collective is not None else get_collective()
-    dev = resolve_device(device)
+    if mesh is not None and not _mesh.is_local_mesh(mesh):
+        raise ValueError(
+            "distributed EM is host-local: the mesh may span this "
+            "process's devices only (parallel.local_mesh()); the "
+            "cross-process reduction is the explicit suff-stats "
+            "allreduce, not a global mesh spanning processes"
+        )
+    if vocab_sharded and mesh is None:
+        raise ValueError("vocab_sharded=True requires a mesh")
+    dev = _mesh.mesh_device(mesh, device)
     plan = plan_shards(corpus.num_docs, coll.num_processes,
                        resolve_em_shards(config.em_shards,
                                          coll.num_processes))
+    num_terms, pad = corpus.num_terms, 8
+    if mesh is not None:
+        num_terms, initial_log_beta, pad = _mesh_trainer_setup(
+            corpus, config, mesh, vocab_sharded, initial_log_beta)
     engine, engine_src, crossover, member = _decide_distributed(
-        coll, corpus, config, dev, plan)
+        coll, corpus, config, dev, plan, mesh=mesh,
+        vocab_sharded=vocab_sharded, num_terms=num_terms)
     shard_batches = _shard_batches(corpus, config, plan,
-                                   plan.owned(coll.rank), engine)
-    trainer = LDATrainer(config, num_terms=corpus.num_terms, device=dev,
+                                   plan.owned(coll.rank), engine,
+                                   pad_multiple=pad)
+    trainer = LDATrainer(config, num_terms=num_terms, device=dev,
                          collective=coll, shard_plan=plan,
-                         shard_batches=shard_batches)
+                         shard_batches=shard_batches, mesh=mesh,
+                         vocab_sharded=vocab_sharded)
     rec = current_recorder()
     if rec is not None:
         # The shard plan this run trained under ({"kind": "shard_plan"}).
@@ -1166,6 +1429,8 @@ def _train_corpus_distributed(
         "bytes_in": d["bytes_in"] - ar0["bytes_in"],
         "wall_s": round(d["wall_s"] - ar0["wall_s"], 6),
     }
+    if num_terms != corpus.num_terms:
+        result.log_beta = result.log_beta[:, :corpus.num_terms]
     if out_dir and save_final and coll.rank == 0:
         result.save(out_dir, num_terms=corpus.num_terms,
                     include_likelihood=False)

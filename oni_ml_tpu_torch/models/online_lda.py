@@ -45,9 +45,17 @@ so lambda is the same on every rank.  The step's `batch_docs` is the
 global real-document count, so the update equals the one-process step up
 to the reduction order.  Distributed streams take the per-step path.
 
-Left out here, waiting for its ROADMAP item: the data-parallel mesh.  A
-`compute_dtype` other than float32 raises (bf16 storage is its own
-ROADMAP item).
+With a `mesh` (parallel/mesh.py, `ml_ops --online --mesh D,1`) each
+micro-batch's documents split over the mesh's `data` slots and the
+suff-stats and likelihood psum over them
+(parallel.make_data_parallel_e_step: the per-batch dispatch on each
+slot's slice); lambda is one tensor on the mesh's primary device, the
+same for every slot.  Vocab sharding is batch-only: the natural-gradient
+blend wants the full lambda row normaliser every step, so a mesh with a
+model axis above 1 raises, and so does dense_em="on" with a mesh.  Under
+--multihost each rank's row slice of a micro-batch is what its local
+mesh splits.  A `compute_dtype` other than float32 raises (bf16 storage
+is its own ROADMAP item).
 """
 
 from __future__ import annotations
@@ -60,7 +68,6 @@ import numpy as np
 import torch
 
 from ..config import OnlineLDAConfig
-from ..device import resolve_device
 from ..io import Batch, formats
 from ..ops import dense_estep, estep, sparse_estep
 from ..ops.estep import e_log_dirichlet as expected_log_beta
@@ -165,7 +172,11 @@ class OnlineLDATrainer:
     parallel.initialize_distributed) row-splits every
     micro-batch across the ranks of ``collective`` (default
     parallel.get_collective()); only rank 0 writes the stream
-    checkpoint."""
+    checkpoint.
+
+    ``mesh`` (data-parallel only) splits each micro-batch's documents
+    over its `data` slots (the module doc); the trainer then runs on the
+    mesh's devices."""
 
     def __init__(
         self,
@@ -177,6 +188,7 @@ class OnlineLDATrainer:
         device: "str | torch.device | None" = None,
         collective=None,
         distributed: "bool | None" = None,
+        mesh=None,
     ):
         if config.compute_dtype != "float32":
             raise ValueError(
@@ -192,7 +204,25 @@ class OnlineLDATrainer:
         self.num_terms = num_terms
         self.total_docs = total_docs
         self.checkpoint_path = checkpoint_path
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._mesh_e = None
+        if mesh is not None:
+            from ..parallel.sharded import make_data_parallel_e_step
+
+            if mesh.shape[_mesh.MODEL_AXIS] > 1:
+                raise ValueError(
+                    "online LDA supports data-parallel meshes only; "
+                    f"got model axis {mesh.shape[_mesh.MODEL_AXIS]}"
+                )
+            if config.dense_em == "on":
+                # Fail at construction, not at the first step() call: a
+                # misconfigured streaming job should die before startup.
+                raise ValueError(
+                    "dense_em='on' needs the default single-process "
+                    "E-step (no mesh, no custom e_step_fn)"
+                )
+            self._mesh_e = make_data_parallel_e_step(mesh)
+        self.device = _mesh.mesh_device(mesh, device)
         self.step_count = 0
         self.history: "list[StreamStepInfo]" = []
         if distributed is None:
@@ -201,6 +231,12 @@ class OnlineLDATrainer:
         if distributed:
             from ..parallel.allreduce import get_collective
 
+            if mesh is not None and not _mesh.is_local_mesh(mesh):
+                raise ValueError(
+                    "distributed streaming LDA is host-local: the mesh "
+                    "may span this process's devices only "
+                    "(parallel.local_mesh())"
+                )
             self._coll = (collective if collective is not None
                           else get_collective())
         dev = self.device
@@ -235,9 +271,10 @@ class OnlineLDATrainer:
         """The dense E-step for a micro-batch of `b` docs: "auto" takes
         it on the card when the dense kernel takes K (the card's kernel
         takes any B and V); "on" forces it (on the CPU, its plain
-        version), "off" never."""
+        version), "off" never.  A mesh runs the data-parallel per-batch
+        E-step."""
         cfg = self.config
-        if cfg.dense_em == "off":
+        if cfg.dense_em == "off" or self.mesh is not None:
             return False
         feasible = 0 < cfg.num_topics <= dense_estep.MAX_TOPICS
         if cfg.dense_em == "on":
@@ -256,6 +293,8 @@ class OnlineLDATrainer:
         (ops/estep.resolve_backend)."""
         if self._use_dense(b):
             return "dense"
+        if self.mesh is not None:
+            b //= self.mesh.shape[_mesh.DATA_AXIS]
         return "per_batch:" + estep.resolve_backend(
             "auto", b, l, self.config.num_topics, self.device)
 
@@ -274,8 +313,12 @@ class OnlineLDATrainer:
 
     def _per_batch(self, elog_beta, word_idx, counts, doc_mask):
         """The per-batch E-step; on the card with the batch's live-token
-        plan, which its [V, K] scatter needs."""
+        plan, which its [V, K] scatter needs.  Under a mesh, the
+        data-parallel E-step over a micro-batch placed over the mesh."""
         cfg = self.config
+        if isinstance(word_idx, _mesh.Sharded):
+            return self._mesh_e(elog_beta, self._alpha, word_idx, counts,
+                                doc_mask, cfg.var_max_iters, cfg.var_tol)
         kw = {}
         if word_idx.device.type == "cuda":
             kw["live"] = sparse_estep.live_tokens(word_idx, counts)
@@ -285,6 +328,11 @@ class OnlineLDATrainer:
 
     def _blend(self, lam, rho, res, doc_mask):
         """The natural-gradient step: lambda toward eta + D/|S| * SS."""
+        if isinstance(doc_mask, _mesh.Sharded):
+            n = _mesh.psum([doc_mask.block(i).sum() for i in
+                            range(self.mesh.shape[_mesh.DATA_AXIS])])
+            return self._blend_ss(lam, rho, res.suff_stats,
+                                  torch.clamp_min(n, 1.0).to(lam.device))
         return self._blend_ss(lam, rho, res.suff_stats,
                               torch.clamp_min(doc_mask.sum(), 1.0))
 
@@ -338,9 +386,26 @@ class OnlineLDATrainer:
     def lam(self) -> torch.Tensor:
         return self._lam
 
+    def _check_data_divisible(self, ndocs: int) -> None:
+        data_size = self.mesh.shape[_mesh.DATA_AXIS]
+        if ndocs % data_size:
+            raise ValueError(
+                f"micro-batch of {ndocs} docs not divisible by data "
+                f"axis {data_size}"
+            )
+
     def _put_batch(self, batch: Batch):
-        """One micro-batch's tensors on the trainer's device."""
+        """One micro-batch's tensors on the trainer's device, or split
+        over the mesh's `data` slots (placed once per step)."""
         dev = self.device
+        if self.mesh is not None:
+            self._check_data_divisible(batch.word_idx.shape[0])
+            sh = _mesh.batch_sharding(self.mesh)
+            return (sh.put(torch.as_tensor(batch.word_idx)),
+                    sh.put(torch.as_tensor(batch.counts,
+                                           dtype=torch.float32)),
+                    sh.put(torch.as_tensor(batch.doc_mask,
+                                           dtype=torch.float32)))
         return (torch.as_tensor(batch.word_idx, device=dev),
                 torch.as_tensor(batch.counts, dtype=torch.float32,
                                 device=dev),
@@ -368,6 +433,8 @@ class OnlineLDATrainer:
         t = self.step_count
         rho = float((cfg.tau0 + t) ** (-cfg.kappa))
         lo, hi = r * b // p, (r + 1) * b // p
+        # Under a mesh, this rank's row slice is what its local mesh
+        # splits (_put_batch checks it divides).
         widx, cnts, mask = self._put_batch(Batch(
             batch.word_idx[lo:hi], batch.counts[lo:hi],
             batch.doc_index[lo:hi], batch.doc_mask[lo:hi]))
@@ -600,6 +667,7 @@ def train_corpus_online(
     device: "str | torch.device | None" = None,
     collective=None,
     distributed: "bool | None" = None,
+    mesh=None,
 ) -> LDAResult:
     """Stream an in-memory corpus through the online trainer, micro-batch
     by micro-batch (each `make_batches` batch, padded to a multiple of
@@ -617,7 +685,9 @@ def train_corpus_online(
     ran):
     every micro-batch row-splits across the ranks, so the batch axis
     pads to a multiple of 8 times the process count; rank 0 alone
-    writes the files."""
+    writes the files.  With a data-parallel `mesh` the base pad is the
+    data axis instead of 8 (times the process count when distributed,
+    so each rank's row slice still divides by it)."""
     from ..io import make_batches
 
     trainer = OnlineLDATrainer(
@@ -625,14 +695,15 @@ def train_corpus_online(
         checkpoint_path=(os.path.join(out_dir, "checkpoint.npz")
                          if out_dir and config.checkpoint_every else None),
         initial_lam=initial_lam, device=device, collective=collective,
-        distributed=distributed,
+        distributed=distributed, mesh=mesh,
     )
     nproc = trainer._coll.num_processes if trainer._coll is not None else 1
     writer = trainer._coll is None or trainer._coll.rank == 0
     ckpt_path = trainer.checkpoint_path
+    base_pad = mesh.shape[_mesh.DATA_AXIS] if mesh is not None else 8
     batches = make_batches(
         corpus, batch_size=config.batch_size,
-        min_bucket_len=config.min_bucket_len, pad_multiple=8 * nproc,
+        min_bucket_len=config.min_bucket_len, pad_multiple=base_pad * nproc,
     )
     coll = trainer._coll
     ar0 = dict(coll.stats) if coll is not None else None
@@ -653,6 +724,11 @@ def train_corpus_online(
     result.stats = {"driver": "online", "batches": len(batches),
                     "batch_shapes": shapes,
                     "member": trainer.member(*shapes[0]) if shapes else None}
+    if mesh is not None:
+        result.stats["mesh"] = {"shape": [mesh.shape[_mesh.DATA_AXIS],
+                                          mesh.shape[_mesh.MODEL_AXIS]],
+                                "devices": [str(d) for d in
+                                            mesh.devices.flat]}
     if coll is not None:
         if coll.num_processes > 1:
             # Rank parity of lambda: checked, not assumed.

@@ -302,12 +302,17 @@ def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x < FLT_MIN, torch.zeros_like(x), x)
 
 
-def m_step(suff_stats: torch.Tensor) -> torch.Tensor:
+def m_step(suff_stats: torch.Tensor, topic_total=None) -> torch.Tensor:
     """MLE beta from word-topic suff stats [V, K] -> [K, V] log-normalized
     per topic, with lda-c's -100 floor for zero mass.  A subnormal mass
-    counts as zero mass (flush_subnormal), as in the JAX package."""
+    counts as zero mass (flush_subnormal), as in the JAX package.
+
+    `topic_total` [K, 1] overrides the per-topic normalizer: the
+    vocab-sharded M-step (parallel/sharded.py) passes the psum over the
+    model axis, so each slot normalizes its vocabulary slice against the
+    global total."""
     ss = flush_subnormal(suff_stats.t())
-    total = ss.sum(-1, keepdim=True)
+    total = ss.sum(-1, keepdim=True) if topic_total is None else topic_total
     return torch.where(
         ss > 0, torch.log(ss) - torch.log(total),
         torch.full_like(ss, LOG_ZERO),

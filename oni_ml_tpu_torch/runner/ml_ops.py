@@ -9,7 +9,7 @@ ml_ops.sh YYYYMMDD flow|dns TOL:
         [--pre-workers N] [--qtiles FILE] [--no-dataplane] \\
         [--no-checkpoints] [--online [--eta E --tau0 T --kappa K]] \\
         [--eval-quality | --eval-holdout FRAC] [--publish DEST] \\
-        [--multihost [--em-shards N]]
+        [--mesh DATA,MODEL] [--multihost [--em-shards N]]
 
     python -m oni_ml_tpu_torch.runner.ml_ops serve --day-dir DIR ...
     python -m oni_ml_tpu_torch.runner.ml_ops continuous flow --flow-path F
@@ -114,6 +114,16 @@ the others exiting 3 with "failed on another rank".  `--em-shards N`
 fixes the shard plan, so runs at different rank counts write the same
 bytes.  On one card the ranks share it (each its own CUDA context) and
 the collective runs over the rendezvous store (kvring).
+
+The device mesh (`--mesh DATA,MODEL`, parallel/mesh.py): the lda stage
+trains over a (data, model) grid of this process's devices, documents
+split over `data`, and with MODEL > 1 the vocabulary of beta and the
+suff-stats over `model` (batch mode only: --online takes data-parallel
+meshes); the score stage's device engine runs over the same mesh.
+Under --multihost the spec is each rank's own mesh (local_mesh: the
+cards that rank owns).  A spec the visible devices cannot fill exits 2
+with the JAX runner's message ("mesh DxM needs N devices, have n");
+`--device cpu` binds every slot to the CPU.
 """
 
 from __future__ import annotations
@@ -138,10 +148,10 @@ from ..config import (DataplaneConfig, FeedbackConfig, LDAConfig,
 from ..dataplane import (Dataplane, atomic_write, atomic_write_bytes,
                          build_scoring_prep, consume_corpus,
                          stream_word_counts, word_count_columns)
-from ..device import resolve_device
 from ..io import Corpus, formats, make_batches
 from ..models import LDAResult, train_corpus, train_corpus_online
 from ..parallel import mesh
+from ..parallel import mesh as parallel_mesh
 from ..ops import dense_estep, estep, pallas_estep, sparse_estep
 from ..scoring import DispatchStats, ScoringModel
 from ..scoring.score import _score_engine
@@ -206,15 +216,19 @@ ENGINE_KERNELS = {
     "per_batch:pallas": ("fixed_point_estep", "sparse_scatter"),
     "per_batch:xla": ("sparse_scatter",),
     "per_batch:dense": ("dense_estep",),
+    # A vocab-sharded mesh: the sparse plan's local scatter, and the
+    # dense plan's torch.matmul fixed point (no hand kernel: the JAX
+    # package runs it through XLA).
+    "vocab_sparse": ("sparse_scatter",),
+    "vocab_dense": (),
 }
 
 
 def launch_counts() -> dict:
     """Launches so far of every kernel of the port (CUDA only)."""
-    return {"sparse_estep": sparse_estep.launch_count,
-            "sparse_scatter": sparse_estep.scatter_launch_count,
-            "dense_estep": dense_estep.launch_count,
-            "fixed_point_estep": pallas_estep.launch_count}
+    from ..parallel.sharded import kernel_launches
+
+    return kernel_launches()
 
 
 def executed_counts() -> dict:
@@ -347,6 +361,10 @@ class RunContext:
     # A replayed journal shows a --no-checkpoints run of this day: a
     # missing file's message says why it is missing.
     prior_no_checkpoints: bool = False
+    # The run's device mesh (parallel/mesh.py; None: one device) and
+    # whether it shards the vocabulary.
+    mesh: object = None
+    vocab_sharded: bool = False
 
     def path(self, name: str) -> str:
         return os.path.join(self.day_dir, name)
@@ -643,8 +661,15 @@ def stage_lda(ctx: RunContext) -> dict:
             stage=Stage.SCORE.value)
     t0 = time.perf_counter()
     counts0 = kernel_counts()
+    slot0 = ({k: list(v) for k, v in ctx.mesh.launches.items()}
+             if ctx.mesh is not None else None)
     held: dict = {}
     if ctx.online:
+        if ctx.vocab_sharded:
+            raise ValueError(
+                "--online supports data-parallel meshes only "
+                "(vocab sharding is batch-mode)"
+            )
         if ctx.eval_holdout:
             raise ValueError("--eval-holdout is batch-mode only")
         progress = None
@@ -657,7 +682,7 @@ def stage_lda(ctx: RunContext) -> dict:
                                 "rho": float(info.rho)})
         result = train_corpus_online(corpus, ctx.config.online_lda,
                                      out_dir=ctx.day_dir, progress=progress,
-                                     device=ctx.device)
+                                     device=ctx.device, mesh=ctx.mesh)
         em_s = time.perf_counter() - t0
         rec = online_record(result, counts0, ctx.device, em_s,
                             corpus.num_docs)
@@ -674,10 +699,17 @@ def stage_lda(ctx: RunContext) -> dict:
             result = train_corpus(corpus, ctx.config.lda, out_dir=out_dir,
                                   save_final=False, device=ctx.device,
                                   initial_log_beta=ctx.initial_log_beta,
-                                  progress=progress)
+                                  progress=progress, mesh=ctx.mesh,
+                                  vocab_sharded=ctx.vocab_sharded)
         em_s = time.perf_counter() - t0
         rec = dict(lda_record(result, counts0, ctx.device), em_s=em_s,
                    em_docs_per_s=corpus.num_docs * result.em_iters / em_s)
+    if ctx.mesh is not None:
+        # The mesh and each kernel's launches per slot in this stage.
+        rec["mesh"] = dict(result.stats.get("mesh") or {}, slot_launches={
+            k: [n - (slot0.get(k) or [0] * len(v))[i]
+                for i, n in enumerate(v)]
+            for k, v in ctx.mesh.launches.items()})
     writes = _model_writes(corpus, result)
     if streamline:
         _demote_lda_artifacts(ctx, writes)
@@ -757,7 +789,8 @@ def _train_with_holdout(ctx: RunContext, corpus: Corpus, progress):
                           out_dir=ctx.day_dir, save_final=False,
                           device=ctx.device,
                           initial_log_beta=ctx.initial_log_beta,
-                          progress=progress)
+                          progress=progress, mesh=ctx.mesh,
+                          vocab_sharded=ctx.vocab_sharded)
     held_batches = make_batches(corpus.select(held_idx),
                                 batch_size=cfg.batch_size,
                                 min_bucket_len=cfg.min_bucket_len)
@@ -858,9 +891,12 @@ def stage_score(ctx: RunContext) -> dict:
         ctx.score_prep = None
     engine = _score_engine(sc.engine)
     stats = DispatchStats() if engine == "device" else None
+    # The device engine runs over the run's mesh (the one the lda stage
+    # trained on) where there is one.
     blob, scores = spec.score_csv(features, model, sc.threshold,
                                   engine=engine, stats=stats,
-                                  device=ctx.device, prep=prep)
+                                  device=ctx.device, prep=prep,
+                                  mesh=ctx.mesh)
     res_path = ctx.path(ctx.results_name())
     if ctx.plane is not None:
         # A product, not a checkpoint: written in the background, never
@@ -1065,6 +1101,8 @@ def run_pipeline(
     publish: "str | None" = None,
     eval_quality: bool = False,
     eval_holdout: float = 0.0,
+    mesh=None,
+    vocab_sharded: bool = False,
 ) -> DayRun:
     """Run (or resume) one day.  Stages whose outputs exist are skipped
     unless `force`; `stages` restricts the run to a subset (run in
@@ -1082,24 +1120,42 @@ def run_pipeline(
     calls this on one shared day dir: rank 0 runs pre, corpus and score
     and writes every file, the journal and metrics.json; the lda stage
     trains distributed on every rank (`_run_stages`).  The dataplane is a
-    one-process plane: the ranks run the serial path."""
+    one-process plane: the ranks run the serial path.
+
+    `mesh` (parallel.make_mesh, mesh_from_spec; under a multi-process
+    world this rank's local_mesh) trains the lda stage over its slots,
+    `vocab_sharded` sharding the vocabulary over its model axis, and
+    runs the score stage's device engine over it; `device` must be of
+    the mesh's kind."""
     if dsource not in sources.names():
         raise ValueError(f"dsource must be one of "
                          f"{'|'.join(sources.names())}, got {dsource!r}")
     dp = config.dataplane
-    multiproc = mesh.process_count() > 1
-    is_coord = mesh.is_coordinator()
+    multiproc = parallel_mesh.process_count() > 1
+    is_coord = parallel_mesh.is_coordinator()
+    if vocab_sharded and mesh is None:
+        raise ValueError("vocab_sharded=True requires a mesh")
+    if multiproc and mesh is not None and not parallel_mesh.is_local_mesh(
+            mesh):
+        raise ValueError(
+            "multi-process runs take a HOST-LOCAL mesh only "
+            "(parallel.local_mesh(); --mesh under --multihost is "
+            "interpreted per host): distributed EM shards documents "
+            "across processes and allreduces the suff-stats "
+            "explicitly instead of building one global SPMD program"
+        )
     if multiproc and not dp.checkpoints:
         # The ranks meet through the files between stages.
         raise ValueError(
             "--no-checkpoints requires a single-process run: multi-host "
             "ranks coordinate through the inter-stage file contract")
     _check_modes(dp, stages, online, eval_quality, eval_holdout)
-    dev = resolve_device(device)
+    dev = parallel_mesh.mesh_device(mesh, device)
     ctx = RunContext(config, fdate, dsource,
                      formats.ensure_dir(config.day_dir(fdate)), dev,
                      initial_log_beta, emit, online=online,
-                     eval_quality=eval_quality, eval_holdout=eval_holdout)
+                     eval_quality=eval_quality, eval_holdout=eval_holdout,
+                     mesh=mesh, vocab_sharded=vocab_sharded)
     wanted = stages or STAGE_ORDER
     ctx.wanted = list(wanted)
     tel = config.telemetry
@@ -1317,6 +1373,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "every stage writes its artifacts inline.  Artifacts are "
                    "byte-identical either way; the dataplane only changes "
                    "when files land and what the stages read")
+    p.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                   help="device mesh shape; MODEL>1 shards the vocabulary")
     p.add_argument("--multihost", action="store_true",
                    help="distributed EM over rank processes (the "
                    "reference's mpiexec fan-out, minus MPI): start one "
@@ -1327,7 +1385,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "`torchrun --nproc-per-node 2 -m "
                    "oni_ml_tpu_torch.runner.ml_ops ... --multihost`.  "
                    "Each rank trains its own document shards on its own "
-                   "device and the beta/alpha sufficient statistics "
+                   "devices (--mesh is per rank: parallel.local_mesh) "
+                   "and the beta/alpha sufficient statistics "
                    "cross processes through an explicit allreduce (a ring "
                    "over the rendezvous store).  Needs --data-dir on a "
                    "filesystem every rank sees: rank 0 is the one writer, "
@@ -1438,6 +1497,21 @@ def main(argv=None) -> int:
         dataplane=DataplaneConfig(enabled=not args.no_dataplane,
                                   checkpoints=not args.no_checkpoints),
     )
+    run_mesh, vocab_sharded = None, False
+    if args.mesh:
+        try:
+            if args.multihost:
+                # Per-rank mesh: distributed EM is host-local; the
+                # cross-process reduce is the explicit allreduce, so
+                # the spec applies to THIS rank's devices.
+                data, model = mesh.parse_mesh_spec(args.mesh)
+                run_mesh = mesh.local_mesh(data, model, device=args.device)
+                vocab_sharded = model > 1
+            else:
+                run_mesh, vocab_sharded = mesh.mesh_from_spec(
+                    args.mesh, device=args.device)
+        except ValueError as e:
+            p.error(str(e))
     if args.multihost:
         mesh.initialize_distributed(device=args.device)
     try:
@@ -1448,7 +1522,8 @@ def main(argv=None) -> int:
                          stages=stages, online=args.online,
                          publish=args.publish,
                          eval_quality=args.eval_quality,
-                         eval_holdout=args.eval_holdout)
+                         eval_holdout=args.eval_holdout,
+                         mesh=run_mesh, vocab_sharded=vocab_sharded)
     except BackendLost as e:
         # The heartbeat's point: a dead device exits as a structured,
         # journaled failure, not a hang.  So does a distributed run that

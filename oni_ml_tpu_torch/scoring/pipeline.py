@@ -1,7 +1,17 @@
 """Device scoring pipeline: the gather-dot-threshold programs driven by
 chunked, double-buffered dispatch with survivors-only readback (port of
-oni_ml_tpu/scoring/pipeline.py without its multi-device `mesh` path;
-`fused_featurize_scores` fronts the serving fleet's fused flush).
+oni_ml_tpu/scoring/pipeline.py; `fused_featurize_scores` fronts the
+serving fleet's fused flush).
+
+With a `mesh` (parallel/mesh.py: the run's mesh, the one the LDA stage
+trained on) each chunk's events split over the mesh's `data` slots,
+each slot running the same gather-dot on its slice
+(parallel.make_sharded_score_fn, one per mesh, cached); theta/p are
+placed on the slots' devices once per (model, mesh) and counted once in
+`weight_h2d_bytes`; the chunk rounds up to a multiple of the data axis;
+the compaction runs on the primary device over the joined scores.  An
+event's score depends on its two rows alone, so the mesh's scores and
+survivors are the unsharded pipeline's, bit for bit.
 
 What crosses the link:
 
@@ -60,7 +70,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..parallel.mesh import mesh_device
 
 # Events per device dispatch: 65536 int32 indices = 256 KiB per array
 # per chunk (the JAX package's default).
@@ -121,18 +131,21 @@ def compact(scores: torch.Tensor, threshold: torch.Tensor, valid_n: int):
     return count, perm
 
 
-def filt(theta, p, ip_idx, word_idx, threshold, valid_n):
-    """DNS-shaped chunk: (count, kept positions first, their scores)."""
-    s = score_dot_rows(theta, p, ip_idx, word_idx)
+def filt(theta, p, ip_idx, word_idx, threshold, valid_n, dot=None):
+    """DNS-shaped chunk: (count, kept positions first, their scores).
+    `dot` replaces the gather-dot (a mesh's sharded one)."""
+    s = (dot or (lambda a, b: score_dot_rows(theta, p, a, b)))(
+        ip_idx, word_idx)
     count, perm = compact(s, threshold, valid_n)
     return count, perm, s.index_select(0, perm)
 
 
-def filt_flow(theta, p, sip, sw, dip, dw, threshold, valid_n):
+def filt_flow(theta, p, sip, sw, dip, dw, threshold, valid_n, dot=None):
     """Flow-shaped chunk: both endpoint dots, min(src, dest) against the
     threshold -> (count, kept positions first, src, dest, min)."""
-    src = score_dot_rows(theta, p, sip, sw)
-    dest = score_dot_rows(theta, p, dip, dw)
+    dot = dot or (lambda a, b: score_dot_rows(theta, p, a, b))
+    src = dot(sip, sw)
+    dest = dot(dip, dw)
     mn = torch.minimum(src, dest)
     count, perm = compact(mn, threshold, valid_n)
     return (count, perm, src.index_select(0, perm),
@@ -152,12 +165,65 @@ def loop_cost(events: int, k: int, dots: int, table_rows: int,
     return flops, nbytes
 
 
-def _effective_chunk(n: int, chunk: int) -> int:
+def _effective_chunk(n: int, chunk: int, mesh=None) -> int:
     """Shrink the chunk for small inputs to the next power of two, so a
-    small day does not pad to the full chunk."""
+    small day does not pad to the full chunk, and keep it divisible by
+    the mesh's data axis."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    return max(min(chunk, 1 << max(0, (n - 1)).bit_length()), 1)
+    eff = min(chunk, 1 << max(0, (n - 1)).bit_length())
+    if mesh is not None:
+        from ..parallel.mesh import DATA_AXIS
+
+        d = mesh.shape[DATA_AXIS]
+        eff = -(-eff // d) * d
+    return max(eff, 1)
+
+
+# One sharded gather-dot per mesh (parallel/sharded.py), cached, so every
+# chunk of every call on that mesh reuses it.
+_SHARDED_FNS: dict = {}
+
+
+def _sharded_score_fn(mesh):
+    fn = _SHARDED_FNS.get(id(mesh))
+    if fn is None or fn.mesh is not mesh:
+        from ..parallel.sharded import make_sharded_score_fn
+
+        fn = _SHARDED_FNS[id(mesh)] = make_sharded_score_fn(mesh)
+    return fn
+
+
+def _replicated_model(model, mesh, stats: "DispatchStats | None"):
+    """theta/p as float32 on every device of the mesh, cached per
+    (model, mesh), so a run transfers each model once: {device: tensor}
+    pairs for the sharded gather-dot, counted once in
+    `weight_h2d_bytes`."""
+    cache = model.__dict__.get("_device_cache_mesh")
+    if cache is None or cache[0] is not mesh:
+        theta = torch.as_tensor(model.theta, dtype=torch.float32)
+        p = torch.as_tensor(model.p, dtype=torch.float32)
+        devs = mesh.unique_devices()
+        cache = (mesh, {d: theta.to(d) for d in devs},
+                 {d: p.to(d) for d in devs})
+        model.__dict__["_device_cache_mesh"] = cache
+        if stats is not None:
+            stats.weight_h2d_bytes += 4 * (model.theta.size + model.p.size)
+    return cache[1], cache[2]
+
+
+def _model_arrays(model, mesh, dev, stats):
+    """(theta, p, dot): the model on the device(s) and the chunk's
+    gather-dot (the sharded one on a mesh)."""
+    if mesh is not None:
+        theta, p = _replicated_model(model, mesh, stats)
+        sfn = _sharded_score_fn(mesh)
+        return (theta[mesh.primary], p[mesh.primary],
+                lambda ip, w: sfn(theta, p, ip, w))
+    from .score import _device_model
+
+    theta, p = _device_model(model, dev, stats=stats)
+    return theta, p, lambda ip, w: score_dot_rows(theta, p, ip, w)
 
 
 def _pad_chunk(a: np.ndarray, lo: int, hi: int, chunk: int,
@@ -314,20 +380,19 @@ def _index_arrays(model, pairs):
 
 def chunked_scores(
     model, ip_idx, word_idx, *, chunk: int = DEFAULT_CHUNK,
-    stats: "DispatchStats | None" = None, device=None,
+    stats: "DispatchStats | None" = None, device=None, mesh=None,
 ) -> np.ndarray:
     """Full score vector through the chunked device pipeline (no
-    threshold compaction: every event's score comes back).  Returns
-    float64 for drop-in use where the host path is used."""
-    dev = resolve_device(device)
+    threshold compaction: every event's score comes back), over the
+    mesh's data slots where one is given.  Returns float64 for drop-in
+    use where the host path is used."""
+    dev = mesh_device(mesh, device)
     ip, w = _index_arrays(model, [(ip_idx, word_idx)])
     n = len(ip)
     if n == 0:
         return np.zeros(0, np.float64)
-    chunk = _effective_chunk(n, chunk)
-    from .score import _device_model
-
-    theta, p = _device_model(model, dev, stats=stats)
+    chunk = _effective_chunk(n, chunk, mesh)
+    theta, p, dot = _model_arrays(model, mesh, dev, stats)
     link = _Link([ip, w], chunk, dev)
     out = np.empty(n, np.float64)
     if stats is not None:
@@ -342,7 +407,7 @@ def chunked_scores(
             stats.dispatches += 1
             stats.chunks += 1
             stats.h2d_bytes += 2 * 4 * chunk
-        s = score_dot_rows(theta, p, ipc, wc)
+        s = dot(ipc, wc)
         return lo, hi, s, link.enqueued(i)
 
     def collect(lo, hi, s, handle):
@@ -379,19 +444,21 @@ def _merge_survivors(parts):
     return (pos[order], *[c[order] for c in cols])
 
 
-def _filtered(model, arrays, threshold, chunk, stats, dev, label):
+def _filtered(model, arrays, threshold, chunk, stats, dev, label,
+              mesh=None):
     """The survivors-only loop shared by filtered_scores (one dot) and
-    filtered_flow_scores (two dots and their min)."""
+    filtered_flow_scores (two dots and their min).  On a mesh each chunk
+    is the sharded gather-dot(s) and the compaction over their joined
+    scores: the JAX package's two (flow: three) programs, counted so in
+    `dispatches`."""
     n = len(arrays[0])
     dots = len(arrays) // 2
     empty = (np.zeros(0, np.int64),) + tuple(
         np.zeros(0, np.float64) for _ in range(1 if dots == 1 else 3))
     if n == 0:
         return empty
-    chunk = _effective_chunk(n, chunk)
-    from .score import _device_model
-
-    theta, p = _device_model(model, dev, stats=stats)
+    chunk = _effective_chunk(n, chunk, mesh)
+    theta, p, dot = _model_arrays(model, mesh, dev, stats)
     thr = torch.tensor(np.float32(threshold), device=dev)
     link = _Link(arrays, chunk, dev)
     program = filt if dots == 1 else filt_flow
@@ -408,10 +475,10 @@ def _filtered(model, arrays, threshold, chunk, stats, dev, label):
         hi = min(lo + chunk, n)
         idx = link.stage(i, lo, hi)
         if stats is not None:
-            stats.dispatches += 1
+            stats.dispatches += 1 if mesh is None else 1 + dots
             stats.chunks += 1
             stats.h2d_bytes += len(arrays) * 4 * chunk
-        out = program(theta, p, *idx, thr, hi - lo)
+        out = program(theta, p, *idx, thr, hi - lo, dot=dot)
         return lo, out, link.enqueued(i, out[0])
 
     def collect(lo, out, handle):
@@ -441,31 +508,31 @@ def _filtered(model, arrays, threshold, chunk, stats, dev, label):
 
 def filtered_scores(
     model, ip_idx, word_idx, threshold, *, chunk: int = DEFAULT_CHUNK,
-    stats: "DispatchStats | None" = None, device=None,
+    stats: "DispatchStats | None" = None, device=None, mesh=None,
 ):
     """DNS-shaped pipeline: (event_indices, scores) of the events
     scoring under `threshold`, ascending by score with stable event-
     order ties — the device twin of host `_keep_order` over
     `_batched_scores`.  Only survivors come back."""
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     arrays = _index_arrays(model, [(ip_idx, word_idx)])
     return _filtered(model, arrays, threshold, chunk, stats, dev,
-                     "score.device.filtered")
+                     "score.device.filtered", mesh)
 
 
 def filtered_flow_scores(
     model, sip_idx, sw_idx, dip_idx, dw_idx, threshold, *,
     chunk: int = DEFAULT_CHUNK, stats: "DispatchStats | None" = None,
-    device=None,
+    device=None, mesh=None,
 ):
     """Flow-shaped pipeline: both endpoint dots, min(src, dest)
     thresholding, and compaction per chunk.  Returns (event_indices,
     src_scores, dest_scores, min_scores) for the survivors, ascending
     by min score with stable ties."""
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     arrays = _index_arrays(model, [(sip_idx, sw_idx), (dip_idx, dw_idx)])
     return _filtered(model, arrays, threshold, chunk, stats, dev,
-                     "score.device.filtered_flow")
+                     "score.device.filtered_flow", mesh)
 
 
 def fused_featurize_scores(model, dev, codes, ip_idx, word_base: int = 0,

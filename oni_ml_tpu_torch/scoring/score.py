@@ -359,7 +359,7 @@ def _score_engine(engine: "str | None") -> str:
 
 def scored_events(model: ScoringModel, pairs, threshold: float,
                   engine: "str | None" = None, chunk: "int | None" = None,
-                  stats=None, device=None):
+                  stats=None, device=None, mesh=None):
     """Score every event of one or two (ip rows, word rows) index pairs
     (DNS and table sources one, flow two: src and dest) and keep those
     under the threshold, by the resolved engine (`_score_engine`).
@@ -370,13 +370,14 @@ def scored_events(model: ScoringModel, pairs, threshold: float,
     On the device engine only the survivors come back
     (scoring/pipeline.py); their scores are scattered into full-length
     arrays whose other entries are never read (only survivors are
-    formatted).  The host engine is the float64 path."""
+    formatted).  The host engine is the float64 path.  `mesh` runs the
+    device pipeline over a mesh's data slots (scoring/pipeline.py)."""
     n = len(pairs[0][0])
     if _score_engine(engine) == "device":
         from . import pipeline
 
         kw = dict(chunk=chunk or pipeline.DEFAULT_CHUNK, stats=stats,
-                  device=device)
+                  device=device, mesh=mesh)
         if len(pairs) == 1:
             order, kept = pipeline.filtered_scores(model, *pairs[0],
                                                    threshold, **kw)
@@ -419,39 +420,39 @@ def prep_indices(prep, features, model: ScoringModel, dsource: str):
 def score_flow_csv(features: FlowFeatures, model: ScoringModel,
                    threshold: float, engine: "str | None" = None,
                    chunk: "int | None" = None, stats=None, device=None,
-                   prep=None) -> "tuple[bytes, np.ndarray]":
+                   prep=None, mesh=None) -> "tuple[bytes, np.ndarray]":
     """Flow scoring -> (flow_results.csv's bytes, the kept events' min
     scores ascending).  Each row is the 35 featurized columns +
     src_score + dest_score; only raw events are scored (feedback
-    duplicates train but are never emitted).  engine/chunk/stats/device
-    select and instrument the device pipeline (scored_events); `prep`
-    is the dataplane's ScoringPrep (prep_indices)."""
+    duplicates train but are never emitted).  engine/chunk/stats/device/
+    mesh select and instrument the device pipeline (scored_events);
+    `prep` is the dataplane's ScoringPrep (prep_indices)."""
     sip_idx, sw_idx, dip_idx, dw_idx = prep_indices(prep, features, model,
                                                     "flow")
     order, (src_scores, dest_scores), kept = scored_events(
         model, [(sip_idx, sw_idx), (dip_idx, dw_idx)], threshold, engine,
-        chunk, stats, device)
+        chunk, stats, device, mesh)
     return features.results_csv(src_scores, dest_scores, order), kept
 
 
 def _dns_scored(features: DnsFeatures, model: ScoringModel,
                 threshold: float, engine=None, chunk=None, stats=None,
-                device=None, prep=None):
+                device=None, prep=None, mesh=None):
     """-> (order: the raw events under threshold, ascending; their score
     array; their scores ascending)."""
     ip_idx, word_idx = prep_indices(prep, features, model, "dns")
     return scored_events(model, [(ip_idx, word_idx)], threshold, engine,
-                         chunk, stats, device)
+                         chunk, stats, device, mesh)
 
 
 def score_dns_csv(features: DnsFeatures, model: ScoringModel,
                   threshold: float, engine: "str | None" = None,
                   chunk: "int | None" = None, stats=None, device=None,
-                  prep=None) -> "tuple[bytes, np.ndarray]":
+                  prep=None, mesh=None) -> "tuple[bytes, np.ndarray]":
     """DNS scoring as one CSV buffer for dns_results.csv: each row the
     15 featurized columns + score (see score_flow_csv)."""
     order, (scores,), kept = _dns_scored(features, model, threshold, engine,
-                                         chunk, stats, device, prep)
+                                         chunk, stats, device, prep, mesh)
     return features.results_csv(scores, order), kept
 
 

@@ -120,12 +120,13 @@ class FlowSource(SourceSpec):
                 (dips, list(feats.dest_word[:n]))]
 
     def score_csv(self, features, model, threshold, engine=None,
-                  chunk=None, stats=None, device=None, prep=None):
+                  chunk=None, stats=None, device=None, prep=None,
+                  mesh=None):
         from ..scoring.score import score_flow_csv
 
         return score_flow_csv(features, model, threshold, engine=engine,
                               chunk=chunk, stats=stats, device=device,
-                              prep=prep)
+                              prep=prep, mesh=mesh)
 
     def synth_benign(self, n_events: int, seed: int) -> "list[str]":
         """Office-hours netflow to a small service mix.  Packet/byte
@@ -238,12 +239,13 @@ class DnsSource(SourceSpec):
         return [(clients, list(feats.word[:n]))]
 
     def score_csv(self, features, model, threshold, engine=None,
-                  chunk=None, stats=None, device=None, prep=None):
+                  chunk=None, stats=None, device=None, prep=None,
+                  mesh=None):
         from ..scoring.score import score_dns_csv
 
         return score_dns_csv(features, model, threshold, engine=engine,
                              chunk=chunk, stats=stats, device=device,
-                             prep=prep)
+                             prep=prep, mesh=mesh)
 
     def top_domains(self, config) -> frozenset:
         if not config.top_domains_path:

@@ -332,7 +332,8 @@ class TableSourceSpec(SourceSpec):
         return [([r[c] for r in feats.rows[:n]], list(feats.word[:n]))]
 
     def score_csv(self, features, model, threshold, engine=None,
-                  chunk=None, stats=None, device=None, prep=None):
+                  chunk=None, stats=None, device=None, prep=None,
+                  mesh=None):
         """(results CSV bytes, ascending kept scores): one <theta_doc,
         p_word> per raw event, each kept row the source columns, the
         field bins, the word and the score; engine="device" runs the
@@ -343,7 +344,7 @@ class TableSourceSpec(SourceSpec):
         ip_idx, word_idx = prep_indices(prep, features, model, self.name)
         order, (scores,), kept = scored_events(
             model, [(ip_idx, word_idx)], threshold, engine, chunk, stats,
-            device)
+            device, mesh)
         blob = csv_blob(
             ",".join(features.featurized_row(i) + [str(scores[i])])
             for i in order)

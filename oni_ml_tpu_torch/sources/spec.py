@@ -161,10 +161,11 @@ class SourceSpec:
 
     def score_csv(self, features, model, threshold: float, engine=None,
                   chunk=None, stats=None, device=None,
-                  prep=None) -> "tuple[bytes, np.ndarray]":
+                  prep=None, mesh=None) -> "tuple[bytes, np.ndarray]":
         """The score stage: (results CSV bytes, ascending kept scores).
         `engine` picks the host or device scorer (scoring.score
-        scored_events); `chunk`, `stats` and `device` drive and
+        scored_events); `chunk`, `stats`, `device` and `mesh` (the run's
+        mesh: the device pipeline over its data slots) drive and
         instrument the device pipeline; `prep` is the dataplane's
         ScoringPrep of the day (scoring.score.prep_indices)."""
         raise NotImplementedError

@@ -176,14 +176,22 @@ def test_cosched_disabled_never_waits():
 
 
 def test_cosched_first_fit_bound_under_saturated_serve_plane():
-    """A serve plane held near saturation (a slot re-entered as soon as
-    it is left): a tenant's first fit (no model published yet) stops
-    yielding once its summed yield wait reaches starvation_s, so all
-    its chunks run within about that bound, and its fit record says at
-    which chunk the bound acted; a later fit of the same tenant still
-    yields at every chunk, each wait capped at starvation_s.  Bounds are
-    wall-clock, as in the tests above: the bound 0.2 s, its fit's summed
-    wait under 0.6 s where 20 capped waits would take 4 s."""
+    """A serve plane held at saturation: each slot is entered before the
+    one before it is left, so the plane never has a moment without a
+    slot in flight and a chunk entry can never find it free.  A tenant's
+    first fit (no model published yet) stops yielding once its summed
+    yield wait reaches starvation_s, so all its chunks run within about
+    that bound, and its fit record says at which chunk the bound acted;
+    a later fit of the same tenant still yields at every chunk, each
+    wait capped at starvation_s.  The checks read what the CoScheduler
+    measured (its fit records): the bound 0.2 s, the first fit's summed
+    wait under 0.6 s where 20 capped waits would take 4 s.
+
+    The plane hands its slots on under the test's control (a slot is
+    left only after the next is entered), not by a thread re-entering
+    fast enough: with a gap between slots a chunk entry that wins the
+    race finds the plane idle and does not yield at all, which is how
+    the wall-clock version of this test failed under a loaded host."""
     records = []
 
     class _J:
@@ -195,10 +203,15 @@ def test_cosched_first_fit_bound_under_saturated_serve_plane():
     serving = threading.Event()
 
     def serve_plane():
-        while not stop.is_set():
-            with cs.serve_slot():
-                serving.set()
-                time.sleep(0.01)
+        held = cs.serve_slot()
+        held.__enter__()
+        serving.set()
+        while not stop.wait(0.01):
+            nxt = cs.serve_slot()
+            nxt.__enter__()
+            held.__exit__(None, None, None)
+            held = nxt
+        held.__exit__(None, None, None)
 
     th = threading.Thread(target=serve_plane)
     th.start()
@@ -217,6 +230,8 @@ def test_cosched_first_fit_bound_under_saturated_serve_plane():
     finally:
         stop.set()
         th.join(timeout=5.0)
+    assert not th.is_alive()
+    assert cs.summary()["serve_slots"] >= 2      # the plane handed on
     fits = [r for r in records if r.get("event") == "fit"]
     first, later = fits
     assert first["first_publish"] is True and first["chunks"] == 20
