@@ -70,6 +70,20 @@ Phases (any failure exits non-zero before the result line):
              days' `pipeline` / `pipeline_dns` lines carry the pre
              engine, its workers and the pass walls, and must have run
              native.
+   plans     the plan cache (plans/, tools/) on the card: the four
+             probes into the phase's own store, each under a wall budget
+             (em_chunk_probe at the bench shape K=20, V=8192, B=4096,
+             L=128; estep_probe at densities 1% and 5%; score_probe at
+             400,000 events; pre_probe over the 2M flow day at workers
+             1, 8 and auto), each recording its knobs, which `plan_cache
+             show` lists; then the small flow day (sparse pinned) in a
+             fresh process on that store, started at the phase's end
+             and joined after `dataplane` (`plans_rerun`): zero sweeps,
+             fused_em_chunk and pre_workers from the plan; and with
+             --no-plans --no-compilation-cache in a process started
+             after small_days: plans off, 3 or more libraries built
+             cold, the same bytes as the plan run and e2e's sparse card
+             run.
 6. resume    on the small flow day with the sparse engine pinned:
              `--stages pre,corpus` then `--stages lda,score` must write
              the one-shot card run's bytes; an EM fit cut at iteration 3
@@ -111,7 +125,7 @@ Phases (any failure exits non-zero before the result line):
              per-token likelihoods within RTOL_E2E; the card's quality run
              with --publish DIR: DIR/<fdate> holds the day's bytes.
    serve     `ml_ops serve` over the 2M flow and DNS days' models, each
-             streamed 98,304 raw events of its own input: refresh off,
+             streamed 65,536 raw events of its own input: refresh off,
              the first 32,768 with every flush on the host (bit-equal to
              the day's own scores over features.pkl) and with every flush
              on the card (rel 1e-6); then all of them at the ServingConfig
@@ -276,8 +290,9 @@ flow-day path, as `dns_launches` on the DNS day's, as
 served streams', as `launches_fleet` on the fleet's and as
 `launches_continuous` on the continuous service's, as
 `launches_replicated` on the replicated fleet's, as
-`launches_multihost` on the rank processes' and as `launches_mesh` on
-the mesh phase's), the card's name
+`launches_multihost` on the rank processes', as `launches_mesh` on
+the mesh phase's and as `launches_plans` on the plans phase's), the
+card's name
 and power limit, and last `{"ok": true, "device": {...}}`.  Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
 """
@@ -1484,6 +1499,209 @@ def native_pre(tmp, raws, flow_pre, host_score, host, py_started):
     }))
 
 
+# The plans phase: the plan cache's probes into a store of their own,
+# then the small flow day on that store in a fresh process and with
+# --no-plans --no-compilation-cache in another (started early, so its
+# cold build overlaps the phases before).  The probes' budgets (seconds
+# of sweep each; the first candidate always runs) and depths.
+PLANS_BUDGET_S = {"em_chunk": 10.0, "estep": 5.0, "score": 8.0, "pre": 10.0}
+PLANS_DENSITIES = "1,5"
+PLANS_PRE_WORKERS = "1,8,0"
+PLANS_DAY_FILES = ("word_counts.dat", "flow_results.csv", "doc_results.csv",
+                   "word_results.csv", "final.beta", "final.gamma",
+                   "final.other", "likelihood.dat")
+# Every knob the four probes record.
+PLANS_KNOBS = ("fused_em_chunk", "estep_engine", "score_device_chunk",
+               "dispatch_calibration", "pre_workers")
+
+
+def plans_day_cmd(raw, data, *extra):
+    """The small flow day through the CLI in a process of its own, as
+    e2e runs it (5 EM iterations, no feedback rows)."""
+    return [sys.executable, "-m", "oni_ml_tpu_torch.runner.ml_ops",
+            "20160122", "flow", "1.1", "--flow-path", raw, "--data-dir",
+            data, "--em-max-iters", "5", "--dup-factor", "0", *extra]
+
+
+def plans_off_start(tmp, raw):
+    """Start the small flow day with --no-plans --no-compilation-cache
+    (the sparse engine pinned, so its bytes are comparable) in a process
+    of its own: it builds every library it loads in a temporary
+    directory, beside the phases before `plans`."""
+    base = os.path.join(tmp, "plans_off")
+    fo, fe = open(base + ".out", "w"), open(base + ".err", "w")
+    proc = subprocess.Popen(
+        plans_day_cmd(raw, base, "--no-plans", "--no-compilation-cache"),
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, ONI_ML_TPU_ESTEP="sparse"), stdout=fo,
+        stderr=fe)
+    return {"proc": proc, "files": (fo, fe), "base": base}
+
+
+def plans_day_records(base, proc_rc, err_path, label):
+    if proc_rc != 0:
+        with open(err_path) as f:
+            fail(f"plans {label}: the day exited {proc_rc}: "
+                 f"{f.read()[-2500:]}")
+    day = os.path.join(base, "20160122")
+    with open(os.path.join(day, "metrics.json")) as f:
+        return day, {r["stage"]: r for r in json.load(f)}
+
+
+def run_tool(module, argv):
+    """oni_ml_tpu_torch.tools.<module>.main(argv) in this process -> its
+    JSON lines (each also logged)."""
+    import contextlib
+    import importlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = importlib.import_module(
+            f"oni_ml_tpu_torch.tools.{module}").main(argv)
+    if rc != 0:
+        fail(f"plans: {module} returned {rc}")
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+    for rec in lines:
+        log(f"plans {module} " + json.dumps(rec, default=str))
+    return lines
+
+
+def plans_phase(tmp, raws, started):
+    """(a) The four probes, each under its budget, into the phase's own
+    store: each must record its knobs, and `plan_cache show` list them.
+    (c) The small flow day with --no-plans --no-compilation-cache
+    (started by plans_off_start) joined: plans off, a cold build of 3 or
+    more libraries.  Then (b), the small flow day in a fresh process on
+    the probes' store (sparse pinned), is started; plans_rerun_join
+    checks it later.  Returns the state plans_rerun_join takes: each
+    kernel's launches so far (the probes' in this process, counts zeroed
+    just before and read just after, and (c)'s own), (c)'s day, the
+    chunk the probe recorded and (b)'s process."""
+    from oni_ml_tpu_torch.scoring import score as score_mod
+
+    store = os.path.join(tmp, "probes.jsonl")
+    # The probes fill this process's calibration and crossover memos;
+    # they are put back after, so later phases measure against the
+    # smoke's own store as before.
+    memos = (dict(score_mod._CALIBRATION),
+             dict(sparse_estep._CROSSOVER_CACHE))
+    t0 = time.perf_counter()
+    reset_kernel_counts()
+    common = ["--plan-cache", store]
+    probes = {
+        "em_chunk_probe": run_tool("em_chunk_probe", [
+            *common, "--budget-s", str(PLANS_BUDGET_S["em_chunk"])]),
+        "estep_probe": run_tool("estep_probe", [
+            *common, "--densities", PLANS_DENSITIES,
+            "--budget-s", str(PLANS_BUDGET_S["estep"])]),
+        "score_probe": run_tool("score_probe", [
+            *common, "--budget-s", str(PLANS_BUDGET_S["score"])]),
+        "pre_probe": run_tool("pre_probe", [
+            *common, "--flow-path", os.path.join(tmp, "flow_day.csv"),
+            "--workers", PLANS_PRE_WORKERS, "--reps", "1",
+            "--budget-s", str(PLANS_BUDGET_S["pre"])]),
+    }
+    counts = launch_counts()
+    probes_s = time.perf_counter() - t0
+    for memo, saved in zip((score_mod._CALIBRATION,
+                            sparse_estep._CROSSOVER_CACHE), memos):
+        memo.clear()
+        memo.update(saved)
+    for name, lines in probes.items():
+        last = lines[-1]
+        if last.get("probe") != "plan_cache_update" or not last["recorded"]:
+            fail(f"plans: {name} recorded nothing: {last}")
+    shown = run_tool("plan_cache", ["show", "--plan-cache", store])
+    listed = {rec["knob"] for rec in shown[1:]}
+    if not set(PLANS_KNOBS) <= listed:
+        fail(f"plans: show lists {sorted(listed)}, not {PLANS_KNOBS}")
+    for kname in ("sparse_estep", "sparse_scatter", "dense_estep"):
+        if counts[kname] <= 0:
+            fail(f"plans: the probes launched no {kname}: {counts}")
+    # (c): the plans-off run started after small_days.
+    t1 = time.perf_counter()
+    off_proc = started["proc"]
+    try:
+        off_proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        off_proc.kill()
+        off_proc.wait()
+    for f in started["files"]:
+        f.close()
+    off_wait_s = time.perf_counter() - t1
+    off_day, off = plans_day_records(started["base"], off_proc.returncode,
+                                     started["base"] + ".err", "plans-off")
+    cc = off["plans"]["compilation_cache"]
+    if off["plans"]["enabled"] or cc["enabled"] or cc["builds"] < 3:
+        fail(f"plans: the plans-off run's record {off['plans']}")
+    if off["lda"]["plans"]["fused_em_chunk"]["source"] != "default":
+        fail(f"plans: the plans-off run's chunk {off['lda']['plans']}")
+    for kname, n in off["lda"]["kernel_launches"].items():
+        counts[kname] += n
+    # (b): a fresh process on the probes' store, beside the next phases.
+    base = os.path.join(tmp, "plans_on")
+    fo, fe = open(base + ".out", "w"), open(base + ".err", "w")
+    proc = subprocess.Popen(
+        plans_day_cmd(raws["flow"], base, "--plan-cache", store),
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, ONI_ML_TPU_ESTEP="sparse"), stdout=fo,
+        stderr=fe)
+    log("plans " + json.dumps({
+        "probes_s": probes_s, "off_wait_s": off_wait_s,
+        "winners": {name: {k: v for k, v in lines[-1].items()
+                           if k in PLANS_KNOBS or k in ("truncated",
+                                                        "measurements",
+                                                        "points", "wall_s")}
+                    for name, lines in probes.items()},
+        "plans_off": {"plans": off["plans"], "lda_plans": off["lda"]["plans"],
+                      "stage_walls": day_walls(off)[0]},
+        "probe_launches": counts}, default=str))
+    return {"counts": counts, "off_day": off_day,
+            "chunk": probes["em_chunk_probe"][-1]["fused_em_chunk"],
+            "rerun": {"proc": proc, "files": (fo, fe), "base": base}}
+
+
+def plans_rerun_join(tmp, state):
+    """(b) joined: no sweep, fused_em_chunk (the probe's winner) and
+    pre_workers from the plan, and the bytes of (c) and of e2e's sparse
+    card run of the same day.  Returns each kernel's launches in the
+    plans phase, (b)'s own added."""
+    started = state["rerun"]
+    proc = started["proc"]
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    for f in started["files"]:
+        f.close()
+    on_day, on = plans_day_records(started["base"], proc.returncode,
+                                   started["base"] + ".err", "re-run")
+    if on["plans"]["autotune_sweeps"] != 0:
+        fail(f"plans: the re-run ran sweeps: {on['plans']}")
+    if on["lda"]["plans"]["fused_em_chunk"] != {"value": state["chunk"],
+                                                "source": "plan"}:
+        fail(f"plans: the re-run's chunk {on['lda']['plans']}, the probe's "
+             f"{state['chunk']}")
+    if on["pre"]["plans"]["pre_workers"]["source"] != "plan":
+        fail(f"plans: the re-run's pre workers {on['pre']['plans']}")
+    same = same_files(on_day, state["off_day"], PLANS_DAY_FILES)
+    e2e_day = os.path.join(tmp, "small_flow_sparse_cuda", "20160122")
+    same_e2e = same_files(on_day, e2e_day, PLANS_DAY_FILES)
+    if not all(same.values()) or not all(same_e2e.values()):
+        fail(f"plans: plans on / off / e2e bytes differ: {same} {same_e2e}")
+    counts = dict(state["counts"])
+    for kname, n in on["lda"]["kernel_launches"].items():
+        counts[kname] += n
+    log("plans_rerun " + json.dumps({
+        "plans": on["plans"], "lda_plans": on["lda"]["plans"],
+        "pre_plans": on["pre"]["plans"], "stage_walls": day_walls(on)[0],
+        "bytes_equal": same, "bytes_equal_e2e": same_e2e,
+        "launches": counts}, default=str))
+    return counts
+
+
 def telemetry(tmp, raw):
     """The flight recorder on the card: the small flow day through
     ml_ops.main, then again with `--heartbeat 1 --profile DIR`; the
@@ -1868,15 +2086,17 @@ def evaluate(tmp, raw):
 
 # Serving (`ml_ops serve`): the two 2M days' models, each streamed
 # SERVE_EVENTS raw events of its own input at the ServingConfig defaults.
-# 98,304 events = 24 flushes of max_batch, 3 refreshes.  Cut from
-# 262,144 (64 flushes), whose phase took 97-104 s on the card and
-# brought the whole run to ~520 s, then from 196,608 (48 flushes,
-# 54.6-85.2 s) to make room for the multihost phase, then from 131,072
-# (32 flushes, 68.1-77.2 s) after the whole smoke took 1,110 s of its
-# 1,200 on a slow host with the mesh phase; the parity streams (refresh
-# off, host pinned or every flush on the card) take the first 32,768
-# (8 flushes).
-SERVE_EVENTS = 98_304
+# 65,536 events = 16 flushes of max_batch, 2 refreshes (each refresh
+# runs on the flush's worker, so flushes 9-16 score on the refreshed
+# model: >= 2 versions).  Cut from 262,144 (64 flushes), whose phase
+# took 97-104 s on the card and brought the whole run to ~520 s, then
+# from 196,608 (48 flushes, 54.6-85.2 s) to make room for the multihost
+# phase, then from 131,072 (32 flushes, 68.1-77.2 s) after the whole
+# smoke took 1,110 s of its 1,200 on a slow host with the mesh phase,
+# then from 98,304 (24 flushes, 61.7 s) for the plans phase; the parity
+# streams (refresh off, host pinned or every flush on the card) take
+# the first 32,768 (8 flushes).
+SERVE_EVENTS = 65_536
 SERVE_REFRESH_EVERY = 8
 SERVE_PARITY_EVENTS = 32_768
 # The per-batch members' served streams: one refresh, then a flush on
@@ -5023,9 +5243,10 @@ def main() -> int:
     # This run's own plan cache: the crossover is measured here, not
     # read from an earlier run's cache.
     os.environ["ONI_ML_TPU_PLAN_CACHE"] = os.path.join(tmp, "plans.jsonl")
-    py_pre = None
+    py_pre = plans_off = plans_state = None
     try:
         raws = timed("small_days", small_days, tmp)
+        plans_off = plans_off_start(tmp, raws["flow"])
         timed("e2e_small", e2e_small, tmp, raws)
         corpus, path_counts, flow_pre, flow_engine = timed(
             "pipeline", pipeline, tmp)
@@ -5035,10 +5256,13 @@ def main() -> int:
         host_score = timed("score_device", score_device, tmp, smi)
         timed("native_pre", native_pre, tmp, raws, flow_pre, host_score,
               host, py_pre)
+        plans_state = timed("plans", plans_phase, tmp, raws, plans_off)
         timed("resume", resume, tmp, raws["flow"])
         timed("telemetry", telemetry, tmp, raws["flow"])
         timed("dataplane", dataplane, tmp, raws,
               {"flow": flow_engine, "dns": dns_engine})
+        plans_counts = timed("plans_rerun", plans_rerun_join, tmp,
+                             plans_state)
         online_counts = timed("online", online, tmp, corpus)
         timed("evaluate", evaluate, tmp, raws["flow"])
         serve_counts = timed("serve", serve_phase, tmp)
@@ -5048,9 +5272,12 @@ def main() -> int:
         multihost_counts = timed("multihost", multihost_phase, tmp, raws)
         mesh_counts = timed("mesh", mesh_phase, tmp, raws)
     finally:
-        if py_pre is not None and py_pre["proc"].poll() is None:
-            py_pre["proc"].kill()     # a phase before native_pre failed
-            py_pre["proc"].wait()
+        for started in (py_pre, plans_off,
+                        plans_state and plans_state["rerun"]):
+            # A phase before the one that joins it failed.
+            if started is not None and started["proc"].poll() is None:
+                started["proc"].kill()
+                started["proc"].wait()
         shutil.rmtree(tmp, ignore_errors=True)
     scatter_rec = timed("profile_em", profile_em, corpus)
     walls["total"] = round(time.perf_counter() - t0, 1)
@@ -5112,6 +5339,11 @@ def main() -> int:
             # (2, 4) sparse plan's local scatter), its online run and the
             # CLI's 1x1 day, in the smoke's process.
             "launches_mesh": mesh_counts[kname],
+            # On the plans path: the four probes in the smoke's process
+            # (the chunk probe's sparse kernel and scatter, the
+            # crossover's sparse and dense E-steps) and the two small
+            # days' own (plan-resolved and plans off, sparse pinned).
+            "launches_plans": plans_counts[kname],
             "max_abs_err": max(errs), "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),

@@ -146,6 +146,12 @@ class ScoringConfig:
     # score columns), survivors-only readback.  "" follows
     # ONI_ML_TPU_SCORE (default host).
     engine: str = ""
+    # Events per device dispatch of the device engine
+    # (scoring/pipeline.py DEFAULT_CHUNK).  A run that leaves it at this
+    # default resolves it through the plan cache (knob
+    # "score_device_chunk", which `python -m
+    # oni_ml_tpu_torch.tools.score_probe` records).
+    device_chunk: int = 1 << 16
 
 
 @dataclass(frozen=True)
@@ -399,6 +405,28 @@ class ContinuousConfig:
 
 
 @dataclass(frozen=True)
+class PlansConfig:
+    """Measured execution plans (oni_ml_tpu_torch/plans/): the plan
+    cache that holds per-(device, shape) measured values of the tuned
+    knobs, and the kernel build cache.  An explicitly set config knob
+    wins over a plan entry, which wins over the shipped default; every
+    consumer records which source it ran under."""
+
+    # Plan lookups and records on (--no-plans turns them off;
+    # ONI_ML_TPU_PLANS=0 is the process-wide switch).
+    enabled: bool = True
+    # The live plan-cache file ("" = ONI_ML_TPU_PLAN_CACHE, else
+    # ~/.cache/oni_ml_tpu_torch/plans.jsonl).  Seed plans under
+    # plans/seeds/ load beneath it (the port ships none).
+    cache_path: str = ""
+    # Build the CUDA kernels and C++ host libraries into the persistent
+    # build directory (build/oni_ml_tpu_torch/), so a re-run compiles
+    # nothing; False builds what the run loads into a run-scoped
+    # temporary directory (--no-compilation-cache: a cold build).
+    compilation_cache: bool = True
+
+
+@dataclass(frozen=True)
 class PipelineConfig:
     """A single-card day's run configuration."""
 
@@ -421,6 +449,7 @@ class PipelineConfig:
     scoring: ScoringConfig = field(default_factory=ScoringConfig)
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     dataplane: DataplaneConfig = field(default_factory=DataplaneConfig)
+    plans: PlansConfig = field(default_factory=PlansConfig)
     # The continuous service's scorer and its window refreshes.
     serving: ServingConfig = field(default_factory=ServingConfig)
     continuous: ContinuousConfig = field(default_factory=ContinuousConfig)

@@ -279,8 +279,13 @@ def _resolve_engine(corpus: Corpus, config: LDAConfig, device,
         return "dense", "default", None
     pieces = ([corpus.shard(st, en) for st, en in shard_plan.bounds]
               if shard_plan is not None else [corpus])
+    # Distributed EM resolves the tile floor from config only, as its
+    # batches do (_shard_batches).
+    min_len, _ = sparse_estep.resolve_layout_len(
+        config.sparse_min_bucket_len, use_plans=shard_plan is None,
+        device=dev)
     shapes = [shape for piece in pieces for shape in piece.bucket_shapes(
-        min_len=config.sparse_min_bucket_len, batch_cap=config.batch_size,
+        min_len=min_len, batch_cap=config.batch_size,
         pad_multiple=sparse_estep.pad_multiple_for())]
     if not shapes or config.num_topics > sparse_estep.MAX_TOPICS:
         return "dense", "default", None
@@ -324,21 +329,36 @@ def resolve_estep_engine(corpus: Corpus, config: LDAConfig,
     return engine, source
 
 
-def _resolve_em_plan(config: LDAConfig) -> "tuple[int, int, dict]":
-    """(fused_em_chunk, host_sync_every, their plan record): a value
-    that differs from the default is "config", else "default"."""
+def _resolve_em_plan(config: LDAConfig, num_terms: int, batches,
+                     device) -> "tuple[int, int, dict]":
+    """(fused_em_chunk, host_sync_every, their plan record), each through
+    the plan layer (plans.resolve at em_shape, keyed by the E-step
+    kernels' build hashes): a config value that differs from the default
+    wins, else a plan entry for this device and shape, else the default.
+    Under a world of more than one rank they resolve from config only:
+    per-host plan caches may hold different winners, and every rank must
+    run the same dispatches."""
     if config.host_sync_every < 0:
         # min(chunk, negative) would request negative steps every
         # dispatch: a silent zero-iteration fit.
         raise ValueError(
             f"host_sync_every must be >= 0, got {config.host_sync_every}")
-    default = LDAConfig()
-    record = {}
-    for name in ("fused_em_chunk", "host_sync_every"):
-        value = getattr(config, name)
-        record[name] = {"value": value, "source": (
-            "config" if value != getattr(default, name) else "default")}
-    return config.fused_em_chunk, config.host_sync_every, record
+    from .. import plans
+    from ..ops import _cuda
+
+    kw = {"store": None} if _mesh.process_count() > 1 else {}
+    sig = plans.em_shape(config.num_topics, num_terms, batches)
+    kernels = _cuda.estep_kernels()
+    chunk, chunk_src = plans.resolve(
+        "fused_em_chunk", config.fused_em_chunk, shape=sig, device=device,
+        kernels=kernels, **kw)
+    sync, sync_src = plans.resolve(
+        "host_sync_every", config.host_sync_every, shape=sig, device=device,
+        kernels=kernels, **kw)
+    chunk, sync = int(chunk), max(0, int(sync))
+    record = {"fused_em_chunk": {"value": chunk, "source": chunk_src},
+              "host_sync_every": {"value": sync, "source": sync_src}}
+    return chunk, sync, record
 
 
 @dataclass
@@ -464,7 +484,7 @@ class LDATrainer:
                                  "the caller (decided on rank 0)")
             compact = None
         else:
-            chunk, sync, plan = _resolve_em_plan(cfg)
+            chunk, sync, plan = _resolve_em_plan(cfg, v, batches, dev)
             member, compact = self.resolve_member(engine, batches,
                                                   chunk > 1)
         e_fn = (self._mesh_e if self.mesh is not None
@@ -1177,9 +1197,12 @@ def train_corpus(
     if mesh is not None:
         num_terms, initial_log_beta, data_size = _mesh_trainer_setup(
             corpus, config, mesh, vocab_sharded, initial_log_beta)
+    sparse_l = None
     if engine == "sparse":
+        sparse_l, sparse_l_src = sparse_estep.resolve_layout_len(
+            config.sparse_min_bucket_len, device=dev)
         batches = list(corpus.bucketed_layout(
-            min_len=config.sparse_min_bucket_len, batch_cap=config.batch_size,
+            min_len=sparse_l, batch_cap=config.batch_size,
             pad_multiple=sparse_estep.pad_multiple_for(),
         ).batches)
     else:
@@ -1201,6 +1224,9 @@ def train_corpus(
     result.plan["estep_engine"] = {"value": engine, "source": engine_src}
     if crossover is not None:
         result.plan["estep_crossover"] = crossover
+    if sparse_l is not None:
+        result.plan["sparse_estep_l"] = {"value": sparse_l,
+                                         "source": sparse_l_src}
     if num_terms != corpus.num_terms:
         result.log_beta = result.log_beta[:, :corpus.num_terms]
     if out_dir and save_final:
@@ -1276,8 +1302,12 @@ def _shard_batches(corpus: Corpus, config: LDAConfig, plan, shards,
             made = make_batches(piece, batch_size=config.batch_size,
                                 min_bucket_len=config.min_bucket_len)
         elif engine == "sparse":
+            # From config only: a measured floor serving at some rank
+            # counts would give them other layouts than one rank's.
+            min_len, _ = sparse_estep.resolve_layout_len(
+                config.sparse_min_bucket_len, use_plans=False)
             made = list(piece.bucketed_layout(
-                min_len=config.sparse_min_bucket_len,
+                min_len=min_len,
                 batch_cap=config.batch_size,
                 pad_multiple=sparse_estep.pad_multiple_for()).batches)
         else:

@@ -49,9 +49,12 @@ SOURCES = {"flow": "flow_featurize.cpp", "dns": "dns_featurize.cpp",
            "ingest": "corpus_ingest.cpp", "emit": "row_emit.cpp"}
 # name -> {"seconds": build wall (0.0 when it was built already)}
 BUILD_INFO: "dict[str, dict]" = {}
-# Libraries this process compiled (a cached build adds nothing):
-# plans/warmup.compile_counts reads it.
+# Libraries this process compiled (a cached build adds nothing), and
+# libraries it found built already, each counted once per build
+# directory: plans/warmup.compile_counts reads both.
 BUILDS = 0
+CACHE_HITS = 0
+_HIT: "set[str]" = set()
 
 
 def enabled() -> bool:
@@ -116,11 +119,14 @@ def build(names) -> None:
     """Compile every library of `names` not built yet, one g++ each, all
     started together.  Raises RuntimeError naming each library whose
     build failed and the compiler's output."""
-    global BUILDS
+    global BUILDS, CACHE_HITS
     todo = {n: lib_path(n) for n in names}
     todo = {n: p for n, p in todo.items() if not os.path.exists(p)}
     for n in set(names) - set(todo):
         BUILD_INFO.setdefault(n, {"seconds": 0.0})
+        if lib_path(n) not in _HIT:
+            _HIT.add(lib_path(n))
+            CACHE_HITS += 1
     if not todo:
         return
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -161,6 +167,7 @@ def build(names) -> None:
             os.replace(tmp, todo[n])
             BUILD_INFO[n] = {"seconds": time.perf_counter() - t0}
             BUILDS += 1
+            _HIT.add(todo[n])
         if failed:
             raise RuntimeError("\n".join(failed))
     finally:

@@ -13,6 +13,12 @@ so an edited source or header never loads a stale build.  `build()`
 compiles several sources in parallel, one nvcc each.  Nothing here runs
 at import time: the CPU tests import every module on a machine with no
 nvcc.
+
+The build directory is the port's compilation cache: a library found
+there is a cache hit (`CACHE_HITS`), one compiled is a build
+(`BUILDS`).  `--no-compilation-cache` points `BUILD_DIR` at a run-scoped
+temporary directory for the run (plans/warmup.compilation_cache), so
+every library the process has not loaded yet builds cold.
 """
 
 from __future__ import annotations
@@ -36,9 +42,12 @@ NVCC_FLAGS = [
 _LOADED: "dict[str, ctypes.CDLL]" = {}
 # name -> {"seconds": build wall (0.0 when cached), "ptxas": compiler log}
 BUILD_INFO: "dict[str, dict]" = {}
-# Libraries this process compiled (a cached build adds nothing):
-# plans/warmup.compile_counts reads it.
+# Libraries this process compiled (a cached build adds nothing), and
+# libraries it found built already, each counted once per build
+# directory: plans/warmup.compile_counts reads both.
 BUILDS = 0
+CACHE_HITS = 0
+_HIT: "set[str]" = set()
 
 
 def nvcc_path() -> str:
@@ -69,15 +78,25 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{source_digest(name)}.so")
 
 
+def estep_kernels() -> str:
+    """The build hashes of the three E-step kernels, which key the plan
+    entries of values measured through them (the EM chunk and sync)."""
+    return "+".join(source_digest(name) for name in
+                    ("sparse_estep", "dense_estep", "fixed_point_estep"))
+
+
 def build(names) -> None:
     """Compile every csrc/<name>.cu of `names` that is not built yet, one
     nvcc per source, all started together."""
-    global BUILDS
+    global BUILDS, CACHE_HITS
     todo = {}
     for name in names:
         lib = _lib_path(name)
         if os.path.exists(lib):
             BUILD_INFO.setdefault(name, {"seconds": 0.0, "ptxas": "cached"})
+            if lib not in _HIT:
+                _HIT.add(lib)
+                CACHE_HITS += 1
         else:
             todo[name] = lib
     if not todo:
@@ -101,6 +120,7 @@ def build(names) -> None:
         os.replace(f"{todo[name]}.{os.getpid()}.tmp", todo[name])
         BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "ptxas": out}
         BUILDS += 1
+        _HIT.add(todo[name])
     if failed:
         raise RuntimeError("\n".join(failed))
 

@@ -128,6 +128,25 @@ def pad_multiple_for(precision: str = "f32") -> int:
     return MAX_BLOCK_DOCS
 
 
+def resolve_layout_len(config_value=None, use_plans: bool = True,
+                       device=None) -> "tuple[int, str]":
+    """The bucketed layout's minimum packed tile length (the floor
+    `Corpus.bucketed_layout` pads buckets up to), resolved through the
+    plan cache for a run on `device`: knob `sparse_estep_l`, default
+    LDAConfig.sparse_min_bucket_len.  -> (length, source).
+
+    `use_plans=False` resolves from config and default only: distributed
+    EM pins it, since per-host plan caches may hold different winners
+    and a rank-divergent floor would give ranks other per-shard batch
+    shapes than the one-rank run, breaking its byte-identical
+    artifacts."""
+    from ..plans import resolve
+
+    kw = {} if use_plans else {"store": None}
+    val, src = resolve("sparse_estep_l", config_value, device=device, **kw)
+    return max(1, int(val)), src
+
+
 def launch_geometry(b: int, l: int, k: int, block: "int | None" = None) -> dict:
     """How the kernel runs a [B, L] bucket on the card: the fixed
     point's rule, pallas_estep.launch_geometry (a token stages K beta
@@ -557,11 +576,12 @@ def crossover_shapes(k: int, v: int, b: int, l: int,
 def measure_crossover(k: int, v: int, b: int, l: int, *,
                       precision: str = "f32", reps: int = 2,
                       wmajor: bool = True, device="cuda") -> dict:
-    """Time one E-step through each engine at this shape on the card and
-    return the winner: {"engine", "dense_s", "sparse_s", "source",
-    "shape", "e_steps"} (e_steps: the E-steps run per engine, warm-up
-    included).  Both kernels are built and run once before any timing;
-    the clock is read after torch.cuda.synchronize().  The fixed point
+    """Time one E-step through each engine at this shape on `device`
+    (the card; the CPU, where a caller asks for it, times the plain
+    versions) and return the winner: {"engine", "dense_s", "sparse_s",
+    "source", "shape", "e_steps"} (e_steps: the E-steps run per engine,
+    warm-up included).  Both kernels are built and run once before any
+    timing; the clock is read after torch.cuda.synchronize().  The fixed point
     runs var_max_iters 8 at var_tol 0, so both engines do the same
     iterations (the crossover compares cost per iteration, not
     convergence).  The live-token plan and the densified batch are made
@@ -573,9 +593,6 @@ def measure_crossover(k: int, v: int, b: int, l: int, *,
     from . import _cuda, dense_estep
 
     dev = torch.device(device)
-    if dev.type != "cuda":
-        raise ValueError("the engine crossover is measured on the card; "
-                         f"got device {dev}")
     pad_multiple_for(precision)
     exact, _ = crossover_shapes(k, v, b, l, precision)
     rng = np.random.default_rng(0)
@@ -591,8 +608,15 @@ def measure_crossover(k: int, v: int, b: int, l: int, *,
     vi = 8
     sparse_ok = k <= MAX_TOPICS
     dense_ok = k <= dense_estep.MAX_TOPICS
-    _cuda.build([name for name, ok in ((KERNEL, sparse_ok),
-                                       (dense_estep.KERNEL, dense_ok)) if ok])
+    if dev.type == "cuda":
+        _cuda.build([name for name, ok in ((KERNEL, sparse_ok),
+                                           (dense_estep.KERNEL, dense_ok))
+                     if ok])
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
     runs = {}
     if sparse_ok:
         live = live_tokens(word, counts)
@@ -607,15 +631,15 @@ def measure_crossover(k: int, v: int, b: int, l: int, *,
             cells=word.shape[1])
     for run in runs.values():              # build, load and warm both
         run()
-    torch.cuda.synchronize(dev)
+    sync()
     secs = {"sparse": None, "dense": None}
     for name, run in runs.items():
         best = float("inf")
         for _ in range(reps):
-            torch.cuda.synchronize(dev)
+            sync()
             t0 = time.perf_counter()
             run()
-            torch.cuda.synchronize(dev)
+            sync()
             best = min(best, time.perf_counter() - t0)
         secs[name] = best
     sparse_s, dense_s = secs["sparse"], secs["dense"]
@@ -680,7 +704,7 @@ def _engine_crossover(k: int, v: int, b: int, l: int, *,
     timings.  Memo and plan entries are keyed by the device and by the
     build hashes of both engines' kernels (crossover_kernels), so a
     crossover measured with other kernel sources is measured again."""
-    from ..plans import lookup_value, plan_backend, record_value
+    from ..plans import lookup_value, note_sweep, plan_backend, record_value
 
     pad_multiple_for(precision)
     exact, band = crossover_shapes(k, v, b, l, precision)
@@ -708,6 +732,7 @@ def _engine_crossover(k: int, v: int, b: int, l: int, *,
                 return rec
     rec = measure_crossover(k, v, b, l, precision=precision, device=device)
     _CROSSOVER_CACHE[memo_key] = rec
+    note_sweep("estep_engine")
     value = {key: rec[key] for key in ("engine", "dense_s", "sparse_s")}
     measurements = {"dense_s": rec["dense_s"], "sparse_s": rec["sparse_s"]}
     for shape in (exact, band):

@@ -18,12 +18,19 @@ package's journal stamps it):
 Invalidation is by omission: entries of another `schema` are dropped at
 load, and lookups match the run's backend fingerprint, so a cache
 written on one backend misses on another.  The latest entry per (knob,
-backend, shape) wins.  The port ships no seed files: the JAX package's
-seeds were measured on a TPU.
+backend, shape) wins.
+
+Seed plans: JSONL files under `plans/seeds/` load beneath the live
+file, so a live measurement always overrides a seed (`PlanStore(path,
+seeds=True)`).  The port ships no seed file: the JAX package's seeds
+were measured on a TPU, and no benchmark has measured the card's yet.
+`python -m oni_ml_tpu_torch.tools.plan_cache export` writes a store's
+entries in the seed format.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import time
@@ -48,12 +55,20 @@ def default_path() -> str:
                                                     "plans.jsonl")
 
 
+def seed_paths() -> "list[str]":
+    """The seed plan files under plans/seeds/, sorted for a fixed
+    layering order."""
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "seeds")
+    return sorted(glob.glob(os.path.join(here, "*.jsonl")))
+
+
 class PlanEntry(NamedTuple):
     knob: str
     backend: str
     shape: str
     value: object
-    source: str          # "autotune" | "probe" | ...
+    source: str          # "autotune" | "probe" | "seed" | ...
     measurements: "dict | None"
     record: dict         # the full on-disk record (provenance)
 
@@ -106,12 +121,13 @@ def replay_report(path: str) -> "tuple[list[dict], int]":
 
 
 class PlanStore:
-    """Lazy-loaded plan cache over one JSONL file.  The in-memory map
-    updates on record(), so a process sees its own appends without
-    re-reading the file."""
+    """Lazy-loaded plan cache over one JSONL file plus the seed files
+    beneath it (`seeds`).  The in-memory map updates on record(), so a
+    process sees its own appends without re-reading the file."""
 
-    def __init__(self, path: str) -> None:
+    def __init__(self, path: str, seeds: bool = True) -> None:
         self.path = path
+        self._seeds = seeds
         self._entries: "dict | None" = None   # key -> PlanEntry
         self._dropped = 0
         self._fd: "int | None" = None
@@ -119,14 +135,19 @@ class PlanStore:
 
     def _load(self) -> dict:
         if self._entries is None:
-            records, dropped = replay_report(self.path)
             entries: dict = {}
-            for rec in records:
-                entry = _entry_from_record(rec)
-                if entry is None:
-                    dropped += 1
-                    continue
-                entries[entry.key] = entry   # latest wins
+            dropped = 0
+            for path in (seed_paths() if self._seeds else []) + [self.path]:
+                records, bad = replay_report(path)
+                dropped += bad
+                for rec in records:
+                    entry = _entry_from_record(rec)
+                    if entry is None:
+                        dropped += 1
+                        continue
+                    if path != self.path and entry.source == "unknown":
+                        entry = entry._replace(source="seed")
+                    entries[entry.key] = entry   # latest (and live) wins
             self._entries, self._dropped = entries, dropped
         return self._entries
 
@@ -183,7 +204,7 @@ class PlanStore:
         return stamped
 
     def clear(self) -> None:
-        """Remove the file."""
+        """Remove the live file (seeds are code, not cache)."""
         self.close()
         try:
             os.unlink(self.path)

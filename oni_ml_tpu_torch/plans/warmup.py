@@ -1,6 +1,6 @@
-"""Serving warm-up and the build counters (port of
-oni_ml_tpu/plans/warmup.py's `warmup_serving`, `compile_counts` and
-`counts_delta`).
+"""Serving warm-up, the compilation cache and the build counters (port
+of oni_ml_tpu/plans/warmup.py's `warmup_serving`,
+`setup_compilation_cache`, `compile_counts` and `counts_delta`).
 
 The JAX package compiles the serving scorer's padded micro-batch
 programs ahead of the first event (one per power-of-two shape from the
@@ -10,17 +10,32 @@ scoring.device_scores once at each of those sizes on the served model:
 the model's one upload (cached on the model) and the first launches,
 pinned staging buffers and allocator blocks of each size happen before
 the stream's first flush instead of inside it.  No CUDA-graph capture
-and no persistent cache (ROADMAP Queue 1 item 4).
+(ROADMAP Queue 1 item 4(b)).
+
+The port's counterpart of the JAX package's persistent XLA compilation
+cache is its build directory, `build/oni_ml_tpu_torch/` (ops/_cuda.py
+and native_build.py `BUILD_DIR`): a library built there by any earlier
+process loads without a compile.  `compilation_cache(False)`
+(`--no-compilation-cache`) points both build directories at a
+run-scoped temporary directory, so every library the process has not
+loaded yet builds cold, as the JAX flag gives a cold compile; a library
+already loaded in the process stays loaded, as the JAX flag leaves the
+in-process compile cache alone.  A failed build still raises.
 
 `compile_counts` counts what the port compiles at run time instead of
-the JAX package's traces: the CUDA kernel libraries (ops/_cuda.py, one
-nvcc each) and the C++ host libraries (native_build.py, one g++ each)
-this process built.  The continuous service's `retraces_after_warmup`
-is its delta past the warm-up boundary.
+the JAX package's traces: the CUDA kernel libraries (one nvcc each) and
+the C++ host libraries (one g++ each) this process built, and the
+libraries it found built already (`cache_hits`).  The continuous
+service's `retraces_after_warmup` is the `builds` delta past the
+warm-up boundary.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import shutil
+import tempfile
 import time
 
 import numpy as np
@@ -54,15 +69,39 @@ def warmup_serving(model, max_batch: int, device_min, device=None) -> dict:
 
 def compile_counts() -> dict:
     """Cumulative per-process build counters: `kernel_builds` (CUDA
-    libraries), `native_builds` (C++ host libraries) and `builds`, their
-    sum.  A library already built by an earlier process (its hash in the
-    build directory) counts nothing."""
+    libraries), `native_builds` (C++ host libraries), `builds`, their
+    sum, and `cache_hits`, the libraries found built already in the
+    build directory (each once per directory)."""
     from .. import native_build
     from ..ops import _cuda
 
     kernel, native = _cuda.BUILDS, native_build.BUILDS
     return {"kernel_builds": kernel, "native_builds": native,
-            "builds": kernel + native}
+            "builds": kernel + native,
+            "cache_hits": _cuda.CACHE_HITS + native_build.CACHE_HITS}
+
+
+@contextlib.contextmanager
+def compilation_cache(enabled: bool = True):
+    """Scope one run's build directory.  Enabled: the persistent one.
+    Disabled: both build directories point at a fresh temporary
+    directory for the scope, removed after it.  Yields the record the
+    runner's `plans` record carries: {"enabled", "dir"}."""
+    from .. import native_build
+    from ..ops import _cuda
+
+    if enabled:
+        yield {"enabled": True, "dir": _cuda.BUILD_DIR}
+        return
+    tmp = tempfile.mkdtemp(prefix="oni_torch_build_")
+    saved = _cuda.BUILD_DIR, native_build.BUILD_DIR
+    _cuda.BUILD_DIR = tmp
+    native_build.BUILD_DIR = os.path.join(tmp, "native")
+    try:
+        yield {"enabled": False, "dir": tmp}
+    finally:
+        _cuda.BUILD_DIR, native_build.BUILD_DIR = saved
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def counts_delta(before: dict) -> dict:

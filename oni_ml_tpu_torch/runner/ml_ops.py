@@ -101,6 +101,18 @@ JSON.  Neither changes a result.  `--publish DEST` copies the finished
 day directory (metrics.json included) to DEST, or to an scp-style
 host:path.
 
+Measured plans (plans/): the tuned knobs (the EM chunk and sync, the
+sparse tile floor, the device scorer's chunk, the pre workers at auto)
+resolve through the plan cache, a config value that differs from the
+default first; the lda, pre and score records name each knob's
+{value, source} under `plans`.  `--no-plans` resolves from config and
+default only, `--plan-cache PATH` scopes a store to the run, and
+`--no-compilation-cache` builds the libraries the process loads in a
+run-scoped temporary directory.  metrics.json gets a `{"stage":
+"plans"}` record: enabled, the store, the build counts against cache
+hits, and this run's sweeps, plan hits, config wins and defaults.
+Plans never change a byte of the day's files.
+
 Multi-process distributed EM (`--multihost`): N rank processes, started
 with torchrun's variables (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK,
 LOCAL_RANK; parallel/mesh.py), share one --data-dir.  Pre, corpus and
@@ -141,10 +153,10 @@ from enum import Enum
 import numpy as np
 import torch
 
-from .. import sources
+from .. import plans, sources
 from ..config import (DataplaneConfig, FeedbackConfig, LDAConfig,
-                      OnlineLDAConfig, PipelineConfig, ScoringConfig,
-                      TelemetryConfig)
+                      OnlineLDAConfig, PipelineConfig, PlansConfig,
+                      ScoringConfig, TelemetryConfig)
 from ..dataplane import (Dataplane, atomic_write, atomic_write_bytes,
                          build_scoring_prep, consume_corpus,
                          stream_word_counts, word_count_columns)
@@ -152,6 +164,8 @@ from ..io import Corpus, formats, make_batches
 from ..models import LDAResult, train_corpus, train_corpus_online
 from ..parallel import mesh
 from ..parallel import mesh as parallel_mesh
+from ..plans import NullStore, PlanStore
+from ..plans import warmup as plans_warmup
 from ..ops import dense_estep, estep, pallas_estep, sparse_estep
 from ..scoring import DispatchStats, ScoringModel
 from ..scoring.score import _score_engine
@@ -276,6 +290,10 @@ def lda_record(result, counts0: tuple, dev) -> dict:
     for name in ("em_shards", "allreduce"):
         if name in plan:
             knobs[name] = plan[name]
+    # Each plan-resolved knob the fit ran under, {value, source}, as the
+    # JAX package's lda record names them.
+    knobs["plans"] = {name: rec for name, rec in plan.items()
+                      if name in plans.KNOBS}
     return {
         "device": str(dev), "engine": engine,
         "engine_source": plan["estep_engine"]["source"],
@@ -554,6 +572,8 @@ def stage_pre(ctx: RunContext) -> dict:
     out = {"events": features.num_events, "word_count_rows": n_wc,
            "feedback_rows": len(fb_rows), "pre_engine": engine,
            "pre_workers": workers, "pre_workers_source": workers_src,
+           "plans": {"pre_workers": {"value": workers,
+                                     "source": workers_src}},
            **timings}
     if reason is not None:
         out["python_reason"] = reason
@@ -855,10 +875,12 @@ def _completion_score(ctx: RunContext, log_beta, alpha,
 def stage_score(ctx: RunContext) -> dict:
     """Scoring -> <dsource>_results.csv, by the resolved engine: the
     float64 host engine, or the device pipeline in chunks of
-    pipeline.DEFAULT_CHUNK events, which records `score_dispatch` (also
-    journaled as a `dispatch` record).  With the dataplane the event
-    indices come from the prep that ran during EM (`prep`: "overlapped")
-    and the results CSV is written in the background."""
+    `score_device_chunk` events (ScoringConfig.device_chunk through the
+    plan cache; the record's `plans` names its source), which records
+    `score_dispatch` (also journaled as a `dispatch` record).  With the
+    dataplane the event indices come from the prep that ran during EM
+    (`prep`: "overlapped") and the results CSV is written in the
+    background."""
     spec = sources.get(ctx.dsource)
     if ctx.features is not None:
         features, feat_src = ctx.features, "handoff"
@@ -891,10 +913,19 @@ def stage_score(ctx: RunContext) -> dict:
         ctx.score_prep = None
     engine = _score_engine(sc.engine)
     stats = DispatchStats() if engine == "device" else None
+    chunk = plans_rec = None
+    if engine == "device":
+        # Resolved only on the engine that uses it: a host run's record
+        # names no device chunk it never dispatched.
+        chunk, chunk_src = plans.resolve("score_device_chunk",
+                                         sc.device_chunk, device=ctx.device)
+        chunk = int(chunk)
+        plans_rec = {"score_device_chunk": {"value": chunk,
+                                            "source": chunk_src}}
     # The device engine runs over the run's mesh (the one the lda stage
     # trained on) where there is one.
     blob, scores = spec.score_csv(features, model, sc.threshold,
-                                  engine=engine, stats=stats,
+                                  engine=engine, chunk=chunk, stats=stats,
                                   device=ctx.device, prep=prep,
                                   mesh=ctx.mesh)
     res_path = ctx.path(ctx.results_name())
@@ -911,6 +942,8 @@ def stage_score(ctx: RunContext) -> dict:
            "min_score": float(scores[0]) if len(scores) else None,
            "features": feat_src, "model": model_src, "engine": engine,
            "prep": "overlapped" if prep is not None else "inline"}
+    if plans_rec is not None:
+        out["plans"] = plans_rec
     if stats is not None:
         out["score_dispatch"] = stats.as_record()
         if ctx.journal is not None:
@@ -1179,6 +1212,24 @@ def run_pipeline(
             interval_s=tel.heartbeat_s, journal=ctx.journal,
             probe=lambda t: device_add_probe(t, device=dev),
             recorder=ctx.recorder).start()
+    # Measured plans: --no-plans resolves every knob from config and
+    # default (a NullStore), --plan-cache scopes a store to this run;
+    # --no-compilation-cache builds what the run loads in a run-scoped
+    # directory (plans/warmup.compilation_cache).
+    plc = config.plans
+    if not plc.enabled:
+        plan_store: "PlanStore | NullStore | None" = NullStore()
+    elif plc.cache_path:
+        plan_store = PlanStore(plc.cache_path)
+    else:
+        plan_store = None        # the default store
+    plans_cc0 = plans_warmup.compile_counts()
+    plans_ctr0 = plans.counters_snapshot()
+    scopes = contextlib.ExitStack()
+    cc_rec = scopes.enter_context(
+        plans_warmup.compilation_cache(plc.compilation_cache))
+    if plan_store is not None:
+        scopes.enter_context(plans.use_store(plan_store))
     if dp.enabled and not multiproc:
         ctx.plane = Dataplane(
             dp, recorder=ctx.recorder,
@@ -1202,6 +1253,11 @@ def run_pipeline(
             # directory is handed on, on a failing run too.
             plane_record = ctx.plane.drain()
             background_errs = ctx.plane.errors
+        scopes.close()
+        if plc.cache_path and plan_store is not None:
+            # A run-scoped store closes on every exit path; the process
+            # default store stays open.
+            plan_store.close()
         if ctx.heartbeat is not None:
             ctx.heartbeat.stop()
         if ctx.journal is not None:
@@ -1218,6 +1274,18 @@ def run_pipeline(
     if not dp.checkpoints and os.path.exists(ctx.path(SPILL)):
         # The featurizer's scratch: only this run's score stage read it.
         os.unlink(ctx.path(SPILL))
+    # This run's plans and builds (metrics.json only, as the roofline):
+    # the sweeps it ran (a tuned card shows 0), its plan hits, config
+    # wins and defaults, and what it built against what it found built.
+    ctr = plans.counters_snapshot()
+    builds = plans_warmup.counts_delta(plans_cc0)
+    ctx.metrics.append({
+        "fdate": fdate, "dsource": dsource, "stage": "plans",
+        "enabled": plc.enabled,
+        "store": (getattr(plan_store, "path", None) if plan_store is not None
+                  else "default"),
+        "compilation_cache": {**cc_rec, **builds},
+        **{k: ctr[k] - plans_ctr0.get(k, 0) for k in ctr}})
     records = roofline.emitted_records(since=roofline0)
     if records:
         # Into metrics.json only (stdout keeps one line per stage).
@@ -1368,6 +1436,22 @@ def build_parser() -> argparse.ArgumentParser:
                    "directory to DEST: a local/NFS path (copied) or an "
                    "scp-style host:path — the reference's final scp to "
                    "the UI node")
+    p.add_argument("--no-plans", action="store_true",
+                   help="disable measured-plan lookups "
+                   "(oni_ml_tpu_torch/plans): every tuned knob falls back "
+                   "to config/default; nothing is read from or written to "
+                   "the plan cache")
+    p.add_argument("--plan-cache", default=None, metavar="PATH",
+                   help="plan-cache JSONL file for this run (default: "
+                   "ONI_ML_TPU_PLAN_CACHE, else ~/.cache/oni_ml_tpu_torch/"
+                   "plans.jsonl; seed plans under plans/seeds/ load "
+                   "beneath it, and the port ships none)")
+    p.add_argument("--no-compilation-cache", action="store_true",
+                   help="build the CUDA kernels and C++ host libraries "
+                   "this process loads in a run-scoped temporary directory "
+                   "instead of build/oni_ml_tpu_torch/ (a cold build; the "
+                   "plans record in metrics.json counts builds against "
+                   "cache hits)")
     p.add_argument("--no-dataplane", action="store_true",
                    help="disable the streaming dataplane (dataplane/): "
                    "every stage writes its artifacts inline.  Artifacts are "
@@ -1496,6 +1580,9 @@ def main(argv=None) -> int:
                                   heartbeat_s=args.heartbeat),
         dataplane=DataplaneConfig(enabled=not args.no_dataplane,
                                   checkpoints=not args.no_checkpoints),
+        plans=PlansConfig(enabled=not args.no_plans,
+                          cache_path=args.plan_cache or "",
+                          compilation_cache=not args.no_compilation_cache),
     )
     run_mesh, vocab_sharded = None, False
     if args.mesh:

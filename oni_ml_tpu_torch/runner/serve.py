@@ -28,9 +28,10 @@ day and checks the exactly-once contract; `--dry-run --fleet
 synthetic[:N]` does the same for N synthetic tenants.  Both need no day
 directory and finish in seconds.
 
-Refused, naming the ROADMAP item that brings it: the JAX package's
-persistent compilation cache (`--no-compilation-cache`, item 4; PyTorch
-eager compiles nothing to cache).
+`--no-compilation-cache` builds the CUDA kernels and C++ host libraries
+the process loads in a run-scoped temporary directory instead of
+build/oni_ml_tpu_torch/ (plans/warmup.compilation_cache: a cold build);
+the `plans` record names the build directory.
 """
 
 from __future__ import annotations
@@ -54,14 +55,6 @@ from ..serving import (
 )
 from ..sources import get as get_source
 from ..sources import names as source_names
-
-# Flags of the JAX package's serve that the port refuses, with the
-# ROADMAP item that brings each.
-_REFUSED = {
-    "no_compilation_cache": ("--no-compilation-cache", "ROADMAP Queue 1 "
-                             "item 4 (plans: PyTorch eager keeps no "
-                             "compilation cache to opt out of)"),
-}
 
 
 def build_serve_parser() -> argparse.ArgumentParser:
@@ -160,9 +153,11 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    help="device storage of the stacked models: bf16 "
                    "halves their bytes on the card, float32 "
                    "accumulation (scores within 2^-7 relative)")
-    p.add_argument("--no-compilation-cache", action="store_const",
-                   const=True, default=None,
-                   help="not ported (ROADMAP Queue 1 item 4)")
+    p.add_argument("--no-compilation-cache", action="store_true",
+                   help="build the CUDA kernels and C++ host libraries "
+                   "this process loads in a run-scoped temporary "
+                   "directory instead of build/oni_ml_tpu_torch/ (a cold "
+                   "build)")
     return p
 
 
@@ -342,6 +337,7 @@ def serve_stream(args) -> int:
                               cfg.device_score_min, device=dev)
         plans_rec = {"stage": "serve", "event": "plans",
                      "knobs": scorer.plan, "warmup": warm,
+                     "compilation_cache": args.compilation_cache,
                      "plan_counters": counters_snapshot()}
         if cfg.device_score_min in (0, "auto"):
             plans_rec["dispatch_calibration"] = dispatch_calibration(
@@ -542,7 +538,7 @@ def serve_fleet_stream(args) -> int:
     metrics = MetricsEmitter(path=cfg.metrics_path, journal=journal)
     # Tiered residency: a hot capacity bounds the stacked members per K,
     # and the stack pads to power-of-two capacity tiers.
-    hot_cap, hot_src = resolve_hot_capacity(cfg)
+    hot_cap, hot_src = resolve_hot_capacity(cfg, device=dev)
     tiered = hot_cap > 0
     fleet = FleetRegistry(journal=journal, recorder=metrics.recorder,
                           capacity_tiers=tiered,
@@ -664,7 +660,8 @@ def serve_fleet_stream(args) -> int:
             "stage": "serve", "event": "plans",
             "knobs": ({**scorer.plan, **residency.plan}
                       if residency is not None else scorer.plan),
-            "warmup": warm, "plan_counters": counters_snapshot()}
+            "warmup": warm, "compilation_cache": args.compilation_cache,
+            "plan_counters": counters_snapshot()}
         if cfg.device_score_min in (0, "auto"):
             plans_rec["dispatch_calibration"] = dispatch_calibration(
                 device=dev)
@@ -883,17 +880,16 @@ def _perturbed_model(model, seed: int = 7):
 
 def main(argv: "list[str] | None" = None) -> int:
     args = build_serve_parser().parse_args(argv)
-    for attr, (flag, item) in _REFUSED.items():
-        if getattr(args, attr) is not None:
-            raise SystemExit(f"serve {flag} is not ported yet: {item}")
     # --no-plans binds both paths here: the BatchScorer would otherwise
     # read its dispatch calibration from, and record it into, the user's
     # plan cache.
     from ..plans import NullStore, use_store
+    from ..plans.warmup import compilation_cache
 
     ctx = (use_store(NullStore()) if args.no_plans
            else contextlib.nullcontext())
-    with ctx:
+    with ctx, compilation_cache(not args.no_compilation_cache) as cc:
+        args.compilation_cache = cc
         if args.dry_run:
             if args.fleet:
                 return dry_run_fleet(args)

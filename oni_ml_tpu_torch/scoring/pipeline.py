@@ -70,11 +70,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..config import ScoringConfig
 from ..parallel.mesh import mesh_device
 
 # Events per device dispatch: 65536 int32 indices = 256 KiB per array
-# per chunk (the JAX package's default).
-DEFAULT_CHUNK = 1 << 16
+# per chunk (ScoringConfig.device_chunk, the JAX package's default).
+DEFAULT_CHUNK = ScoringConfig.device_chunk
 
 
 @dataclass

@@ -9,9 +9,11 @@ fires:
     max_wait_ms  the oldest queued event has waited that long (latency
                  trigger).
 
-Both are read from ServingConfig (the JAX package also resolves them
-through its plan cache, where its autotune writes them; the port has
-no such autotune).  Each flush takes ONE registry snapshot, so a hot-swap that
+Both resolve through the plan cache (knobs `serve_max_batch` and
+`serve_max_wait_ms`, host-scoped): a ServingConfig value that differs
+from the default wins, else this host's plan entry, else the default; a
+plan max_batch above queue_max falls back to the default.  Each flush
+takes ONE registry snapshot, so a hot-swap that
 lands mid-flush is invisible to that flush and the next one scores on
 the new model.
 
@@ -115,17 +117,27 @@ class BatchScorer:
         self.featurizer = featurizer
         self.config = config or ServingConfig()
         self.device = resolve_device(device)
-        self.max_batch = int(self.config.max_batch)
-        self.max_wait_ms = float(self.config.max_wait_ms)
-        # Each trigger's value and its source, as the JAX package names
-        # them in serve's `plans` record: "config" where it differs from
-        # the shipped default.
+        # The flush triggers resolve through the plan layer (host-scoped
+        # knobs: no CUDA for a host-pinned scorer): a config value that
+        # differs from the default wins, else this host's plan entry,
+        # else the default.  `self.plan` names each source for serve's
+        # records.
+        from ..plans import resolve
+
+        mb, mb_src = resolve("serve_max_batch", self.config.max_batch)
+        mw, mw_src = resolve("serve_max_wait_ms", self.config.max_wait_ms)
+        if mb_src == "plan" and int(mb) > self.config.queue_max:
+            # A plan flush size above the backpressure bound would make
+            # the max_batch trigger unreachable (submit blocks at
+            # queue_max first) and every flush the timer's: fall back to
+            # the default.
+            mb, mb_src = self.config.max_batch, "default"
+        self.max_batch = int(mb)
+        self.max_wait_ms = float(mw)
         self.plan = {
-            name: {"value": value, "source": (
-                "default" if value == getattr(ServingConfig, name)
-                else "config")}
-            for name, value in (("max_batch", self.max_batch),
-                                ("max_wait_ms", self.max_wait_ms))}
+            "max_batch": {"value": self.max_batch, "source": mb_src},
+            "max_wait_ms": {"value": self.max_wait_ms, "source": mw_src},
+        }
         if self.max_batch < 1 or self.config.queue_max < 1:
             # max_batch 0 would make the first flush empty, which the
             # worker reads as shutdown; queue_max 0 deadlocks the first

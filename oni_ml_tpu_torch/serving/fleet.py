@@ -467,11 +467,14 @@ class FleetScorer:
     `on_batch(tenant, snapshot, feats, scores)` runs per tenant segment
     after each flush (the refresh loops and flagged-event output hang
     off it).  `device` is where device-path dispatches and fused calls
-    run (None: the card).  The flush triggers, the featurize engine and
-    block come from ServingConfig (labelled "config" where they differ
-    from the default); the featurize break-even from
-    sources/device.resolve_break_even (env, config, this device's plan
-    entry, default).
+    run (None: the card).  The flush triggers (host-scoped) and the
+    featurize block resolve through the plan cache (a ServingConfig
+    value that differs from the default, else a plan entry, else the
+    default; a plan max_batch above the lanes' total capacity falls back
+    to the default, re-checked as add_tenant grows it); the featurize
+    engine and break-even through sources/device.resolve_engine and
+    resolve_break_even (env, config, this device's plan entry,
+    default).
 
     `dynamic=True` (a replica of the replicated fleet, serving/
     replica.py) starts with however many tenants the registry knows,
@@ -512,11 +515,27 @@ class FleetScorer:
         if not self._lanes and not dynamic:
             raise ValueError("FleetScorer needs at least one tenant")
         cfg = self.config
-        self.max_batch = int(cfg.fleet_max_batch)
-        self.max_wait_ms = float(cfg.fleet_max_wait_ms)
-        eng, eng_src = resolve_engine(cfg.featurize_engine)
+        from ..plans import resolve
+
+        mb, mb_src = resolve("fleet_max_batch", cfg.fleet_max_batch)
+        mw, mw_src = resolve("fleet_max_wait_ms", cfg.fleet_max_wait_ms)
+        # Remembered so add_tenant can re-apply the guard below as the
+        # capacity grows.
+        self._plan_max_batch, self._plan_max_batch_src = int(mb), mb_src
+        total = sum(lane.queue_max for lane in self._lanes.values())
+        if self._lanes and mb_src == "plan" and int(mb) > total:
+            # As in BatchScorer: a plan flush size above the fleet's
+            # total admission capacity would make the max_batch trigger
+            # unreachable (every flush the timer's): the default.
+            mb, mb_src = cfg.fleet_max_batch, "default"
+        self.max_batch = int(mb)
+        self.max_wait_ms = float(mw)
+        eng, eng_src = resolve_engine(cfg.featurize_engine,
+                                      device=self.device)
         self._featurize_engine = eng
-        self._featurize_block = int(cfg.featurize_block)
+        fb, fb_src = resolve("featurize_block", cfg.featurize_block,
+                             device=self.device)
+        self._featurize_block = int(fb)
         # Below the break-even a segment featurizes on the host even
         # under the device engines.
         if eng == "host":
@@ -525,21 +544,12 @@ class FleetScorer:
             be, be_src = resolve_break_even(cfg.featurize_break_even,
                                             device=self.device)
         self._featurize_break_even = int(be)
-
-        def src(name, value):
-            return "default" if value == getattr(ServingConfig, name) \
-                else "config"
-
         self.plan = {
-            "max_batch": {"value": self.max_batch,
-                          "source": src("fleet_max_batch", self.max_batch)},
-            "max_wait_ms": {"value": self.max_wait_ms,
-                            "source": src("fleet_max_wait_ms",
-                                          self.max_wait_ms)},
+            "max_batch": {"value": self.max_batch, "source": mb_src},
+            "max_wait_ms": {"value": self.max_wait_ms, "source": mw_src},
             "featurize_engine": {"value": eng, "source": eng_src},
             "featurize_block": {"value": self._featurize_block,
-                                "source": src("featurize_block",
-                                              self._featurize_block)},
+                                "source": fb_src},
             "featurize_break_even": {"value": self._featurize_break_even,
                                      "source": be_src},
         }
@@ -618,6 +628,17 @@ class FleetScorer:
                 raise ValueError(
                     f"tenant {spec.tenant!r} already has a lane")
             self._lanes[spec.tenant] = lane
+            # The plan-flush guard again at the grown capacity: once it
+            # covers a plan max_batch, the measured value takes effect.
+            if self._plan_max_batch_src == "plan":
+                total = sum(lane.queue_max for lane in self._lanes.values())
+                if self._plan_max_batch > total:
+                    self.max_batch, src = self.config.fleet_max_batch, \
+                        "default"
+                else:
+                    self.max_batch, src = self._plan_max_batch, "plan"
+                self.plan["max_batch"] = {"value": self.max_batch,
+                                          "source": src}
             self._cond.notify_all()
 
     def _wake(self) -> None:

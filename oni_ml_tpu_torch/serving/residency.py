@@ -8,7 +8,8 @@ makes the card a managed cache over host RAM and checkpoints:
 hot
     Members of the K-group's StackedSnapshot (serving/fleet.py), scored
     in packed cross-tenant dispatches.  At most
-    ``ServingConfig.fleet_hot_tenants`` per K-group.
+    ``ServingConfig.fleet_hot_tenants`` per K-group (plan knob
+    ``fleet_hot_tenants`` where the config leaves it at 0).
 warm
     The tenant's validated snapshot stays in its registry (host numpy)
     but out of the stack: no device bytes.  Promotion is one stack
@@ -57,14 +58,18 @@ POLICIES = ("lru", "lfu")
 _ENFORCE = "\x00enforce"
 
 
-def resolve_hot_capacity(config) -> "tuple[int, str]":
+def resolve_hot_capacity(config, device=None) -> "tuple[int, str]":
     """The hot capacity per K-group and its source: a positive
-    ``ServingConfig.fleet_hot_tenants`` ("config"), else 0, unbounded
-    ("default").  Nothing in the port measures a capacity, so no plan
-    entry is read."""
-    if config.fleet_hot_tenants > 0:
-        return int(config.fleet_hot_tenants), "config"
-    return 0, "default"
+    ``ServingConfig.fleet_hot_tenants`` ("config"), else this device's
+    plan entry (knob ``fleet_hot_tenants``, "plan"), else 0, unbounded
+    ("default").  The config's 0 maps to the knob's None default, so
+    the plan layer's override test holds unchanged."""
+    from ..plans import resolve
+
+    cfg_value = (config.fleet_hot_tenants if config.fleet_hot_tenants > 0
+                 else None)
+    value, source = resolve("fleet_hot_tenants", cfg_value, device=device)
+    return (int(value) if value else 0, source)
 
 
 def spill_model(path: str, model: ScoringModel) -> int:

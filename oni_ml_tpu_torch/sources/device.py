@@ -915,11 +915,14 @@ def device_batch(featurizer, rows, raws, model):
     return DeviceBatch(dev, featurizer, rows, raws), info
 
 
-def resolve_engine(config_value: str = "auto") -> "tuple[str, str]":
+def resolve_engine(config_value: str = "auto",
+                   device=None) -> "tuple[str, str]":
     """(engine, source): ONI_ML_TPU_FEATURIZE > ServingConfig.
-    featurize_engine > "device".  "auto" is "device": an unlowerable
-    vocabulary keeps the host featurizer per model anyway.  Nothing in
-    the port measures the engine, so no plan entry is read."""
+    featurize_engine > this device's plan entry (knob
+    `featurize_engine`) > "device".  "auto" with no plan is "device": an
+    unlowerable vocabulary keeps the host featurizer per model anyway."""
+    from .. import plans
+
     env = os.environ.get("ONI_ML_TPU_FEATURIZE", "").strip().lower()
     if env in ENGINES:
         return env, "env"
@@ -929,6 +932,9 @@ def resolve_engine(config_value: str = "auto") -> "tuple[str, str]":
         raise ValueError(
             f"featurize_engine must be auto|{'|'.join(ENGINES)}, got "
             f"{config_value!r}")
+    value, source = plans.resolve("featurize_engine", None, device=device)
+    if isinstance(value, dict) and value.get("engine") in ENGINES:
+        return value["engine"], source
     return "device", "default"
 
 

@@ -172,22 +172,26 @@ def test_dense_gates_count_the_kernel_scratch(hermetic):
 def test_plan_store_round_trips_under_the_card_fingerprint(
         hermetic, fake_card, tmp_path, monkeypatch):
     """A record written for a run on the card reads back from the file
-    under its `cuda:` fingerprint and misses for a CPU run; the store
-    holds the engine crossover alone (the EM knobs come from config);
-    an invalid entry is ignored; ONI_ML_TPU_PLANS=0 disables lookups;
-    the port ships no seed plans."""
+    under its `cuda:` fingerprint and misses for a CPU run; the EM
+    knobs are plan knobs too (resolved in models/lda.py); an unknown knob
+    is not recorded; an invalid entry is ignored; ONI_ML_TPU_PLANS=0
+    disables lookups; the port ships no seed plans."""
     assert plans.device_fingerprint("cuda") == "cuda:nvidia_h100_80gb_hbm3:1"
     assert plans.device_fingerprint("cpu").startswith("cpu:")
     value = {"engine": "dense", "dense_s": 0.5, "sparse_s": 0.7}
     assert plans.record_value("estep_engine", value, shape="s1",
                               device="cuda", measurements={1: 2})
-    assert not plans.record_value("fused_em_chunk", 32, shape="k5",
+    assert plans.record_value("fused_em_chunk", 32, shape="k5",
+                              device="cuda")
+    assert not plans.record_value("dense_estep_block", 32, shape="k5",
                                   device="cuda")
     fresh = plans.PlanStore(str(tmp_path / "plans.jsonl"))
     entry = fresh.lookup("estep_engine", "cuda:nvidia_h100_80gb_hbm3:1", "s1")
     assert entry.value == value and entry.measurements == {"1": 2}
     assert entry.record["schema"] == plans.SCHEMA_VERSION
     assert fresh.lookup("fused_em_chunk", "cuda:nvidia_h100_80gb_hbm3:1",
+                        "k5").value == 32
+    assert fresh.lookup("dense_estep_block", "cuda:nvidia_h100_80gb_hbm3:1",
                         "k5") is None
     assert plans.lookup_value("estep_engine", "s1", device="cuda") == value
     assert plans.lookup_value("estep_engine", "s1", device="cpu") is None

@@ -683,8 +683,8 @@ def test_per_tenant_metric_namespaces_and_endpoint(days):
 ])
 def test_fleet_knob_sources(days, tmp_path, monkeypatch, cfg, want):
     """Each knob's value and source: config where it differs from the
-    default, else the default; nothing in the port writes a plan entry
-    for the triggers, the engine or the block."""
+    default, else the default (this test's plan store is empty; the
+    plan-sourced values are tests/test_torch_plans.py's)."""
     monkeypatch.setenv("ONI_ML_TPU_PLAN_CACHE", str(tmp_path / "p.jsonl"))
     monkeypatch.delenv("ONI_ML_TPU_FEATURIZE", raising=False)
     monkeypatch.delenv("ONI_ML_TPU_FEATURIZE_BREAK_EVEN", raising=False)

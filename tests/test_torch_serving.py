@@ -384,9 +384,10 @@ def test_trigger_sources_match_jax_without_a_plan(day, batch, wait):
 
 def test_batch_scorer_resolves_triggers_and_hands_the_store_to_its_worker(
         day, tmp_path):
-    """The triggers are the config's, whatever the plan cache holds (the
-    JAX package's entries for its flush-trigger knobs included), and the
-    worker thread runs under the caller's plan store."""
+    """An explicit config trigger wins over the plan cache; a trigger
+    left at its default resolves from the plan (a host-scoped entry, in
+    the JAX package's format and fingerprint); and the worker thread
+    runs under the caller's plan store."""
     (rows, model, cuts), _ = day
     path = str(tmp_path / "plans.jsonl")
     jstore = jplans.PlanStore(path)
@@ -415,7 +416,8 @@ def test_batch_scorer_resolves_triggers_and_hands_the_store_to_its_worker(
         s2 = BatchScorer(reg, DnsEventFeaturizer(cuts),
                          ServingConfig(device_score_min=None), device=CPU)
     s2.close()
-    assert s2.plan["max_batch"] == {"value": 4096, "source": "default"}
+    assert s2.plan["max_batch"] == {"value": 2048, "source": "plan"}
+    assert s2.max_batch == 2048
 
 
 # ---------------------------------------------------------------------------
@@ -816,12 +818,18 @@ def test_dry_run_honors_flags(capsys):
                                   ["--stack-precision", "bf16"],
                                   ["--no-compilation-cache"]])
 def test_unported_flags_are_refused_naming_the_roadmap(flag, capsys):
-    """--no-compilation-cache is still refused, naming ROADMAP Queue 1
-    item 4.  The fleet's flags (item 7's fleet, now ported) run: each
+    """Every flag of the JAX package's serve is ported now and runs.
+    --no-compilation-cache (ROADMAP Queue 1 item 4, ported with the
+    plans) runs the single-model dry run with a run-scoped build
+    directory, which its plans record names; the fleet's flags run each
     under the fleet dry run on the CPU, which passes."""
     if flag[0] == "--no-compilation-cache":
-        with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 4"):
-            serve.main(["--dry-run", "--device", "cpu", *flag])
+        assert serve.main(["--dry-run", "--device", "cpu",
+                           "--device-score-min", "1000000", *flag]) == 0
+        out = capsys.readouterr().out
+        summary = _last_json(out)
+        assert summary["serve_dry_run"] == "ok"
+        assert summary["device"] == "cpu"
         return
     fleet = [] if flag[0] == "--fleet" else ["--fleet", "synthetic"]
     assert serve.main(["--dry-run", "--device", "cpu",
