@@ -4,8 +4,10 @@
 
 Phases (any failure exits non-zero before the result line):
 
-1. build     compile the port's CUDA sources from csrc/, one nvcc each,
-             and its C++ host libraries from native_src/, one g++ each
+1. build     compile the port's CUDA libraries from csrc/, one nvcc each
+             (the bf16 instantiations are libraries of their own, from
+             the same sources: ops/_cuda.py VARIANTS), and its C++ host
+             libraries from native_src/, one g++ each
              (native_build.py), all in parallel; print the host's cores
              and `g++ --version`.
 2. parity    each kernel against its plain PyTorch version on the card,
@@ -22,7 +24,14 @@ Phases (any failure exits non-zero before the result line):
              and the fixed point, time two torch.bmm per iteration as a
              library yardstick.  Each case's cap on fixed-point iterations
              lies above what most blocks need, so the per-block stop
-             decision is compared too.
+             decision is compared too.  The bf16 storage mode
+             (precision "bf16", `--dense-precision bf16`) the same way,
+             fresh starts: the sparse E-step over the bf16 table at the
+             three shapes, the dense E-step over a bf16-stored corpus at
+             the main shape in both layouts, on long documents and at
+             B=2, L=16,384, each with its bound at bf16 bytes and, as
+             its library yardstick, two torch.bmm (sparse) or cuBLAS
+             products (dense) on bf16 operands per iteration.
 3. e2e       a small synthetic flow day and a small synthetic DNS day
              through the port's entry point on the card and on the CPU
              (plain versions), with each ONI_ML_TPU_ESTEP value (sparse,
@@ -39,7 +48,20 @@ Phases (any failure exits non-zero before the result line):
              ONI_ML_TPU_ESTEP=pallas (the per-batch dispatch through the
              fixed-point kernel) through train_corpus, each scored.
              Each path's kernels must have launched on it (the counts
-             are zeroed just before each and read just after).
+             are zeroed just before each and read just after).  Then the
+             corpus in the bf16 mode with the sparse engine and with the
+             dense family: each path's bf16 instantiation launched (every
+             launch of its kernel), its final likelihood within rel 5e-3
+             of the f32 run of the same engine (the JAX package's bf16
+             against f32 bound for the sparse E-step; over a fit the
+             dense one compounds, see RTOL_BF16_FIT_LL); from the f32
+             dense fit's model, one dense E-step over the day in both
+             modes within the JAX dense likelihood bound (1e-3).  And
+             the small flow day through `ml_ops.main([...,
+             "--dense-precision", "bf16"])`, its engine from a bf16
+             crossover: the record names bf16, the member's bf16
+             instantiation launched, the final likelihood within 5e-3
+             of e2e's f32 card run of the same engine.
 5. pipeline_dns  a 2,000,000-event synthetic DNS day (the JAX bench's
              shape: 20,000 clients, 5,000 domains, seed 13) through
              `ml_ops.main([... "dns" ...])` on the card, its engine from
@@ -125,7 +147,7 @@ Phases (any failure exits non-zero before the result line):
              per-token likelihoods within RTOL_E2E; the card's quality run
              with --publish DIR: DIR/<fdate> holds the day's bytes.
    serve     `ml_ops serve` over the 2M flow and DNS days' models, each
-             streamed 65,536 raw events of its own input: refresh off,
+             streamed 40,960 raw events of its own input: refresh off,
              the first 32,768 with every flush on the host (bit-equal to
              the day's own scores over features.pkl) and with every flush
              on the card (rel 1e-6); then all of them at the ServingConfig
@@ -164,7 +186,7 @@ Phases (any failure exits non-zero before the result line):
              measure_break_even recorded in the run's plan cache; the
              CLI over the two day dirs with 8 tenant names; `serve
              --dry-run --fleet synthetic:4` on cuda.
-7. profile   10 EM iterations over the flow day's corpus four ways (sparse
+7. profile   6 EM iterations over the flow day's corpus four ways (sparse
              engine under the chunk driver, sparse under the stepwise
              driver, dense and per-batch pallas under the chunk driver):
              wall without the
@@ -346,6 +368,47 @@ RTOL_GAMMA = RTOL_PHIC = RTOL_T = 1e-4
 RTOL_DOCLL = 1e-5
 MAX_ITER_DIFF = 1
 MAX_MOVED_SHARE = 0.05
+# The dense kernel's bf16 instantiation against its plain version: both
+# round each cell's ratio to bf16, from the kernel's Newton reciprocal
+# and the plain version's exact divide, so a ratio lands one bf16 step
+# (2^-8) apart now and then.  Rounded operands keep the fixed point's
+# delta above var_tol, so its blocks stop at the stop rule's stall gate
+# (delta under STALL_GATE and no longer falling), where that noise
+# decides the iteration: a block may stop several iterations apart (5 at
+# the main shape on the H100), and its gamma is settled only to the
+# gate's step.  So each document is held by the stop rule's own measure
+# (mean |d gamma| over its mean gamma) to (m + 1) gate steps, m the
+# iterations its block stopped apart (its m extra steps and the noise
+# before them), the iterations within BF16_ITER_DIFF; and the kernel's
+# gamma must lie closer to the bf16 plain version's than to the f32
+# plain version's by BF16_SEPARATION (median over documents), so the
+# rounding did happen; the tail (T, docll, ass, f32 from the kernel's
+# gamma) to the f32 bounds.  The sparse bf16 instantiation reads the
+# same rounded table as its plain version, so the f32 bounds hold there.
+STALL_GATE = 1e-2           # ops/stop.py STALL_GATE
+BF16_ITER_DIFF = 10
+BF16_MOVED_SHARE = 0.5
+BF16_SEPARATION = 10.0
+# The JAX package's bounds between its bf16 and f32 E-steps from one beta
+# (tests/test_sparse_estep.py: likelihood 5e-3, gamma 2e-2;
+# tests/test_dense_estep.py: likelihood 1e-3, gamma 5e-2, each rtol and
+# atol, on a random beta).  The dense likelihood bound is held where it
+# applies, on one E-step from the f32 dense fit's final model
+# (bf16_dense_estep); its gamma bound is not: from a trained model the
+# bf16 fixed point stops at the stall gate short of where f32 goes, and
+# a document whose mass is split between topics moves more than 5e-2
+# (measured on the CPU, the plain version, a 5,000-event day's model:
+# likelihood 4.1e-6 apart, a gamma 0.65 past the bound).  A bf16 fit's
+# final likelihood against the f32 fit of its engine is held to the
+# larger, 5e-3: over a fit the dense bf16 fixed point's accuracy, which
+# its stall gate bounds, compounds through beta and the alpha Newton,
+# and the gap grows with the corpus: on the CPU the JAX package's own
+# dense fits, bf16 against f32, K=20, synthetic flow days, 1.8e-4 at 600
+# documents and 6.2e-4 at 6,000 (the port's plain version 1.8e-4 and
+# 6.3e-4); the smoke's 2M flow day, 48,000 documents, on the H100:
+# 1.2e-3, the bf16 fit the lower.
+RTOL_BF16_ESTEP_LL = 1e-3
+RTOL_BF16_FIT_LL = 5e-3
 # Card against CPU on the small day: the first EM likelihoods, rel 1e-4
 # (f32 sums in another order, the approximate reciprocal).
 RTOL_E2E = 1e-4
@@ -434,14 +497,18 @@ def close(name, got, ref, rtol, atol_frac, errs):
              f"(max abs err {float(diff.max()):.3e})")
 
 
-def check_fixed_point(label, got, ref, block, var_max_iters, var_tol, errs):
-    """Iterations per block and gamma (see the tolerances above), each of
-    `got` and `ref` a (gamma, iterations per block) pair; returns
-    (max |d iters|, blocks that stopped apart, the largest relative gamma
-    error on the blocks that stopped together)."""
+def check_fixed_point(label, got, ref, block, var_max_iters, var_tol, errs,
+                      bf16=False):
+    """Iterations per block and gamma (see the tolerances above; `bf16`:
+    the dense bf16 instantiation's), each of `got` and `ref` a (gamma,
+    iterations per block) pair; returns (max |d iters|, blocks that
+    stopped apart, the largest relative gamma error on the blocks that
+    stopped together)."""
+    max_diff, moved_share = ((BF16_ITER_DIFF, BF16_MOVED_SHARE) if bf16
+                             else (MAX_ITER_DIFF, MAX_MOVED_SHARE))
     gi, ri = got[1].long(), ref[1].long()
     it_diff = int((gi - ri).abs().max())
-    if it_diff > MAX_ITER_DIFF:
+    if it_diff > max_diff:
         fail(f"{label}: iterations differ by {it_diff} in a block")
     if float(gi.float().mean()) >= var_max_iters:
         fail(f"{label}: every block ran to the cap of {var_max_iters} "
@@ -449,19 +516,37 @@ def check_fixed_point(label, got, ref, block, var_max_iters, var_tol, errs):
     if int(gi.max()) <= 1:
         fail(f"{label}: no block iterated past its first step")
     moved = gi != ri
-    if int(moved.sum()) > MAX_MOVED_SHARE * len(gi):
+    if int(moved.sum()) > moved_share * len(gi):
         fail(f"{label}: {int(moved.sum())} of {len(gi)} blocks stop apart")
     same = ~moved.repeat_interleave(block)
-    close("gamma", got[0][same], ref[0][same], RTOL_GAMMA, 0.0, errs)
     g, r = got[0][same].double(), ref[0][same].double()
-    rel_same = float(((g - r).abs() / r.abs()).max())
+    rel_same = float(((g - r).abs() / r.abs()).max()) if bool(same.any()) \
+        else 0.0
+    if bf16:
+        steps = stop_measure(got[0], ref[0])
+        apart = (gi - ri).abs().repeat_interleave(block).double()
+        bounds = (apart + 1) * STALL_GATE
+        errs.append(float((got[0] - ref[0]).abs().max()))
+        if bool((steps > bounds).any()):
+            worst = int(torch.argmax(steps / bounds))
+            fail(f"{label}: a document whose block stopped "
+                 f"{int(apart[worst])} iterations apart differs by "
+                 f"{float(steps[worst]):.3e} > {float(bounds[worst]):.1e}")
+        return it_diff, int(moved.sum()), rel_same
+    close("gamma", got[0][same], ref[0][same], RTOL_GAMMA, 0.0, errs)
     if bool(moved.any()):
-        g, r = got[0][~same].double(), ref[0][~same].double()
-        step = float(((g - r).abs().mean(1) / r.mean(1)).max())
+        step = float(stop_measure(got[0][~same], ref[0][~same]).max())
         if step > 2 * var_tol:
             fail(f"{label}: a block that stopped one iteration apart "
                  f"differs by {step:.3e} > 2 var_tol")
     return it_diff, int(moved.sum()), rel_same
+
+
+def stop_measure(gamma, ref):
+    """Per document, the stop rule's measure of the gap between two
+    gammas: mean |d gamma| over the reference's mean gamma."""
+    g, r = gamma.double(), ref.double()
+    return (g - r).abs().mean(1) / r.mean(1)
 
 
 def bound(nbytes, flops):
@@ -474,17 +559,22 @@ def bound(nbytes, flops):
 def bmm_yardstick_ms(slab_kbl, b, l):
     """Library yardstick of one fixed-point iteration: its two batched
     products (torch.bmm over the gathered [B, L, K] slab: phinorm, then
-    the ratio contraction)."""
+    the ratio contraction), in the slab's dtype (bf16 operands for a bf16
+    slab)."""
     slab_blk = slab_kbl.permute(1, 2, 0).contiguous()
-    e = torch.rand((b, K, 1), device="cuda")
-    ratio = torch.rand((b, 1, l), device="cuda")
+    e = torch.rand((b, K, 1), device="cuda", dtype=slab_blk.dtype)
+    ratio = torch.rand((b, 1, l), device="cuda", dtype=slab_blk.dtype)
     return time_ms(lambda: (torch.bmm(slab_blk, e), torch.bmm(ratio, slab_blk)),
                    20)
 
 
-def sparse_parity(label, b, l, min_live, warm, var_max_iters, var_tol):
+def sparse_parity(label, b, l, min_live, warm, var_max_iters, var_tol,
+                  precision="f32"):
+    """The sparse E-step on a random bucket against its plain version;
+    with precision "bf16" over the bf16 table (the same rounded table on
+    both sides)."""
     case = random_bucket(b, l, min_live, seed=b + l + int(warm), warm=warm)
-    expb = sparse_estep.exp_beta_table(case["log_beta"])
+    expb = sparse_estep.exp_beta_table(case["log_beta"], precision)
     block = sparse_estep.pick_block(b)
     kw = dict(block=block, gamma_prev=case["gamma_prev"],
               warm=torch.tensor(1 if warm else 0))
@@ -518,15 +608,18 @@ def sparse_parity(label, b, l, min_live, warm, var_max_iters, var_tol):
     iters = got[4].long().cpu().numpy()
     doc_iters = np.repeat(iters, block)
     live = (case["counts"] != 0).sum(1).cpu().numpy()
-    flops, nbytes = sparse_estep.kernel_cost(b, l, K, V, live, doc_iters,
-                                             block, warm)
+    flops, nbytes = sparse_estep.kernel_cost(
+        b, l, K, V, live, doc_iters, block, warm,
+        table_itemsize=expb.element_size())
     bound_ms, bound_by = bound(nbytes, flops)
     # Library yardstick, as for the fixed point: the two batched products
-    # of one iteration over the gathered slab, times the mean iteration
-    # count.
+    # of one iteration over the gathered slab (in the table's dtype),
+    # times the mean iteration count.
     one = bmm_yardstick_ms(pallas_estep.gather_slab(expb, case["word"]), b, l)
     rec = {
-        "kernel": "sparse_estep", "case": label, "B": b, "L": l, "K": K,
+        "kernel": ("sparse_estep" if precision == "f32"
+                   else "sparse_estep_bf16"),
+        "precision": precision, "case": label, "B": b, "L": l, "K": K,
         "V": V, "block": block, "warm": warm,
         "var_max_iters": var_max_iters, "var_tol": var_tol,
         "iters_min": int(iters.min()), "iters_max": int(iters.max()),
@@ -544,20 +637,27 @@ def sparse_parity(label, b, l, min_live, warm, var_max_iters, var_tol):
     return rec
 
 
-def dense_parity(label, b, l, min_live, wmajor, warm, var_max_iters, var_tol):
+def dense_parity(label, b, l, min_live, wmajor, warm, var_max_iters, var_tol,
+                 precision="f32"):
     """The dense E-step over b docs of min_live..l tokens densified to
     [b, W] (duplicate words summed), in the given layout, with `cells` = l
     as the dense path passes it: at the flow day's batch (l 128, about
     1.6% of the cells non-zero) and on long documents (l 4,096: a block's
-    lists overflow to the scratch)."""
+    lists overflow to the scratch).  With precision "bf16": the bf16
+    instantiation over the corpus stored as corpus_dtype gives it (bf16
+    where every cell is <= 256), the plain version on the same counts."""
     case = random_bucket(b, l, min_live, seed=b + 7 + int(warm)
                          + (0 if l == 128 else l), warm=warm)
-    dense = dense_estep.densify(case["word"], case["counts"], V)
+    store = dense_estep.corpus_dtype(dense_estep.max_dense_cell(
+        case["word"].cpu().numpy(), case["counts"].cpu().numpy()), precision)
+    dense = dense_estep.densify(case["word"], case["counts"], V, dtype=store)
     c = dense.t().contiguous() if wmajor else dense
     eb = dense_estep.padded_exp_beta(case["log_beta"], W)
     block = dense_estep.pick_block(b, V, K)
     kw = dict(block=block, wmajor=wmajor, gamma_prev=case["gamma_prev"],
-              warm=torch.tensor(1 if warm else 0), cells=l)
+              warm=torch.tensor(1 if warm else 0), cells=l,
+              precision=precision)
+    bf16 = precision == "bf16"
     args = (eb, case["alpha"], c, case["mask"], var_max_iters, var_tol)
     got = dense_estep.fixed_point_blocks(*args, **kw)
     again = dense_estep.fixed_point_blocks(*args, **kw)
@@ -577,34 +677,52 @@ def dense_parity(label, b, l, min_live, wmajor, warm, var_max_iters, var_tol):
                       if n_scratch == len(nnz_block) else "mixed"))
     ref = dense_estep.dense_fixed_point_reference(
         eb, case["alpha"], dense, case["mask"], var_max_iters, var_tol, block,
-        gamma_prev=case["gamma_prev"], warm=kw["warm"])
+        gamma_prev=case["gamma_prev"], warm=kw["warm"], precision=precision)
     errs: list = []
     it_diff, moved, rel_same = check_fixed_point(
         label, (got[0], got[4]), (ref[0], ref[4]), block, var_max_iters,
-        var_tol, errs)
+        var_tol, errs, bf16=bf16)
+    separation = None
+    if bf16:
+        # The rounding happened: the kernel's gamma lies closer to the
+        # bf16 plain version's than to the f32 one's.
+        ref32 = dense_estep.dense_fixed_point_reference(
+            eb, case["alpha"], dense, case["mask"], var_max_iters, var_tol,
+            block, gamma_prev=case["gamma_prev"], warm=kw["warm"])
+        to16 = float(stop_measure(got[0], ref[0]).median())
+        to32 = float(stop_measure(got[0], ref32[0]).median())
+        separation = to32 / max(to16, 1e-30)
+        if not separation >= BF16_SEPARATION:
+            fail(f"{label}: the kernel's gamma is {to16:.3e} from the bf16 "
+                 f"plain version's and {to32:.3e} from the f32 one's "
+                 f"(median stop measure)")
     tail = dense_estep.dense_fixed_point_reference(
         eb, case["alpha"], dense, case["mask"], 0, var_tol, block,
-        gamma_prev=got[0], warm=torch.tensor(1))
+        gamma_prev=got[0], warm=torch.tensor(1), precision=precision)
     close("T", got[1], tail[1], RTOL_T, RTOL_T, errs)
     close("docll", got[2], tail[2], RTOL_DOCLL, RTOL_DOCLL, errs)
     close("ass", got[3], tail[3], RTOL_DOCLL, RTOL_DOCLL, errs)
     ms = time_ms(lambda: dense_estep.fixed_point_blocks(*args, **kw), 10)
     plain_ms = time_ms(lambda: dense_estep.dense_fixed_point_reference(
         eb, case["alpha"], dense, case["mask"], var_max_iters, var_tol, block,
-        gamma_prev=case["gamma_prev"], warm=kw["warm"]), 3)
+        gamma_prev=case["gamma_prev"], warm=kw["warm"], precision=precision),
+        3)
     # Bound, counted from this run's inputs (dense_estep.kernel_cost:
     # the work of C's non-zero cells only).  The kernel does the dense
     # formulation's work, 4*K*W flops per doc and iteration over every
     # cell (sparse_estep.dense_equiv_flops per block): printed beside the
     # bound.
     iters = got[4].long().cpu().numpy()
-    flops, nbytes = dense_estep.kernel_cost(b, W, K, nnz_doc, nnz_block,
-                                            iters, block, warm)
+    flops, nbytes = dense_estep.kernel_cost(
+        b, W, K, nnz_doc, nnz_block, iters, block, warm,
+        corpus_itemsize=dense.element_size())
     dense_flops = float(sum(sparse_estep.dense_equiv_flops(block, V, K, it)
                             for it in iters))
     bound_ms, bound_by = bound(nbytes, flops)
     rec = {
-        "kernel": "dense_estep", "case": label, "B": b, "W": W, "K": K,
+        "kernel": "dense_estep_bf16" if bf16 else "dense_estep",
+        "precision": precision, "corpus_dtype": str(dense.dtype),
+        "case": label, "B": b, "W": W, "K": K,
         "layout": "wmajor" if wmajor else "rowmajor", "block": block,
         "warm": warm, "var_max_iters": var_max_iters, "var_tol": var_tol,
         "nonzero_cells": float((dense != 0).float().mean()),
@@ -616,9 +734,21 @@ def dense_parity(label, b, l, min_live, wmajor, warm, var_max_iters, var_tol):
         "bytes": nbytes, "flops": flops, "dense_cell_flops": dense_flops,
         "dense_cell_flops_ms": dense_flops / PEAK.flops_per_s * 1e3,
         "geometry": geom, "bit_identical_relaunch": True,
+        "bf16_separation": separation,
     }
+    if bf16:
+        # The library yardstick in this mode: cuBLAS's two products of one
+        # iteration on bf16 operands (f32 output), times the mean
+        # iteration count.
+        e16 = torch.rand((b, K), device="cuda").to(torch.bfloat16)
+        r16 = torch.rand((b, W), device="cuda").to(torch.bfloat16)
+        eb16 = eb.to(torch.bfloat16)
+        one = time_ms(lambda: (torch.matmul(e16, eb16),
+                               torch.matmul(r16, eb16.t())), 20)
+        rec.update(library_ms=one * float(iters.mean()),
+                   library_ms_per_iteration=one)
     log("parity " + json.dumps(rec))
-    if wmajor and not warm and l == 128:
+    if wmajor and not warm and l == 128 and not bf16:
         # Context for a tensor-core kernel later: cuBLAS (TF32 off) on one
         # iteration's two products, times the mean iteration count.
         e = torch.rand((b, K), device="cuda")
@@ -822,7 +952,8 @@ def pipeline(tmp):
     dense family's full-V path and on the per-batch pallas path (and on
     the sparse engine, where the crossover did not pick it), each
     scored.  Returns the corpus, each family member's kernel counts
-    (launched, ran) on its path, and the pre stage's record."""
+    (launched, ran) on its path, the pre stage's record and the day's
+    engine, and leaves the day for bf16_paths in _BF16_INPUTS."""
     from oni_ml_tpu_torch.config import PipelineConfig, ScoringConfig
     from oni_ml_tpu_torch.runner import ml_ops
     from oni_ml_tpu_torch.synth import write_flow_day
@@ -875,10 +1006,152 @@ def pipeline(tmp):
              ("pallas", {}, "pallas", "per_batch:pallas")]
     if "sparse" not in path_counts:
         paths.append(("sparse", {"estep_engine": "sparse"}, None, "sparse"))
+    f32_ll = {lda["member"]: lda["final_likelihood"]}
     for label, cfg_kw, env, member in paths:
-        path_counts[member] = train_path(label, run, config, cfg_kw, env,
-                                         member, recs, tmp)
+        path_counts[member], rec = train_path(label, run, config, cfg_kw,
+                                              env, member, recs, tmp)
+        f32_ll[member] = rec["final_likelihood"]
+    _BF16_INPUTS.update(run=run, config=config, recs=recs, f32_ll=f32_ll)
     return run.corpus, path_counts, recs["pre"], lda["engine"]
+
+
+# The pipeline's day for the bf16 paths: its run, config, stage records
+# and each member's f32 final likelihood.
+_BF16_INPUTS: dict = {}
+
+
+# The bf16 paths: (label, the config, the member, the bf16 kernel).
+BF16_PATHS = (("sparse_bf16", {"estep_engine": "sparse"}, "sparse",
+               "sparse_estep"),
+              ("dense_bf16", {"estep_engine": "dense"}, "dense",
+               "dense_estep"))
+
+
+def bf16_launches() -> dict:
+    """The bf16 instantiations' launches since the last reset."""
+    return {"sparse_estep": sparse_estep.bf16_launch_count,
+            "dense_estep": dense_estep.bf16_launch_count}
+
+
+def check_bf16_path(label, member, kname, counts, bf16, ll, ll_f32):
+    """A bf16 path: every launch of its kernel the bf16 instantiation's,
+    at least one run on the card, and its final likelihood within
+    RTOL_BF16_FIT_LL of the f32 run of its engine."""
+    engine = "sparse" if member == "sparse" else "dense"
+    if bf16[kname] != counts[0][kname] or counts[1][kname] <= 0:
+        fail(f"{label}: {kname} bf16 launches {bf16[kname]} of "
+             f"{counts[0][kname]} (ran {counts[1][kname]})")
+    rel = abs(ll - ll_f32) / abs(ll_f32)
+    if not rel <= RTOL_BF16_FIT_LL:
+        fail(f"{label}: final likelihood {ll} against the f32 {engine} "
+             f"run's {ll_f32}: rel {rel:.3e} > {RTOL_BF16_FIT_LL}")
+    return rel
+
+
+def bf16_paths(tmp):
+    """The pipeline day's corpus in the bf16 mode on the sparse engine and
+    on the dense family (train_path, counts zeroed just before each and
+    read just after).  Returns {label: (launched, ran)}."""
+    run, config, recs, f32_ll = (_BF16_INPUTS[k] for k in
+                                 ("run", "config", "recs", "f32_ll"))
+    out = {}
+    for label, cfg_kw, member, kname in BF16_PATHS:
+        counts, rec = train_path(label, run, config,
+                                 dict(cfg_kw, dense_precision="bf16"), None,
+                                 member, recs, tmp)
+        bf16 = bf16_launches()
+        rel = check_bf16_path(label, member, kname, counts, bf16,
+                              rec["final_likelihood"], f32_ll[member])
+        log(f"{label} " + json.dumps({
+            "bf16_launches": bf16[kname], "launches": counts[0][kname],
+            "ran": counts[1][kname], "dense_precision": rec["dense_precision"],
+            "final_likelihood": rec["final_likelihood"],
+            "final_likelihood_f32": f32_ll[member], "rel_to_f32": rel,
+            "em_iters": rec["em_iters"], "em_s": rec["em_s"]}))
+        out[label] = counts
+    bf16_dense_estep(run.corpus, _BF16_INPUTS["models"][("dense", "f32")])
+    return out
+
+
+def bf16_dense_estep(corpus, model):
+    """The JAX package's dense bf16 likelihood bound where it applies: one
+    E-step from one model in both modes (tests/test_dense_estep.py
+    test_bf16_precision_close_and_validated).  From the f32 dense fit's
+    final beta and alpha, over the day's batches (make_batches at the
+    LDAConfig defaults, densified W-major as the dense path stores them,
+    bf16 where every cell is <= 256), the dense kernel in f32 and in bf16
+    at the fit's var_max_iters and var_tol: the summed likelihoods within
+    RTOL_BF16_ESTEP_LL; the real documents' gamma gap by the stop rule's
+    measure printed (median, largest)."""
+    from oni_ml_tpu_torch.config import LDAConfig
+
+    cfg = LDAConfig()
+    log_beta, alpha = model
+    lb = torch.as_tensor(log_beta, dtype=torch.float32, device="cuda")
+    a = torch.tensor(alpha, dtype=torch.float32, device="cuda")
+    ll = {"f32": 0.0, "bf16": 0.0}
+    gaps = []
+    for b in make_batches(corpus, cfg.batch_size, cfg.min_bucket_len,
+                          pad_multiple=8):
+        w, c, m = (torch.as_tensor(x).to("cuda") for x in
+                   (b.word_idx, b.counts.astype(np.float32),
+                    b.doc_mask.astype(np.float32)))
+        store = dense_estep.corpus_dtype(
+            dense_estep.max_dense_cell(b.word_idx, b.counts), "bf16")
+        gam = {}
+        for p, dt in (("f32", torch.float32), ("bf16", store)):
+            d = dense_estep.densify(w, c, corpus.num_terms, dtype=dt)
+            res = dense_estep.e_step_dense(
+                lb, a, d.t().contiguous(), m, cfg.var_max_iters, cfg.var_tol,
+                wmajor=True, cells=b.word_idx.shape[1], precision=p)
+            ll[p] += float(res.likelihood)
+            gam[p] = res.gamma[m == 1].double()
+        gaps.append(stop_measure(gam["bf16"], gam["f32"]))
+    gaps = torch.cat(gaps)
+    rel = abs(ll["bf16"] - ll["f32"]) / abs(ll["f32"])
+    log("bf16_dense_estep " + json.dumps({
+        "docs": int(gaps.numel()), "likelihood_f32": ll["f32"],
+        "likelihood_bf16": ll["bf16"], "rel": rel,
+        "gamma_gap_median": float(gaps.median()),
+        "gamma_gap_max": float(gaps.max()), "bound": RTOL_BF16_ESTEP_LL}))
+    if not rel <= RTOL_BF16_ESTEP_LL:
+        fail(f"bf16 dense E-step from the f32 fit's model: likelihood rel "
+             f"{rel:.3e} > {RTOL_BF16_ESTEP_LL}")
+
+
+def bf16_small_day(tmp, raws):
+    """The small flow day through ml_ops.main with --dense-precision bf16,
+    its engine from a crossover measured at bf16 (counts zeroed just
+    before, read just after): the lda record names bf16 and its member,
+    whose kernel launched as the bf16 instantiation; the final likelihood
+    within RTOL_BF16_FIT_LL of e2e's f32 card run pinned to the same
+    engine.  Returns the launches."""
+    reset_kernel_counts()
+    day = run_day("flow", raws["flow"], os.path.join(tmp, "small_flow_bf16"),
+                  "cuda", None, 5, "--dense-precision", "bf16")
+    counts = (launch_counts(), executed_counts())
+    bf16 = bf16_launches()
+    with open(os.path.join(day, "metrics.json")) as f:
+        lda = {r["stage"]: r for r in json.load(f)}["lda"]
+    member = lda["member"]
+    if lda["dense_precision"] != "bf16" or member not in ("sparse", "dense"):
+        fail(f"bf16 small day: trained {member} at {lda['dense_precision']}")
+    if not (lda["crossover"] or {}).get("shape", "").endswith(".bf16"):
+        fail(f"bf16 small day: engine {lda['engine']} ({lda['engine_source']})"
+             f" not from a bf16 crossover: {lda['crossover']}")
+    kname = ENGINE_KERNELS[member][0]
+    f32_day = os.path.join(tmp, f"small_flow_{member}_cuda", "20160122")
+    ll_f32 = float(formats.read_likelihood(
+        os.path.join(f32_day, "likelihood.dat"))[-1, 0])
+    rel = check_bf16_path("bf16 small day", member, kname, counts, bf16,
+                          lda["final_likelihood"], ll_f32)
+    log("bf16_small_day " + json.dumps({
+        "member": member, "engine_source": lda["engine_source"],
+        "crossover": lda["crossover"], "bf16_launches": bf16[kname],
+        "launches": counts[0][kname], "final_likelihood":
+        lda["final_likelihood"], "final_likelihood_f32": ll_f32,
+        "rel_to_f32": rel, "wall_s": lda["wall_s"]}))
+    return {kname: bf16[kname]}
 
 
 def crossover(corpus, lda):
@@ -912,7 +1185,7 @@ def crossover(corpus, lda):
 def train_path(label, run, config, cfg_kw, env, member, recs, tmp):
     """The day's corpus through train_corpus with the given config and
     ONI_ML_TPU_ESTEP, then scored; its kernels must have launched on it.
-    Returns its kernel counts (launched, ran)."""
+    Returns its kernel counts (launched, ran) and its lda record."""
     from oni_ml_tpu_torch.config import LDAConfig
     from oni_ml_tpu_torch.models import train_corpus
     from oni_ml_tpu_torch.runner import ml_ops
@@ -946,12 +1219,15 @@ def train_path(label, run, config, cfg_kw, env, member, recs, tmp):
             and score["scored_events"] == recs["score"]["scored_events"]):
         fail(f"{label} day: a non-finite model, no convergence, or not "
              "every event scored")
+    _BF16_INPUTS.setdefault("models", {})[
+        (member, cfg_kw.get("dense_precision", "f32"))] = (result.log_beta,
+                                                           result.alpha)
     log(f"pipeline_{label} " + json.dumps({
         "lda": rec, "score_s": score_s, "flagged": score["flagged"],
         "final_likelihood_day": recs["lda"]["final_likelihood"],
         "dense_corpus_bytes": run.corpus.num_docs * W * 4,
     }))
-    return counts
+    return counts, rec
 
 
 # The pre record's fields that the 2M-day lines carry: the featurizer
@@ -2086,17 +2362,19 @@ def evaluate(tmp, raw):
 
 # Serving (`ml_ops serve`): the two 2M days' models, each streamed
 # SERVE_EVENTS raw events of its own input at the ServingConfig defaults.
-# 65,536 events = 16 flushes of max_batch, 2 refreshes (each refresh
-# runs on the flush's worker, so flushes 9-16 score on the refreshed
-# model: >= 2 versions).  Cut from 262,144 (64 flushes), whose phase
+# 40,960 events = 10 flushes of max_batch, 1 refresh (each refresh
+# runs on the flush's worker, so flushes 9-10 score on the refreshed
+# model: >= 2 versions; the members' streams below take the first
+# 36,864).  Cut from 262,144 (64 flushes), whose phase
 # took 97-104 s on the card and brought the whole run to ~520 s, then
 # from 196,608 (48 flushes, 54.6-85.2 s) to make room for the multihost
 # phase, then from 131,072 (32 flushes, 68.1-77.2 s) after the whole
 # smoke took 1,110 s of its 1,200 on a slow host with the mesh phase,
-# then from 98,304 (24 flushes, 61.7 s) for the plans phase; the parity
-# streams (refresh off, host pinned or every flush on the card) take
-# the first 32,768 (8 flushes).
-SERVE_EVENTS = 65_536
+# then from 98,304 (24 flushes, 61.7 s) for the plans phase, then from
+# 65,536 (16 flushes, 52.3 s) for the bf16 paths; the parity streams
+# (refresh off, host pinned or every flush on the card) take the first
+# 32,768 (8 flushes).
+SERVE_EVENTS = 40_960
 SERVE_REFRESH_EVERY = 8
 SERVE_PARITY_EVENTS = 32_768
 # The per-batch members' served streams: one refresh, then a flush on
@@ -4737,7 +5015,7 @@ def check_launches(engine, lda, counts, extra=None):
 
 
 def profile_em(corpus):
-    """Where the EM time goes: 10 warm EM iterations over the day's
+    """Where the EM time goes: 6 warm EM iterations over the day's
     corpus, three ways (the per-batch pallas path's whole fit only); then
     the scatter's timing record.  The stepwise driver's profile went to
     pay for the mesh phase: fit_drivers times that driver against the
@@ -4749,7 +5027,7 @@ def profile_em(corpus):
     from oni_ml_tpu_torch.config import LDAConfig
     from oni_ml_tpu_torch.models.lda import LDATrainer
 
-    iters = 10
+    iters = 6
     sparse_batches = list(corpus.bucketed_layout(
         min_len=128, batch_cap=1024,
         pad_multiple=sparse_estep.pad_multiple_for("f32")).batches)
@@ -5173,7 +5451,9 @@ def main() -> int:
 
     native_thread = threading.Thread(target=build_native)
     native_thread.start()
-    _cuda.build([sparse_estep.KERNEL, dense_estep.KERNEL, pallas_estep.KERNEL])
+    _cuda.build([sparse_estep.KERNEL, sparse_estep.KERNEL_BF16,
+                 dense_estep.KERNEL, dense_estep.KERNEL_BF16,
+                 dense_estep.KERNEL_BF16_F32CORPUS, pallas_estep.KERNEL])
     native_thread.join()
     if native_err:
         fail(f"native host libraries did not build: {native_err[0]}")
@@ -5223,12 +5503,33 @@ def main() -> int:
                            tol)
         for lab, b, l, lo, w, cap, tol in cases
     ]
+    # The bf16 instantiations, fresh starts: the sparse E-step at the
+    # three shapes, the dense E-step at the main shape in both layouts, on
+    # long documents and at B=2, L=16,384 (each document's cells up to
+    # the full width, in the L2 scratch).
+    t_bf16 = time.perf_counter()
+    sparse_bf16_recs = [
+        sparse_parity(f"{lab}_bf16", b, l, lo, w, cap, tol, "bf16")
+        for lab, b, l, lo, w, cap, tol in cases if not w
+    ]
+    dense_bf16_recs = [
+        dense_parity(f"dense_bf16_{rec_layout(wm)}", 1024, 128, 65, wm,
+                     False, 200, 1e-4, "bf16")
+        for wm in (True, False)
+    ] + [
+        dense_parity(f"dense_{lab}_bf16_wmajor", b, l, lo, True, False, cap,
+                     tol, "bf16")
+        for lab, b, l, lo, w, cap, tol in cases[2::2]
+    ]
+    bf16_parity_s = round(time.perf_counter() - t_bf16, 1)
     if any(r["geometry"]["path"] == "shared memory" for r in dense_recs[4:]):
         fail("dense long documents: no block took the L2-scratch path")
     if fixed_recs[4]["geometry"]["cluster"] <= 2:
         fail("fixed point cluster case: no cluster of more than 2 CTAs")
 
-    walls = {"build_and_parity": round(time.perf_counter() - t0, 1)}
+    # The bf16 parity cases' wall is inside build_and_parity, and apart.
+    walls = {"build_and_parity": round(time.perf_counter() - t0, 1),
+             "bf16_parity": bf16_parity_s}
 
     def timed(name, fn, *args):
         """fn(*args), its wall kept under `name` for the walls line (and
@@ -5248,8 +5549,10 @@ def main() -> int:
         raws = timed("small_days", small_days, tmp)
         plans_off = plans_off_start(tmp, raws["flow"])
         timed("e2e_small", e2e_small, tmp, raws)
+        bf16_cli = timed("bf16_small_day", bf16_small_day, tmp, raws)
         corpus, path_counts, flow_pre, flow_engine = timed(
             "pipeline", pipeline, tmp)
+        path_counts.update(timed("bf16_paths", bf16_paths, tmp))
         _MESH_INPUTS["flow_corpus"] = corpus
         py_pre = native_pre_start(tmp)
         dns_counts, dns_engine = timed("pipeline_dns", pipeline_dns, tmp)
@@ -5347,6 +5650,33 @@ def main() -> int:
             "max_abs_err": max(errs), "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),
+        })
+    # The bf16 instantiations, entries of their own: launches on their
+    # bf16 paths of the 2M flow day's corpus (every launch of the kernel
+    # there is the bf16 instantiation's), and on the small day's CLI run;
+    # times at the main shape (W-major for the dense kernel).  Each
+    # replaces its Pallas kernel's bf16 mode (the slab stored bf16; the
+    # operands cast by _cast_for, the corpus stored by corpus_dtype), from
+    # the same source.
+    for kname, rec, recs in (("sparse_estep_bf16", sparse_bf16_recs[0],
+                              sparse_bf16_recs),
+                             ("dense_estep_bf16", dense_bf16_recs[0],
+                              dense_bf16_recs)):
+        base = kname[:-len("_bf16")]
+        launched, ran = path_counts[base.split("_")[0] + "_bf16"]
+        entries.append({
+            "name": kname, "route": "cuda", "source": SOURCES[base],
+            "replaces": REPLACES[base], "precision": "bf16",
+            "launches": launched[base], "executed_launches": ran[base],
+            "cli_launches": bf16_cli.get(base, 0),
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+            "by_case": {r["case"]: {
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "library_ms": r["library_ms"],
+                "path": r["geometry"]["path"]} for r in recs},
         })
     # The dense kernel's two layouts (fresh start, the main shape): the
     # dense path runs W-major (dense_wmajor, the JAX default).

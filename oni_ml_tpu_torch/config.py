@@ -68,6 +68,21 @@ class LDAConfig:
     # Dense engine: store the corpus W-major ([W, B]) instead of
     # row-major ([B, W]).  Results are the same up to f32 summation order.
     dense_wmajor: bool = True
+    # The E-step kernels' storage mode: "f32" (default) or "bf16".  In
+    # bf16 the dense family's fixed point rounds beta, exp_et and each
+    # ratio to bf16 before its two products (sums f32, the tail full f32
+    # on f32 beta) and stores the densified corpus as bf16 where every
+    # cell is <= 256 (exact: ops/dense_estep.corpus_dtype); the sparse
+    # engine rounds its exp(log beta) table to bf16 once per EM iteration
+    # and reads it everywhere, tail included (f32 sums and gamma carry),
+    # and its bucketed layout pads the batch axis to 16.  On the TPU the
+    # JAX package's bf16 changed no result (XLA's default matmul
+    # precision truncates f32 operands anyway); on the card f32 is full
+    # f32, so bf16 is a numeric mode of its own whose results differ
+    # from f32 within bf16 tolerances (tests/test_torch_bf16.py), with
+    # half the bytes for the table, and for the corpus where it is bf16.
+    # The per-batch dispatch and the fixed-point kernel stay f32.
+    dense_precision: str = "f32"
     # Seed each EM iteration's fixed point from the previous gamma.
     warm_start_gamma: bool = True
     # Floor of the bucketed layout's power-of-two token lengths.

@@ -76,7 +76,23 @@
 //    pointer to the driver's stop flag and return at once once it is set.
 //    A fixed-point launch that runs past that check adds one to the
 //    wrapper's device counter `executed`.
+//  * The bf16 storage mode (precision "bf16", the TPU kernels' `_cast_for`
+//    path) is a compile-time instantiation: RB rounds beta, exp_et and
+//    each cell's ratio to bf16 (round-to-nearest-even) before the two
+//    fixed-point products, whose sums stay f32, and gamma' = alpha + e * s
+//    takes the unrounded e; the tail stays full f32 on f32 beta.  Beta
+//    arrives in f32 once, and the fixed point rounds it in registers as it
+//    reads a cell (the tail needs the f32 values of the same cells), so
+//    its bytes do not change.  TC is the corpus' storage type: bf16 where
+//    every cell is <= 256 (ops/dense_estep.py corpus_dtype, exact), which
+//    halves the bytes C moves; its counts are upcast as they are read and
+//    staged as f32.  The f32 instantiation (float, false) is the code
+//    above, unchanged.  One library holds one mode, chosen by
+//    ONI_DENSE_MODE when this source is compiled (ops/_cuda.py builds
+//    the three libraries in parallel, one nvcc each): 0 f32, 1 bf16
+//    operands over a float corpus, 2 bf16 operands over a bf16 corpus.
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "estep_common.cuh"
@@ -89,10 +105,16 @@ constexpr int kMaxThreads = 256;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kUnroll = 4;  // column groups loaded at once in the prologue
 
-template <int KT, int BB>
+// One count of C, upcast exactly from its storage type.
+__device__ __forceinline__ float load_count(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_count(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+template <int KT, int BB, typename TC, bool RB>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 dense_fixed_point_kernel(const float* __restrict__ expb,       // [K, W]
-                         const float* __restrict__ C,          // (d, w) at d*sd + w*sw
+                         const TC* __restrict__ C,             // (d, w) at d*sd + w*sw
                          long long sd, long long sw, int wmajor,
                          const float* __restrict__ doc_mask,   // [B]
                          const float* __restrict__ gamma_in,   // [B, K]
@@ -149,7 +171,7 @@ dense_fixed_point_kernel(const float* __restrict__ expb,       // [K, W]
           const int g = g0 + u;
           const int w = wmajor ? g * 32 + t * CPB + lane / BB : g * 32 + lane;
           const int dd = wmajor ? lane % BB : t;
-          v[u][t] = (g < ghi && w < W) ? __ldg(C + (d0 + dd) * sd + (long long)w * sw)
+          v[u][t] = (g < ghi && w < W) ? load_count(C + (d0 + dd) * sd + (long long)w * sw)
                                        : 0.0f;
         }
       }
@@ -236,12 +258,15 @@ dense_fixed_point_kernel(const float* __restrict__ expb,       // [K, W]
       if ((mw >> lane) & 1u) {
         const int i = off[j] + run[j] + __popc(mw & below);
         const int w = g * 32 + lane;
-        const float* src_c = C + (d0 + j) * sd + (long long)w * sw;
+        const TC* src_c = C + (d0 + j) * sd + (long long)w * sw;
         if (staged) {
-          oni::cp_async4(cs + i, src_c);
+          if constexpr (sizeof(TC) == sizeof(float))
+            oni::cp_async4(cs + i, src_c);
+          else
+            cs[i] = load_count(src_c);  // 2 bytes: below cp.async's 4
           for (int k = 0; k < K; ++k) oni::cp_async4(bs + (size_t)k * ntot + i, expb + (size_t)k * W + w);
         } else {
-          cs[i] = __ldg(src_c);
+          cs[i] = load_count(src_c);
           for (int k = 0; k < K; ++k) bs[(size_t)k * ntot + i] = __ldg(expb + (size_t)k * W + w);
         }
       }
@@ -284,9 +309,10 @@ dense_fixed_point_kernel(const float* __restrict__ expb,       // [K, W]
   while (oni::fp_continue(it, delta, prev, var_max_iters, var_tol)) {
     const int buf = it & 1;
     oni::e_log_theta<KT>(gam, K, lane, el_mine, e_mine, e);
+    if constexpr (RB) oni::round_bf16_all<KT>(e);  // e_mine stays f32
 #pragma unroll
     for (int k = 0; k < KT; ++k) acc[k] = 0.0f;
-    oni::accumulate_cells<KT>(bj, ntot, cj, p * 32 + lane, n_j, 32 * wpd, e, K, acc);
+    oni::accumulate_cells<KT, false, RB>(bj, ntot, cj, p * 32 + lane, n_j, 32 * wpd, e, K, acc);
     oni::warp_topic_sums<KT>(acc, lane, s);
     oni::doc_sums<KT>(s, s_red[buf], warp, j, wpd, lane);
     const float d_doc =
@@ -412,7 +438,7 @@ dense_suffstats_kernel(const unsigned* __restrict__ masks,   // [ceil(W / 32), B
 
 struct Args {
   const float* expb;
-  const float* C;
+  const void* C;  // float or __nv_bfloat16
   long long sd, sw;
   int wmajor;
   const float* doc_mask;
@@ -437,9 +463,9 @@ struct Args {
   float* T;
 };
 
-template <int KT, int BB>
+template <int KT, int BB, typename TC, bool RB>
 cudaError_t launch(const Args& a, cudaStream_t s) {
-  auto fp = dense_fixed_point_kernel<KT, BB>;
+  auto fp = dense_fixed_point_kernel<KT, BB, TC, RB>;
   if (a.smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         fp, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
@@ -447,7 +473,7 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
   }
   const int smem_cells = a.smem_bytes / ((a.K + 1) * (int)sizeof(float));
   fp<<<a.B / BB, 32 * BB * a.wpd, a.smem_bytes, s>>>(
-      a.expb, a.C, a.sd, a.sw, a.wmajor, a.doc_mask, a.gamma_in, a.alpha, a.stop_flag,
+      a.expb, static_cast<const TC*>(a.C), a.sd, a.sw, a.wmajor, a.doc_mask, a.gamma_in, a.alpha, a.stop_flag,
       a.executed, a.warm, a.B, a.W, a.K, a.var_max_iters, a.var_tol, smem_cells,
       a.block_cells, a.scratch, a.masks, a.pref, a.ratio, a.gamma_out, a.em, a.docll,
       a.ass, a.iters);
@@ -458,15 +484,31 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <int KT>
+template <int KT, typename TC, bool RB>
 cudaError_t launch_bb(int bb, const Args& a, cudaStream_t s) {
-  if (bb == 1) return launch<KT, 1>(a, s);
-  if (bb == 2) return launch<KT, 2>(a, s);
+  if (bb == 1) return launch<KT, 1, TC, RB>(a, s);
+  if (bb == 2) return launch<KT, 2, TC, RB>(a, s);
   if constexpr (KT <= 20) {
-    if (bb == 4) return launch<KT, 4>(a, s);
+    if (bb == 4) return launch<KT, 4, TC, RB>(a, s);
   }
   return cudaErrorInvalidValue;
 }
+
+#ifndef ONI_DENSE_MODE
+#define ONI_DENSE_MODE 0
+#endif
+#if ONI_DENSE_MODE == 0
+using Corpus = float;
+constexpr bool kRound = false;
+#elif ONI_DENSE_MODE == 1
+using Corpus = float;
+constexpr bool kRound = true;
+#elif ONI_DENSE_MODE == 2
+using Corpus = __nv_bfloat16;
+constexpr bool kRound = true;
+#else
+#error "ONI_DENSE_MODE must be 0, 1 or 2"
+#endif
 
 }  // namespace
 
@@ -476,8 +518,9 @@ cudaError_t launch_bb(int bb, const Args& a, cudaStream_t s) {
 // every block's fit (block_cells * (K + 1) * 4 <= smem_bytes).
 // `block_cells` bounds a block's non-zero cells: block_docs * min(W, L)
 // for a batch densified from [B, L] token lists.  The wrapper
-// (ops/dense_estep.py launch_geometry) picks all three.
-extern "C" int oni_dense_estep(const float* expb, const float* C, long long stride_d,
+// (ops/dense_estep.py launch_geometry) picks all three.  `C` holds the
+// library's corpus type (float, or bf16 in mode 2: see the header).
+extern "C" int oni_dense_estep(const float* expb, const void* C, long long stride_d,
                                long long stride_w, int wmajor, const float* doc_mask,
                                const float* gamma_in, const float* alpha,
                                const int* stop_flag, int* executed, int warm, int B,
@@ -500,9 +543,9 @@ extern "C" int oni_dense_estep(const float* expb, const float* C, long long stri
                block_cells,   scratch,    masks,      pref,          ratio,       gamma_out,
                em,            docll,      ass,        iters,         T};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (K <= 4) return (int)launch_bb<4>(block_docs, a, s);
-  if (K <= 8) return (int)launch_bb<8>(block_docs, a, s);
-  if (K <= 16) return (int)launch_bb<16>(block_docs, a, s);
-  if (K <= 20) return (int)launch_bb<20>(block_docs, a, s);
-  return (int)launch_bb<32>(block_docs, a, s);
+  if (K <= 4) return (int)launch_bb<4, Corpus, kRound>(block_docs, a, s);
+  if (K <= 8) return (int)launch_bb<8, Corpus, kRound>(block_docs, a, s);
+  if (K <= 16) return (int)launch_bb<16, Corpus, kRound>(block_docs, a, s);
+  if (K <= 20) return (int)launch_bb<20, Corpus, kRound>(block_docs, a, s);
+  return (int)launch_bb<32, Corpus, kRound>(block_docs, a, s);
 }

@@ -5,12 +5,14 @@
 // fixed_point_estep.cu and sparse_estep.cu, so they cannot drift): q, the
 // s contraction, the gamma update, the reductions over the warps of a
 // document and over the CTAs of a cluster, the token term of the tail,
-// the cp.async staging copies and the cluster launch.  ops/_cuda.py
-// hashes this header into every kernel's build key.
+// the cp.async staging copies, the cluster launch, and the bf16 rounding
+// of the storage mode (precision "bf16").  ops/_cuda.py hashes this
+// header into every kernel's build key.
 
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -72,6 +74,20 @@ __device__ __forceinline__ bool fp_continue(int it, float delta, float prev,
 // range is zero, as XLA computes it on the CPU and the TPU (flush-to-zero).
 __device__ __forceinline__ float flush_subnormal(float v) {
   return v < 1.17549435e-38f ? 0.0f : v;  // FLT_MIN
+}
+
+// The bf16 storage mode (ops/dense_estep.py and ops/sparse_estep.py,
+// precision "bf16"): a value rounded to bfloat16, round-to-nearest-even
+// as XLA's astype rounds, then upcast exactly.  Every product and sum
+// that reads it stays float32.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <int KT>
+__device__ __forceinline__ void round_bf16_all(float (&v)[KT]) {
+#pragma unroll
+  for (int k = 0; k < KT; ++k) v[k] = round_bf16(v[k]);
 }
 
 // xor butterfly: every lane ends with the same sum, in a fixed order.
@@ -147,11 +163,23 @@ __device__ __forceinline__ void e_log_theta(const float (&g)[NS<KT>], int K, int
   for (int k = 0; k < KT; ++k) e[k] = __shfl_sync(kFull, e_mine[k / 32], k & 31);
 }
 
+// c * recip(sum_k bk e + 1e-30), the sum in k order; q gets the sum.
+template <int KT>
+__device__ __forceinline__ float ratio_of(const float (&bk)[KT], float c,
+                                          const float (&e)[KT], float& q) {
+  float ph = 0.0f;
+#pragma unroll
+  for (int k = 0; k < KT; ++k) ph = fmaf(bk[k], e[k], ph);
+  q = ph + 1e-30f;
+  return c * newton_recip(q);
+}
+
 // One cell: its K values into bk and c * recip(sum_k b e + 1e-30).  `b`
 // points at the cell's first value; its k-th value is b[k * ks] ([K, n]
 // tile) or, with ROWS, b[k] (ks is then the distance between rows, only
-// its alignment is read here).
-template <int KT, bool ROWS = false>
+// its alignment is read here).  With RB (the dense bf16 mode) the values
+// are rounded to bf16 as they are read; the caller rounds e.
+template <int KT, bool ROWS = false, bool RB = false>
 __device__ __forceinline__ float cell_ratio(const float* b, size_t ks, float c,
                                             const float (&e)[KT], int K,
                                             float (&bk)[KT], float& q) {
@@ -174,11 +202,8 @@ __device__ __forceinline__ float cell_ratio(const float* b, size_t ks, float c,
 #pragma unroll
     for (int k = 0; k < KT; ++k) bk[k] = (k < K) ? b[k * (ROWS ? 1 : ks)] : 0.0f;
   }
-  float ph = 0.0f;
-#pragma unroll
-  for (int k = 0; k < KT; ++k) ph = fmaf(bk[k], e[k], ph);
-  q = ph + 1e-30f;
-  return c * newton_recip(q);
+  if constexpr (RB) round_bf16_all<KT>(bk);
+  return ratio_of<KT>(bk, c, e, q);
 }
 
 // Cell i's first value in either layout.
@@ -188,14 +213,17 @@ __device__ __forceinline__ const float* cell_at(const float* b, size_t ks, int i
 }
 
 // acc[k] += sum over this lane's cells of ratio * b[k]  (the s contraction).
-template <int KT, bool ROWS = false>
+// With RB (the dense bf16 mode) b and the ratio are rounded to bf16 before
+// the product, as the TPU kernel rounds its operands; e arrives rounded.
+template <int KT, bool ROWS = false, bool RB = false>
 __device__ __forceinline__ void accumulate_cells(const float* b, size_t ks, const float* c,
                                                  int lo, int hi, int step,
                                                  const float (&e)[KT], int K,
                                                  float (&acc)[KT]) {
   for (int i = lo; i < hi; i += step) {
     float bk[KT], q;
-    const float r = cell_ratio<KT, ROWS>(cell_at<ROWS>(b, ks, i), ks, c[i], e, K, bk, q);
+    float r = cell_ratio<KT, ROWS, RB>(cell_at<ROWS>(b, ks, i), ks, c[i], e, K, bk, q);
+    if constexpr (RB) r = round_bf16(r);
 #pragma unroll
     for (int k = 0; k < KT; ++k) acc[k] = fmaf(r, bk[k], acc[k]);
   }

@@ -62,10 +62,24 @@
 //    driver's device stop flag and returns at once once it is set; a
 //    launch that runs past that check adds one to the wrapper's device
 //    counter `executed`.
+//  * The bf16 storage mode (precision "bf16": the TPU kernel's bf16 slab)
+//    is the instantiation TB = __nv_bfloat16: the wrapper rounds the
+//    [V, K] table to bf16 once per EM iteration (ops/sparse_estep.py
+//    exp_beta_table), which halves its bytes, and every read upcasts it
+//    exactly, so the fixed point, phi_c and the token term all see the
+//    rounded values while every product, sum and the gamma carry stay
+//    f32.  The tile stays f32: a bf16 row of K = 20 is 40 bytes, no
+//    multiple of cp.async's 16, so the rows are read with plain loads (8
+//    bytes, four values, where K % 4 == 0 and the table is 8-byte
+//    aligned; else 2 bytes) and stored upcast; the geometry is the f32
+//    one.  TB = float is the code above, unchanged.  One library holds
+//    one table type, chosen by ONI_TABLE_BF16 when this source is
+//    compiled (ops/_cuda.py builds both libraries in parallel).
 //
 // The second kernel of this file, sparse_scatter_kernel, sums phi_c into
 // [V, K] in a fixed order (see its note).
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "estep_common.cuh"
@@ -82,19 +96,38 @@ constexpr int kMaxThreads = 256;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxCluster = 8;
 
-// acc[k] += sum over this lane's tokens of ratio * b[k], each token's row
-// read from the table (rows `align` floats apart for the alignment test of
-// the 16-byte reads: K where the table is 16-byte aligned, else 1).
+// Word w's row of the table into bk and c * recip(q): f32 rows through
+// the shared cell_ratio (rows `align` floats apart for the alignment test
+// of the 16-byte reads: K where the table is 16-byte aligned, else 1);
+// bf16 rows upcast value by value.
 template <int KT>
-__device__ __forceinline__ void accumulate_table(const float* __restrict__ expb_vk,
+__device__ __forceinline__ float table_ratio(const float* expb_vk, int32_t w, size_t align,
+                                             float c, const float (&e)[KT], int K,
+                                             float (&bk)[KT], float& q) {
+  return oni::cell_ratio<KT, true>(expb_vk + (size_t)w * K, align, c, e, K, bk, q);
+}
+
+template <int KT>
+__device__ __forceinline__ float table_ratio(const __nv_bfloat16* expb_vk, int32_t w,
+                                             size_t, float c, const float (&e)[KT], int K,
+                                             float (&bk)[KT], float& q) {
+  const __nv_bfloat16* row = expb_vk + (size_t)w * K;
+#pragma unroll
+  for (int k = 0; k < KT; ++k) bk[k] = (k < K) ? __bfloat162float(row[k]) : 0.0f;
+  return oni::ratio_of<KT>(bk, c, e, q);
+}
+
+// acc[k] += sum over this lane's tokens of ratio * b[k], each token's row
+// read from the table.
+template <int KT, typename TB>
+__device__ __forceinline__ void accumulate_table(const TB* __restrict__ expb_vk,
                                                  size_t align, const int32_t* w,
                                                  const float* c, int lo, int hi, int step,
                                                  const float (&e)[KT], int K,
                                                  float (&acc)[KT]) {
   for (int i = lo; i < hi; i += step) {
     float bk[KT], q;
-    const float r = oni::cell_ratio<KT, true>(expb_vk + (size_t)w[i] * K, align, c[i], e,
-                                              K, bk, q);
+    const float r = table_ratio<KT>(expb_vk, w[i], align, c[i], e, K, bk, q);
 #pragma unroll
     for (int k = 0; k < KT; ++k) acc[k] = fmaf(r, bk[k], acc[k]);
   }
@@ -105,9 +138,10 @@ __device__ __forceinline__ void accumulate_table(const float* __restrict__ expb_
 // torch_kernel_sweep.py, in turns on an H100 at 700 W, (256, 2) ran the
 // same and (256) up to 25% slower on long documents.  STAGED: the tokens'
 // rows in a shared-memory tile, else read from the table on every pass.
-template <int KT, bool STAGED>
+// TB: the table's storage type (float, or __nv_bfloat16 in bf16 mode).
+template <int KT, bool STAGED, typename TB>
 __global__ void __launch_bounds__(KT <= 20 ? 512 : 256)
-sparse_estep_kernel(const float* __restrict__ expb_vk,    // [V, K]
+sparse_estep_kernel(const TB* __restrict__ expb_vk,       // [V, K]
                     const int32_t* __restrict__ word_idx, // [B, L]
                     const float* __restrict__ counts,     // [B, L]
                     const float* __restrict__ doc_mask,   // [B]
@@ -189,7 +223,26 @@ sparse_estep_kernel(const float* __restrict__ expb_vk,    // [V, K]
     b = s_tile + (size_t)j * (K + 1) * tile_len;
     c = b + (size_t)K * tile_len;
     if (p == 0) oni::stage_row(c, c_row + lo, n, lane);
-    if (align != 1 && (K & 3) == 0) {
+    if constexpr (sizeof(TB) != sizeof(float)) {
+      // bf16 rows, upcast into the f32 tile with plain loads.
+      if ((reinterpret_cast<uintptr_t>(expb_vk) & 7) == 0 && (K & 3) == 0) {
+        const int nq = K >> 2;
+        for (int f = first; f < n * nq; f += step) {
+          const int i = f / nq, h = f - i * nq;
+          const uint2 raw = __ldg(reinterpret_cast<const uint2*>(
+              expb_vk + (size_t)w_row[lo + i] * K + 4 * h));
+          const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+          const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+          *reinterpret_cast<float4*>(b + (size_t)i * K + 4 * h) =
+              make_float4(v01.x, v01.y, v23.x, v23.y);
+        }
+      } else {
+        for (int f = first; f < n * K; f += step) {
+          const int i = f / K, k = f - i * K;
+          b[f] = __bfloat162float(expb_vk[(size_t)w_row[lo + i] * K + k]);
+        }
+      }
+    } else if (align != 1 && (K & 3) == 0) {
       const int nq = K >> 2;
       for (int f = first; f < n * nq; f += step) {
         const int i = f / nq, h = f - i * nq;
@@ -224,7 +277,8 @@ sparse_estep_kernel(const float* __restrict__ expb_vk,    // [V, K]
     if constexpr (STAGED)
       oni::accumulate_cells<KT, true>(b, K, c, first, n, step, e, K, acc);
     else
-      accumulate_table<KT>(expb_vk, align, w_row + lo, c_row + lo, first, n, step, e, K, acc);
+      accumulate_table<KT, TB>(expb_vk, align, w_row + lo, c_row + lo, first, n, step, e, K,
+                               acc);
     oni::warp_topic_sums<KT>(acc, lane, s);
     oni::doc_sums<KT>(s, s_red[buf], warp, j, wpd, lane);
     // One document per cluster: add the CTAs' sums in rank order.
@@ -254,8 +308,7 @@ sparse_estep_kernel(const float* __restrict__ expb_vk,    // [V, K]
     for (int i = first; i < n; i += step) {
       float bk[KT], q;
       const float cv = c_row[lo + i];
-      const float r = oni::cell_ratio<KT, true>(expb_vk + (size_t)w_row[lo + i] * K, align,
-                                                cv, e, K, bk, q);
+      const float r = table_ratio<KT>(expb_vk, w_row[lo + i], align, cv, e, K, bk, q);
       tok = fmaf(cv, logf(q), tok);
       const float rm = r * m;
       float* __restrict__ o = out + (size_t)(lo + i) * K;
@@ -364,15 +417,15 @@ sparse_scatter_kernel(const float* __restrict__ phic,          // [B * L, K]
   }
 }
 
-template <int KT, bool STAGED>
+template <int KT, bool STAGED, typename TB>
 cudaError_t launch(int nb, int docs, int wpd, int csize, int tile_len, size_t smem,
-                   cudaStream_t stream, const float* expb_vk,
+                   cudaStream_t stream, const TB* expb_vk,
                    const int32_t* word_idx, const float* counts, const float* doc_mask,
                    const float* gamma_in, const float* alpha, const int* stop_flag,
                    int* executed, int warm, int L, int K, int var_max_iters,
                    float var_tol, float* gamma_out, float* phic, float* docll, float* ass,
                    int32_t* iters) {
-  return oni::launch_clustered(sparse_estep_kernel<KT, STAGED>, nb, csize, 32 * docs * wpd,
+  return oni::launch_clustered(sparse_estep_kernel<KT, STAGED, TB>, nb, csize, 32 * docs * wpd,
                                smem, stream, expb_vk, word_idx, counts, doc_mask, gamma_in,
                                alpha, stop_flag, executed, warm, L, K, wpd, csize, tile_len,
                                var_max_iters, var_tol, gamma_out, phic, docll, ass, iters);
@@ -384,8 +437,15 @@ cudaError_t launch(int nb, int docs, int wpd, int csize, int tile_len, size_t sm
 // launch_geometry): `block_docs` documents per CTA (the stop block),
 // `warps_per_doc` warps each, `cluster` CTAs per document (then
 // block_docs must be 1), and with `staged` a shared-memory tile of
-// tile_len tokens per document and CTA.
-extern "C" int oni_sparse_estep(const float* expb_vk, const int32_t* word_idx,
+// tile_len tokens per document and CTA.  `expb_vk` holds the library's
+// table type (float, or bf16 with ONI_TABLE_BF16: see the header).
+#ifdef ONI_TABLE_BF16
+using Table = __nv_bfloat16;
+#else
+using Table = float;
+#endif
+
+extern "C" int oni_sparse_estep(const void* expb_vk, const int32_t* word_idx,
                                 const float* counts, const float* doc_mask,
                                 const float* gamma_in, const float* alpha,
                                 const int* stop_flag, int* executed, int warm, int B,
@@ -407,12 +467,13 @@ extern "C" int oni_sparse_estep(const float* expb_vk, const int32_t* word_idx,
     return (int)cudaErrorInvalidValue;
   const int nb = B / block_docs;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define ONI_LAUNCH_MODE(KT, STAGED)                                                          \
-  launch<KT, STAGED>(nb, block_docs, warps_per_doc, cluster, tile_len, smem, s, expb_vk,      \
-                     word_idx, counts, doc_mask, gamma_in, alpha, stop_flag, executed, warm, \
-                     L, K, var_max_iters, var_tol, gamma_out, phic, docll, ass, iters)
+#define ONI_LAUNCH_MODE(KT, STAGED, TB)                                                      \
+  launch<KT, STAGED, TB>(nb, block_docs, warps_per_doc, cluster, tile_len, smem, s,          \
+                         static_cast<const TB*>(expb_vk), word_idx, counts, doc_mask,         \
+                         gamma_in, alpha, stop_flag, executed, warm, L, K, var_max_iters,     \
+                         var_tol, gamma_out, phic, docll, ass, iters)
 #define ONI_LAUNCH(KT) \
-  return (int)(staged ? ONI_LAUNCH_MODE(KT, true) : ONI_LAUNCH_MODE(KT, false))
+  return (int)(staged ? ONI_LAUNCH_MODE(KT, true, Table) : ONI_LAUNCH_MODE(KT, false, Table))
   if (K <= 4) ONI_LAUNCH(4);
   if (K <= 8) ONI_LAUNCH(8);
   if (K <= 16) ONI_LAUNCH(16);

@@ -40,6 +40,13 @@ kinds of group:
 One dense group of one batch takes the fast path
 (`run_chunk_impl_fast`), which carries beta in the kernel's exp-space
 [K, W] layout across iterations.
+
+`dense_precision` ("f32" or "bf16", LDAConfig.dense_precision) reaches
+the dense kernel of every dense group and the sparse engine's table
+(sparse_estep.exp_beta_table); the per-batch dispatch stays f32, as in
+the JAX package.  The dense groups' corpus may be stored as bf16
+(`densify_groups(dtype=)`, `compact_stack_batches(corpus_store=)`,
+dense_estep.corpus_dtype).
 """
 
 from __future__ import annotations
@@ -115,12 +122,14 @@ def stack_batches(batches: Sequence[Batch],
     return StackedGroups(tuple(arrays), tuple(slots))
 
 
-def _densify_mesh(w, c, num_terms: int, wmajor: bool, vocab: bool):
+def _densify_mesh(w, c, num_terms: int, wmajor: bool, vocab: bool,
+                  dtype: torch.dtype = torch.float32):
     """One stacked group densified slot by slot (each data slot's
     documents on its own device, never the whole corpus on one): full-V
     groups [NB, B, W] split over `data` (W-major [NB, W, B]); with
     `vocab` the width is `num_terms` (the model-divisible padded vocab)
-    and slot (i, j) keeps its [NB, B/d, W/m] columns."""
+    and slot (i, j) keeps its [NB, B/d, W/m] columns.  `dtype` is the
+    storage dtype."""
     from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, Sharded
 
     mesh = w.mesh
@@ -131,7 +140,7 @@ def _densify_mesh(w, c, num_terms: int, wmajor: bool, vocab: bool):
         wi, ci = w.block(i), c.block(i)
         nb, bl, _ = wi.shape
         full = torch.empty((nb, width, bl) if wmajor else (nb, bl, width),
-                           dtype=torch.float32, device=wi.device)
+                           dtype=dtype, device=wi.device)
         for j in range(nb):
             dj = dense_estep.densify(wi[j], ci[j], num_terms, width=width)
             full[j] = dj.t() if wmajor else dj
@@ -144,32 +153,33 @@ def _densify_mesh(w, c, num_terms: int, wmajor: bool, vocab: bool):
     nb, b = w.shape[0], w.shape[1]
     if vocab:
         return Sharded(mesh, (None, DATA_AXIS, MODEL_AXIS), blocks,
-                       (nb, b, width), torch.float32)
+                       (nb, b, width), dtype)
     spec = (None, None, DATA_AXIS) if wmajor else (None, DATA_AXIS, None)
     shape = (nb, width, b) if wmajor else (nb, b, width)
-    return Sharded(mesh, spec, blocks, shape, torch.float32)
+    return Sharded(mesh, spec, blocks, shape, dtype)
 
 
 def densify_groups(groups: StackedGroups, num_terms: int,
-                   wmajor: bool = False, vocab: bool = False
-                   ) -> StackedGroups:
+                   wmajor: bool = False, vocab: bool = False,
+                   dtype: torch.dtype = torch.float32) -> StackedGroups:
     """Stacked sparse groups -> full-V dense groups (C [NB, B, W], or
     [NB, W, B] with `wmajor`, the mask and L), densified once for the run
-    (dense_estep.densify).  Groups placed over a mesh densify on their
-    slots (`_densify_mesh`); `vocab` is the vocab-sharded plan's layout,
-    C split over `data` and `model`."""
+    (dense_estep.densify) and stored as `dtype` (dense_estep.corpus_dtype:
+    the float32 sums convert exactly).  Groups placed over a mesh densify
+    on their slots (`_densify_mesh`); `vocab` is the vocab-sharded plan's
+    layout, C split over `data` and `model`."""
     from ..parallel.mesh import Sharded
 
     width = dense_estep.padded_width(num_terms)
     arrays = []
     for w, c, m, _ in groups.arrays:
         if isinstance(w, Sharded):
-            arrays.append((_densify_mesh(w, c, num_terms, wmajor, vocab),
-                           m, w.shape[2]))
+            arrays.append((_densify_mesh(w, c, num_terms, wmajor, vocab,
+                                         dtype), m, w.shape[2]))
             continue
         nb, b, l = w.shape
         shape = (nb, width, b) if wmajor else (nb, b, width)
-        dense = torch.empty(shape, dtype=torch.float32, device=w.device)
+        dense = torch.empty(shape, dtype=dtype, device=w.device)
         for j in range(nb):
             d = dense_estep.densify(w[j], c[j], num_terms, width=width)
             dense[j] = d.t() if wmajor else d
@@ -224,9 +234,12 @@ def plan_compact(batches: Sequence[Batch], num_topics: int,
     """A CompactPlan, or None where the card cannot run the dense kernel
     (K above its compiled bound).  The JAX package also refuses widths
     whose doc block overflows the TPU's VMEM; the card's kernel keeps
-    nothing sized by the width, so every width runs.  Pure host work:
-    np.unique over each batch's token ids."""
-    if precision != "f32" or not 0 < num_topics <= dense_estep.MAX_TOPICS:
+    nothing sized by the width, so every width runs, at either precision
+    (an unknown one raises).  `itemsize` is the corpus' storage width
+    (corpus_bytes).  Pure host work: np.unique over each batch's token
+    ids."""
+    dense_estep._check_precision(precision)
+    if not 0 < num_topics <= dense_estep.MAX_TOPICS:
         return None
     uniques, widths, total = [], [], 0
     for shape, idxs in sorted(_shape_groups(batches).items()):
@@ -240,7 +253,9 @@ def plan_compact(batches: Sequence[Batch], num_topics: int,
 
 def compact_stack_batches(batches: Sequence[Batch],
                           device: "str | torch.device",
-                          plan: CompactPlan) -> StackedGroups:
+                          plan: CompactPlan,
+                          corpus_store: torch.dtype = torch.float32,
+                          ) -> StackedGroups:
     """Stack batches into compact dense groups: arrays[g] =
     (C_local [NB, B, Wc] (or [NB, Wc, B] W-major), doc_mask [NB, B],
     vocab_map [NB, Wc] int64, L) with L the token lists' length (the
@@ -248,7 +263,8 @@ def compact_stack_batches(batches: Sequence[Batch],
     local column u; the columns past the batch's unique count repeat
     word 0, inert because their counts are zero.  Token ids map to local
     columns by searchsorted into the batch's sorted uniques (exact:
-    every token id is one of them)."""
+    every token id is one of them).  C_local is stored as `corpus_store`
+    (dense_estep.corpus_dtype)."""
     arrays, slots = [], []
     for g, (shape, idxs) in enumerate(sorted(_shape_groups(batches).items())):
         wc = plan.widths[g]
@@ -264,7 +280,7 @@ def compact_stack_batches(batches: Sequence[Batch],
                             dtype=torch.float32).to(device)
         nb, b, _ = w.shape
         dense = torch.empty((nb, wc, b) if plan.wmajor else (nb, b, wc),
-                            dtype=torch.float32, device=w.device)
+                            dtype=corpus_store, device=w.device)
         for j in range(nb):
             d = dense_estep.densify(w[j], c[j], wc, width=wc)
             dense[j] = d.t() if plan.wmajor else d
@@ -296,6 +312,15 @@ def initial_gammas(groups_arrays, k: int, dense_wmajor: bool = False):
     )
 
 
+def table_precision(e_fn, dense_precision: str) -> str:
+    """The precision of the exp(log beta)^T table a token group's E-step
+    `e_fn` reads: the sparse engine's follows `dense_precision`; the
+    per-batch dispatch (and the mesh's plans over it) stays f32, as in
+    the JAX package."""
+    dense_estep._check_precision(dense_precision)
+    return dense_precision if e_fn is sparse_estep.e_step else "f32"
+
+
 def make_em_accumulator(
     *,
     num_topics: int,
@@ -305,6 +330,7 @@ def make_em_accumulator(
     e_step_fn: "Callable | None" = None,
     dense_wmajor: bool = False,
     dense_e_step_fn: "Callable | None" = None,
+    dense_precision: str = "f32",
 ):
     """Build `accumulate(log_beta, alpha, groups, gammas_prev, warm,
     stop=None) -> (suff_stats [V, K], likelihood, alpha_ss, gammas,
@@ -315,14 +341,16 @@ def make_em_accumulator(
     wrappers, parallel/sharded.py) also take the iteration's shared
     exp(log beta)^T table, the batch's live-token plan, the stop flag
     and the alpha-prior constant.  Full-V dense groups run through
-    `dense_e_step_fn` where given (the mesh's dense plans), else the
-    dense kernel.  The tables are built once per call; suff-stats add in
-    batch order."""
+    `dense_e_step_fn` where given (the mesh's dense plans, built at their
+    own precision), else the dense kernel at `dense_precision`, as do
+    the compact groups; the sparse engine's table is built at it too.
+    The tables are built once per call; suff-stats add in batch order."""
     e_fn = e_step_fn or estep.e_step
     e_warm = getattr(e_fn, "_oni_warm_capable", False)
     own = (e_fn in (estep.e_step, sparse_estep.e_step)
            or getattr(e_fn, "_oni_data_parallel", False)
            or getattr(e_fn, "_oni_vocab_sharded", False))
+    table = table_precision(e_fn, dense_precision)
     vocab_dense = getattr(dense_e_step_fn, "_oni_vocab_sharded", False)
     k, v = num_topics, num_terms
 
@@ -336,7 +364,8 @@ def make_em_accumulator(
         return dense_estep.e_step_dense(
             log_beta, alpha, dense, mask, var_max_iters, var_tol,
             wmajor=dense_wmajor, gamma_prev=g, warm=warm, exp_beta=exp_beta,
-            stop=stop, alpha_const=alpha_const, cells=cells)
+            stop=stop, alpha_const=alpha_const, cells=cells,
+            precision=dense_precision)
 
     def accumulate(log_beta, alpha, groups, gammas_prev, warm, stop=None):
         dev = log_beta.device
@@ -381,7 +410,8 @@ def make_em_accumulator(
                 kw = {}
                 if own:
                     if expb_vk is None:
-                        expb_vk = sparse_estep.exp_beta_table(log_beta)
+                        expb_vk = sparse_estep.exp_beta_table(
+                            log_beta, table)
                     kw = dict(expb_vk=expb_vk, stop=stop,
                               alpha_const=alpha_const)
                 w_views, c_views, m_views = (t.unbind(0) for t in group[:3])
@@ -453,6 +483,7 @@ def make_chunk_runner(
     alpha_max_iters: int = 100,
     yield_hook: "Callable | None" = None,
     dense_e_step_fn: "Callable | None" = None,
+    dense_precision: str = "f32",
 ):
     """Build `run_chunk(log_beta, alpha, ll_prev, groups, n_steps,
     gammas_in=None, have_prev=None) -> ChunkResult`, which enqueues
@@ -467,7 +498,8 @@ def make_chunk_runner(
     device tensor costs a host read.  A custom `m_step_fn` keeps every
     dispatch on the generic impl, as in the JAX package.  `e_step_fn`
     runs the token groups and `dense_e_step_fn` (a mesh's dense plan)
-    the full-V dense groups (make_em_accumulator)."""
+    the full-V dense groups (make_em_accumulator), `dense_precision`
+    the dense kernel's mode and the sparse engine's table."""
     from .lda import update_alpha  # lda.py imports this module
 
     m_fn = m_step_fn or estep.m_step
@@ -476,6 +508,7 @@ def make_chunk_runner(
         num_topics=num_topics, num_terms=num_terms,
         var_max_iters=var_max_iters, var_tol=var_tol, e_step_fn=e_step_fn,
         dense_wmajor=dense_wmajor, dense_e_step_fn=dense_e_step_fn,
+        dense_precision=dense_precision,
     )
 
     def new_alpha_of(alpha_ss, alpha):
@@ -582,7 +615,8 @@ def make_chunk_runner(
         def iterate(exp_beta, alpha, gammas, warm, stop):
             gamma, t, docll, ass, iters = fp(
                 exp_beta, alpha, dense, mask, var_max_iters, var_tol,
-                gamma_prev=gammas[0][0], warm=warm, stop=stop, cells=cells)
+                gamma_prev=gammas[0][0], warm=warm, stop=stop, cells=cells,
+                precision=dense_precision)
             ll = docll.sum() + mask.sum() * estep.alpha_constant(alpha, k)
             suff = exp_beta * t                        # [K, W]
             total = suff.sum(-1, keepdim=True)         # pad columns are 0

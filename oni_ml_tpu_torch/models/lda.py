@@ -247,6 +247,7 @@ def _resolve_engine(corpus: Corpus, config: LDAConfig, device,
     record where the crossover decided.  With a `shard_plan` (distributed
     EM) the crossover keys on the shards' own bucket shapes, the shapes
     the kernels see."""
+    dense_estep._check_precision(config.dense_precision)
     env = os.environ.get("ONI_ML_TPU_ESTEP", "")
     choice = config.estep_engine
     if choice not in ("auto", "dense", "sparse"):
@@ -286,12 +287,14 @@ def _resolve_engine(corpus: Corpus, config: LDAConfig, device,
         device=dev)
     shapes = [shape for piece in pieces for shape in piece.bucket_shapes(
         min_len=min_len, batch_cap=config.batch_size,
-        pad_multiple=sparse_estep.pad_multiple_for())]
+        pad_multiple=sparse_estep.pad_multiple_for(config.dense_precision))]
     if not shapes or config.num_topics > sparse_estep.MAX_TOPICS:
         return "dense", "default", None
     b_dom, l_dom, _ = max(shapes, key=lambda s: s[2])
+    # Keyed by the precision, so a bf16 day measures its own crossover.
     cross = sparse_estep.engine_crossover(
-        config.num_topics, corpus.num_terms, b_dom, l_dom, device=dev)
+        config.num_topics, corpus.num_terms, b_dom, l_dom,
+        precision=config.dense_precision, device=dev)
     return cross["engine"], cross["source"], cross
 
 
@@ -462,7 +465,12 @@ class LDATrainer:
         cfg = self.config
         k, v, dev = cfg.num_topics, self.num_terms, self.device
         if cfg.compute_dtype != "float32":
-            raise ValueError("the port trains in float32 only")
+            raise ValueError(
+                f"LDAConfig.compute_dtype={cfg.compute_dtype!r}: the port "
+                "trains in float32 only (compute_dtype bfloat16 is ROADMAP "
+                "Queue 2 item 7; the kernels' bf16 storage mode is "
+                "dense_precision='bf16')")
+        dense_estep._check_precision(cfg.dense_precision)
         if engine not in ("sparse", "dense"):
             raise ValueError(f"unknown E-step engine {engine!r}")
         if self.mesh is not None:
@@ -544,7 +552,8 @@ class LDATrainer:
         if (checkpoint_path and self._writer
                 and os.path.exists(checkpoint_path)):
             os.remove(checkpoint_path)  # the fit completed
-        stats.update(member=member, batches=len(batches), batch_shapes=sorted(
+        stats.update(member=member, dense_precision=cfg.dense_precision,
+                     batches=len(batches), batch_shapes=sorted(
             {tuple(int(n) for n in b.word_idx.shape) for b in batches}))
         if self.mesh is not None:
             stats["mesh"] = {
@@ -684,8 +693,10 @@ class LDATrainer:
             return None
         if mode == "off" or (mode != "on" and self.device.type != "cuda"):
             return None
-        plan = fused.plan_compact(batches, cfg.num_topics,
-                                  wmajor=cfg.dense_wmajor)
+        plan = fused.plan_compact(
+            batches, cfg.num_topics, cfg.dense_precision,
+            wmajor=cfg.dense_wmajor,
+            itemsize=self._corpus_store(batches).itemsize)
         if plan is None:
             if mode == "on":
                 raise ValueError(
@@ -705,6 +716,22 @@ class LDATrainer:
                 > cfg.dense_hbm_budget):
             return None
         return plan
+
+    def _corpus_store(self, batches) -> torch.dtype:
+        """The dense members' corpus storage dtype
+        (dense_estep.corpus_dtype: bf16 in the bf16 mode where every
+        densified cell is <= 256).  The cell scan is a host pass over
+        every token, made in the bf16 mode only and once per batch list
+        (the compact gate and the driver both ask)."""
+        if self.config.dense_precision != "bf16":
+            return torch.float32
+        memo = getattr(self, "_cell_max", None)
+        if memo is None or memo[0] is not batches:
+            memo = (batches, max((dense_estep.max_dense_cell(b.word_idx,
+                                                             b.counts)
+                                  for b in batches), default=0.0))
+            self._cell_max = memo
+        return dense_estep.corpus_dtype(memo[1], "bf16")
 
     # -- EM drivers ---------------------------------------------------------
 
@@ -780,7 +807,9 @@ class LDATrainer:
             # launches, M-step and alpha Newton are enqueued inside one
             # yield-hook slot; the host sync below is outside it.
             with self._slot():
-                expb = sparse_estep.exp_beta_table(log_beta)
+                expb = sparse_estep.exp_beta_table(
+                    log_beta, fused.table_precision(e_fn,
+                                                    cfg.dense_precision))
                 alpha_const = estep.alpha_constant(alpha, k)
                 total_ss = torch.zeros((v, k), dtype=torch.float32,
                                        device=dev)
@@ -872,7 +901,9 @@ class LDATrainer:
         wmajor = cfg.dense_wmajor
         if member == "compact":
             wmajor = compact.wmajor
-            groups = fused.compact_stack_batches(batches, self.device, compact)
+            groups = fused.compact_stack_batches(
+                batches, self.device, compact,
+                corpus_store=self._corpus_store(batches))
         else:
             groups, wmajor = self._stack_member(member, batches, e_fn)
         run_chunk = fused.make_chunk_runner(
@@ -884,6 +915,7 @@ class LDATrainer:
             dense_wmajor=wmajor, warm_start=cfg.warm_start_gamma,
             alpha_max_iters=cfg.alpha_max_iters, yield_hook=self.yield_hook,
             dense_e_step_fn=self._mesh_dense_fn(member, wmajor),
+            dense_precision=cfg.dense_precision,
         )
         ll_prev = run.ll_prev
         ll_prev_dev = torch.tensor(math.nan if ll_prev is None else ll_prev,
@@ -954,19 +986,21 @@ class LDATrainer:
         """The batches stacked for `member` (not compact): token groups,
         or densified full-V groups ("dense", and "vocab_dense" on a
         vocab-sharded mesh, whose width is the padded vocabulary, always
-        row-major).  Under a mesh they are placed over it once, here.
-        Returns (groups, W-major)."""
+        row-major), stored as _corpus_store's dtype.  Under a mesh they
+        are placed over it once, here.  Returns (groups, W-major)."""
         wmajor = self.config.dense_wmajor
         groups = fused.stack_batches(batches, self.device, mesh=self.mesh,
                                      e_step_fn=e_fn,
                                      num_terms=self.num_terms)
         if member == "dense":
             groups = fused.densify_groups(groups, self.num_terms,
-                                          wmajor=wmajor)
+                                          wmajor=wmajor,
+                                          dtype=self._corpus_store(batches))
         elif member == "vocab_dense":
             wmajor = False
             groups = fused.densify_groups(groups, self.num_terms,
-                                          vocab=True)
+                                          vocab=True,
+                                          dtype=self._corpus_store(batches))
         return groups, wmajor
 
     def _mesh_dense_fn(self, member: str, wmajor: bool):
@@ -976,10 +1010,12 @@ class LDATrainer:
             return None
         from ..parallel import sharded
 
+        precision = self.config.dense_precision
         if member == "vocab_dense":
-            return sharded.make_vocab_sharded_dense_e_step(self.mesh)
-        return sharded.make_data_parallel_dense_e_step(self.mesh,
-                                                       wmajor=wmajor)
+            return sharded.make_vocab_sharded_dense_e_step(
+                self.mesh, precision=precision)
+        return sharded.make_data_parallel_dense_e_step(
+            self.mesh, wmajor=wmajor, precision=precision)
 
     def _shard_groups(self, member: str, batches, e_fn):
         """One shard's batches stacked on the device for `member`: token
@@ -990,13 +1026,16 @@ class LDATrainer:
         if not batches:
             return fused.StackedGroups((), ()), wmajor
         if member == "compact":
+            store = self._corpus_store(batches)
             plan = fused.plan_compact(batches, self.config.num_topics,
-                                      wmajor=wmajor)
+                                      self.config.dense_precision,
+                                      wmajor=wmajor, itemsize=store.itemsize)
             if plan is None:
                 raise ValueError("compact dense E-step chosen but K="
                                  f"{self.config.num_topics} exceeds the "
                                  "dense kernel's topics")
-            return (fused.compact_stack_batches(batches, self.device, plan),
+            return (fused.compact_stack_batches(batches, self.device, plan,
+                                               corpus_store=store),
                     plan.wmajor)
         return self._stack_member(member, batches, e_fn)
 
@@ -1031,7 +1070,8 @@ class LDATrainer:
                     num_topics=k, num_terms=v,
                     var_max_iters=cfg.var_max_iters, var_tol=cfg.var_tol,
                     e_step_fn=e_fn, dense_wmajor=wm,
-                    dense_e_step_fn=self._mesh_dense_fn(member, wm))
+                    dense_e_step_fn=self._mesh_dense_fn(member, wm),
+                    dense_precision=cfg.dense_precision)
         gammas_prev = [fused.initial_gammas(g.arrays, k, dense_wmajor=wm)
                        for g, wm in shards]
         have_prev = False
@@ -1203,7 +1243,7 @@ def train_corpus(
             config.sparse_min_bucket_len, device=dev)
         batches = list(corpus.bucketed_layout(
             min_len=sparse_l, batch_cap=config.batch_size,
-            pad_multiple=sparse_estep.pad_multiple_for(),
+            pad_multiple=sparse_estep.pad_multiple_for(config.dense_precision),
         ).batches)
     else:
         batches = make_batches(corpus, batch_size=config.batch_size,
@@ -1309,7 +1349,8 @@ def _shard_batches(corpus: Corpus, config: LDAConfig, plan, shards,
             made = list(piece.bucketed_layout(
                 min_len=min_len,
                 batch_cap=config.batch_size,
-                pad_multiple=sparse_estep.pad_multiple_for()).batches)
+                pad_multiple=sparse_estep.pad_multiple_for(
+                    config.dense_precision)).batches)
         else:
             made = make_batches(piece, batch_size=config.batch_size,
                                 min_bucket_len=config.min_bucket_len,

@@ -54,8 +54,9 @@ same for every slot.  Vocab sharding is batch-only: the natural-gradient
 blend wants the full lambda row normaliser every step, so a mesh with a
 model axis above 1 raises, and so does dense_em="on" with a mesh.  Under
 --multihost each rank's row slice of a micro-batch is what its local
-mesh splits.  A `compute_dtype` other than float32 raises (bf16 storage
-is its own ROADMAP item).
+mesh splits.  A `compute_dtype` other than float32 raises (its bf16
+storage waits with the fixed-point kernel's bf16 slab, ROADMAP Queue 2
+item 7).
 """
 
 from __future__ import annotations
@@ -193,8 +194,9 @@ class OnlineLDATrainer:
         if config.compute_dtype != "float32":
             raise ValueError(
                 f"OnlineLDAConfig.compute_dtype={config.compute_dtype!r}: "
-                "the port trains in float32 only (bf16 storage is ROADMAP "
-                "Queue 2 item 5)")
+                "the port trains in float32 only (compute_dtype bfloat16, "
+                "with the fixed-point kernel's bf16 slab, is ROADMAP Queue 2 "
+                "item 7)")
         if config.dense_em not in ("auto", "on", "off"):
             raise ValueError(
                 f"OnlineLDAConfig.dense_em={config.dense_em!r}: expected "

@@ -10,9 +10,12 @@ ctypes (no PyTorch headers, so a build takes seconds, not minutes):
 The library lands in `build/oni_ml_tpu_torch/` under the checkout, named
 by a hash of its source, the shared headers (csrc/*.cuh) and the flags,
 so an edited source or header never loads a stale build.  `build()`
-compiles several sources in parallel, one nvcc each.  Nothing here runs
-at import time: the CPU tests import every module on a machine with no
-nvcc.
+compiles several libraries in parallel, one nvcc each.  A library is a
+source compiled as it is, or one of its VARIANTS: the same source with
+a define that picks another instantiation (the bf16 storage mode's), so
+that the instantiations build in parallel, not one after the other in
+one nvcc.  Nothing here runs at import time: the CPU tests import every
+module on a machine with no nvcc.
 
 The build directory is the port's compilation cache: a library found
 there is a cache hit (`CACHE_HITS`), one compiled is a build
@@ -39,6 +42,17 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+# Library name -> (its source under csrc/, the defines it is compiled
+# with): the bf16 storage mode's instantiations (csrc/sparse_estep.cu
+# ONI_TABLE_BF16; csrc/dense_estep.cu ONI_DENSE_MODE 2 over a bf16
+# corpus, 1 over a float corpus).  Any other name is csrc/<name>.cu as
+# it is.
+VARIANTS = {
+    "sparse_estep_bf16": ("sparse_estep", ("-DONI_TABLE_BF16",)),
+    "dense_estep_bf16": ("dense_estep", ("-DONI_DENSE_MODE=2",)),
+    "dense_estep_bf16_f32corpus": ("dense_estep", ("-DONI_DENSE_MODE=1",)),
+}
+
 _LOADED: "dict[str, ctypes.CDLL]" = {}
 # name -> {"seconds": build wall (0.0 when cached), "ptxas": compiler log}
 BUILD_INFO: "dict[str, dict]" = {}
@@ -60,13 +74,19 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _source(name: str) -> "tuple[str, tuple]":
+    """(source name under csrc/, defines) of library `name`."""
+    return VARIANTS.get(name, (name, ()))
+
+
 def source_digest(name: str) -> str:
-    """The build hash of csrc/<name>.cu: the source, every shared header
-    (csrc/*.cuh) and the flags.  Names the library, and keys what was
-    measured with it (the engine crossover's plan entries)."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    """The build hash of library `name`: its source, every shared header
+    (csrc/*.cuh), the flags and its defines.  Names the library, and keys
+    what was measured with it (the engine crossover's plan entries)."""
+    src, defines = _source(name)
+    digest = hashlib.sha256(" ".join([*NVCC_FLAGS, *defines]).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for part in [f"{name}.cu", *headers]:
+    for part in [f"{src}.cu", *headers]:
         with open(os.path.join(CSRC, part), "rb") as f:
             digest.update(part.encode() + b"\0" + f.read())
     return digest.hexdigest()[:16]
@@ -86,8 +106,8 @@ def estep_kernels() -> str:
 
 
 def build(names) -> None:
-    """Compile every csrc/<name>.cu of `names` that is not built yet, one
-    nvcc per source, all started together."""
+    """Compile every library of `names` that is not built yet, one nvcc
+    per library, all started together."""
     global BUILDS, CACHE_HITS
     todo = {}
     for name in names:
@@ -104,18 +124,20 @@ def build(names) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
     t0 = time.perf_counter()
-    procs = {
-        name: subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", f"{lib}.{os.getpid()}.tmp",
-             os.path.join(CSRC, f"{name}.cu")],
+    procs = {}
+    for name, lib in todo.items():
+        src, defines = _source(name)
+        procs[name] = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *defines, "-o", f"{lib}.{os.getpid()}.tmp",
+             os.path.join(CSRC, f"{src}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name, lib in todo.items()
-    }
     failed = []
     for name, proc in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for csrc/{name}.cu:\n{out}")
+            src, defines = _source(name)
+            failed.append(f"nvcc failed for csrc/{src}.cu {' '.join(defines)}"
+                          f":\n{out}")
             continue
         os.replace(f"{todo[name]}.{os.getpid()}.tmp", todo[name])
         BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "ptxas": out}
@@ -126,7 +148,7 @@ def build(names) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built on first use."""
+    """The loaded library `name`, built on first use."""
     if name not in _LOADED:
         build([name])
         lib = ctypes.CDLL(_lib_path(name))

@@ -32,6 +32,18 @@ non-zero cells (and the scratch that takes a block whose lists do not
 fit).  A document has at most min(W, L) non-zero cells when its batch
 was densified from [B, L] token lists: callers that know L pass it as
 `cells`, which bounds both.
+
+Precision (`LDAConfig.dense_precision`): "f32", or "bf16", the TPU
+kernels' operand mode: beta, exp_et and each cell's ratio rounded to
+bf16 (round-to-nearest-even) before the fixed point's two products,
+whose sums stay f32; the tail runs in f32 on f32 beta.  On the TPU that
+mode changes no result, since XLA's default matmul precision truncates
+f32 operands to bf16 anyway; on the card the f32 path is full f32, so
+bf16 here is a numeric mode of its own, held to tolerances against f32
+(tests/test_torch_bf16.py).  In that mode the corpus is stored as bf16
+where every densified cell is at most 256 (`corpus_dtype`, exact).  The
+card runs it as its own instantiation of the kernel, counted apart in
+`bf16_launch_count`.
 """
 
 from __future__ import annotations
@@ -46,6 +58,11 @@ from .special import digamma_pos, gammaln_pos
 from .stop import fp_continue
 
 KERNEL = "dense_estep"
+# The bf16 mode's instantiations, the same source as libraries of their
+# own (ops/_cuda.py VARIANTS): over a bf16-stored corpus, and over a
+# float corpus (a cell above 256).
+KERNEL_BF16 = "dense_estep_bf16"
+KERNEL_BF16_F32CORPUS = "dense_estep_bf16_f32corpus"
 # Largest doc block the kernel is compiled for (csrc/dense_estep.cu
 # launch_bb).
 MAX_BLOCK_DOCS = 4
@@ -72,29 +89,30 @@ SMEM_STATIC = 4_096
 SMEM_TWO_PER_SM = 102_400
 
 launch_count = 0
+# Of those, the launches of the bf16 instantiations (precision "bf16").
+bf16_launch_count = 0
 # Device counter of the launches that ran past the stop check.
 _EXECUTED = _cuda.ExecutedCounters(1)
-_FN = None   # (library, oni_dense_estep), typed once at first load
+_FN: dict = {}   # library name -> (library, oni_dense_estep), typed once
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
-        lib = _cuda.load(KERNEL)
+def _kernel(name: str = KERNEL):
+    if name not in _FN:
+        lib = _cuda.load(name)
         fn = lib.oni_dense_estep
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, ll, ll, i, p, p, p, p, p, i, i, i, i, i, i, i,
                        ctypes.c_float, i, i, p, p, p, p, p, p, p, p, p, p,
                        p]
         fn.restype = i
-        _FN = (lib, fn)
-    return _FN
+        _FN[name] = (lib, fn)
+    return _FN[name]
 
 
 def reset_launch_count() -> None:
-    """Zero the launch count and the executed counter."""
-    global launch_count
-    launch_count = 0
+    """Zero the launch counts and the executed counter."""
+    global launch_count, bf16_launch_count
+    launch_count = bf16_launch_count = 0
     _EXECUTED.reset()
 
 
@@ -113,22 +131,25 @@ def padded_width(num_terms: int) -> int:
 
 
 def kernel_cost(b: int, w: int, k: int, nnz_doc, nnz_block, block_iters,
-                block: int, warm: bool) -> "tuple[float, float]":
+                block: int, warm: bool,
+                corpus_itemsize: int = 4) -> "tuple[float, float]":
     """(FLOPs, bytes) one launch needs for these inputs.  Every output
     depends only on the non-zero cells of C (a zero cell adds exactly
     zero to s, T and the token term), so: 4*K operations per non-zero
     cell per fixed-point iteration of its block (q and the s
     contraction), plus 4*K per non-zero cell for the tail (q and T)
     (`nnz_doc` per document, `nnz_block` and `block_iters` per block);
-    bytes: C [B, W] read once, beta in and T out ([K, W] each), mask,
-    gamma in when warm, gamma, docll and ass out, iterations per
-    block."""
+    bytes: C [B, W] read once at its storage width (`corpus_itemsize`:
+    2 for a bf16 corpus), beta in (f32 in both modes: the bf16 mode
+    rounds it in registers) and T out ([K, W] each), mask, gamma in when
+    warm, gamma, docll and ass out, iterations per block."""
     nnz_doc = np.asarray(nnz_doc, np.int64)
     nnz_block = np.asarray(nnz_block, np.int64)
     block_iters = np.asarray(block_iters, np.int64)
     flops = float(4 * k * ((nnz_block * block_iters).sum() + nnz_doc.sum()))
-    nbytes = (b * w * 4 + 2 * k * w * 4 + b * 4 + (b * k * 4 if warm else 0)
-              + b * k * 4 + b * 8 + (b // block) * 4)
+    nbytes = (b * w * corpus_itemsize + 2 * k * w * 4 + b * 4
+              + (b * k * 4 if warm else 0) + b * k * 4 + b * 8
+              + (b // block) * 4)
     return flops, float(nbytes)
 
 
@@ -141,7 +162,8 @@ def pick_block(b: int, v: int, k: int, precision: str = "f32") -> int:
     """Doc block for a batch of `b` docs on the card: the largest power
     of two <= _max_block(k) dividing `b` that still gives at least
     NUM_SMS blocks, else 1.  V does not enter: nothing in the kernel is
-    sized by it."""
+    sized by it; nor does the precision, which is checked (both modes
+    stage the same f32 cells)."""
     _check_precision(precision)
     if b <= 0:
         raise ValueError(f"batch size must be positive, got {b}")
@@ -193,19 +215,61 @@ def pick_block_w(b: int, v: int, k: int, precision: str = "f32") -> int:
     return pick_block(b, v, k, precision)
 
 
+_PRECISIONS = ("f32", "bf16")
+
+
 def _check_precision(precision: str) -> None:
-    if precision != "f32":
+    if precision not in _PRECISIONS:
         raise ValueError(
-            f"dense E-step precision {precision!r} is not supported by the "
-            "port; expected 'f32'"
+            f"unknown dense E-step precision {precision!r} (set via "
+            "LDAConfig.dense_precision); expected one of "
+            f"{'/'.join(_PRECISIONS)}"
         )
 
 
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (round-to-nearest-even, as XLA's astype and
+    the card's __float2bfloat16_rn round) and upcast to float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def max_dense_cell(word_idx, counts) -> float:
+    """Largest value any densified cell will hold: the max over
+    (doc, word) of the summed counts of duplicate tokens (the corpus
+    keeps duplicate (doc, word) pairs as separate tokens, and the
+    analyst-feedback path replicates a row 1,000 times), not the largest
+    raw count.  Host arrays, as the JAX package's."""
+    w = np.asarray(word_idx, np.int64)
+    c = np.asarray(counts, np.float64)
+    if w.size == 0:
+        return 0.0
+    docs = np.arange(w.shape[0], dtype=np.int64)[:, None]
+    keys = (docs * (int(w.max()) + 1) + w).ravel()
+    _, inv = np.unique(keys, return_inverse=True)
+    sums = np.bincount(inv.ravel(), weights=c.ravel())
+    return float(sums.max()) if sums.size else 0.0
+
+
+def corpus_dtype(cell_max: float, precision: str = "f32") -> torch.dtype:
+    """Storage dtype of the densified corpus: bf16 in the bf16 mode when
+    every densified cell (max_dense_cell) is at most 256, the largest
+    range in which bf16's 8 significand bits hold every integer, so the
+    kernels read the exact counts from half the bytes; float32
+    otherwise."""
+    _check_precision(precision)
+    if precision == "bf16" and cell_max <= 256:
+        return torch.bfloat16
+    return torch.float32
+
+
 def densify(word_idx: torch.Tensor, counts: torch.Tensor, num_terms: int,
-            width: "int | None" = None) -> torch.Tensor:
+            width: "int | None" = None,
+            dtype: "torch.dtype | None" = None) -> torch.Tensor:
     """[B, L] token lists -> [B, W] dense counts, run once per run.  The
-    scatter adds integer-valued counts, so it is exact in any order
-    (padding tokens carry count 0 and add nothing to column 0)."""
+    scatter adds integer-valued counts in float32, so it is exact in any
+    order (padding tokens carry count 0 and add nothing to column 0).
+    `dtype` is the storage dtype (corpus_dtype): the sums convert to it
+    once at the end, never accumulating in bf16."""
     if width is None:
         width = padded_width(num_terms)
     elif width < num_terms:
@@ -213,7 +277,7 @@ def densify(word_idx: torch.Tensor, counts: torch.Tensor, num_terms: int,
     b = word_idx.shape[0]
     dense = torch.zeros((b, width), dtype=torch.float32, device=counts.device)
     dense.scatter_add_(1, word_idx.long(), counts.float())
-    return dense
+    return dense if dtype is None else dense.to(dtype)
 
 
 def padded_exp_beta(log_beta: torch.Tensor, width: int) -> torch.Tensor:
@@ -242,11 +306,15 @@ def dense_fixed_point_reference(
     block: int,
     gamma_prev=None,          # [B, K] warm start
     warm=None,
+    precision: str = "f32",
 ):
     """The kernel's arithmetic in PyTorch ops, vectorised over doc
     blocks: each block stops on its own max relative delta, converged
-    blocks freeze.  Returns (gamma [B, K], T [K, W], docll [B], ass [B],
-    iters [B // block] int32)."""
+    blocks freeze.  With precision "bf16" the fixed point's two products
+    read beta, exp_et and the ratio rounded to bf16, as the kernel's bf16
+    instantiation does; the tail reads f32 beta.  Returns (gamma [B, K],
+    T [K, W], docll [B], ass [B], iters [B // block] int32)."""
+    _check_precision(precision)
     b, w = counts_bw.shape
     k = exp_beta.shape[0]
     nb = b // block
@@ -261,8 +329,13 @@ def dense_fixed_point_reference(
     def e_log_theta(g):
         return digamma_pos(g) - digamma_pos(g.sum(1, keepdim=True))
 
-    def qmat(exp_et):
-        return exp_et @ exp_beta + 1e-30                  # [B, W]
+    def qmat(exp_et, beta=exp_beta):
+        return exp_et @ beta + 1e-30                      # [B, W]
+
+    if precision == "bf16":
+        beta_m, cast = round_bf16(exp_beta), round_bf16
+    else:
+        beta_m, cast = exp_beta, (lambda x: x)
 
     gamma = mean0.expand(b, k).clone()
     if gamma_prev is not None:
@@ -277,8 +350,8 @@ def dense_fixed_point_reference(
         if not bool(active.any()):
             break
         exp_et = torch.exp(e_log_theta(gamma))
-        ratio = c / qmat(exp_et)
-        gamma_new = alpha + exp_et * (ratio @ exp_beta.t())
+        ratio = c / qmat(cast(exp_et), beta_m)
+        gamma_new = alpha + exp_et * (cast(ratio) @ beta_m.t())
         d_doc = (gamma_new - gamma).abs().mean(1) * inv_scale[:, 0] * mask
         d_blk = d_doc.view(nb, block).max(1).values
         act_doc = active.repeat_interleave(block)[:, None]
@@ -308,14 +381,16 @@ def dense_fixed_point_reference(
 
 
 def _launch_cuda(exp_beta, alpha, counts, wmajor, doc_mask, var_max_iters,
-                 var_tol, block, cells, gamma_in, warm, stop):
-    global launch_count
+                 var_tol, block, cells, gamma_in, warm, stop, precision):
+    global launch_count, bf16_launch_count
     k, w = exp_beta.shape
     b = counts.shape[1] if wmajor else counts.shape[0]
     dev = counts.device
+    c_bf16 = counts.dtype == torch.bfloat16
     operands = [
         ("exp_beta", exp_beta, torch.float32, (k, w)),
-        ("dense_counts", counts, torch.float32, (w, b) if wmajor else (b, w)),
+        ("dense_counts", counts, torch.bfloat16 if c_bf16 else torch.float32,
+         (w, b) if wmajor else (b, w)),
         ("doc_mask", doc_mask, torch.float32, (b,)),
         ("gamma_in", gamma_in, torch.float32, (b, k)),
         ("alpha", alpha, torch.float32, ()),
@@ -347,7 +422,8 @@ def _launch_cuda(exp_beta, alpha, counts, wmajor, doc_mask, var_max_iters,
     ratio = torch.empty((b, w), dtype=f32, device=dev)
     scratch = (torch.empty((geom["scratch_bytes"] // 4,), dtype=f32,
                            device=dev) if geom["scratch_bytes"] else None)
-    lib, fn = _kernel()
+    lib, fn = _kernel(KERNEL if precision == "f32" else KERNEL_BF16 if c_bf16
+                      else KERNEL_BF16_F32CORPUS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
@@ -363,6 +439,8 @@ def _launch_cuda(exp_beta, alpha, counts, wmajor, doc_mask, var_max_iters,
         )
     _cuda.check(lib, err, f"dense_estep launch, geometry {geom}")
     launch_count += 1
+    if precision == "bf16":
+        bf16_launch_count += 1
     return gamma, t, docll, ass, iters
 
 
@@ -379,9 +457,13 @@ def fixed_point_blocks(
     warm=None,                    # gates gamma_prev: 0 fresh, nonzero warm
     stop: "torch.Tensor | None" = None,   # int32 scalar stop flag
     cells: "int | None" = None,   # non-zero cells a doc may have (L)
+    precision: str = "f32",       # "bf16": the bf16 operand mode
 ):
     """Dense E-step core -> (gamma [B, K], T [K, W], docll [B], ass [B],
     iters per block [B // block] int32), either layout.
+
+    `dense_counts` may be stored as bf16 (corpus_dtype) only with
+    precision "bf16", as the JAX package's drivers store it.
 
     `cells` bounds each document's non-zero cells (the L of the [B, L]
     token lists the batch was densified from; W when None) and so the
@@ -392,10 +474,14 @@ def fixed_point_blocks(
     once it is nonzero the kernels return at once and the outputs hold
     no values (the driver discards them).  The plain version computes
     them all the same; the driver discards them there too."""
+    _check_precision(precision)
+    if dense_counts.dtype == torch.bfloat16 and precision != "bf16":
+        raise ValueError("a bf16-stored corpus needs precision 'bf16' "
+                         "(corpus_dtype stores bf16 in that mode only)")
     k = exp_beta.shape[0]
     b = dense_counts.shape[1] if wmajor else dense_counts.shape[0]
     bb = block or (pick_block_w if wmajor else pick_block)(
-        b, exp_beta.shape[1], k)
+        b, exp_beta.shape[1], k, precision)
     if b % bb:
         raise ValueError(f"doc block {bb} does not divide batch size {b}")
     if gamma_prev is not None:
@@ -405,7 +491,7 @@ def fixed_point_blocks(
         return dense_fixed_point_reference(
             exp_beta, alpha, dense_counts.t() if wmajor else dense_counts,
             doc_mask, var_max_iters, var_tol, bb, gamma_prev=gamma_prev,
-            warm=warm,
+            warm=warm, precision=precision,
         )
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -416,31 +502,31 @@ def fixed_point_blocks(
         gamma_in, warm_i = gamma_prev, 1
     return _launch_cuda(exp_beta, torch.as_tensor(alpha), dense_counts,
                         wmajor, doc_mask, var_max_iters, var_tol, bb,
-                        cells, gamma_in, warm_i, stop)
+                        cells, gamma_in, warm_i, stop, precision)
 
 
 def dense_fixed_point(exp_beta, alpha, dense_counts, doc_mask, var_max_iters,
                       var_tol, block=None, gamma_prev=None, warm=None,
-                      stop=None, cells=None):
+                      stop=None, cells=None, precision="f32"):
     """Row-major C [B, W]: the JAX contract (gamma [B, K], T [K, W],
     docll [B], alpha_ss_part [B], iters = max over blocks).  docll is the
     per-doc ELBO without the alpha-prior constant."""
     gamma, t, docll, ass, iters = fixed_point_blocks(
         exp_beta, alpha, dense_counts, doc_mask, var_max_iters, var_tol,
         block=block, gamma_prev=gamma_prev, warm=warm, stop=stop,
-        cells=cells)
+        cells=cells, precision=precision)
     return gamma, t, docll, ass, iters.max()
 
 
 def dense_fixed_point_w(exp_beta, alpha, dense_counts_t, doc_mask,
                         var_max_iters, var_tol, block=None, gamma_prev=None,
-                        warm=None, stop=None, cells=None):
+                        warm=None, stop=None, cells=None, precision="f32"):
     """W-major twin of dense_fixed_point over C^T [W, B]; same returns
     (gamma [B, K], as in the JAX package)."""
     gamma, t, docll, ass, iters = fixed_point_blocks(
         exp_beta, alpha, dense_counts_t, doc_mask, var_max_iters, var_tol,
         block=block, wmajor=True, gamma_prev=gamma_prev, warm=warm,
-        stop=stop, cells=cells)
+        stop=stop, cells=cells, precision=precision)
     return gamma, t, docll, ass, iters.max()
 
 
@@ -459,12 +545,14 @@ def e_step_dense(
     stop: "torch.Tensor | None" = None,
     alpha_const: "torch.Tensor | None" = None,
     cells: "int | None" = None,
+    precision: str = "f32",     # "bf16": the bf16 operand mode
 ) -> estep.EStepResult:
     """estep.e_step semantics over a densified batch.  Pass `exp_beta`
     (padded_exp_beta(log_beta, W)) and `alpha_const`
     (estep.alpha_constant) to share them across the batches of an EM
     iteration, and `cells` (the L the batch was densified from) to bound
-    the card's scratch (fixed_point_blocks)."""
+    the card's scratch (fixed_point_blocks).  `exp_beta` stays f32 in
+    both precisions: the bf16 mode rounds it for the fixed point only."""
     k, v = log_beta.shape
     w = dense_counts.shape[0] if wmajor else dense_counts.shape[1]
     if exp_beta is None:
@@ -475,7 +563,7 @@ def e_step_dense(
     gamma, t, docll, ass, iters = fp(
         exp_beta, alpha, dense_counts, doc_mask, var_max_iters, var_tol,
         block=block, gamma_prev=gamma_prev, warm=warm, stop=stop,
-        cells=cells)
+        cells=cells, precision=precision)
     suff = (exp_beta * t)[:, :v].t()            # [V, K]
     if alpha_const is None:
         alpha_const = estep.alpha_constant(alpha, k)

@@ -27,6 +27,17 @@ Two functions, each with two implementations:
 There is no fallback between them: a CUDA tensor launches the kernel or
 raises.
 
+Precision: "f32", or "bf16", the JAX kernel's bf16 slab: the
+exp(log beta)^T table is rounded to bf16 once per EM iteration
+(`exp_beta_table(..., "bf16")`, round-to-nearest-even as XLA's astype)
+and everything downstream reads the rounded values upcast to f32
+(phinorm, the gamma update, phi_c and the token term), with f32 sums and
+an f32 gamma carry.  The kernel takes the table's dtype as its
+precision; its bf16 instantiation counts apart in `bf16_launch_count`.
+On the TPU that mode was the slab's storage; on the card it halves the
+table's bytes, and its results differ from f32 within bf16 tolerances
+(tests/test_torch_bf16.py).
+
 Block semantics: every document of a block of `block` documents
 iterates until the block's max relative delta says stop (ops/stop.py),
 exactly the Pallas kernel's per-grid-step rule, so the two agree bit for
@@ -50,6 +61,9 @@ from .special import digamma_pos, gammaln_pos
 from .stop import fp_continue
 
 KERNEL = "sparse_estep"
+# The bf16 table's instantiation: the same source, its own library
+# (ops/_cuda.py VARIANTS).
+KERNEL_BF16 = "sparse_estep_bf16"
 # Largest doc block (the stop group): one CTA takes the whole block.
 MAX_BLOCK_DOCS = 8
 # H100 SXM streaming multiprocessors: the block pick aims for at least
@@ -64,16 +78,18 @@ MAX_THREADS = pallas_estep.MAX_THREADS
 MAX_CLUSTER = pallas_estep.MAX_CLUSTER
 
 launch_count = 0           # E-step kernel launches
+bf16_launch_count = 0      # of those, launches over a bf16 table
 scatter_launch_count = 0   # scatter kernel launches
 # Device counters of the launches that ran: E-step (0), scatter (1).
 _EXECUTED = _cuda.ExecutedCounters(2)
-_FN = None   # (library, oni_sparse_estep, oni_sparse_scatter), typed once
+# library name -> (library, oni_sparse_estep, oni_sparse_scatter), typed
+# once per library
+_FN: dict = {}
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
-        lib = _cuda.load(KERNEL)
+def _kernel(name: str = KERNEL):
+    if name not in _FN:
+        lib = _cuda.load(name)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = lib.oni_sparse_estep
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i,
@@ -82,14 +98,14 @@ def _kernel():
         scatter = lib.oni_sparse_scatter
         scatter.argtypes = [p, p, p, p, p, p, i, i, p, p]
         scatter.restype = i
-        _FN = (lib, fn, scatter)
-    return _FN
+        _FN[name] = (lib, fn, scatter)
+    return _FN[name]
 
 
 def reset_launch_count() -> None:
     """Zero the launch counts and the executed counters."""
-    global launch_count, scatter_launch_count
-    launch_count = scatter_launch_count = 0
+    global launch_count, scatter_launch_count, bf16_launch_count
+    launch_count = scatter_launch_count = bf16_launch_count = 0
     _EXECUTED.reset()
 
 
@@ -116,16 +132,25 @@ def pick_block(b: int) -> int:
     return bb
 
 
-def pad_multiple_for(precision: str = "f32") -> int:
-    """Batch-axis pad multiple of the bucketed layout: every doc block
-    pick_block can return divides a multiple of 8.  Only float32 beta is
-    supported in this port."""
-    if precision != "f32":
+_PRECISIONS = ("f32", "bf16")
+
+
+def _check_precision(precision: str) -> None:
+    if precision not in _PRECISIONS:
         raise ValueError(
-            f"sparse E-step precision {precision!r} is not supported by "
-            "the port; expected 'f32'"
+            f"unknown sparse E-step precision {precision!r}; expected "
+            f"one of {'/'.join(_PRECISIONS)}"
         )
-    return MAX_BLOCK_DOCS
+
+
+def pad_multiple_for(precision: str = "f32") -> int:
+    """Batch-axis pad multiple of the bucketed layout, the JAX package's:
+    8 for f32, 16 for bf16 (its bf16 doc blocks sit on a 16-row tile).
+    Every doc block pick_block can return divides both, so the card needs
+    no more than 8; the bf16 layout keeps 16, so the two packages' bf16
+    batches have the same shapes."""
+    _check_precision(precision)
+    return 16 if precision == "bf16" else MAX_BLOCK_DOCS
 
 
 def resolve_layout_len(config_value=None, use_plans: bool = True,
@@ -156,12 +181,12 @@ def launch_geometry(b: int, l: int, k: int, block: "int | None" = None) -> dict:
 
 def available(b: int, l: int, k: int, device, precision: str = "f32") -> bool:
     """True where the per-batch dispatch may take this kernel: a CUDA
-    device, K within the compiled bound, float32 beta.  B and L do not
-    enter: pick_block always finds a block, and where a document's tile
-    does not fit in 8 CTAs' shared memory the kernel reads the beta
-    table from device memory instead."""
-    return (torch.device(device).type == "cuda" and 0 < k <= MAX_TOPICS
-            and precision == "f32")
+    device and K within the compiled bound, at either precision (an
+    unknown one raises).  B and L do not enter: pick_block always finds a
+    block, and where a document's tile does not fit in 8 CTAs' shared
+    memory the kernel reads the beta table from device memory instead."""
+    _check_precision(precision)
+    return torch.device(device).type == "cuda" and 0 < k <= MAX_TOPICS
 
 
 class LiveTokens(NamedTuple):
@@ -192,11 +217,17 @@ def live_tokens(word_idx: torch.Tensor, counts: torch.Tensor) -> LiveTokens:
                       seg_word.int())
 
 
-def exp_beta_table(log_beta: torch.Tensor) -> torch.Tensor:
-    """exp(log beta)^T as a contiguous [V, K] float32 table — the
-    kernel's beta operand, built once per EM iteration.  Subnormal
-    entries are zero, as XLA computes them (estep.flush_subnormal)."""
-    return estep.flush_subnormal(torch.exp(log_beta.float())).t().contiguous()
+def exp_beta_table(log_beta: torch.Tensor,
+                   precision: str = "f32") -> torch.Tensor:
+    """exp(log beta)^T as a contiguous [V, K] table, the kernel's beta
+    operand, built once per EM iteration: float32, or with precision
+    "bf16" rounded to bfloat16 (round-to-nearest-even, as XLA's astype
+    rounds the JAX package's slab).  Subnormal entries are zero, as XLA
+    computes them (estep.flush_subnormal), before the rounding, so no
+    bf16 subnormal arises."""
+    _check_precision(precision)
+    table = estep.flush_subnormal(torch.exp(log_beta.float())).t().contiguous()
+    return table.to(torch.bfloat16) if precision == "bf16" else table
 
 
 # ---------------------------------------------------------------------------
@@ -205,7 +236,7 @@ def exp_beta_table(log_beta: torch.Tensor) -> torch.Tensor:
 
 
 def fixed_point_full_reference(
-    expb_vk: torch.Tensor,    # [V, K] exp(log beta)^T
+    expb_vk: torch.Tensor,    # [V, K] exp(log beta)^T, f32 or bf16
     alpha: torch.Tensor,      # scalar
     word_idx: torch.Tensor,   # [B, L]
     counts: torch.Tensor,     # [B, L] f32
@@ -218,14 +249,15 @@ def fixed_point_full_reference(
 ):
     """The kernel's arithmetic in PyTorch ops, vectorised over doc
     blocks: each block stops on its own max relative delta, converged
-    blocks freeze.  Returns (gamma [B, K], phi_c [B, L, K], docll [B],
-    ass [B], iters [B // block] int32)."""
+    blocks freeze.  A bf16 table (the bf16 mode) is upcast exactly and
+    read everywhere, the tail included.  Returns (gamma [B, K],
+    phi_c [B, L, K], docll [B], ass [B], iters [B // block] int32)."""
     b, l = counts.shape
     k = expb_vk.shape[1]
     nb = b // block
     dev = counts.device
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
-    slab = expb_vk[word_idx.long()]                       # [B, L, K]
+    slab = expb_vk[word_idx.long()].float()               # [B, L, K]
     counts = counts.float()
     mask = doc_mask.float()
     n_d = counts.sum(1, keepdim=True)                     # [B, 1]
@@ -288,12 +320,14 @@ def fixed_point_full_reference(
 
 def _launch_cuda(expb_vk, alpha, word_idx, counts, doc_mask, var_max_iters,
                  var_tol, block, gamma_in, warm, stop):
-    global launch_count
+    global launch_count, bf16_launch_count
     b, l = word_idx.shape
     k = expb_vk.shape[1]
     dev = word_idx.device
+    bf16 = expb_vk.dtype == torch.bfloat16
     operands = [
-        ("expb_vk", expb_vk, torch.float32, (expb_vk.shape[0], k)),
+        ("expb_vk", expb_vk, torch.bfloat16 if bf16 else torch.float32,
+         (expb_vk.shape[0], k)),
         ("word_idx", word_idx, torch.int32, (b, l)),
         ("counts", counts, torch.float32, (b, l)),
         ("doc_mask", doc_mask, torch.float32, (b,)),
@@ -314,7 +348,7 @@ def _launch_cuda(expb_vk, alpha, word_idx, counts, doc_mask, var_max_iters,
     docll = torch.empty((b,), dtype=torch.float32, device=dev)
     ass = torch.empty((b,), dtype=torch.float32, device=dev)
     iters = torch.empty((b // block,), dtype=torch.int32, device=dev)
-    lib, fn, _ = _kernel()
+    lib, fn, _ = _kernel(KERNEL_BF16 if bf16 else KERNEL)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
@@ -330,11 +364,13 @@ def _launch_cuda(expb_vk, alpha, word_idx, counts, doc_mask, var_max_iters,
     # memory) raises with its geometry; nothing retries on plain ops.
     _cuda.check(lib, err, f"sparse_estep launch, geometry {geom}")
     launch_count += 1
+    if bf16:
+        bf16_launch_count += 1
     return gamma, phic, docll, ass, iters
 
 
 def fixed_point_blocks(
-    expb_vk: torch.Tensor,    # [V, K] exp(log beta)^T, f32
+    expb_vk: torch.Tensor,    # [V, K] exp(log beta)^T, f32 or bf16
     alpha: torch.Tensor,      # scalar f32 tensor on the batch's device
     word_idx: torch.Tensor,   # [B, L] int32
     counts: torch.Tensor,     # [B, L] f32
@@ -449,18 +485,19 @@ def e_step(
     live: "LiveTokens | None" = None,
     stop: "torch.Tensor | None" = None,
     alpha_const: "torch.Tensor | None" = None,
+    precision: str = "f32",
 ) -> estep.EStepResult:
     """The whole E-step of one batch: kernel (or its plain version on
     the CPU), [V, K] scatter of phi_c over the live tokens, alpha-prior
-    constant.  Pass `expb_vk` (exp_beta_table(log_beta)) to share the
-    table across the batches of an EM iteration, `live`
-    (live_tokens(word_idx, counts)) to reuse the batch's plan,
-    `alpha_const` (estep.alpha_constant) to share it too, and `stop`
-    under the chunk driver (see fixed_point_blocks)."""
+    constant.  Pass `expb_vk` (exp_beta_table(log_beta, precision)) to
+    share the table across the batches of an EM iteration (its dtype is
+    then the precision), `live` (live_tokens(word_idx, counts)) to reuse
+    the batch's plan, `alpha_const` (estep.alpha_constant) to share it
+    too, and `stop` under the chunk driver (see fixed_point_blocks)."""
     k, v = log_beta.shape
     dev = word_idx.device
     if expb_vk is None:
-        expb_vk = exp_beta_table(log_beta)
+        expb_vk = exp_beta_table(log_beta, precision)
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
     gamma, phic, docll, ass, iters = fixed_point_blocks(
         expb_vk, alpha, word_idx, counts, doc_mask, var_max_iters, var_tol,
@@ -518,17 +555,19 @@ def em_iteration_cost(num_docs: int, live_tokens: int, num_terms: int,
 
 
 def kernel_cost(b: int, l: int, k: int, v: int, live, doc_iters, block: int,
-                warm: bool) -> "tuple[float, float]":
+                warm: bool, table_itemsize: int = 4) -> "tuple[float, float]":
     """(FLOPs, bytes) one launch of the kernel needs for these inputs:
     4*K operations per live token for each fixed-point iteration its
     block ran, plus one for the tail (`live`, `doc_iters`: per document);
-    bytes: each input read once (the [V, K] table, word ids and counts,
-    mask, alpha, gamma when warm) and each output written once (gamma,
+    bytes: each input read once (the [V, K] table at its storage width,
+    `table_itemsize` 2 in the bf16 mode, word ids and counts, mask,
+    alpha, gamma when warm) and each output written once (gamma,
     phi_c [B, L, K], docll and ass, iterations per block)."""
     live = np.asarray(live, np.int64)
     doc_iters = np.asarray(doc_iters, np.int64)
     flops = float(4 * k * (live * (doc_iters + 1)).sum())
-    nbytes = (v * k * 4 + b * l * 8 + b * 4 + 4 + (b * k * 4 if warm else 0)
+    nbytes = (v * k * table_itemsize + b * l * 8 + b * 4 + 4
+              + (b * k * 4 if warm else 0)
               + b * k * 4 + b * l * k * 4 + b * 8 + (b // block) * 4)
     return flops, float(nbytes)
 
@@ -609,9 +648,11 @@ def measure_crossover(k: int, v: int, b: int, l: int, *,
     sparse_ok = k <= MAX_TOPICS
     dense_ok = k <= dense_estep.MAX_TOPICS
     if dev.type == "cuda":
-        _cuda.build([name for name, ok in ((KERNEL, sparse_ok),
-                                           (dense_estep.KERNEL, dense_ok))
-                     if ok])
+        _cuda.build([name for name, ok in (
+            (KERNEL if precision == "f32" else KERNEL_BF16, sparse_ok),
+            (dense_estep.KERNEL, dense_ok),
+            (dense_estep.KERNEL_BF16, dense_ok and precision == "bf16"))
+            if ok])
 
     def sync():
         if dev.type == "cuda":
@@ -621,14 +662,18 @@ def measure_crossover(k: int, v: int, b: int, l: int, *,
     if sparse_ok:
         live = live_tokens(word, counts)
         runs["sparse"] = lambda: e_step(log_beta, alpha, word, counts, mask,
-                                        vi, 0.0, live=live)
+                                        vi, 0.0, live=live,
+                                        precision=precision)
     if dense_ok:
-        dense = dense_estep.densify(word, counts, v)
+        store = dense_estep.corpus_dtype(
+            dense_estep.max_dense_cell(word.cpu().numpy(),
+                                       counts.cpu().numpy()), precision)
+        dense = dense_estep.densify(word, counts, v, dtype=store)
         if wmajor:
             dense = dense.t().contiguous()
         runs["dense"] = lambda: dense_estep.e_step_dense(
             log_beta, alpha, dense, mask, vi, 0.0, wmajor=wmajor,
-            cells=word.shape[1])
+            cells=word.shape[1], precision=precision)
     for run in runs.values():              # build, load and warm both
         run()
     sync()

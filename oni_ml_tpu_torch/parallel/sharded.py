@@ -193,7 +193,9 @@ def make_data_parallel_dense_e_step(mesh: Mesh, wmajor: bool = False,
     W-major) or its placement over the mesh (spec (DATA, None), or
     (None, DATA) W-major); the local batch is B / data_size.  The
     keyword operands are e_step_dense's: the drivers' shared tables
-    (moved to each slot's device) and `cells`."""
+    (moved to each slot's device) and `cells`.  `precision` is the dense
+    kernel's mode on every slot (dense_estep: "bf16" takes its bf16
+    instantiation, and the corpus may be stored as bf16)."""
     from ..ops import dense_estep
 
     dense_estep._check_precision(precision)
@@ -217,7 +219,8 @@ def make_data_parallel_dense_e_step(mesh: Mesh, wmajor: bool = False,
                 var_max_iters, var_tol, block=block, wmajor=wmajor,
                 gamma_prev=_gamma_slice(gamma_prev, i, b // d, dev),
                 warm=warm, exp_beta=_on(exp_beta, dev), stop=_on(stop, dev),
-                alpha_const=_on(alpha_const, dev), cells=cells))
+                alpha_const=_on(alpha_const, dev), cells=cells,
+                precision=precision))
             mesh.count_launches(before, kernel_launches(), i)
         return _join(mesh, outs, psum([o.suff_stats for o in outs]))
 
@@ -244,9 +247,11 @@ def make_vocab_sharded_dense_e_step(mesh: Mesh, precision: str = "f32"):
 
     Semantics match ops/dense_estep.e_step_dense (same fresh init, same
     q + 1e-30 guard, same masked-delta stop, full-f32 tail, warm start
-    via gamma_prev/warm).  Requirements: dense width == log_beta width,
-    both divisible by the model-axis size; batch divisible by the
-    data-axis size.  Pad the vocab with pad_vocab + LOG_ZERO beta
+    via gamma_prev/warm, and with precision "bf16" its in-loop rounding
+    of beta, exp_et and the ratio to bf16 before each product; the
+    corpus may be stored as bf16).  Requirements: dense width ==
+    log_beta width, both divisible by the model-axis size; batch
+    divisible by the data-axis size.  Pad the vocab with pad_vocab + LOG_ZERO beta
     columns: padded C columns are zero, so every contraction over them is
     exact.  `host_stop` (default: off the card) reads each iteration's
     stop on the host; on the card every iteration is enqueued and a
@@ -255,6 +260,7 @@ def make_vocab_sharded_dense_e_step(mesh: Mesh, precision: str = "f32"):
 
     dense_estep._check_precision(precision)
     d_sz, m_sz = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+    cast = dense_estep.round_bf16 if precision == "bf16" else (lambda x: x)
 
     def row(i, log_beta, alpha, c, m, gamma_prev, warm, var_max_iters,
             var_tol, host_stop):
@@ -263,7 +269,8 @@ def make_vocab_sharded_dense_e_step(mesh: Mesh, precision: str = "f32"):
         betas = [estep.flush_subnormal(torch.exp(
             log_beta[:, j * w_l:(j + 1) * w_l].to(mesh.device(i, j))))
             for j in range(m_sz)]                     # [K, W_l] per slot
-        cs = [c.block(i, j) for j in range(m_sz)]      # [B_l, W_l]
+        betas_m = [cast(bj) for bj in betas]           # the fixed point's
+        cs = [c.block(i, j).float() for j in range(m_sz)]   # [B_l, W_l]
         mask = m.block(i).to(dev)
         k = log_beta.shape[0]
         alpha = torch.as_tensor(alpha, dtype=torch.float32, device=dev)
@@ -283,9 +290,9 @@ def make_vocab_sharded_dense_e_step(mesh: Mesh, precision: str = "f32"):
             exp_et = torch.exp(estep.e_log_dirichlet(gamma))   # [B_l, K]
             parts = []
             for j in range(m_sz):
-                e_j = exp_et.to(betas[j].device)
-                ratio = cs[j] / (e_j @ betas[j] + 1e-30)
-                parts.append(ratio @ betas[j].t())   # [B_l, K]: the psum
+                e_j = cast(exp_et).to(betas[j].device)
+                ratio = cs[j] / (e_j @ betas_m[j] + 1e-30)
+                parts.append(cast(ratio) @ betas_m[j].t())  # [B_l, K]: psum
             s = psum(parts).to(dev)
             gamma_new = alpha + exp_et * s
             new_delta = torch.max(

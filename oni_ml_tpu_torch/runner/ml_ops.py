@@ -10,6 +10,7 @@ ml_ops.sh YYYYMMDD flow|dns TOL:
         [--no-checkpoints] [--online [--eta E --tau0 T --kappa K]] \\
         [--eval-quality | --eval-holdout FRAC] [--publish DEST] \\
         [--mesh DATA,MODEL] [--multihost [--em-shards N]]
+        [--dense-precision f32|bf16]
 
     python -m oni_ml_tpu_torch.runner.ml_ops serve --day-dir DIR ...
     python -m oni_ml_tpu_torch.runner.ml_ops continuous flow --flow-path F
@@ -298,6 +299,7 @@ def lda_record(result, counts0: tuple, dev) -> dict:
         "device": str(dev), "engine": engine,
         "engine_source": plan["estep_engine"]["source"],
         "member": stats["member"],
+        "dense_precision": stats.get("dense_precision", "f32"),
         "crossover": plan.get("estep_crossover"),
         "driver": stats["driver"],
         **knobs,
@@ -1390,6 +1392,15 @@ def build_parser() -> argparse.ArgumentParser:
                    default=True,
                    help="seed each EM iteration's fixed point from the "
                    "previous gamma")
+    p.add_argument(
+        "--dense-precision", choices=["f32", "bf16"], default="f32",
+        help="the E-step kernels' storage mode: bf16 rounds the dense "
+        "fixed point's operands (beta, exp_et, the ratio) and the sparse "
+        "engine's beta table to bf16, with f32 sums, and stores the "
+        "dense corpus as bf16 where every cell is <= 256 (exact).  On the "
+        "TPU the JAX package's bf16 changed no result; on the card f32 "
+        "is full f32, so bf16 is a numeric mode of its own, within bf16 "
+        "tolerances of f32, reading half the table's and corpus' bytes")
     p.add_argument("--stages", default=None,
                    help="comma-separated subset of pre,corpus,lda,score")
     p.add_argument("--force", action="store_true",
@@ -1565,6 +1576,7 @@ def main(argv=None) -> int:
             seed=args.seed, warm_start_gamma=args.warm_start,
             checkpoint_every=args.checkpoint_every,
             em_shards=args.em_shards,
+            dense_precision=args.dense_precision,
         ),
         online_lda=OnlineLDAConfig(
             num_topics=args.topics, alpha=args.alpha, eta=args.eta,

@@ -3,8 +3,8 @@ record the `estep_engine` plan entries (port of part 2 of
 tools/estep_probe.py):
 
     python -m oni_ml_tpu_torch.tools.estep_probe [--k 20] [--v 8192]
-        [--b 1024] [--densities 0.5,1,2,5,10] [--device cuda|cpu]
-        [--budget-s S] [--plan-cache PATH]
+        [--b 1024] [--densities 0.5,1,2,5,10] [--precision f32|bf16]
+        [--device cuda|cpu] [--budget-s S] [--plan-cache PATH]
 
 Per density the document length L is density x V, padded to the
 power-of-two bucket the bucketed layout would pick (floored at the
@@ -13,7 +13,8 @@ force=True)` then times one E-step through each engine at (K, V, B, L)
 (`measure_crossover`: 8 fixed-point iterations each, the densified
 batch made outside the dense timing) and records the winner under the
 exact shape key and the density-band key, keyed by the device and both
-kernels' build hashes, as the trainer's own crossover does.  No density
+kernels' build hashes, as the trainer's own crossover does, and by the
+precision (a bf16 day reads only bf16 entries).  No density
 starts after `--budget-s` (the first always runs).  One JSON line per
 density, then the `plan_cache_update` line.
 
@@ -41,7 +42,7 @@ def bucket_len(n: int, min_len: int) -> int:
 
 def sweep(k: int = 20, v: int = 8192, b: int = 1024,
           densities=DEFAULT_DENSITIES, *, device: str = "cuda",
-          budget_s: "float | None" = None) -> dict:
+          budget_s: "float | None" = None, precision: str = "f32") -> dict:
     """The crossover at every density (until the budget); -> the
     plan_cache_update record."""
     from .. import plans
@@ -59,8 +60,9 @@ def sweep(k: int = 20, v: int = 8192, b: int = 1024,
             break
         l = bucket_len(max(1, round(density / 100.0 * v)), min_len)
         cross = sparse_estep.engine_crossover(k, v, b, l, force=True,
+                                              precision=precision,
                                               device=dev)
-        exact, band = sparse_estep.crossover_shapes(k, v, b, l, "f32")
+        exact, band = sparse_estep.crossover_shapes(k, v, b, l, precision)
         recorded = all(
             plans.lookup_value("estep_engine", shape, dev, kernels)
             is not None for shape in (exact, band))
@@ -88,12 +90,15 @@ def main(argv=None) -> int:
     p.add_argument("--densities", default=None,
                    help="comma list of densities in percent (default "
                    "0.5,1,2,5,10)")
+    p.add_argument("--precision", choices=["f32", "bf16"], default="f32",
+                   help="the E-steps' storage mode the crossover times "
+                   "(LDAConfig.dense_precision; keys its entries)")
     args = p.parse_args(argv)
     densities = (tuple(float(d) for d in args.densities.split(","))
                  if args.densities else DEFAULT_DENSITIES)
     with plan_store(args.plan_cache):
         emit(sweep(args.k, args.v, args.b, densities, device=args.device,
-                   budget_s=args.budget_s))
+                   budget_s=args.budget_s, precision=args.precision))
     return 0
 
 

@@ -168,7 +168,8 @@ def test_e_step_dense_matches_jax(wmajor):
 def test_pick_block_for_the_card():
     """At least one CTA per SM where the batch allows it; BB <= 4, and
     <= 2 above 20 topics (the kernel's register budget); both layouts
-    pick alike (no lane rule on the card)."""
+    pick alike (no lane rule on the card); the bf16 mode picks the same
+    block (both stage f32 cells) and an unknown precision raises."""
     assert tdense.pick_block(1024, 5520, 20) == 4       # 256 CTAs
     assert tdense.pick_block(1024, 5520, 32) == 2
     assert tdense.pick_block(512, 5520, 20) == 2
@@ -177,8 +178,11 @@ def test_pick_block_for_the_card():
     for b in (8, 16, 24, 472, 1024, 4096):
         bb = tdense.pick_block(b, V, K)
         assert b % bb == 0 and bb & (bb - 1) == 0
-    with pytest.raises(ValueError, match="not supported"):
-        tdense.pick_block(64, V, K, precision="bf16")
+    for b in (8, 64, 1024):
+        assert tdense.pick_block(b, V, K, precision="bf16") == \
+            tdense.pick_block(b, V, K)
+    with pytest.raises(ValueError, match="unknown dense E-step precision"):
+        tdense.pick_block(64, V, K, precision="fp8")
     with pytest.raises(ValueError, match="outside"):
         tdense.pick_block(64, V, 33)
 

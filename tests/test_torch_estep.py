@@ -241,6 +241,8 @@ def test_pick_block_and_pad_multiple():
         bb = tsparse.pick_block(b)
         assert b % bb == 0 and bb & (bb - 1) == 0
         assert tsparse.pad_multiple_for() % bb == 0
-    with pytest.raises(ValueError, match="not supported"):
-        tsparse.pad_multiple_for("bf16")
+        assert tsparse.pad_multiple_for("bf16") % bb == 0
+    assert tsparse.pad_multiple_for("bf16") == 16
+    with pytest.raises(ValueError, match="unknown sparse E-step precision"):
+        tsparse.pad_multiple_for("fp8")
 

@@ -726,3 +726,176 @@ def test_cuda_dataplane_day_is_the_serial_day(cuda, tmp_path, monkeypatch):
         "flow_results.csv", "metrics.json", "run_journal.jsonl"]
     assert (days["products"] / "flow_results.csv").read_bytes() == \
         (days["plane"] / "flow_results.csv").read_bytes()
+
+
+# ---------------------------------------------------------------------------
+# The bf16 storage mode (precision "bf16")
+# ---------------------------------------------------------------------------
+
+
+def test_bf16_plain_versions_count_no_launch():
+    """On the CPU the bf16 mode takes the plain versions too, and no
+    launch counts (bf16 or not)."""
+    prob = _problem(5, 32, 16, 4)
+    lb = torch.from_numpy(prob[0])
+    args = list(_args(prob, "cpu"))
+    args[0] = tsparse.exp_beta_table(lb, "bf16")
+    tsparse.reset_launch_count()
+    tdense.reset_launch_count()
+    tsparse.fixed_point_blocks(*args, block=8)
+    lbd, dense, mask, _ = _dense_problem(11, 16)
+    tdense.fixed_point_blocks(
+        tdense.padded_exp_beta(torch.from_numpy(lbd), dense.shape[1]),
+        torch.tensor(2.5), dense.to(torch.bfloat16), torch.from_numpy(mask),
+        20, 1e-6, precision="bf16")
+    assert (tsparse.launch_count, tsparse.bf16_launch_count) == (0, 0)
+    assert (tdense.launch_count, tdense.bf16_launch_count) == (0, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_table_rounds_as_the_cpu(cuda):
+    """The bf16 table made on the card (torch's round to nearest even
+    there) is the CPU's bit for bit, on a beta running from normal values
+    through float32's smallest normals into its subnormal range (flushed
+    first); tests/test_torch_bf16.py holds the CPU's against XLA's."""
+    rng = np.random.default_rng(3)
+    lb = rng.uniform(-12.0, -0.5, size=(20, 96)).astype(np.float32)
+    lb[0, :48] = np.linspace(-87.6, -87.0, 48, dtype=np.float32)
+    lb[1, :48] = np.linspace(-103.0, -88.0, 48, dtype=np.float32)
+    t = torch.from_numpy(lb)
+    got = tsparse.exp_beta_table(t.to(cuda), "bf16").cpu()
+    want = tsparse.exp_beta_table(t, "bf16")
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 5, 20, 32, 64])
+@pytest.mark.parametrize("case", ["one_warp", "cluster8", "unstaged"])
+def test_cuda_sparse_bf16_kernel_matches_plain_version(cuda, case, k):
+    """The sparse kernel's bf16 instantiation (the [V, K] table stored as
+    bf16) against fixed_point_full_reference over the same rounded table,
+    staged (8-byte loads of four values where K % 4 == 0: K 4, 20, 32, 64;
+    2-byte ones at K 5) and read from the table in device memory, fresh
+    and warm: the f32 bounds hold, since both read the same values
+    (iterations within one per block, gamma rtol 1e-4 in the blocks that
+    stop together, the tail against the plain tail on the kernel's gamma:
+    phi_c rtol 1e-4, docll and ass 1e-5); two launches the same bits;
+    every launch counted as a bf16 one."""
+    b, l, min_live = SPARSE_GEOMETRIES[case]
+    geom = tsparse.launch_geometry(b, l, k)
+    if k >= 20:            # at K 4 the "unstaged" document's tile fits
+        assert geom["staged"] == (case != "unstaged"), geom
+    lb, w, c, m, gp = _long_case(60 + b + k, b, l, min_live, k)
+    expb = tsparse.exp_beta_table(torch.from_numpy(lb).to(cuda), "bf16")
+    args = (expb, torch.tensor(2.5, device=cuda), torch.from_numpy(w).to(cuda),
+            torch.from_numpy(c).to(cuda), torch.from_numpy(m).to(cuda), 20, 1e-6)
+    block = geom["block"]
+    tsparse.reset_launch_count()
+    for warm in (False, True):
+        kw = {"block": block, "warm": torch.tensor(int(warm)),
+              "gamma_prev": torch.from_numpy(gp).to(cuda) if warm else None}
+        got = tsparse.fixed_point_blocks(*args, **kw)
+        again = tsparse.fixed_point_blocks(*args, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        ref = tsparse.fixed_point_full_reference(*args, **kw)
+        _check_block_parity((got[0], got[4]), (ref[0], ref[4]), block, 1e-6)
+        tail = tsparse.fixed_point_full_reference(
+            *args[:5], 0, 1e-6, block=block, gamma_prev=got[0],
+            warm=torch.tensor(1))
+        rt = tail[1].cpu().numpy()
+        np.testing.assert_allclose(got[1].cpu().numpy(), rt, rtol=1e-4,
+                                   atol=1e-4 * np.abs(rt).max())
+        for i in (2, 3):
+            r = tail[i].cpu().numpy()
+            np.testing.assert_allclose(got[i].cpu().numpy(), r, rtol=1e-5,
+                                       atol=1e-5 * np.abs(r).max())
+    assert tsparse.bf16_launch_count == tsparse.launch_count == 4
+
+
+def _check_bf16_block_parity(got, ref, ref32, block):
+    """The dense bf16 instantiation's (gamma, iters) against the plain
+    version's in the bf16 mode (`ref`) and in f32 (`ref32`).  Both round
+    every cell's ratio to bf16, from the Newton reciprocal on the card
+    and the exact divide on the CPU, so a ratio lands one bf16 step
+    (2^-8) apart now and then, and rounded operands keep delta above
+    var_tol, so blocks stop at the stop rule's stall gate (delta under
+    1e-2 and no longer falling), where that noise decides the iteration
+    and gamma is settled only to the gate's step.  So: iterations within
+    10 per block (5 apart at the smoke's main shape on the H100); each
+    document within (m + 1) gate steps by the stop rule's measure (mean
+    |d gamma| over its mean gamma), m the iterations its block stopped
+    apart (chip_smoke.py holds the main shape the same way); and the
+    kernel's gamma closer to the bf16 plain version's than to the f32
+    one's by 10x (median over documents), so the rounding happened."""
+    diff = (got[1] - ref[1]).abs()
+    assert int(diff.max()) <= 10
+
+    def measure(a, b):
+        a, b = a.double().cpu(), b.double().cpu()
+        return (a - b).abs().mean(1) / b.mean(1)
+
+    steps = measure(got[0], ref[0])
+    bound = (diff.repeat_interleave(block).double().cpu() + 1) * 1e-2
+    assert bool((steps <= bound).all()), (steps.max(), bound.min())
+    to32 = float(measure(got[0], ref32[0]).median())
+    assert to32 >= 10 * float(steps.median()), (to32, float(steps.median()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", ["bf16", "f32"],
+                         ids=["bf16_corpus", "f32_corpus"])
+@pytest.mark.parametrize("wmajor", [False, True], ids=["rowmajor", "wmajor"])
+@pytest.mark.parametrize("block", [1, 2, 4])
+def test_cuda_dense_bf16_kernel_matches_plain_version(cuda, wmajor, block,
+                                                       store):
+    """The dense kernel's bf16 instantiations (operands rounded in the
+    fixed point; the corpus stored as bf16, or as f32 where a cell is
+    above 256, here one of 280) against the plain version in the bf16
+    mode and in f32, fresh and warm (_check_bf16_block_parity); the tail (T rtol
+    1e-4, docll and ass 1e-5, f32 on f32 beta) against the plain tail on
+    the kernel's gamma; T the same bits on two launches; every launch
+    counted as a bf16 one."""
+    lb, dense, mask, gp = _dense_problem(17, 64)
+    if store == "f32":
+        dense[3, 7] = 280.0
+    cells = dense.to(tdense.corpus_dtype(float(dense.max()), "bf16"))
+    assert cells.dtype == (torch.bfloat16 if store == "bf16"
+                           else torch.float32)
+    eb = tdense.padded_exp_beta(torch.from_numpy(lb), dense.shape[1]).to(cuda)
+    c = (cells.t() if wmajor else cells).contiguous().to(cuda)
+    var_tol = 1e-5
+    args = (eb, torch.tensor(2.5, device=cuda), c,
+            torch.from_numpy(mask).to(cuda), 60, var_tol)
+    plain = (eb, args[1], cells.to(cuda), args[3])
+    tdense.reset_launch_count()
+    for warm in (False, True):
+        kw = {"block": block, "wmajor": wmajor, "warm": torch.tensor(int(warm)),
+              "gamma_prev": torch.from_numpy(gp).to(cuda) if warm else None,
+              "precision": "bf16"}
+        got = tdense.fixed_point_blocks(*args, **kw)
+        again = tdense.fixed_point_blocks(*args, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        ref = tdense.dense_fixed_point_reference(
+            *plain, 60, var_tol, block, gamma_prev=kw["gamma_prev"],
+            warm=kw["warm"], precision="bf16")
+        ref32 = tdense.dense_fixed_point_reference(
+            *plain, 60, var_tol, block, gamma_prev=kw["gamma_prev"],
+            warm=kw["warm"])
+        _check_bf16_block_parity((got[0], got[4]), (ref[0], ref[4]),
+                                 (ref32[0], ref32[4]), block)
+        tail = tdense.dense_fixed_point_reference(
+            *plain, 0, var_tol, block, gamma_prev=got[0],
+            warm=torch.tensor(1), precision="bf16")
+        rt = tail[1].cpu().numpy()
+        np.testing.assert_allclose(got[1].cpu().numpy(), rt, rtol=1e-4,
+                                   atol=1e-4 * np.abs(rt).max())
+        for i in (2, 3):
+            r = tail[i].cpu().numpy()
+            np.testing.assert_allclose(got[i].cpu().numpy(), r, rtol=1e-5,
+                                       atol=1e-5 * np.abs(r).max())
+    assert tdense.bf16_launch_count == tdense.launch_count == 4
+    with pytest.raises(ValueError, match="needs precision 'bf16'"):
+        tdense.fixed_point_blocks(eb, args[1], cells.to(torch.bfloat16)
+                                  .to(cuda), args[3], 20, 1e-6)

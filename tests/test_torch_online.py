@@ -401,7 +401,7 @@ def test_validation():
     with pytest.raises(ValueError, match="dense_em"):
         OnlineLDATrainer(OnlineLDAConfig(num_topics=4, dense_em="dense"),
                          num_terms=50, total_docs=10, device=CPU)
-    with pytest.raises(ValueError, match="Queue 2 item 5"):
+    with pytest.raises(ValueError, match="Queue 2 item 7"):
         OnlineLDATrainer(OnlineLDAConfig(compute_dtype="bfloat16"),
                          num_terms=50, total_docs=10, device=CPU)
     with pytest.raises(ValueError, match="exceeds the dense kernel"):

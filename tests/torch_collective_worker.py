@@ -10,10 +10,12 @@ HOST:PORT` (kvring over a TcpKVClient to a KVServer) or `gloo PORT`
 `ops` (allgather_arrays with chunking, a bf16 allgather, broadcast_obj,
 broadcast_arrays, allgather_obj, barrier), `fail` (rank 1 posts a
 failure and leaves; the others wait in a barrier), `kill` (rank 1
-leaves without posting; the others time out) or `window` (a
+leaves without posting; the others time out), `window` (a
 WindowTrainer with the collective refits one seeded window corpus
 fresh, then warm from the fresh fit's topics; OUT gets the fits' arrays
-as .npz).
+as .npz) or `sparse_bf16` (distributed EM of the sparse engine in the
+bf16 mode over the window corpus, SPARSE_BF16_CONFIG, from the initial
+beta in init.npy beside OUT; OUT gets the fit's arrays as .npz).
 """
 
 import json
@@ -34,11 +36,16 @@ def _payload(rank: int) -> dict:
     }
 
 
-def window_corpus():
-    """A seeded window corpus: 300 documents over 80 words, three
-    topics' blocks of words."""
-    from oni_ml_tpu_torch.io import Corpus
+# The sparse_bf16 scenario's fit (LDAConfig fields both packages take).
+SPARSE_BF16_CONFIG = dict(num_topics=3, batch_size=32, em_max_iters=10,
+                          em_tol=1e-12, seed=1, em_shards=8,
+                          estep_engine="sparse", dense_precision="bf16",
+                          sparse_min_bucket_len=16)
 
+
+def window_triples():
+    """A seeded window corpus' (doc, word, count) triples: 300 documents
+    over 80 words, three topics' blocks of words."""
     rng = np.random.default_rng(8)
     trips = []
     for d in range(300):
@@ -47,7 +54,29 @@ def window_corpus():
             wid = (t * 26 + int(rng.integers(0, 26))
                    if rng.random() < 0.9 else int(rng.integers(0, 80)))
             trips.append((f"ip{d}", f"w{wid}", 1))
-    return Corpus.from_word_counts(trips)
+    return trips
+
+
+def window_corpus():
+    from oni_ml_tpu_torch.io import Corpus
+
+    return Corpus.from_word_counts(window_triples())
+
+
+def _sparse_bf16(coll, out) -> None:
+    from oni_ml_tpu_torch.config import LDAConfig
+    from oni_ml_tpu_torch.models.lda import train_corpus
+
+    init = np.load(os.path.join(os.path.dirname(out), "init.npy"))
+    res = train_corpus(window_corpus(), LDAConfig(**SPARSE_BF16_CONFIG),
+                       device="cpu", distributed=True, collective=coll,
+                       initial_log_beta=init)
+    np.savez(out, log_beta=res.log_beta, gamma=res.gamma,
+             alpha=np.float64(res.alpha), em_iters=res.em_iters,
+             lls=np.asarray([ll for ll, _ in res.likelihoods]),
+             member=res.stats["member"],
+             precision=res.stats["dense_precision"],
+             batch_rows=np.asarray([b for b, _ in res.stats["batch_shapes"]]))
 
 
 def _window(coll, out) -> None:
@@ -91,6 +120,9 @@ def main() -> int:
     result = {"rank": rank, "transport": coll.transport}
     if scenario == "window":
         _window(coll, out)
+        return 0
+    if scenario == "sparse_bf16":
+        _sparse_bf16(coll, out)
         return 0
     if scenario == "ops":
         got = coll.allgather_arrays(_payload(rank), "ops")
